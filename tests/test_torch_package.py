@@ -1,0 +1,102 @@
+"""Package rules of tfhe_tpu_torch: no JAX and nothing of tfhe_tpu inside
+the port or chip_smoke.py; entry points run on the card unless the caller
+asks for the CPU; chip_smoke.py refuses to run without a card."""
+
+import ast
+import os
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import tfhe_tpu_torch
+from tfhe_tpu_torch import core, shortint
+from tfhe_tpu_torch.device import resolve_device
+from tfhe_tpu_torch.prng.generators import SecretRandomGenerator
+from tfhe_tpu_torch.params import PARAM_MESSAGE_2_CARRY_2_COMPACT_TEST
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.dirname(tfhe_tpu_torch.__file__)
+SMOKE = os.path.join(ROOT, "chip_smoke.py")
+
+
+def _port_sources():
+    for dirpath, dirnames, filenames in os.walk(PKG):
+        dirnames[:] = [d for d in dirnames if d not in ("_build", "__pycache__")]
+        for f in filenames:
+            if f.endswith(".py"):
+                yield os.path.join(dirpath, f)
+    yield SMOKE
+
+
+def _imported_modules(path):
+    tree = ast.parse(open(path).read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_no_source_imports_jax_or_the_reference():
+    offenders = []
+    for path in _port_sources():
+        for mod in _imported_modules(path):
+            if mod.split(".")[0] in ("jax", "jaxlib", "tfhe_tpu"):
+                offenders.append((os.path.relpath(path, ROOT), mod))
+    assert offenders == []
+
+
+def test_port_imports_with_jax_unimportable():
+    modules = sorted(
+        "tfhe_tpu_torch." + os.path.relpath(p, PKG)[:-3].replace(os.sep, ".")
+        .replace(".__init__", "")
+        for p in _port_sources() if p != SMOKE)
+    code = ("import sys\n"
+            "for m in ('jax', 'jaxlib', 'tfhe_tpu'): sys.modules[m] = None\n"
+            "import importlib\n"
+            f"for m in {modules!r}: importlib.import_module(m.replace("
+            "'tfhe_tpu_torch.__init__', 'tfhe_tpu_torch'))\n"
+            "import runpy; runpy.run_path(sys.argv[1], run_name='imported')\n"
+            "assert not any(k.split('.')[0] in ('jax', 'tfhe_tpu') and v "
+            "for k, v in sys.modules.items())\n")
+    proc = subprocess.run([sys.executable, "-c", code, SMOKE], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_entry_points_need_a_card_unless_asked_for_the_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the no-card refusal cannot be shown")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        shortint.gen_keys(PARAM_MESSAGE_2_CARRY_2_COMPACT_TEST, seed=1)
+    with pytest.raises(RuntimeError):
+        shortint.ClientKey(PARAM_MESSAGE_2_CARRY_2_COMPACT_TEST, seed=1)
+    gen = SecretRandomGenerator(1)
+    for call in (lambda: core.generate_binary_lwe_secret_key(4, gen),
+                 lambda: core.generate_binary_glwe_secret_key(1, 8, gen),
+                 lambda: core.fill_accumulator(lambda x: x, 8, 2, 4, 1 << 60),
+                 lambda: core.make_lut_glwe([0, 1, 2, 3], 8, 2, 4, 1 << 60),
+                 lambda: core.trivial_lwe([1, 2], 4)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError):
+        resolve_device("meta")
+
+
+@pytest.mark.parametrize("where", ["checkout", "bare_directory"])
+def test_chip_smoke_fails_without_a_card(where, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: chip_smoke.py would run for real")
+    cwd = ROOT
+    if where == "bare_directory":
+        shutil.copy(SMOKE, tmp_path / "chip_smoke.py")
+        cwd = tmp_path
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout

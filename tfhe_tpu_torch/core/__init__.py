@@ -1,0 +1,27 @@
+"""Core crypto: keygen, encryption, keyswitch, programmable bootstrap.
+
+Port of `tfhe_tpu/core` for the classic shortint PBS path."""
+
+from .secret import GlweSecretKey, LweSecretKey, binary_ext_matrix, glwe_phase
+from .encrypt import (decrypt_glwe, decrypt_lwe, encrypt_glwe_assign,
+                      encrypt_lwe, trivial_lwe)
+from .keygen import (PreparedKsk, generate_binary_glwe_secret_key,
+                     generate_binary_lwe_secret_key, generate_bootstrap_key,
+                     generate_keyswitch_key, prepare_ksk)
+from .keyswitch import keyswitch
+from .lut import fill_accumulator, make_lut_glwe
+from .pbs import (blind_rotate, keyswitch_then_pbs, modulus_switch,
+                  programmable_bootstrap, sample_extract)
+from ..ops.fused_pbs import PreparedBskCuda, prepare_bsk_cuda
+
+__all__ = [
+    "LweSecretKey", "GlweSecretKey", "binary_ext_matrix", "glwe_phase",
+    "encrypt_lwe", "decrypt_lwe", "encrypt_glwe_assign", "decrypt_glwe",
+    "trivial_lwe",
+    "generate_binary_lwe_secret_key", "generate_binary_glwe_secret_key",
+    "generate_bootstrap_key", "generate_keyswitch_key", "prepare_ksk",
+    "PreparedKsk", "PreparedBskCuda", "prepare_bsk_cuda",
+    "keyswitch", "fill_accumulator", "make_lut_glwe",
+    "modulus_switch", "blind_rotate", "sample_extract",
+    "programmable_bootstrap", "keyswitch_then_pbs",
+]

@@ -1,0 +1,247 @@
+// Blind-rotation step kernels for Hopper (sm_90a): the port's counterparts of
+// the two Pallas kernels that `tfhe_tpu/ops/fused_pbs.py:1213`
+// (`fused_blind_rotate_scan2`) launches once per step.
+//
+//   rotate_decompose_kernel  <- rot_kernel (:1229) -> _rot_dec_limbs (:614)
+//   ntt_mac_kernel +
+//   crt_accumulate_kernel    <- pc_kernel (:1244) -> _primes_crt_math (:1069)
+//
+// Integer arithmetic only; every result is bit-exact.  Layouts (all dense):
+//   acc       [B, G, N]          int64  u64 torus words (u32: in [0, 2^32))
+//   ahat      [B]                int32  modulus-switched mask element, [0, 2N]
+//   digits    [B, L, G, N]       int32  signed gadget digits, level-major
+//   kspec     [P, LJ, O, M, N]   uint32 one step's key spectra, canonical mod p
+//   kshoup    [P, LJ, O, M, N]   uint32 their Shoup companions
+//   tables    [P, 5, N]          uint32 psi^bitrev, companion, psi^-bitrev,
+//                                       companion, (N^-1, companion, p, 0...)
+//   crt       [P, 2P + 4]        int64  Garner constants (see ops/ntt.py)
+//   residues  [B, O, M, P, N]    uint32 per-prime convolutions, canonical
+// with LJ = L*G digit polynomials, O = G output polynomials, M key planes
+// (two 32-bit planes of a u64 key word, one for a u32 word) and P primes.
+//
+// What bounds them on the card: rotate_decompose moves 8 bytes in and
+// 4*L bytes out per coefficient and is bound by memory.  ntt_mac does
+// (LJ + O*M) NTTs of N points per (ciphertext, prime), 32-bit Shoup
+// products throughout, and is bound by integer issue; it keeps every
+// transform in shared memory, so device memory sees only the digits, the
+// step's key spectra (shared by all ciphertexts, so mostly from L2) and the
+// residues.  crt_accumulate reads the residues and the accumulator once and
+// writes the accumulator once.
+#pragma once
+
+#include <stdint.h>
+
+namespace tfhe_pbs {
+
+constexpr int kMaxPrimes = 8;
+
+__device__ __forceinline__ uint32_t add_mod(uint32_t a, uint32_t b,
+                                            uint32_t p) {
+  uint32_t s = a + b;
+  return s >= p ? s - p : s;
+}
+
+__device__ __forceinline__ uint32_t sub_mod(uint32_t a, uint32_t b,
+                                            uint32_t p) {
+  return a >= b ? a - b : a + p - b;
+}
+
+// a * w mod p for any 32-bit a and 0 <= w < p < 2^31, with
+// wsh = floor(w * 2^32 / p): the quotient estimate is off by at most one, so
+// the 32-bit remainder lies in [0, 2p) and one subtraction lands it.
+__device__ __forceinline__ uint32_t mul_shoup(uint32_t a, uint32_t w,
+                                              uint32_t wsh, uint32_t p) {
+  uint32_t q = __umulhi(a, wsh);
+  uint32_t r = a * w - q * p;
+  return r >= p ? r - p : r;
+}
+
+// K1: rotated = acc * X^ahat, diff = rotated - acc, then the signed gadget
+// decomposition of diff (tfhe_tpu/ops/decomposition.py:24-87).  One thread
+// per (ciphertext, GLWE polynomial, coefficient).
+__global__ void rotate_decompose_kernel(const int64_t* __restrict__ acc,
+                                        const int32_t* __restrict__ ahat,
+                                        int32_t* __restrict__ digits, int B,
+                                        int G, int N, int base_log, int levels,
+                                        int bits) {
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (long long)B * G * N) return;
+  const int j = (int)(idx % N);
+  const int g = (int)((idx / N) % G);
+  const int b = (int)(idx / ((long long)N * G));
+  const uint64_t mask = bits == 64 ? ~0ull : 0xFFFFFFFFull;
+
+  // coefficient j of acc * X^a is +-acc[(j - a) mod N], negated when
+  // (j - a) mod 2N wraps past N (X^N == -1); a == 2N is the identity
+  const int a = ahat[b] & (2 * N - 1);
+  const int t = (j - a) & (2 * N - 1);
+  const int64_t* row = acc + ((long long)b * G + g) * N;
+  uint64_t v = (uint64_t)row[t & (N - 1)];
+  if (t >= N) v = 0ull - v;
+  const uint64_t diff = (v - (uint64_t)row[j]) & mask;
+
+  // closest_representable: round to a multiple of q / B^levels
+  const int non_rep = bits - base_log * levels;
+  uint64_t res = ((diff >> (non_rep - 1)) + 1ull) & ~1ull;
+  res = (res << (non_rep - 1)) & mask;
+  uint64_t state = res >> non_rep;
+  const uint64_t bmask = (1ull << base_log) - 1ull;
+  for (int k = 0; k < levels; ++k) {
+    const uint64_t r = state & bmask;
+    state >>= base_log;
+    uint64_t carry = ((r - 1ull) | state) & r;
+    carry >>= (base_log - 1);
+    state += carry;
+    const int32_t digit = (int32_t)r - ((int32_t)carry << base_log);
+    // digits come out smallest weight first; level index 0 is the largest
+    const int lvl = levels - 1 - k;
+    digits[(((long long)b * levels + lvl) * G + g) * N + j] = digit;
+  }
+}
+
+// Forward negacyclic NTT of `count` polynomials held in shared memory:
+// Cooley-Tukey butterflies with psi^bitrev twiddles (ops/ntt.py forward_ntt).
+__device__ __forceinline__ void ntt_forward_smem(uint32_t* a, int count,
+                                                 int N, int log_n,
+                                                 const uint32_t* psi,
+                                                 const uint32_t* psi_sh,
+                                                 uint32_t p) {
+  const int half = N >> 1;
+  for (int m = 1, log_t = log_n - 1; m < N; m <<= 1, --log_t) {
+    const int t = 1 << log_t;
+    for (int idx = threadIdx.x; idx < count * half; idx += blockDim.x) {
+      const int poly = idx >> (log_n - 1);
+      const int bf = idx & (half - 1);
+      const int i = bf >> log_t;
+      const int jj = (i << (log_t + 1)) + (bf & (t - 1));
+      uint32_t* x = a + poly * N;
+      const uint32_t u = x[jj];
+      const uint32_t v = mul_shoup(x[jj + t], psi[m + i], psi_sh[m + i], p);
+      x[jj] = add_mod(u, v, p);
+      x[jj + t] = sub_mod(u, v, p);
+    }
+    __syncthreads();
+  }
+}
+
+// Inverse: Gentleman-Sande butterflies with psi^-bitrev twiddles, without
+// the final N^-1 scale (ops/ntt.py inverse_ntt).
+__device__ __forceinline__ void ntt_inverse_smem(uint32_t* a, int count,
+                                                 int N, int log_n,
+                                                 const uint32_t* psi_inv,
+                                                 const uint32_t* psi_inv_sh,
+                                                 uint32_t p) {
+  const int half = N >> 1;
+  for (int h = N >> 1, log_t = 0; h >= 1; h >>= 1, ++log_t) {
+    const int t = 1 << log_t;
+    for (int idx = threadIdx.x; idx < count * half; idx += blockDim.x) {
+      const int poly = idx >> (log_n - 1);
+      const int bf = idx & (half - 1);
+      const int i = bf >> log_t;
+      const int jj = (i << (log_t + 1)) + (bf & (t - 1));
+      uint32_t* x = a + poly * N;
+      const uint32_t u = x[jj];
+      const uint32_t v = x[jj + t];
+      x[jj] = add_mod(u, v, p);
+      x[jj + t] = mul_shoup(sub_mod(u, v, p), psi_inv[h + i],
+                            psi_inv_sh[h + i], p);
+    }
+    __syncthreads();
+  }
+}
+
+// K2, first half: one block per (ciphertext, prime).  Digits mod p ->
+// forward NTT -> spectrum multiply-accumulate against the step's key ->
+// inverse NTT -> per-prime residues of the O*M convolutions.
+__global__ void ntt_mac_kernel(const int32_t* __restrict__ digits,
+                               const uint32_t* __restrict__ kspec,
+                               const uint32_t* __restrict__ kshoup,
+                               const uint32_t* __restrict__ tables,
+                               uint32_t* __restrict__ residues, int LJ, int O,
+                               int M, int N, int log_n) {
+  extern __shared__ uint32_t smem[];
+  const int b = blockIdx.x;
+  const int pi = blockIdx.y;
+  const int P = gridDim.y;
+  const int OM = O * M;
+  const uint32_t* tab = tables + (long long)pi * 5 * N;
+  const uint32_t ninv = tab[4 * N];
+  const uint32_t ninv_sh = tab[4 * N + 1];
+  const uint32_t p = tab[4 * N + 2];
+  uint32_t* dsp = smem;           // [LJ, N] digit spectra
+  uint32_t* osp = smem + LJ * N;  // [O*M, N] output spectra
+
+  const int32_t* dig = digits + (long long)b * LJ * N;
+  for (int idx = threadIdx.x; idx < LJ * N; idx += blockDim.x) {
+    int32_t r = dig[idx] % (int32_t)p;
+    dsp[idx] = (uint32_t)(r < 0 ? r + (int32_t)p : r);
+  }
+  __syncthreads();
+  ntt_forward_smem(dsp, LJ, N, log_n, tab, tab + N, p);
+
+  const long long kstride = (long long)LJ * OM * N;
+  const uint32_t* ks = kspec + pi * kstride;
+  const uint32_t* ksh = kshoup + pi * kstride;
+  for (int idx = threadIdx.x; idx < OM * N; idx += blockDim.x) {
+    const int n = idx & (N - 1);
+    uint32_t s = 0;
+    for (int lj = 0; lj < LJ; ++lj) {
+      const long long k = (long long)lj * OM * N + idx;
+      s = add_mod(s, mul_shoup(dsp[lj * N + n], ks[k], ksh[k], p), p);
+    }
+    osp[idx] = s;
+  }
+  __syncthreads();
+  ntt_inverse_smem(osp, OM, N, log_n, tab + 2 * N, tab + 3 * N, p);
+
+  for (int idx = threadIdx.x; idx < OM * N; idx += blockDim.x) {
+    const int n = idx & (N - 1);
+    const int om = idx >> log_n;
+    residues[(((long long)b * OM + om) * P + pi) * N + n] =
+        mul_shoup(osp[idx], ninv, ninv_sh, p);
+  }
+}
+
+// K2, second half: balanced Garner reconstruction of each convolution (the
+// unique integer in (-M/2, M/2) with the given residues, M = prod p), its
+// planes recombined as conv_0 + 2^32 conv_1, added to the accumulator mod
+// 2^64.  One thread per (ciphertext, output polynomial, coefficient).
+__global__ void crt_accumulate_kernel(const uint32_t* __restrict__ residues,
+                                      const int64_t* __restrict__ crt,
+                                      const int64_t* __restrict__ acc,
+                                      int64_t* __restrict__ out, int B, int O,
+                                      int M, int P, int N, int bits) {
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (long long)B * O * N) return;
+  const int n = (int)(idx % N);
+  const long long bo = idx / N;  // b * O + o
+  const int W = 2 * P + 4;       // row width of the Garner table
+  uint64_t total = (uint64_t)acc[idx];
+  for (int m = 0; m < M; ++m) {
+    const uint32_t* r = residues + ((bo * M + m) * P) * N + n;
+    int32_t bs[kMaxPrimes];
+    uint64_t x = 0;
+    for (int i = 0; i < P; ++i) {
+      const int64_t* row = crt + (long long)i * W;
+      const uint32_t p = (uint32_t)row[2 * P + 2];
+      uint32_t partial = 0;
+      for (int j = 0; j < i; ++j) {
+        // |b_j| < p_j / 2 < p_i (primes ascend), so one add canonicalizes
+        const uint32_t bj = (uint32_t)(bs[j] < 0 ? bs[j] + (int32_t)p : bs[j]);
+        partial = add_mod(partial,
+                          mul_shoup(bj, (uint32_t)row[j], (uint32_t)row[P + j],
+                                    p),
+                          p);
+      }
+      uint32_t d = sub_mod(r[(long long)i * N], partial, p);
+      d = mul_shoup(d, (uint32_t)row[2 * P], (uint32_t)row[2 * P + 1], p);
+      bs[i] = d > p / 2 ? (int32_t)d - (int32_t)p : (int32_t)d;
+      x += (uint64_t)(int64_t)bs[i] * (uint64_t)row[2 * P + 3];
+    }
+    total += m == 0 ? x : (x << 32);
+  }
+  if (bits == 32) total &= 0xFFFFFFFFull;
+  out[idx] = (int64_t)total;
+}
+
+}  // namespace tfhe_pbs

@@ -1,0 +1,219 @@
+"""Exact negacyclic NTTs over five primes, and CRT back to the u64 torus.
+
+Port of the arithmetic in `tfhe_tpu/ops/ntt.py` (`PRIMES` at :40,
+`crt_to_u64_centered` at :496).  The TPU version is a four-step transform
+made of int8 matmuls; here the plain version is the textbook radix-2 one in
+int64 torch ops, and the CUDA kernel (`csrc/pbs_kernels.cuh`) runs the same
+butterflies with 32-bit Shoup products.  Any exact method gives the same
+convolution, so spectra never leave this module's layout: they are stored in
+bit-reversed order, and only products of spectra are compared with the
+reference.
+
+Forward: Cooley-Tukey butterflies with the powers of psi (a primitive 2N-th
+root of unity) in bit-reversed order, which folds the negacyclic twist into
+the stages.  Inverse: Gentleman-Sande butterflies with the inverse powers,
+then a scale by N^-1 (Longa & Naehrig, "Speeding up the Number Theoretic
+Transform for Faster Ideal Lattice-Based Cryptography", 2016, Alg. 1-2).
+
+Residues are canonical, in [0, p).  p < 2^17, so a product of two residues
+fits easily in int64 and in the 32-bit Shoup form the kernel uses.
+"""
+
+from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+# NTT-friendly primes == 1 mod 4096, so 2N-th roots exist for N <= 2048.
+PRIMES: tuple[int, ...] = (12289, 40961, 61441, 65537, 86017)
+CRT_MODULUS = int(np.prod([int(p) for p in PRIMES], dtype=object))
+
+
+def _find_generator(p: int) -> int:
+    n, factors, d = p - 1, [], 2
+    while d * d <= n:
+        if n % d == 0:
+            factors.append(d)
+            while n % d == 0:
+                n //= d
+        d += 1
+    if n > 1:
+        factors.append(n)
+    for g in range(2, p):
+        if all(pow(g, (p - 1) // f, p) != 1 for f in factors):
+            return g
+    raise ValueError(f"no generator for {p}")
+
+
+def _bitrev(N: int) -> np.ndarray:
+    logn = N.bit_length() - 1
+    idx = np.arange(N)
+    rev = np.zeros(N, dtype=np.int64)
+    for b in range(logn):
+        rev |= ((idx >> b) & 1) << (logn - 1 - b)
+    return rev
+
+
+@functools.cache
+def _host_tables(N: int):
+    """Per prime: psi^bitrev(k), psi^-bitrev(k) (int64 [P, N]) and N^-1."""
+    if N & (N - 1) or N < 2:
+        raise ValueError(f"polynomial size {N} is not a power of two")
+    rev = _bitrev(N)
+    fwd, inv, ninv = [], [], []
+    for p in PRIMES:
+        if (p - 1) % (2 * N):
+            raise ValueError(f"{p} has no primitive {2 * N}-th root")
+        psi = pow(_find_generator(p), (p - 1) // (2 * N), p)
+        psi_inv = pow(psi, p - 2, p)
+        fwd.append([pow(psi, int(r), p) for r in rev])
+        inv.append([pow(psi_inv, int(r), p) for r in rev])
+        ninv.append(pow(N, p - 2, p))
+    return (np.array(fwd, np.int64), np.array(inv, np.int64),
+            np.array(ninv, np.int64))
+
+
+def _shoup(w: np.ndarray, p) -> np.ndarray:
+    """floor(w * 2^32 / p) for 0 <= w < p (the kernel's Shoup companion)."""
+    return (w.astype(object) * (1 << 32) // p).astype(np.uint64)
+
+
+@dataclass(frozen=True)
+class NttTables:
+    """Device copies of the twiddles, for the plain version and the kernel.
+
+    primes [P]; psi_rev / psi_inv_rev [P, N]; n_inv [P] (all int64);
+    kernel [P, 5, N] int32 bit patterns of uint32: psi_rev, its Shoup
+    companion, psi_inv_rev, its companion, and (N^-1, companion, p) at the
+    start of row 4;  crt [P, 2P + 4] int64, Garner's constants for prime i
+    with Q_j = p_0...p_{j-1}: Q_j mod p_i (j < P), their Shoup companions,
+    Q_i^-1 mod p_i, its companion, p_i, Q_i mod 2^64 (as int64 bits)."""
+
+    primes: torch.Tensor
+    psi_rev: torch.Tensor
+    psi_inv_rev: torch.Tensor
+    n_inv: torch.Tensor
+    kernel: torch.Tensor
+    crt: torch.Tensor
+
+
+def _as_i32_bits(u: np.ndarray) -> np.ndarray:
+    return u.astype(np.uint64).astype(np.uint32).view(np.int32)
+
+
+@functools.cache
+def _garner_host() -> np.ndarray:
+    P = len(PRIMES)
+    out = np.zeros((P, 2 * P + 4), dtype=np.int64)
+    for i, p in enumerate(PRIMES):
+        q = 1
+        for j in range(P):
+            out[i, j] = q % p
+            out[i, P + j] = _shoup(np.array([q % p]), p)[0]
+            q *= PRIMES[j]
+        q_i = int(np.prod([int(v) for v in PRIMES[:i]], dtype=object))
+        inv = pow(q_i % p, p - 2, p)
+        out[i, 2 * P] = inv
+        out[i, 2 * P + 1] = _shoup(np.array([inv]), p)[0]
+        out[i, 2 * P + 2] = p
+        v = q_i % (1 << 64)
+        out[i, 2 * P + 3] = v - (1 << 64) if v >= 1 << 63 else v
+    return out
+
+
+@functools.cache
+def ntt_tables(N: int, device: str) -> NttTables:
+    fwd, inv, ninv = _host_tables(N)
+    P = len(PRIMES)
+    primes = np.array(PRIMES, np.int64)
+    kern = np.zeros((P, 5, N), np.int32)
+    for i, p in enumerate(PRIMES):
+        kern[i, 0] = _as_i32_bits(fwd[i])
+        kern[i, 1] = _as_i32_bits(_shoup(fwd[i], p))
+        kern[i, 2] = _as_i32_bits(inv[i])
+        kern[i, 3] = _as_i32_bits(_shoup(inv[i], p))
+        kern[i, 4, 0] = ninv[i]
+        kern[i, 4, 1] = _as_i32_bits(_shoup(ninv[i:i + 1], p))[0]
+        kern[i, 4, 2] = p
+    dev = torch.device(device)
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    return NttTables(t(primes), t(fwd), t(inv), t(ninv), t(kern),
+                     t(_garner_host()))
+
+
+def tables_for(N: int, device: torch.device) -> NttTables:
+    return ntt_tables(N, str(torch.device(device)))
+
+
+def forward_ntt(x: torch.Tensor) -> torch.Tensor:
+    """x [..., N] int64 (any sign) -> [..., P, N] canonical spectra,
+    bit-reversed order, one per prime."""
+    N = x.shape[-1]
+    tab = tables_for(N, x.device)
+    lead = x.shape[:-1]
+    p = tab.primes.view(-1, 1, 1)
+    a = torch.remainder(x.unsqueeze(-2), tab.primes.view(-1, 1))  # [..., P, N]
+    m, t = 1, N
+    while m < N:
+        t //= 2
+        a = a.reshape(*lead, len(PRIMES), m, 2, t)
+        S = tab.psi_rev[:, m:2 * m].reshape(-1, m, 1)
+        u = a[..., 0, :]
+        v = a[..., 1, :] * S % p
+        a = torch.stack([(u + v) % p, (u - v) % p], dim=-2)
+        m *= 2
+    return a.reshape(*lead, len(PRIMES), N)
+
+
+def inverse_ntt(spec: torch.Tensor) -> torch.Tensor:
+    """[..., P, N] canonical bit-reversed spectra -> [..., P, N] canonical
+    coefficients (negacyclic convolution residues)."""
+    N = spec.shape[-1]
+    tab = tables_for(N, spec.device)
+    lead = spec.shape[:-2]
+    p = tab.primes.view(-1, 1, 1)
+    a = spec
+    m, t = N, 1
+    while m > 1:
+        h = m // 2
+        a = a.reshape(*lead, len(PRIMES), h, 2, t)
+        S = tab.psi_inv_rev[:, h:2 * h].reshape(-1, h, 1)
+        u = a[..., 0, :]
+        v = a[..., 1, :]
+        a = torch.stack([(u + v) % p, (u - v) % p * S % p], dim=-2)
+        t *= 2
+        m = h
+    a = a.reshape(*lead, len(PRIMES), N)
+    return a * tab.n_inv.view(-1, 1) % tab.primes.view(-1, 1)
+
+
+def crt_to_u64_centered(res: torch.Tensor) -> torch.Tensor:
+    """[..., P, N] canonical residues -> [..., N] int64: the integer x with
+    |x| <= (M-1)/2 (M = prod p) congruent to them, as a u64 torus word.
+
+    Balanced Garner: mixed-radix digits b_i in [-(p_i-1)/2, (p_i-1)/2] give
+    x = sum_i b_i p_0...p_{i-1}, which spans exactly the centered range.  The
+    convolutions reconstructed here are below 2^67 << M/2 ~ 2^76, so x is
+    the true integer; its value mod 2^64 needs only wrapping int64 products.
+    """
+    tab = tables_for(res.shape[-1], res.device)
+    primes = [int(p) for p in PRIMES]
+    P = len(PRIMES)
+    inv = tab.crt[:, 2 * P]
+    pp = tab.crt[:, 2 * P + 3]
+    bs = []
+    for i, p in enumerate(primes):
+        partial = torch.zeros_like(res[..., 0, :])
+        coef = 1
+        for j in range(i):
+            partial = partial + bs[j] * coef
+            coef = coef * primes[j] % p
+        d = torch.remainder(res[..., i, :] - partial, p) * inv[i] % p
+        bs.append(torch.where(d > p // 2, d - p, d))
+    x = torch.zeros_like(bs[0])
+    for i in range(len(primes)):
+        x = x + bs[i] * pp[i]
+    return x

@@ -1,0 +1,95 @@
+"""Parameter dataclasses (copy of `tfhe_tpu/params/types.py`, classic PBS only).
+
+A frozen dataclass carries plain ints plus derived helpers, so parameter sets
+are hashable and compare field by field with the reference's.
+"""
+
+from __future__ import annotations
+
+import enum
+from dataclasses import dataclass
+
+
+class EncryptionKeyChoice(enum.Enum):
+    """Which key fresh ciphertexts are encrypted under.
+
+    BIG   -> ciphertexts live under the large (GLWE-derived) key; a shortint
+             operation runs keyswitch-then-PBS (PBSOrder.KEYSWITCH_BOOTSTRAP).
+    SMALL -> ciphertexts live under the small LWE key; operations run
+             PBS-then-keyswitch (PBSOrder.BOOTSTRAP_KEYSWITCH).
+    (ref: tfhe/src/shortint/parameters/mod.rs EncryptionKeyChoice/PBSOrder)
+    """
+
+    BIG = "big"
+    SMALL = "small"
+
+
+class PBSOrder(enum.Enum):
+    KEYSWITCH_BOOTSTRAP = "ks_pbs"
+    BOOTSTRAP_KEYSWITCH = "pbs_ks"
+
+
+@dataclass(frozen=True)
+class ClassicPBSParameters:
+    """Classic-PBS shortint parameters (ref: shortint/parameters/mod.rs)."""
+
+    name: str
+    lwe_dimension: int
+    glwe_dimension: int
+    polynomial_size: int
+    lwe_modular_std_dev: float
+    glwe_modular_std_dev: float
+    pbs_base_log: int
+    pbs_level: int
+    ks_base_log: int
+    ks_level: int
+    message_modulus: int
+    carry_modulus: int
+    encryption_key_choice: EncryptionKeyChoice = EncryptionKeyChoice.BIG
+    torus_bits: int = 64
+
+    @property
+    def glwe_size(self) -> int:
+        return self.glwe_dimension + 1
+
+    @property
+    def big_lwe_dimension(self) -> int:
+        """LWE dimension after sample extraction (k * N)."""
+        return self.glwe_dimension * self.polynomial_size
+
+    @property
+    def pbs_order(self) -> PBSOrder:
+        if self.encryption_key_choice is EncryptionKeyChoice.BIG:
+            return PBSOrder.KEYSWITCH_BOOTSTRAP
+        return PBSOrder.BOOTSTRAP_KEYSWITCH
+
+    @property
+    def total_modulus(self) -> int:
+        """message_modulus * carry_modulus (the cleartext space of one block)."""
+        return self.message_modulus * self.carry_modulus
+
+    @property
+    def delta(self) -> int:
+        """Plaintext scaling: 2^(bits-1) / (msg*carry) — one padding bit.
+
+        (ref: shortint/engine/mod.rs fill_accumulator `delta`)
+        """
+        return (1 << (self.torus_bits - 1)) // self.total_modulus
+
+    @property
+    def max_degree(self) -> int:
+        return self.total_modulus - 1
+
+    @property
+    def max_noise_level(self) -> int:
+        """(ref: shortint/ciphertext/mod.rs:44-49
+        MaxNoiseLevel::from_msg_carry_modulus)"""
+        return (self.carry_modulus * self.message_modulus - 1) // (
+            self.message_modulus - 1)
+
+    @property
+    def ciphertext_lwe_size(self) -> int:
+        """Length of a fresh ciphertext vector under the encryption key."""
+        if self.encryption_key_choice is EncryptionKeyChoice.BIG:
+            return self.big_lwe_dimension + 1
+        return self.lwe_dimension + 1

@@ -1,0 +1,31 @@
+"""Keys carried across from the JAX package.
+
+The reference keeps key material as numpy arrays (`ServerKey.raw_bsk` /
+`raw_ksk`, `ClientKey.lwe_sk.bits_array` / `glwe_sk.bits_array`).  These
+functions turn such arrays into the port's keys, so both packages can
+compute on the same keys.  They take plain numpy arrays and import nothing
+from the JAX package.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+from .params import ClassicPBSParameters
+from .shortint import ClientKey, ServerKey
+
+
+def server_key_from_reference(params: ClassicPBSParameters, raw_bsk, raw_ksk,
+                              device="cuda") -> ServerKey:
+    """raw_bsk [n, L, G, G, N] and raw_ksk [k*N, ks_level, n+1] uint64
+    (the reference's `ServerKey.from_raw` inputs, server_key.py:103-108)."""
+    return ServerKey.from_raw(params, raw_bsk, raw_ksk, device=device)
+
+
+def client_key_from_reference(params: ClassicPBSParameters, lwe_sk_bits,
+                              glwe_sk_bits, seed: Optional[int] = None,
+                              device="cuda") -> ClientKey:
+    """Secret-key bits [n] and [k, N] (the reference's
+    `ClientKey.from_raw` inputs, client_key.py:30)."""
+    return ClientKey.from_raw(params, lwe_sk_bits, glwe_sk_bits, seed=seed,
+                              device=device)
