@@ -4,8 +4,9 @@
 
 Phases, each printing one flushed line with its wall time:
   1. card: the card's name and power limit (nvidia-smi) and torch's name;
-  2. build: nvcc builds the blind-rotation kernels and g++ the native AES
-     generator, from the sources in this checkout, at first use;
+  2. build: nvcc builds the classic and the multi-bit kernels' libraries and
+     g++ the native AES generator, from the sources in this checkout, all
+     three at once;
   3. kernels: each kernel against its plain PyTorch version at the main
      path's shapes (N=2048, G=2, L=1, base_log 23, 5 primes, B=64), one
      step each and a 4-step blind rotation, bit-exact (tolerance 0), with
@@ -17,7 +18,22 @@ Phases, each printing one flushed line with its wall time:
      parameter set, on the card and on the CPU, bit-identical;
   5. timing: keyswitch_then_pbs throughput at B=64 and B=256 (host clock,
      launch overhead included), its split into keyswitch and blind
-     rotation, and each kernel's device time per launch at B=256.
+     rotation, and each kernel's device time per launch at B=256;
+  6. kernels_multibit: the four multi-bit kernels against their plain
+     versions at PARAM_MULTI_BIT_MESSAGE_2_CARRY_2_GROUP_3_KS_PBS's width
+     (N=2048, G=2, L=1, base_log 21, gf=3 so 8 subset keys per group, B=64),
+     one step each and a 2-group blind rotation in both schedules,
+     bit-exact, with times per launch;
+  7. main_path_multibit: GROUP_3 keys generated on the card, the same 64
+     messages through three univariate LUTs and one bivariate LUT with the
+     ServerKey entry points (the default schedule, scan3, 296 group steps),
+     then the same four evaluations through core.keyswitch_then_multi_bit_pbs
+     in the scan1 schedule, equal bit for bit, every result decrypted and
+     checked, launches counted per schedule;
+  8. card_vs_cpu_multibit: the multi-bit pipeline on the small insecure
+     multi-bit set, on the card and on the CPU, bit-identical;
+  9. timing_multibit: keyswitch_then_multi_bit_pbs throughput at B=64 and
+     B=256 in both schedules, its split, and the kernels' times at B=256.
 Kernel times are device times: a CUDA graph of many launches replayed
 between CUDA events; the eager per-launch times beside them include the
 host's launch cost.
@@ -32,6 +48,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 WATCHDOG_S = 600
 SEED = 2024
@@ -145,6 +162,308 @@ def bounds_ms(B, G, L, N, P):
     return out
 
 
+def gathered_powers(d, N):
+    """How many of the 2N powers of psi the subset degrees d [B, 2^gf]
+    gather: t = d_j * e(n) mod 2N over every j >= 1 and position n."""
+    import torch
+
+    from tfhe_tpu_torch.ops import ntt
+
+    e = ntt.monomial_tables_for(N, d.device).exponents.to(torch.int64)
+    t = (d[:, 1:, None].to(torch.int64) * e) & (2 * N - 1)
+    return int(torch.unique(t).numel())
+
+
+def multibit_bounds_ms(B, G, L, N, P, gf, powers):
+    """Least time for one launch of each multi-bit kernel, as bounds_ms,
+    with each kernel charged only what the function needs: the inputs it
+    reads (of the subset degrees only d_1.., of the powers of psi only the
+    `powers` positions this run's degrees gather, each with its companion;
+    of the twiddles the N-1 used of each of the four rows), the output it
+    writes, and its operations.  A Shoup product counts 6 operations, a
+    Barrett product 8, a modular add 3, a butterfly 9 (as K2), a monomial
+    index 2 (once per ciphertext, subset and coefficient: it does not
+    depend on the prime or the output); a sum of k terms counts k-1 adds."""
+    M, LJ, per = 2, L * G, 1 << gf
+    OM = G * M
+    W = LJ * OM * N  # one subset key, one prime
+    log_n = N.bit_length() - 1
+    butterflies = B * P * (LJ + OM) * (N // 2) * log_n
+    digits_mod_p = B * P * LJ * N * 4
+    garner = B * G * M * N * (P * (P - 1) // 2 * 7 + P * 10)
+    spectra = per * P * W * 4  # the group's subset key spectra
+    degrees = B * (per - 1) * 4
+    gathers = P * powers * 2 * 4 + N * 4  # powers, companions, e(n)
+    twiddles = P * (4 * (N - 1) + 3) * 4  # and N^-1, its companion, p
+    garner_consts = (P * (P - 1) + 4 * P) * 8  # crt rows, words read
+    index = B * N * (per - 1) * 2
+    work = {
+        "decompose": (B * G * N * 8 + B * L * G * N * 4,
+                      B * G * N * (4 + 8 * L)),
+        "multibit_combine": (spectra + degrees + gathers + P * 4
+                             + B * P * W * 4,
+                             B * P * W * (per - 1) * (6 + 3) + index),
+        "multibit_external_product": (
+            B * LJ * N * 4 + B * P * W * 4 + twiddles + P * 4 + garner_consts
+            + B * G * N * 8,
+            butterflies * 9 + B * P * OM * N * (LJ * 8 + (LJ - 1) * 3)
+            + digits_mod_p + garner),
+        "multibit_step": (
+            B * LJ * N * 4 + degrees + 2 * spectra + gathers + twiddles
+            + garner_consts + B * G * N * 8,
+            butterflies * 9 + B * P * OM * N * (per * (LJ * 6 + (LJ - 1) * 3)
+                                                 + (per - 1) * (6 + 3))
+            + index + digits_mod_p + garner),
+    }
+    out = {}
+    for name, (nbytes, ops) in work.items():
+        tb = nbytes / PEAK_BYTES_PER_S * 1e3
+        to = ops / PEAK_OPS_PER_S * 1e3
+        out[name] = (max(tb, to), "bytes" if tb >= to else "operations")
+    return out
+
+
+def multibit_kernels_phase(dev, rng, rand_u64):
+    """Each multi-bit kernel against its plain version at GROUP_3's width;
+    returns their errors and device / plain times per launch."""
+    import numpy as np
+    import torch
+
+    from tfhe_tpu_torch.ops import fused_multibit as fm
+    from tfhe_tpu_torch.params import (
+        PARAM_MULTI_BIT_MESSAGE_2_CARRY_2_GROUP_3_KS_PBS as mp)
+
+    t0 = time.time()
+    N, G, L, bl, gf = (mp.polynomial_size, mp.glwe_size, mp.pbs_level,
+                       mp.pbs_base_log, mp.grouping_factor)
+    per, groups = 1 << gf, 2
+    key = fm.prepare_multi_bit_bsk_cuda(
+        rand_u64(groups, per, L, G, G, N), bl, gf)
+    acc = rand_u64(B_MAIN, G, N)
+    d = torch.from_numpy(rng.integers(0, 2 * N, (groups, B_MAIN, per))
+                         .astype(np.int32)).to(dev)
+    d[:, :, 0] = 0  # the empty subset's sum switches to 0
+    ks, ksh = key.kspec[0], key.kshoup[0]
+
+    dig = fm.decompose(acc, bl, L)
+    dig_p = fm.decompose_plain(acc, bl, L)
+    comb = fm.multibit_combine(d[0], ks)
+    comb_p = fm.multibit_combine_plain(d[0], ks)
+    ext = fm.multibit_external_product(dig_p, comb_p)
+    ext_p = fm.multibit_external_product_plain(dig_p, comb_p)
+    step = fm.multibit_step(dig_p, d[0], ks, ksh)
+    step_p = fm.multibit_step_plain(dig_p, d[0], ks)
+    rot_p = acc
+    for g in range(groups):
+        rot_p = fm.multibit_external_product_plain(
+            fm.decompose_plain(rot_p, bl, L),
+            fm.multibit_combine_plain(d[g], key.kspec[g]))
+    rot = {m: fm.multi_bit_blind_rotate_cuda(key, acc, d, mode=m)
+           for m in fm.MODES}
+    torch.cuda.synchronize()
+    err = {"decompose": max_abs_err(dig, dig_p),
+           "multibit_combine": max_abs_err(comb, comb_p),
+           "multibit_external_product": max_abs_err(ext, ext_p),
+           "multibit_step": max_abs_err(step, step_p)}
+    err_rot = {m: max_abs_err(r, rot_p) for m, r in rot.items()}
+    if any(err.values()) or any(err_rot.values()):
+        raise AssertionError(f"multi-bit kernels disagree with their plain "
+                             f"versions: {err}, 2-group rotation {err_rot}")
+
+    calls = {
+        "decompose": (lambda: fm.decompose(acc, bl, L),
+                      lambda: fm.decompose_plain(acc, bl, L)),
+        "multibit_combine": (lambda: fm.multibit_combine(d[0], ks),
+                             lambda: fm.multibit_combine_plain(d[0], ks)),
+        "multibit_external_product": (
+            lambda: fm.multibit_external_product(dig_p, comb_p),
+            lambda: fm.multibit_external_product_plain(dig_p, comb_p)),
+        "multibit_step": (
+            lambda: fm.multibit_step(dig_p, d[0], ks, ksh),
+            lambda: fm.multibit_step_plain(dig_p, d[0], ks)),
+    }
+    ms = {k: graph_ms(kern, 100) for k, (kern, _) in calls.items()}
+    plain_ms = {k: graph_ms(plain, 3) for k, (_, plain) in calls.items()}
+    eager = {k: cuda_ms(kern, 100) for k, (kern, _) in calls.items()}
+    powers = gathered_powers(d[0], N)
+    bounds = multibit_bounds_ms(B_MAIN, G, L, N, 5, gf, powers)
+    say("kernels_multibit", t0,
+        shape=dict(B=B_MAIN, G=G, L=L, N=N, P=5, base_log=bl, gf=gf),
+        max_abs_err=err, blind_rotation_2_groups_max_abs_err=err_rot,
+        device_ms_per_launch=ms, eager_ms_per_launch=eager,
+        plain_device_ms=plain_ms,
+        gathered_powers=powers, bound_ms={k: v[0] for k, v in bounds.items()})
+    return err, ms, plain_ms, bounds
+
+
+def multibit_main_path(dev):
+    """GROUP_3 keys on the card, four LUT evaluations in each schedule;
+    returns the launches of each multi-bit kernel and the keys."""
+    import numpy as np
+    import torch
+
+    from tfhe_tpu_torch import core, shortint
+    from tfhe_tpu_torch.ops import fused_multibit as fm
+    from tfhe_tpu_torch.ops import fused_pbs
+    from tfhe_tpu_torch.params import (
+        PARAM_MULTI_BIT_MESSAGE_2_CARRY_2_GROUP_3_KS_PBS as mp)
+
+    t0 = time.time()
+    fused_pbs.reset_launch_counts()
+    fm.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    cks, sks = shortint.gen_keys(mp, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    t_keygen = time.time() - t0
+    steps = mp.lwe_dimension // mp.grouping_factor
+    msgs = np.arange(B_MAIN) % mp.total_modulus
+    batch = cks.encrypt_batch(msgs)
+    lhs, rhs = cks.encrypt_batch(msgs % 4), cks.encrypt_batch(msgs // 4)
+    funcs = (("identity", lambda x: x), ("mod4", lambda x: x % 4),
+             ("div4", lambda x: x // 4))
+    blut = sks.generate_lookup_table_bivariate(lambda a, b: (a + b) % 4)
+    wants = {name: np.array([f(int(m)) for m in msgs]) % mp.total_modulus
+             for name, f in funcs}
+    wants["bivariate_add_mod4"] = (msgs % 4 + msgs // 4) % 4
+
+    # scan3, the default, through the ServerKey entry points
+    t1 = time.time()
+    outs, inputs, correct = {}, {}, {"scan3": {}, "scan1": {}}
+    for name, f in funcs:
+        lut = sks.generate_lookup_table(f)
+        outs[name] = sks.apply_lookup_table_batch(batch, lut).data
+        inputs[name] = (batch.data, lut.acc)
+    packed = sks.unchecked_add_batch(
+        sks.unchecked_scalar_mul_batch(lhs, blut.factor), rhs)
+    outs["bivariate_add_mod4"] = sks.unchecked_bivariate_batch(
+        lhs, rhs, blut).data
+    inputs["bivariate_add_mod4"] = (packed.data, blut.acc.acc)
+    torch.cuda.synchronize()
+    t_scan3 = time.time() - t1
+    launches = {"scan3": {fn.__name__: fn.launches for fn in fm.KERNELS}}
+    classic_launches = {fn.__name__: fn.launches for fn in fused_pbs.KERNELS}
+
+    # scan1 through core, on the same inputs
+    fm.reset_launch_counts()
+    t1 = time.time()
+    same = {}
+    for name, (data, acc) in inputs.items():
+        out1 = core.keyswitch_then_multi_bit_pbs(sks.ksk, sks.bsk, acc, data,
+                                                 mode="scan1")
+        same[name] = bool(torch.equal(out1, outs[name]))
+        for mode, out in (("scan3", outs[name]), ("scan1", out1)):
+            got = (cks.decrypt_batch(out) if name == "bivariate_add_mod4"
+                   else cks.decrypt_batch_message_and_carry(out))
+            correct[mode][name] = int(np.sum(got == wants[name]))
+    torch.cuda.synchronize()
+    t_scan1 = time.time() - t1
+    launches["scan1"] = {fn.__name__: fn.launches for fn in fm.KERNELS}
+    say("main_path_multibit", t0, params=mp.name, batch=B_MAIN,
+        group_steps=steps, keygen_s=t_keygen, four_luts_s=dict(
+            scan3=t_scan3, scan1_and_decrypt=t_scan1), correct=correct,
+        scan1_equals_scan3=same, launches=launches,
+        classic_launches=classic_launches,
+        peak_device_mb=torch.cuda.max_memory_allocated() / 2**20)
+    if any(v != B_MAIN for c in correct.values() for v in c.values()):
+        raise AssertionError(f"wrong decryptions: {correct} of {B_MAIN}")
+    if not all(same.values()):
+        raise AssertionError(f"scan1 and scan3 outputs differ: {same}")
+    expected = {
+        "scan3": dict(decompose=4 * steps, multibit_combine=4 * steps,
+                      multibit_external_product=4 * steps, multibit_step=0),
+        "scan1": dict(decompose=4 * steps, multibit_combine=0,
+                      multibit_external_product=0, multibit_step=4 * steps)}
+    if launches != expected or any(classic_launches.values()):
+        raise AssertionError(f"multi-bit main path launched {launches} and "
+                             f"classic {classic_launches}, expected "
+                             f"{expected} and none")
+    total = {k: launches["scan3"][k] + launches["scan1"][k]
+             for k in launches["scan3"]}
+    return total, cks, sks
+
+
+def multibit_card_vs_cpu(dev):
+    import numpy as np
+    import torch
+
+    from tfhe_tpu_torch import shortint
+    from tfhe_tpu_torch.params import (
+        PARAM_MULTI_BIT_MESSAGE_2_CARRY_2_GROUP_2_TEST as small)
+
+    t0 = time.time()
+    outs = {}
+    for where in (dev, "cpu"):
+        c, s = shortint.gen_keys(small, seed=SEED, device=where)
+        b = c.encrypt_batch(np.arange(16))
+        o = s.apply_lookup_table_batch(b, s.generate_lookup_table(
+            lambda x: (5 * x + 2) % 16))
+        outs[where] = o.data.cpu()
+        dec = c.decrypt_batch_message_and_carry(o)
+        if not np.array_equal(dec, (5 * np.arange(16) + 2) % 16):
+            raise AssertionError(f"{where}: multi-bit LUT wrong: {dec}")
+    if not torch.equal(outs[dev], outs["cpu"]):
+        raise AssertionError("card and CPU multi-bit PBS results differ")
+    say("card_vs_cpu_multibit", t0, params=small.name, identical=True)
+
+
+def multibit_timing(card, dev, cks, sks, rng):
+    import numpy as np
+    import torch
+
+    from tfhe_tpu_torch.core import (keyswitch, keyswitch_then_multi_bit_pbs,
+                                     multi_bit_programmable_bootstrap)
+    from tfhe_tpu_torch.ops import fused_multibit as fm
+
+    t0 = time.time()
+    p = sks.params
+    lut = sks.generate_lookup_table(lambda x: x % 4)
+    rates, batch_ms, split_ms = {}, {}, {}
+    for mode in fm.MODES:
+        for B in (B_MAIN, B_LARGE):
+            key = f"{mode}_B{B}"
+            data = cks.encrypt_batch(np.arange(B) % 16).data
+            run = lambda: keyswitch_then_multi_bit_pbs(  # noqa: E731
+                sks.ksk, sks.bsk, lut.acc, data, mode=mode)
+            run()  # warm-up
+            torch.cuda.synchronize()
+            reps = 3
+            t1 = time.time()
+            for _ in range(reps):
+                run()
+            torch.cuda.synchronize()
+            dt = (time.time() - t1) / reps
+            rates[key] = B / dt
+            batch_ms[key] = dt * 1e3
+            small_ct = keyswitch(sks.ksk, data)
+            split_ms[key] = dict(
+                keyswitch=cuda_ms(lambda: keyswitch(sks.ksk, data), 3),
+                blind_rotate_and_extract=cuda_ms(
+                    lambda: multi_bit_programmable_bootstrap(
+                        sks.bsk, lut.acc, small_ct, mode), 2, warmup=0))
+    G, N, L, bl = p.glwe_size, p.polynomial_size, p.pbs_level, p.pbs_base_log
+    acc = torch.zeros((B_LARGE, G, N), dtype=torch.int64, device=dev)
+    acc[:, -1] = lut.acc[-1]
+    per = 1 << p.grouping_factor
+    d = torch.from_numpy(rng.integers(0, 2 * N, (B_LARGE, per))
+                         .astype(np.int32)).to(dev)
+    ks, ksh = sks.bsk.kspec[0], sks.bsk.kshoup[0]
+    dig = fm.decompose(acc, bl, L)
+    comb = fm.multibit_combine(d, ks)
+    ms256 = dict(
+        decompose=graph_ms(lambda: fm.decompose(acc, bl, L), 100),
+        multibit_combine=graph_ms(lambda: fm.multibit_combine(d, ks),
+                                  50),
+        multibit_external_product=graph_ms(
+            lambda: fm.multibit_external_product(dig, comb), 50),
+        multibit_step=graph_ms(lambda: fm.multibit_step(dig, d, ks, ksh), 50))
+    say("timing_multibit", t0, card=card, params=p.name, pbs_per_s=rates,
+        batch_ms=batch_ms, batch_split_ms=split_ms,
+        device_ms_per_launch_b256=ms256,
+        bound_ms_b256={k: v[0] for k, v in multibit_bounds_ms(
+            B_LARGE, G, L, N, 5, p.grouping_factor,
+            gathered_powers(d, N)).items()})
+
+
 def main():
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     t_start = time.time()
@@ -158,7 +477,7 @@ def main():
     from tfhe_tpu_torch import prng, shortint
     from tfhe_tpu_torch.core import (keyswitch, keyswitch_then_pbs,
                                      programmable_bootstrap)
-    from tfhe_tpu_torch.ops import fused_pbs
+    from tfhe_tpu_torch.ops import fused_multibit, fused_pbs
     from tfhe_tpu_torch.params import (PARAM_MESSAGE_2_CARRY_2_COMPACT_TEST,
                                        PARAM_MESSAGE_2_CARRY_2_KS_PBS)
 
@@ -171,16 +490,21 @@ def main():
 
     # -- 2. build ---------------------------------------------------------
     t0 = time.time()
-    fused_pbs.cuda_library()
-    t_nvcc = time.time() - t0
-    t1 = time.time()
-    prng.native_library()
-    t_gxx = time.time() - t1
+
+    def timed(build):
+        t = time.time()
+        build()
+        return round(time.time() - t, 3)
+
+    builds = (fused_pbs.cuda_library, fused_multibit.cuda_library,
+              prng.native_library)
+    with ThreadPoolExecutor(len(builds)) as pool:
+        t_nvcc, t_nvcc_mb, t_gxx = pool.map(timed, builds)
     aes = prng.Aes128(0x0123456789ABCDEF, backend="native")
     ref = prng.Aes128(0x0123456789ABCDEF, backend="numpy")
     if not np.array_equal(aes.ctr_blocks(7, 64), ref.ctr_blocks(7, 64)):
         raise AssertionError("native AES disagrees with the numpy AES")
-    say("build", t0, nvcc_s=round(t_nvcc, 3), gxx_s=round(t_gxx, 3),
+    say("build", t0, nvcc_s=t_nvcc, nvcc_multibit_s=t_nvcc_mb, gxx_s=t_gxx,
         aes_backend=aes.backend)
 
     # -- 3. kernels against their plain versions ----------------------------
@@ -331,6 +655,18 @@ def main():
         bound_ms_b256={k: v[0] for k, v in
                        bounds_ms(B_LARGE, G, L, N, P).items()})
 
+    del sks, cks, lut, acc, dig, data, small_ct
+    torch.cuda.empty_cache()
+
+    # -- 6-9. the multi-bit path -------------------------------------------
+    mb_err, mb_ms, mb_plain_ms, mb_bounds = multibit_kernels_phase(
+        dev, rng, rand_u64)
+    t0 = time.time()
+    mb_launches, mb_cks, mb_sks = multibit_main_path(dev)
+    t_main_mb = time.time() - t0
+    multibit_card_vs_cpu(dev)
+    multibit_timing(card, dev, mb_cks, mb_sks, rng)
+
     bounds = bounds_ms(B_MAIN, G, L, N, P)
     kernels = []
     for name, ms, plain_ms, err, line in (
@@ -343,7 +679,21 @@ def main():
             "launches": launches[name], "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bounds[name][0],
             "bound_by": bounds[name][1], "library_ms": None})
-    say("done", t_start, main_path_s=round(t_main, 3))
+    for name, line, src in (
+            ("decompose", 264, "pbs_kernels.cuh"),
+            ("multibit_combine", 747, "multibit_kernels.cuh"),
+            ("multibit_external_product", 823, "pbs_kernels.cuh"),
+            ("multibit_step", 539, "multibit_kernels.cuh")):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"tfhe_tpu_torch/ops/csrc/{src}",
+            "replaces": f"tfhe_tpu/ops/fused_multibit.py:{line}",
+            "launches": mb_launches[name], "max_abs_err": mb_err[name],
+            "ms": mb_ms[name], "plain_ms": mb_plain_ms[name],
+            "bound_ms": mb_bounds[name][0], "bound_by": mb_bounds[name][1],
+            "library_ms": None})
+    say("done", t_start, main_path_s=round(t_main, 3),
+        main_path_multibit_s=round(t_main_mb, 3))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     faulthandler.cancel_dump_traceback_later()

@@ -8,14 +8,18 @@ import shutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
 import tfhe_tpu_torch
+import tfhe_tpu_torch.weights
 from tfhe_tpu_torch import core, shortint
 from tfhe_tpu_torch.device import resolve_device
 from tfhe_tpu_torch.prng.generators import SecretRandomGenerator
-from tfhe_tpu_torch.params import PARAM_MESSAGE_2_CARRY_2_COMPACT_TEST
+from tfhe_tpu_torch.params import (
+    PARAM_MESSAGE_2_CARRY_2_COMPACT_TEST,
+    PARAM_MULTI_BIT_MESSAGE_2_CARRY_2_GROUP_2_TEST)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.dirname(tfhe_tpu_torch.__file__)
@@ -85,6 +89,34 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu():
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
         resolve_device("meta")
+
+
+def test_multi_bit_modules_are_among_the_checked_sources():
+    # the walk above reaches the multi-bit slice's modules, and none of
+    # them imports JAX or the reference
+    checked = {os.path.relpath(p, ROOT) for p in _port_sources()}
+    new = {"tfhe_tpu_torch/core/multibit.py",
+           "tfhe_tpu_torch/ops/fused_multibit.py",
+           "tfhe_tpu_torch/params/multi_bit_params.py"}
+    assert new <= checked
+    for rel in sorted(new):
+        mods = list(_imported_modules(os.path.join(ROOT, rel)))
+        assert not [m for m in mods
+                    if m.split(".")[0] in ("jax", "jaxlib", "tfhe_tpu")]
+
+
+def test_multi_bit_entry_points_need_a_card_unless_asked_for_the_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the no-card refusal cannot be shown")
+    p = PARAM_MULTI_BIT_MESSAGE_2_CARRY_2_GROUP_2_TEST
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        shortint.gen_keys(p, seed=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tfhe_tpu_torch.weights.server_key_from_reference(
+            p, np.zeros((8, 4, 1, 2, 2, 256), np.uint64),
+            np.zeros((256, 5, 17), np.uint64))
+    cks, sks = shortint.gen_keys(p, seed=1, device="cpu")
+    assert sks.device == torch.device("cpu") and sks.is_multi_bit
 
 
 @pytest.mark.parametrize("where", ["checkout", "bare_directory"])

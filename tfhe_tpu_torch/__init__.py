@@ -1,6 +1,7 @@
 """tfhe_tpu_torch: the PyTorch + CUDA port of tfhe_tpu for NVIDIA Hopper.
 
-This slice covers shortint lookup-table evaluation (keyswitch + classic PBS).
+This port covers shortint lookup-table evaluation: keyswitch + classic PBS,
+and keyswitch + multi-bit PBS.
 Entry points run on the card (device="cuda") unless the caller passes
 device="cpu", which runs the plain PyTorch versions of the kernels.  The
 package imports torch and numpy, never JAX or tfhe_tpu.

@@ -1,6 +1,6 @@
 """Core crypto: keygen, encryption, keyswitch, programmable bootstrap.
 
-Port of `tfhe_tpu/core` for the classic shortint PBS path."""
+Port of `tfhe_tpu/core` for the classic and multi-bit shortint PBS paths."""
 
 from .secret import GlweSecretKey, LweSecretKey, binary_ext_matrix, glwe_phase
 from .encrypt import (decrypt_glwe, decrypt_lwe, encrypt_glwe_assign,
@@ -12,7 +12,14 @@ from .keyswitch import keyswitch
 from .lut import fill_accumulator, make_lut_glwe
 from .pbs import (blind_rotate, keyswitch_then_pbs, modulus_switch,
                   programmable_bootstrap, sample_extract)
+from .multibit import (combine_key_bits, generate_multi_bit_bootstrap_key,
+                       keyswitch_then_multi_bit_pbs, multi_bit_blind_rotate,
+                       multi_bit_pbs_then_keyswitch,
+                       multi_bit_programmable_bootstrap,
+                       switched_subset_sums)
 from ..ops.fused_pbs import PreparedBskCuda, prepare_bsk_cuda
+from ..ops.fused_multibit import (PreparedMultiBitBskCuda,
+                                  prepare_multi_bit_bsk_cuda)
 
 __all__ = [
     "LweSecretKey", "GlweSecretKey", "binary_ext_matrix", "glwe_phase",
@@ -24,4 +31,9 @@ __all__ = [
     "keyswitch", "fill_accumulator", "make_lut_glwe",
     "modulus_switch", "blind_rotate", "sample_extract",
     "programmable_bootstrap", "keyswitch_then_pbs",
+    "combine_key_bits", "generate_multi_bit_bootstrap_key",
+    "PreparedMultiBitBskCuda", "prepare_multi_bit_bsk_cuda",
+    "switched_subset_sums", "multi_bit_blind_rotate",
+    "multi_bit_programmable_bootstrap", "keyswitch_then_multi_bit_pbs",
+    "multi_bit_pbs_then_keyswitch",
 ]

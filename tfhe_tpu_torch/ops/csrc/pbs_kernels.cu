@@ -27,7 +27,7 @@ extern "C" int tfhe_rotate_decompose(const void* acc, const void* ahat,
   const long long total = (long long)B * G * N;
   const int threads = 256;
   const unsigned blocks = (unsigned)((total + threads - 1) / threads);
-  tfhe_pbs::rotate_decompose_kernel<<<blocks, threads, 0,
+  tfhe_pbs::rotate_decompose_kernel<true><<<blocks, threads, 0,
                                       (cudaStream_t)stream>>>(
       (const int64_t*)acc, (const int32_t*)ahat, (int32_t*)digits, B, G, N,
       base_log, levels, bits);
@@ -43,13 +43,14 @@ extern "C" int tfhe_external_product_crt(
   const size_t smem = (size_t)(LJ + O * M) * N * sizeof(uint32_t);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        tfhe_pbs::ntt_mac_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        tfhe_pbs::ntt_mac_kernel<false>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   const int mac_threads = N >= 1024 ? 512 : N / 2;
   // the batch rides on grid.x (up to 2^31 - 1 blocks), the primes on grid.y
-  tfhe_pbs::ntt_mac_kernel<<<dim3(B, P), mac_threads, smem, st>>>(
+  tfhe_pbs::ntt_mac_kernel<false><<<dim3(B, P), mac_threads, smem, st>>>(
       (const int32_t*)digits, (const uint32_t*)kspec, (const uint32_t*)kshoup,
       (const uint32_t*)tables, (uint32_t*)residues, LJ, O, M, N, log2_int(N));
   cudaError_t err = cudaGetLastError();
@@ -58,7 +59,7 @@ extern "C" int tfhe_external_product_crt(
   const long long total = (long long)B * O * N;
   const int threads = 256;
   const unsigned blocks = (unsigned)((total + threads - 1) / threads);
-  tfhe_pbs::crt_accumulate_kernel<<<blocks, threads, 0, st>>>(
+  tfhe_pbs::crt_accumulate_kernel<true><<<blocks, threads, 0, st>>>(
       (const uint32_t*)residues, (const int64_t*)crt, (const int64_t*)acc,
       (int64_t*)out, B, O, M, P, N, bits);
   return (int)cudaGetLastError();

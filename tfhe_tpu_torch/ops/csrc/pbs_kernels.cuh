@@ -6,6 +6,14 @@
 //   ntt_mac_kernel +
 //   crt_accumulate_kernel    <- pc_kernel (:1244) -> _primes_crt_math (:1069)
 //
+// Each is a template on one flag.  The classic step instantiates
+// rotate_decompose_kernel<true>, ntt_mac_kernel<false> and
+// crt_accumulate_kernel<true>; the multi-bit step (`multibit_kernels.cuh`)
+// the other three: the decomposition of the accumulator itself with no
+// rotation, a key per ciphertext instead of one shared key, and a CRT that
+// starts from zero because the multi-bit external product replaces the
+// accumulator.
+//
 // Integer arithmetic only; every result is bit-exact.  Layouts (all dense):
 //   acc       [B, G, N]          int64  u64 torus words (u32: in [0, 2^32))
 //   ahat      [B]                int32  modulus-switched mask element, [0, 2N]
@@ -13,7 +21,8 @@
 //   kspec     [P, LJ, O, M, N]   uint32 one step's key spectra, canonical mod p
 //   kshoup    [P, LJ, O, M, N]   uint32 their Shoup companions
 //   tables    [P, 5, N]          uint32 psi^bitrev, companion, psi^-bitrev,
-//                                       companion, (N^-1, companion, p, 0...)
+//                                       companion, (N^-1, companion, p,
+//                                       floor(2^34 / p), 0...)
 //   crt       [P, 2P + 4]        int64  Garner constants (see ops/ntt.py)
 //   residues  [B, O, M, P, N]    uint32 per-prime convolutions, canonical
 // with LJ = L*G digit polynomials, O = G output polynomials, M key planes
@@ -56,9 +65,24 @@ __device__ __forceinline__ uint32_t mul_shoup(uint32_t a, uint32_t w,
   return r >= p ? r - p : r;
 }
 
-// K1: rotated = acc * X^ahat, diff = rotated - acc, then the signed gadget
-// decomposition of diff (tfhe_tpu/ops/decomposition.py:24-87).  One thread
-// per (ciphertext, GLWE polynomial, coefficient).
+// a * b mod p for a, b < p < 2^17, with mu = floor(2^34 / p): x = a * b
+// < 2^34 and x * mu < 2^55, and q = floor(x * mu / 2^34) > x / p - 2, so
+// x - q * p lies in [0, 2p) and one subtraction lands it.  For products of
+// two operands that vary per ciphertext, where no Shoup companion exists.
+__device__ __forceinline__ uint32_t mul_mod(uint32_t a, uint32_t b,
+                                            uint32_t p, uint32_t mu) {
+  const uint64_t x = (uint64_t)a * b;
+  const uint64_t q = (x * mu) >> 34;
+  const uint32_t r = (uint32_t)(x - q * p);
+  return r >= p ? r - p : r;
+}
+
+// K1 (kRotate): rotated = acc * X^ahat, diff = rotated - acc, then the
+// signed gadget decomposition of diff (tfhe_tpu/ops/decomposition.py:24-87).
+// Without kRotate, the decomposition of acc itself (the multi-bit step,
+// tfhe_tpu/ops/fused_multibit.py:264 _dec_limbs); ahat is not read.  One
+// thread per (ciphertext, GLWE polynomial, coefficient).
+template <bool kRotate>
 __global__ void rotate_decompose_kernel(const int64_t* __restrict__ acc,
                                         const int32_t* __restrict__ ahat,
                                         int32_t* __restrict__ digits, int B,
@@ -71,14 +95,19 @@ __global__ void rotate_decompose_kernel(const int64_t* __restrict__ acc,
   const int b = (int)(idx / ((long long)N * G));
   const uint64_t mask = bits == 64 ? ~0ull : 0xFFFFFFFFull;
 
-  // coefficient j of acc * X^a is +-acc[(j - a) mod N], negated when
-  // (j - a) mod 2N wraps past N (X^N == -1); a == 2N is the identity
-  const int a = ahat[b] & (2 * N - 1);
-  const int t = (j - a) & (2 * N - 1);
-  const int64_t* row = acc + ((long long)b * G + g) * N;
-  uint64_t v = (uint64_t)row[t & (N - 1)];
-  if (t >= N) v = 0ull - v;
-  const uint64_t diff = (v - (uint64_t)row[j]) & mask;
+  uint64_t diff;
+  if constexpr (kRotate) {
+    // coefficient j of acc * X^a is +-acc[(j - a) mod N], negated when
+    // (j - a) mod 2N wraps past N (X^N == -1); a == 2N is the identity
+    const int a = ahat[b] & (2 * N - 1);
+    const int t = (j - a) & (2 * N - 1);
+    const int64_t* row = acc + ((long long)b * G + g) * N;
+    uint64_t v = (uint64_t)row[t & (N - 1)];
+    if (t >= N) v = 0ull - v;
+    diff = (v - (uint64_t)row[j]) & mask;
+  } else {
+    diff = (uint64_t)acc[idx] & mask;
+  }
 
   // closest_representable: round to a multiple of q / B^levels
   const int non_rep = bits - base_log * levels;
@@ -152,7 +181,11 @@ __device__ __forceinline__ void ntt_inverse_smem(uint32_t* a, int count,
 
 // K2, first half: one block per (ciphertext, prime).  Digits mod p ->
 // forward NTT -> spectrum multiply-accumulate against the step's key ->
-// inverse NTT -> per-prime residues of the O*M convolutions.
+// inverse NTT -> per-prime residues of the O*M convolutions.  With
+// kKeyPerCiphertext the key is [B, P, LJ, O, M, N], one per ciphertext
+// (the multi-bit combined key), its products are Barrett products and
+// kshoup is not read.
+template <bool kKeyPerCiphertext>
 __global__ void ntt_mac_kernel(const int32_t* __restrict__ digits,
                                const uint32_t* __restrict__ kspec,
                                const uint32_t* __restrict__ kshoup,
@@ -168,6 +201,7 @@ __global__ void ntt_mac_kernel(const int32_t* __restrict__ digits,
   const uint32_t ninv = tab[4 * N];
   const uint32_t ninv_sh = tab[4 * N + 1];
   const uint32_t p = tab[4 * N + 2];
+  const uint32_t mu = tab[4 * N + 3];
   uint32_t* dsp = smem;           // [LJ, N] digit spectra
   uint32_t* osp = smem + LJ * N;  // [O*M, N] output spectra
 
@@ -180,14 +214,19 @@ __global__ void ntt_mac_kernel(const int32_t* __restrict__ digits,
   ntt_forward_smem(dsp, LJ, N, log_n, tab, tab + N, p);
 
   const long long kstride = (long long)LJ * OM * N;
-  const uint32_t* ks = kspec + pi * kstride;
-  const uint32_t* ksh = kshoup + pi * kstride;
+  const long long kblock = kKeyPerCiphertext ? (long long)b * P + pi : pi;
+  const uint32_t* ks = kspec + kblock * kstride;
+  const uint32_t* ksh = kKeyPerCiphertext ? nullptr : kshoup + pi * kstride;
   for (int idx = threadIdx.x; idx < OM * N; idx += blockDim.x) {
     const int n = idx & (N - 1);
     uint32_t s = 0;
     for (int lj = 0; lj < LJ; ++lj) {
       const long long k = (long long)lj * OM * N + idx;
-      s = add_mod(s, mul_shoup(dsp[lj * N + n], ks[k], ksh[k], p), p);
+      if constexpr (kKeyPerCiphertext) {
+        s = add_mod(s, mul_mod(dsp[lj * N + n], ks[k], p, mu), p);
+      } else {
+        s = add_mod(s, mul_shoup(dsp[lj * N + n], ks[k], ksh[k], p), p);
+      }
     }
     osp[idx] = s;
   }
@@ -205,7 +244,10 @@ __global__ void ntt_mac_kernel(const int32_t* __restrict__ digits,
 // K2, second half: balanced Garner reconstruction of each convolution (the
 // unique integer in (-M/2, M/2) with the given residues, M = prod p), its
 // planes recombined as conv_0 + 2^32 conv_1, added to the accumulator mod
-// 2^64.  One thread per (ciphertext, output polynomial, coefficient).
+// 2^64 (kAccumulate) or written as the new accumulator (the multi-bit
+// step; acc is not read).  One thread per (ciphertext, output polynomial,
+// coefficient).
+template <bool kAccumulate>
 __global__ void crt_accumulate_kernel(const uint32_t* __restrict__ residues,
                                       const int64_t* __restrict__ crt,
                                       const int64_t* __restrict__ acc,
@@ -216,7 +258,7 @@ __global__ void crt_accumulate_kernel(const uint32_t* __restrict__ residues,
   const int n = (int)(idx % N);
   const long long bo = idx / N;  // b * O + o
   const int W = 2 * P + 4;       // row width of the Garner table
-  uint64_t total = (uint64_t)acc[idx];
+  uint64_t total = kAccumulate ? (uint64_t)acc[idx] : 0ull;
   for (int m = 0; m < M; ++m) {
     const uint32_t* r = residues + ((bo * M + m) * P) * N + n;
     int32_t bs[kMaxPrimes];

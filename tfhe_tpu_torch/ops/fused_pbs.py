@@ -83,7 +83,10 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
 
 def _check_launch(err: int, name: str) -> None:
     if err != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+        why = (" (cudaErrorInvalidValue: a layout or shared-memory size "
+               "beyond the kernel's limits)" if err == 1 else "")
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err}"
+                           + why)
 
 
 def _stream(device: torch.device) -> int:
@@ -139,25 +142,40 @@ rotate_decompose.launches = 0
 # ---------------------------------------------------------------------------
 
 
+def digit_spectra(digits: torch.Tensor) -> torch.Tensor:
+    """digits [B, L, G, N] int32 -> [B, P, L*G, N] canonical spectra."""
+    B, L, G, N = digits.shape
+    dspec = ntt.forward_ntt(digits.reshape(B, L * G, N).to(torch.int64))
+    return dspec.transpose(1, 2)
+
+
+def spectral_mac(dspec: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
+    """dspec [B, P, LJ, N], key [B or 1, P, LJ, O, M, N] (canonical
+    residues) -> [B, P, O, M, N]: sum_lj dspec_lj * key_lj mod p."""
+    P, N = key.shape[1], key.shape[-1]
+    p = ntt.tables_for(N, dspec.device).primes.view(1, P, 1, 1, 1)
+    prod = dspec[:, :, :, None, None, :] * key.to(torch.int64)
+    return (prod % p.unsqueeze(-1)).sum(dim=2) % p
+
+
+def spectra_to_u64(spec: torch.Tensor, bits: int = 64) -> torch.Tensor:
+    """[B, P, O, M, N] canonical spectra -> [B, O, N] int64: the inverse
+    NTT, the CRT, and the M 32-bit planes joined into one torus word."""
+    coef = ntt.inverse_ntt(spec.permute(0, 2, 3, 1, 4))  # [B, O, M, P, N]
+    conv = ntt.crt_to_u64_centered(coef)  # [B, O, M, N]
+    out = conv[:, :, 0]
+    if spec.shape[3] == 2:
+        out = out + (conv[:, :, 1] << 32)
+    return wrap(out, bits)
+
+
 def external_product_crt_plain(digits: torch.Tensor, kspec: torch.Tensor,
                                acc: torch.Tensor,
                                bits: int = 64) -> torch.Tensor:
     """digits [B, L, G, N] int32, kspec [P, LJ, O, M, N] (canonical residues),
     acc [B, O, N] int64 -> acc + sum_lj digits_lj (x) key_lj (mod 2^bits)."""
-    B, L, G, N = digits.shape
-    P, LJ, O, M, _ = kspec.shape
-    p = ntt.tables_for(N, digits.device).primes.view(1, P, 1, 1, 1)
-    dspec = ntt.forward_ntt(digits.reshape(B, LJ, N).to(torch.int64))
-    dspec = dspec.transpose(1, 2)  # [B, P, LJ, N]
-    key = kspec.to(torch.int64)
-    prod = dspec[:, :, :, None, None, :] * key[None] % p.unsqueeze(-1)
-    spec = prod.sum(dim=2) % p  # [B, P, O, M, N]
-    coef = ntt.inverse_ntt(spec.permute(0, 2, 3, 1, 4))  # [B, O, M, P, N]
-    conv = ntt.crt_to_u64_centered(coef)  # [B, O, M, N]
-    delta = conv[:, :, 0]
-    if M == 2:
-        delta = delta + (conv[:, :, 1] << 32)
-    return wrap(acc + delta, bits)
+    spec = spectral_mac(digit_spectra(digits), kspec[None])
+    return wrap(acc + spectra_to_u64(spec, bits), bits)
 
 
 def external_product_crt(digits: torch.Tensor, kspec: torch.Tensor,

@@ -17,6 +17,13 @@ Transform for Faster Ideal Lattice-Based Cryptography", 2016, Alg. 1-2).
 
 Residues are canonical, in [0, p).  p < 2^17, so a product of two residues
 fits easily in int64 and in the 32-bit Shoup form the kernel uses.
+
+Position i of a forward spectrum is the polynomial's value at psi^e(i) for
+an odd exponent e(i), so the spectrum of the monomial X^d is
+psi^(d * e(i) mod 2N) at position i: `monomial_spectra` gathers it from a
+table of the 2N powers of psi, which the multi-bit blind rotation uses in
+place of a transform.  e(i) is read off the transform itself
+(`_host_monomial_tables`), so it holds for this module's layout only.
 """
 
 from __future__ import annotations
@@ -87,10 +94,12 @@ class NttTables:
 
     primes [P]; psi_rev / psi_inv_rev [P, N]; n_inv [P] (all int64);
     kernel [P, 5, N] int32 bit patterns of uint32: psi_rev, its Shoup
-    companion, psi_inv_rev, its companion, and (N^-1, companion, p) at the
-    start of row 4;  crt [P, 2P + 4] int64, Garner's constants for prime i
-    with Q_j = p_0...p_{j-1}: Q_j mod p_i (j < P), their Shoup companions,
-    Q_i^-1 mod p_i, its companion, p_i, Q_i mod 2^64 (as int64 bits)."""
+    companion, psi_inv_rev, its companion, and (N^-1, companion, p,
+    floor(2^34 / p)) at the start of row 4 (the last is the Barrett
+    constant of a product of two residues);  crt [P, 2P + 4] int64,
+    Garner's constants for prime i with Q_j = p_0...p_{j-1}: Q_j mod p_i
+    (j < P), their Shoup companions, Q_i^-1 mod p_i, its companion, p_i,
+    Q_i mod 2^64 (as int64 bits)."""
 
     primes: torch.Tensor
     psi_rev: torch.Tensor
@@ -138,10 +147,79 @@ def ntt_tables(N: int, device: str) -> NttTables:
         kern[i, 4, 0] = ninv[i]
         kern[i, 4, 1] = _as_i32_bits(_shoup(ninv[i:i + 1], p))[0]
         kern[i, 4, 2] = p
+        kern[i, 4, 3] = (1 << 34) // p
     dev = torch.device(device)
     t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
     return NttTables(t(primes), t(fwd), t(inv), t(ninv), t(kern),
                      t(_garner_host()))
+
+
+@functools.cache
+def _host_monomial_tables(N: int):
+    """psi^k for k in [0, 2N) per prime (int64 [P, 2N]), and e [N] int64:
+    the odd exponent with spectrum position i = value at psi^e(i).
+
+    psi itself is psi^bitrev(N/2) = psi^1, an entry of the forward twiddle
+    table.  e is read off the forward transform of X (position i holds
+    psi^e(i)) by the discrete log over the powers of psi, and checked to
+    be the same for every prime."""
+    fwd, _, _ = _host_tables(N)
+    powers = np.empty((len(PRIMES), 2 * N), np.int64)
+    for i, p in enumerate(PRIMES):
+        psi = int(fwd[i, N // 2])
+        acc = 1
+        for k in range(2 * N):
+            powers[i, k] = acc
+            acc = acc * psi % p
+    x = torch.zeros(N, dtype=torch.int64)
+    x[1] = 1
+    spec = forward_ntt(x).numpy()  # [P, N]
+    exps = None
+    for i in range(len(PRIMES)):
+        log = {int(v): k for k, v in enumerate(powers[i])}
+        e = np.array([log[int(v)] for v in spec[i]], np.int64)
+        if exps is not None and not np.array_equal(e, exps):
+            raise AssertionError("spectrum exponents differ between primes")
+        exps = e
+    if np.any(exps % 2 == 0):
+        raise AssertionError("a spectrum position evaluates at an even power")
+    return powers, exps
+
+
+@dataclass(frozen=True)
+class MonomialTables:
+    """Device copies for the spectra of monomials: powers [P, 2, 2N] int32
+    bit patterns of psi^k (k in [0, 2N)) and their Shoup companions;
+    exponents [N] int32, e(i)."""
+
+    powers: torch.Tensor
+    exponents: torch.Tensor
+
+
+@functools.cache
+def _monomial_tables(N: int, device: str) -> MonomialTables:
+    powers, exps = _host_monomial_tables(N)
+    out = np.zeros((len(PRIMES), 2, 2 * N), np.int32)
+    for i, p in enumerate(PRIMES):
+        out[i, 0] = powers[i]
+        out[i, 1] = _as_i32_bits(_shoup(powers[i], p))
+    dev = torch.device(device)
+    return MonomialTables(torch.from_numpy(out).to(dev),
+                          torch.from_numpy(exps.astype(np.int32)).to(dev))
+
+
+def monomial_tables_for(N: int, device: torch.device) -> MonomialTables:
+    return _monomial_tables(N, str(torch.device(device)))
+
+
+def monomial_spectra(d: torch.Tensor, N: int) -> torch.Tensor:
+    """Forward spectra of the monomials X^d, d [...] int in [0, 2N) ->
+    [..., P, N] int64 canonical residues: psi^(d * e(i) mod 2N) at i."""
+    tab = monomial_tables_for(N, d.device)
+    idx = (d.to(torch.int64)[..., None] * tab.exponents.to(torch.int64)
+           ) % (2 * N)  # [..., N]
+    pw = tab.powers[:, 0].to(torch.int64)  # [P, 2N]
+    return pw[:, idx].movedim(0, -2)
 
 
 def tables_for(N: int, device: torch.device) -> NttTables:

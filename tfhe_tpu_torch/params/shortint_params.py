@@ -5,7 +5,7 @@ Values copied from `tfhe_tpu/params/shortint_params.py`
  tfhe/examples/fhe_strings/ciphertext.rs:75-105 for the insecure TEST sets).
 """
 
-from .types import ClassicPBSParameters
+from .types import ClassicPBSParameters, MultiBitPBSParameters
 
 # The workhorse parameter set: 2-bit message + 2-bit carry, 128-bit security,
 # p_fail <= 2^-40.
@@ -72,6 +72,24 @@ PARAM_MESSAGE_2_CARRY_2_COMPACT_TEST = ClassicPBSParameters(
     carry_modulus=4,
 )
 
+# Insecure toy multi-bit fixture for fast tests (same role as
+# PARAM_MESSAGE_2_CARRY_2_TEST).
+PARAM_MULTI_BIT_MESSAGE_2_CARRY_2_GROUP_2_TEST = MultiBitPBSParameters(
+    name="PARAM_MULTI_BIT_MESSAGE_2_CARRY_2_GROUP_2_TEST",
+    lwe_dimension=16,
+    glwe_dimension=1,
+    polynomial_size=256,
+    lwe_modular_std_dev=0.000007069849454709433,
+    glwe_modular_std_dev=0.00000000000000029403601535432533,
+    pbs_base_log=23,
+    pbs_level=1,
+    ks_base_log=3,
+    ks_level=5,
+    message_modulus=4,
+    carry_modulus=4,
+    grouping_factor=2,
+)
+
 ALL_PARAMETER_SETS = {
     p.name: p
     for p in [
@@ -81,4 +99,3 @@ ALL_PARAMETER_SETS = {
         PARAM_MESSAGE_2_CARRY_2_COMPACT_TEST,
     ]
 }
-

@@ -4,8 +4,8 @@ Equivalent of the reference's split mask/noise generator pair
 (ref: tfhe/src/core_crypto/commons/generators/encryption/mod.rs:24-29) with
 the byte-budget fork formulas of mask_random_generator.rs:347-420 and
 noise_random_generator.rs:428-500 (copy of `tfhe_tpu/prng/generators.py`,
-classic keys only).  The fork tree makes key generation deterministic for a
-given seed regardless of how the work is parallelized.
+classic and multi-bit keys).  The fork tree makes key generation
+deterministic for a given seed regardless of how the work is parallelized.
 """
 
 from __future__ import annotations
@@ -139,6 +139,31 @@ class EncryptionRandomGenerator:
             glwe_size,
             mask_bytes_per_glwe(bits, glwe_size - 1, poly_size),
             noise_bytes_per_glwe(poly_size),
+        )
+
+    def fork_multi_bit_bsk_to_ggsw_group(self, lwe_dimension: int, level: int,
+                                         glwe_size: int, poly_size: int,
+                                         grouping_factor: int, bits: int = 64):
+        """One child per group of `grouping_factor` input bits; each group
+        holds 2^gf GGSWs (ref: encryption/mod.rs
+        fork_multi_bit_bsk_to_ggsw_group)."""
+        ggsw_per_element = 1 << grouping_factor
+        return self.fork(
+            lwe_dimension // grouping_factor,
+            ggsw_per_element * mask_bytes_per_ggsw(bits, level, glwe_size,
+                                                   poly_size),
+            ggsw_per_element * noise_bytes_per_ggsw(level, glwe_size,
+                                                    poly_size),
+        )
+
+    def fork_multi_bit_bsk_ggsw_group_to_ggsw(self, level: int,
+                                              glwe_size: int, poly_size: int,
+                                              grouping_factor: int,
+                                              bits: int = 64):
+        return self.fork(
+            1 << grouping_factor,
+            mask_bytes_per_ggsw(bits, level, glwe_size, poly_size),
+            noise_bytes_per_ggsw(level, glwe_size, poly_size),
         )
 
     def fork_ksk_to_lwe(self, n_in: int, level: int, lwe_out_dimension: int,

@@ -11,14 +11,15 @@ import torch
 from .. import core
 from ..device import resolve_device
 from ..ops.torus import to_tensor
-from ..params import ClassicPBSParameters, EncryptionKeyChoice
+from ..params import (ClassicPBSParameters, EncryptionKeyChoice,
+                      MultiBitPBSParameters)
 from ..prng import Seeder, system_seeder
 from ..prng.generators import EncryptionRandomGenerator, SecretRandomGenerator
 from .ciphertext import Ciphertext, ShortintBatch
 
 
 class ClientKey:
-    def __init__(self, params: ClassicPBSParameters,
+    def __init__(self, params: ClassicPBSParameters | MultiBitPBSParameters,
                  seed: Optional[int] = None, device="cuda"):
         self.params = params
         self.device = resolve_device(device)
@@ -33,7 +34,8 @@ class ClientKey:
         self.big_sk = self.glwe_sk.as_lwe_secret_key()
 
     @classmethod
-    def from_raw(cls, params: ClassicPBSParameters, lwe_sk_bits,
+    def from_raw(cls, params: ClassicPBSParameters | MultiBitPBSParameters,
+                 lwe_sk_bits,
                  glwe_sk_bits, seed: Optional[int] = None,
                  device="cuda") -> "ClientKey":
         """Rebuild a client key from stored secret-key bits; encryption

@@ -3,9 +3,11 @@
 Port of `tfhe_tpu/shortint/server_key.py` (ref: tfhe/src/shortint/server_key/
 mod.rs).  Every operation reduces to `_pbs_device`: one keyswitch + PBS over
 a whole batch of blocks (ref: mod.rs:783-857), which on a card runs the
-blind-rotation kernels of `ops/fused_pbs.py`.  The reference's XLA shape
-buckets and on-disk key cache have no counterpart here: PyTorch runs eagerly
-at any batch size, and nothing is written to disk.
+blind-rotation kernels of `ops/fused_pbs.py` (classic parameters) or of
+`ops/fused_multibit.py` (multi-bit parameters, in the default schedule).
+The reference's XLA shape buckets and on-disk key cache have no counterpart
+here: PyTorch runs eagerly at any batch size, and nothing is written to
+disk.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import torch
 from .. import core
 from ..device import resolve_device
 from ..ops.torus import to_tensor
-from ..params import ClassicPBSParameters, PBSOrder
+from ..params import ClassicPBSParameters, MultiBitPBSParameters, PBSOrder
 from .ciphertext import ShortintBatch
 from .client_key import ClientKey
 
@@ -56,10 +58,18 @@ class ServerKey:
         self.message_modulus = p.message_modulus
         self.carry_modulus = p.carry_modulus
         self.max_degree = p.total_modulus - 1
+        self.is_multi_bit = isinstance(p, MultiBitPBSParameters)
+        if self.is_multi_bit and p.torus_bits != 64:
+            raise ValueError("multi-bit keys are on the 64-bit torus only")
         if _raw is None:
-            bsk = core.generate_bootstrap_key(
-                cks.lwe_sk, cks.glwe_sk, p.pbs_base_log, p.pbs_level,
-                p.glwe_modular_std_dev, cks.enc_gen)
+            if self.is_multi_bit:
+                bsk = core.generate_multi_bit_bootstrap_key(
+                    cks.lwe_sk, cks.glwe_sk, p.pbs_base_log, p.pbs_level,
+                    p.glwe_modular_std_dev, p.grouping_factor, cks.enc_gen)
+            else:
+                bsk = core.generate_bootstrap_key(
+                    cks.lwe_sk, cks.glwe_sk, p.pbs_base_log, p.pbs_level,
+                    p.glwe_modular_std_dev, cks.enc_gen)
             ksk = core.generate_keyswitch_key(
                 cks.big_sk, cks.lwe_sk, p.ks_base_log, p.ks_level,
                 p.lwe_modular_std_dev, cks.enc_gen)
@@ -67,16 +77,21 @@ class ServerKey:
             bsk, ksk = (_as_key_tensor(k, self.device) for k in _raw)
         self.raw_bsk = bsk
         self.raw_ksk = ksk
-        self.bsk = core.prepare_bsk_cuda(bsk, p.pbs_base_log)
+        if self.is_multi_bit:
+            self.bsk = core.prepare_multi_bit_bsk_cuda(bsk, p.pbs_base_log,
+                                                       p.grouping_factor)
+        else:
+            self.bsk = core.prepare_bsk_cuda(bsk, p.pbs_base_log)
         self.ksk = core.prepare_ksk(ksk, p.ks_base_log)
         self._lut_cache: dict = {}
         self.ciphertext_lwe_size = p.ciphertext_lwe_size
 
     @classmethod
-    def from_raw(cls, params: ClassicPBSParameters, bsk, ksk,
-                 device="cuda") -> "ServerKey":
+    def from_raw(cls, params: ClassicPBSParameters | MultiBitPBSParameters,
+                 bsk, ksk, device="cuda") -> "ServerKey":
         """Rebuild a server key from raw standard-domain BSK / KSK arrays
-        (numpy uint64 or int64 tensors)."""
+        (numpy uint64 or int64 tensors); a multi-bit BSK is
+        [n/gf, 2^gf, L, G, G, N]."""
         shell = ClientKey.__new__(ClientKey)
         shell.params = params
         return cls(shell, _raw=(bsk, ksk), device=device)
@@ -120,6 +135,9 @@ class ServerKey:
         if data.device != self.device:
             raise ValueError(f"ciphertexts are on {data.device}, the key on "
                              f"{self.device}")
+        if self.is_multi_bit:
+            return core.keyswitch_then_multi_bit_pbs(self.ksk, self.bsk, acc,
+                                                     data)
         return core.keyswitch_then_pbs(self.ksk, self.bsk, acc, data)
 
     def apply_lookup_table_batch(self, batch: ShortintBatch,
@@ -158,8 +176,8 @@ class ServerKey:
         return self.apply_lookup_table_batch(packed, blut.acc)
 
 
-def gen_keys(params: ClassicPBSParameters, seed: Optional[int] = None,
-             device="cuda"):
+def gen_keys(params: ClassicPBSParameters | MultiBitPBSParameters,
+             seed: Optional[int] = None, device="cuda"):
     """(ref: shortint/mod.rs:87 gen_keys) -> (ClientKey, ServerKey), both on
     `device`.  Nothing is cached on disk."""
     cks = ClientKey(params, seed=seed, device=device)

@@ -11,20 +11,32 @@ from __future__ import annotations
 
 from typing import Optional
 
-from .params import ClassicPBSParameters
+from .params import ClassicPBSParameters, MultiBitPBSParameters
 from .shortint import ClientKey, ServerKey
 
 
-def server_key_from_reference(params: ClassicPBSParameters, raw_bsk, raw_ksk,
-                              device="cuda") -> ServerKey:
-    """raw_bsk [n, L, G, G, N] and raw_ksk [k*N, ks_level, n+1] uint64
-    (the reference's `ServerKey.from_raw` inputs, server_key.py:103-108)."""
+def server_key_from_reference(
+        params: ClassicPBSParameters | MultiBitPBSParameters, raw_bsk, raw_ksk,
+        device="cuda") -> ServerKey:
+    """raw_bsk and raw_ksk [k*N, ks_level, n+1] uint64 (the reference's
+    `ServerKey.raw_bsk` / `raw_ksk`, its `from_raw` inputs,
+    server_key.py:103-108).  raw_bsk is [n, L, G, G, N] for classic
+    parameters and [n/gf, 2^gf, L, G, G, N] for multi-bit ones."""
+    gf = getattr(params, "grouping_factor", None)
+    G, N = params.glwe_size, params.polynomial_size
+    n, L = params.lwe_dimension, params.pbs_level
+    want = ((n, L, G, G, N) if gf is None
+            else (n // gf, 1 << gf, L, G, G, N))
+    if tuple(raw_bsk.shape) != want:
+        raise ValueError(f"{params.name}: raw BSK of shape "
+                         f"{tuple(raw_bsk.shape)}, expected {want}")
     return ServerKey.from_raw(params, raw_bsk, raw_ksk, device=device)
 
 
-def client_key_from_reference(params: ClassicPBSParameters, lwe_sk_bits,
-                              glwe_sk_bits, seed: Optional[int] = None,
-                              device="cuda") -> ClientKey:
+def client_key_from_reference(
+        params: ClassicPBSParameters | MultiBitPBSParameters, lwe_sk_bits,
+        glwe_sk_bits, seed: Optional[int] = None,
+        device="cuda") -> ClientKey:
     """Secret-key bits [n] and [k, N] (the reference's
     `ClientKey.from_raw` inputs, client_key.py:30)."""
     return ClientKey.from_raw(params, lwe_sk_bits, glwe_sk_bits, seed=seed,
