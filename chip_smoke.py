@@ -4,26 +4,35 @@
 
 Phases, each printing one flushed line with its wall time:
   1. card: the card's name and power limit (nvidia-smi) and torch's name;
-  2. build: nvcc builds the classic and the multi-bit kernels' libraries and
-     g++ the native AES generator, from the sources in this checkout, all
-     three at once;
-  3. kernels: each kernel against its plain PyTorch version at the main
-     path's shapes (N=2048, G=2, L=1, base_log 23, 5 primes, B=64), one
-     step each and a 4-step blind rotation, bit-exact (tolerance 0), with
-     times per launch;
+  2. build: nvcc builds the classic, the cluster-step and the multi-bit
+     kernels' libraries and g++ the native AES generator, from the sources
+     in this checkout, all four at once;
+  3. kernels_modes: every classic-schedule wrapper (K1, K2, and the new
+     pbs_step, blind_rotate_persistent, ntt_mac_prime, crt_accumulate)
+     against its plain PyTorch version at the widths of
+     PARAM_MESSAGE_2_CARRY_2_KS_PBS (N=2048, G=2, L=1, base_log 23, u64) and
+     of boolean DEFAULT_PARAMETERS (N=512, G=3, L=3, base_log 6, u32), 5
+     primes, B=64, one step each, the persistent rotation at its main
+     path's depth (742 and 722 steps) and a 4-step rotation in every mode,
+     bit-exact (tolerance 0), with device, eager and plain times per launch
+     and bounds;
   4. main path: PARAM_MESSAGE_2_CARRY_2_KS_PBS keys generated on the card,
      64 messages covering all 16 message+carry values, three univariate LUTs
      and one bivariate LUT through the ServerKey entry points, every result
-     decrypted and checked; then the same pipeline on a small insecure
-     parameter set, on the card and on the CPU, bit-identical;
-  5. timing: keyswitch_then_pbs throughput at B=64 and B=256 (host clock,
-     launch overhead included), its split into keyswitch and blind
-     rotation, and each kernel's device time per launch at B=256;
-  6. kernels_multibit: the four multi-bit kernels against their plain
-     versions at PARAM_MULTI_BIT_MESSAGE_2_CARRY_2_GROUP_3_KS_PBS's width
-     (N=2048, G=2, L=1, base_log 21, gf=3 so 8 subset keys per group, B=64),
-     one step each and a 2-group blind rotation in both schedules,
-     bit-exact, with times per launch;
+     decrypted and checked; then core.keyswitch_then_pbs on the same 64
+     messages in each mode (scan2, scan1, scan3, grid), identical and
+     decrypted right, with exact launch counts per mode; then the same
+     pipeline on a small insecure parameter set, on the card and on the CPU,
+     bit-identical;
+  5. timing: keyswitch_then_pbs throughput at B=64 and B=256 in each mode
+     (host clock, launch overhead included), its split into keyswitch and
+     blind rotation, and K1/K2's device time per launch at B=256;
+  6. kernels_multibit (run first, before phase 3): the four multi-bit
+     kernels against their plain versions at
+     PARAM_MULTI_BIT_MESSAGE_2_CARRY_2_GROUP_3_KS_PBS's width (N=2048, G=2,
+     L=1, base_log 21, gf=3 so 8 subset keys per group, B=64), one step each
+     and a 2-group blind rotation in both schedules, bit-exact, with times
+     per launch;
   7. main_path_multibit: GROUP_3 keys generated on the card, the same 64
      messages through three univariate LUTs and one bivariate LUT with the
      ServerKey entry points (the default schedule, scan3, 296 group steps),
@@ -33,10 +42,21 @@ Phases, each printing one flushed line with its wall time:
   8. card_vs_cpu_multibit: the multi-bit pipeline on the small insecure
      multi-bit set, on the card and on the CPU, bit-identical;
   9. timing_multibit: keyswitch_then_multi_bit_pbs throughput at B=64 and
-     B=256 in both schedules, its split, and the kernels' times at B=256.
+     B=256 in both schedules, its split, and the kernels' times at B=256;
+ 10. main_path_boolean: boolean DEFAULT_PARAMETERS keys generated on the
+     card (n=722, N=512, k=2, u32, PBS then keyswitch), every gate and mux
+     on 64 seeded bit pairs and triples through boolean.ServerKey in each of
+     the four modes, every decryption equal to the clear gate, identical
+     ciphertexts across modes, exact launch counts per blind rotation
+     (scan2: n of K1 and of K2; scan1: n; scan3: n(P+2); grid: 1);
+ 11. card_vs_cpu_boolean: BOOLEAN_TEST_PARAMETERS gates on the card in
+     every mode, bit-identical to the CPU's plain versions;
+ 12. timing_boolean: gates/s and batch ms per mode at B=64 and B=256, split
+     into blind rotation, sample extract and keyswitch.
 Kernel times are device times: a CUDA graph of many launches replayed
-between CUDA events; the eager per-launch times beside them include the
-host's launch cost.
+between CUDA events (a persistent rotation: CUDA events around a few eager
+launches); the eager per-launch times beside them include the host's launch
+cost.
 Then a `kernels` JSON line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.  Any failed phase raises, so the script exits
 non-zero and prints no result; it needs a card and refuses to run without
@@ -138,24 +158,44 @@ def max_abs_err(got, want):
     return max(abs(int(a) - int(b)) for a, b in zip(g[bad], w[bad]))
 
 
-def bounds_ms(B, G, L, N, P):
-    """Least time for one launch of each kernel at these shapes: the larger
-    of (bytes read once + written once) / bandwidth and operations / peak."""
-    M = 2
-    LJ = L * G
-    k1_bytes = B * G * N * 8 + B * 4 + B * L * G * N * 4
-    k1_ops = B * G * N * (10 + 8 * L)
-    k2_bytes = (B * LJ * N * 4 + 2 * P * LJ * G * M * N * 4
-                + 2 * B * G * N * 8)
+def classic_work(B, G, L, N, P, bits, steps=1):
+    """Bytes (each input read once, each output written once) and
+    operations of one launch of each classic-schedule wrapper; M, the key
+    planes per torus word, follows the torus width.  A Shoup product counts
+    6 operations, a modular add 3, a butterfly 9; `steps` is the persistent
+    rotation's step count."""
+    M = 2 if bits == 64 else 1
+    LJ, OM = L * G, G * M
     log_n = N.bit_length() - 1
-    butterflies = B * P * (LJ + G * M) * (N // 2) * log_n
-    k2_ops = (butterflies * 9                     # Shoup product + 2 mod adds
-              + B * P * G * M * N * LJ * 7        # spectrum MAC
-              + B * P * LJ * N * 4                # digits mod p
-              + B * G * M * N * (P * (P - 1) // 2 * 7 + P * 10))  # Garner
+    acc = B * G * N * 8
+    key = 2 * P * LJ * OM * N * 4  # one step's spectra and companions
+    k1_ops = B * G * N * (10 + 8 * L)
+    butterflies = B * P * (LJ + OM) * (N // 2) * log_n
+    mac_ops = (butterflies * 9                # Shoup product + 2 mod adds
+               + B * P * OM * N * LJ * 7      # spectrum MAC
+               + B * P * LJ * N * 4)          # digits mod p
+    garner = B * OM * N * (P * (P - 1) // 2 * 7 + P * 10)
+    return {
+        "rotate_decompose": (acc + B * 4 + B * LJ * N * 4, k1_ops),
+        "external_product_crt": (B * LJ * N * 4 + key + 2 * acc,
+                                 mac_ops + garner),
+        "ntt_mac_prime": (B * LJ * N * 4 + key // P + B * OM * N * 4,
+                          mac_ops // P),
+        "crt_accumulate": (B * OM * P * N * 4 + 2 * acc, garner),
+        "pbs_step": (2 * acc + B * 4 + key, k1_ops + mac_ops + garner),
+        "blind_rotate_persistent": (
+            2 * acc + steps * (B * 4 + key),
+            steps * (k1_ops + mac_ops + garner)),
+    }
+
+
+def bounds_ms(B, G, L, N, P, bits=64, steps=1):
+    """Least time for one launch of each classic-schedule wrapper at these
+    shapes: the larger of (bytes read once + written once) / bandwidth and
+    operations / peak, and which of the two it is."""
     out = {}
-    for name, nbytes, ops in (("rotate_decompose", k1_bytes, k1_ops),
-                              ("external_product_crt", k2_bytes, k2_ops)):
+    for name, (nbytes, ops) in classic_work(B, G, L, N, P, bits,
+                                            steps).items():
         tb = nbytes / PEAK_BYTES_PER_S * 1e3
         to = ops / PEAK_OPS_PER_S * 1e3
         out[name] = (max(tb, to), "bytes" if tb >= to else "operations")
@@ -223,9 +263,11 @@ def multibit_bounds_ms(B, G, L, N, P, gf, powers):
     return out
 
 
-def multibit_kernels_phase(dev, rng, rand_u64):
+def multibit_kernels_phase(dev):
     """Each multi-bit kernel against its plain version at GROUP_3's width;
-    returns their errors and device / plain times per launch."""
+    returns their errors and device / plain times per launch.  Its inputs
+    come from a generator of its own: the step's time depends on the subset
+    degrees drawn (the bank pattern of its power gathers)."""
     import numpy as np
     import torch
 
@@ -234,6 +276,13 @@ def multibit_kernels_phase(dev, rng, rand_u64):
         PARAM_MULTI_BIT_MESSAGE_2_CARRY_2_GROUP_3_KS_PBS as mp)
 
     t0 = time.time()
+    rng = np.random.default_rng(SEED)
+
+    def rand_u64(*shape):
+        return torch.from_numpy(
+            rng.integers(0, 2**64 - 1, shape, dtype=np.uint64,
+                         endpoint=True).view(np.int64)).to(dev)
+
     N, G, L, bl, gf = (mp.polynomial_size, mp.glwe_size, mp.pbs_level,
                        mp.pbs_base_log, mp.grouping_factor)
     per, groups = 1 << gf, 2
@@ -464,6 +513,280 @@ def multibit_timing(card, dev, cks, sks, rng):
             gathered_powers(d, N)).items()})
 
 
+# per blind rotation, the launches of each classic-schedule wrapper
+def rotation_launches(mode, n, P=5):
+    return {"scan2": {"rotate_decompose": n, "external_product_crt": n},
+            "scan1": {"pbs_step": n},
+            "scan3": {"rotate_decompose": n, "ntt_mac_prime": n * P,
+                      "crt_accumulate": n},
+            "grid": {"blind_rotate_persistent": 1}}[mode]
+
+
+def launched(kernels):
+    """The wrappers of `kernels` that launched, with their counts."""
+    return {fn.__name__: fn.launches for fn in kernels if fn.launches}
+
+
+def modes_kernels_phase(dev):
+    """Every classic-schedule wrapper against its plain version at the
+    widths of PARAM_MESSAGE_2_CARRY_2_KS_PBS and boolean DEFAULT_PARAMETERS
+    (B = 64), bit-exact: one step each, the persistent rotation at its main
+    path's depth (n = 742, 722 steps), and besides a 4-step rotation in
+    every mode; with device, eager and plain times and bounds per launch.
+    Returns, per width, errors, times and bounds."""
+    import numpy as np
+    import torch
+
+    from tfhe_tpu_torch.ops import fused_pbs as fp
+    from tfhe_tpu_torch.params import (DEFAULT_PARAMETERS,
+                                       PARAM_MESSAGE_2_CARRY_2_KS_PBS)
+
+    t0 = time.time()
+    rng = np.random.default_rng(SEED)
+    P, steps = 5, 4
+    out = {}
+    for p in (PARAM_MESSAGE_2_CARRY_2_KS_PBS, DEFAULT_PARAMETERS):
+        N, G, L, bl, bits = (p.polynomial_size, p.glwe_size, p.pbs_level,
+                             p.pbs_base_log, p.torus_bits)
+        M, n = (2 if bits == 64 else 1), p.lwe_dimension
+
+        def words(*shape):
+            return torch.from_numpy(rng.integers(
+                0, 2**bits - 1, shape, dtype=np.uint64, endpoint=True)
+                .view(np.int64)).to(dev)
+
+        key = fp.prepare_bsk_cuda(words(steps, L, G, G, N), bl, bits)
+        acc = words(B_MAIN, G, N)
+        ahat = torch.from_numpy(rng.integers(0, 2 * N, (steps, B_MAIN),
+                                             endpoint=True)
+                                .astype(np.int32)).to(dev)
+        ks, ksh = key.kspec[0], key.kshoup[0]
+        # the persistent launch's inputs at the main path's depth, from a
+        # generator of their own (the other inputs stay as they were drawn)
+        rng_n = np.random.default_rng([SEED, n])
+        key_n = fp.prepare_bsk_cuda(torch.from_numpy(rng_n.integers(
+            0, 2**bits - 1, (n, L, G, G, N), dtype=np.uint64, endpoint=True)
+            .view(np.int64)).to(dev), bl, bits)
+        ahat_n = torch.from_numpy(rng_n.integers(0, 2 * N, (n, B_MAIN),
+                                                 endpoint=True)
+                                  .astype(np.int32)).to(dev)
+        dig = fp.rotate_decompose_plain(acc, ahat[0], bl, L, bits)
+        res_shape = (B_MAIN, G, M, P, N)
+        res_p = torch.empty(res_shape, dtype=torch.int32, device=dev)
+        res_k = torch.empty(res_shape, dtype=torch.int32, device=dev)
+        for pi in range(P):
+            fp.ntt_mac_prime_plain(dig, ks[pi], pi, res_p)
+            fp.ntt_mac_prime(dig, ks[pi], ksh[pi], pi, res_k)
+        res_t = torch.empty_like(res_p)  # the plain one-prime timing's
+        calls = {
+            "rotate_decompose": (
+                lambda: fp.rotate_decompose(acc, ahat[0], bl, L, bits),
+                lambda: fp.rotate_decompose_plain(acc, ahat[0], bl, L, bits)),
+            "external_product_crt": (
+                lambda: fp.external_product_crt(dig, ks, ksh, acc, bits),
+                lambda: fp.external_product_crt_plain(dig, ks, acc, bits)),
+            "ntt_mac_prime": (
+                lambda: fp.ntt_mac_prime(dig, ks[0], ksh[0], 0, res_k),
+                lambda: fp.ntt_mac_prime_plain(dig, ks[0], 0, res_t)),
+            "crt_accumulate": (
+                lambda: fp.crt_accumulate(res_p, acc, bits),
+                lambda: fp.crt_accumulate_plain(res_p, acc, bits)),
+            "pbs_step": (
+                lambda: fp.pbs_step(acc, ahat[0], ks, ksh, bl, L, bits),
+                lambda: fp.pbs_step_plain(acc, ahat[0], ks, bl, L, bits)),
+            "blind_rotate_persistent": (
+                lambda: fp.blind_rotate_persistent(acc, ahat_n, key_n.kspec,
+                                                   key_n.kshoup, bl, L, bits),
+                lambda: fp.blind_rotate_persistent_plain(
+                    acc, ahat_n, key_n.kspec, bl, L, bits)),
+        }
+        err = {k: max_abs_err(kern(), plain())
+               for k, (kern, plain) in calls.items() if k != "ntt_mac_prime"}
+        err["ntt_mac_prime"] = max_abs_err(res_k, res_p)
+        want = fp.blind_rotate_persistent_plain(acc, ahat, key.kspec, bl, L,
+                                                bits)
+        err_rot = {m: max_abs_err(fp.blind_rotate_fused(key, acc, ahat, m),
+                                  want) for m in fp.MODES}
+        if any(err.values()) or any(err_rot.values()):
+            raise AssertionError(
+                f"{p.name}: classic kernels disagree with their plain "
+                f"versions: {err}, {steps}-step rotation per mode {err_rot}")
+        # a persistent launch runs a whole rotation: CUDA events around
+        # eager launches, not a graph of 100; its plain version, n steps of
+        # plain ops, as one graph replayed once
+        per_launch = {k: v for k, v in calls.items()
+                      if k != "blind_rotate_persistent"}
+        ms = {k: graph_ms(kern, 100) for k, (kern, _) in per_launch.items()}
+        eager = {k: cuda_ms(kern, 100) for k, (kern, _) in per_launch.items()}
+        ms["blind_rotate_persistent"] = cuda_ms(
+            calls["blind_rotate_persistent"][0], 3)
+        eager["blind_rotate_persistent"] = ms["blind_rotate_persistent"]
+        plain_ms = {k: graph_ms(plain, 3) for k, (_, plain) in
+                    per_launch.items()}
+        plain_ms["blind_rotate_persistent"] = graph_ms(
+            calls["blind_rotate_persistent"][1], 1, replays=1)
+        rot_ms = {m: cuda_ms(lambda: fp.blind_rotate_fused(  # noqa: B023
+            key, acc, ahat, m), 5) for m in fp.MODES}
+        bounds = bounds_ms(B_MAIN, G, L, N, P, bits, n)
+        say("kernels_modes", t0, params=p.name,
+            shape=dict(B=B_MAIN, G=G, L=L, N=N, P=P, base_log=bl, bits=bits,
+                       persistent_steps=n, rotation_steps=steps),
+            max_abs_err=err, rotation_max_abs_err=err_rot,
+            device_ms_per_launch=ms, eager_ms_per_launch=eager,
+            plain_device_ms=plain_ms, rotation_ms_per_mode=rot_ms,
+            bound_ms={k: v[0] for k, v in bounds.items()},
+            bound_by={k: v[1] for k, v in bounds.items()})
+        out[p.name] = (err, ms, plain_ms, bounds)
+        del key, key_n, acc, ahat, ahat_n, dig, res_p, res_k, res_t, calls
+        del want
+        torch.cuda.empty_cache()
+    return out
+
+
+BOOLEAN_GATES = ("and", "or", "nand", "nor", "xor", "xnor")
+
+
+def boolean_main_path(dev):
+    """DEFAULT_PARAMETERS keys on the card; every gate and mux on 64 seeded
+    bit pairs and triples through boolean.ServerKey in each mode.  Returns
+    the launches of each classic wrapper over the four modes, and the
+    keys."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from tfhe_tpu_torch import boolean
+    from tfhe_tpu_torch.ops import fused_pbs as fp
+    from tfhe_tpu_torch.params import DEFAULT_PARAMETERS as bp
+
+    t0 = time.time()
+    torch.cuda.reset_peak_memory_stats()
+    cks, sks = boolean.gen_keys(bp, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    t_keygen = time.time() - t0
+    x, y, z = np.random.default_rng(SEED + 1).integers(
+        0, 2, (3, B_MAIN)).astype(bool)
+    a, b, c = (cks.encrypt_batch(v) for v in (x, y, z))
+    clear = {"and": x & y, "or": x | y, "nand": ~(x & y), "nor": ~(x | y),
+             "xor": x ^ y, "xnor": ~(x ^ y), "not": ~x,
+             "mux": np.where(z, x, y)}
+    # six binary gates and one mux (its two bootstraps run as one batch)
+    rotations = len(BOOLEAN_GATES) + 1
+    outs, correct, launches, wall = {}, {}, {}, {}
+    total = {}
+    for mode in fp.MODES:
+        s = copy.copy(sks)
+        s.mode = mode
+        fp.reset_launch_counts()
+        t1 = time.time()
+        o = {g: getattr(s, f"{g}_batch")(a, b) for g in BOOLEAN_GATES}
+        o["not"] = s.not_batch(a)
+        o["mux"] = s.mux_batch(c, a, b)
+        torch.cuda.synchronize()
+        wall[mode] = time.time() - t1
+        launches[mode] = launched(fp.KERNELS)
+        for k, v in launches[mode].items():
+            total[k] = total.get(k, 0) + v
+        outs[mode] = o
+        correct[mode] = {g: int(np.sum(cks.decrypt_batch(v) == clear[g]))
+                         for g, v in o.items()}
+    same = {m: all(torch.equal(outs[m][g], outs["scan2"][g])
+                   for g in outs["scan2"]) for m in fp.MODES}
+    expected = {m: {k: v * rotations for k, v in
+                    rotation_launches(m, bp.lwe_dimension).items()}
+                for m in fp.MODES}
+    say("main_path_boolean", t0, params=bp.name, batch=B_MAIN,
+        steps=bp.lwe_dimension, keygen_s=t_keygen, gates_s=wall,
+        correct=correct, identical_to_scan2=same, launches=launches,
+        peak_device_mb=torch.cuda.max_memory_allocated() / 2**20)
+    if any(v != B_MAIN for c_ in correct.values() for v in c_.values()):
+        raise AssertionError(f"wrong boolean decryptions: {correct} of "
+                             f"{B_MAIN}")
+    if not all(same.values()):
+        raise AssertionError(f"boolean gates differ between modes: {same}")
+    if launches != expected:
+        raise AssertionError(f"boolean main path launched {launches}, "
+                             f"expected {expected}")
+    return total, cks, sks
+
+
+def boolean_card_vs_cpu(dev):
+    """BOOLEAN_TEST_PARAMETERS: the card in every mode == the CPU."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from tfhe_tpu_torch import boolean
+    from tfhe_tpu_torch.ops import fused_pbs as fp
+    from tfhe_tpu_torch.params import BOOLEAN_TEST_PARAMETERS as small
+
+    t0 = time.time()
+    x, y, z = np.random.default_rng(SEED + 2).integers(
+        0, 2, (3, 16)).astype(bool)
+    outs = {}
+    for where in (dev, "cpu"):
+        cks, sks = boolean.gen_keys(small, seed=SEED, device=where)
+        a, b, c = (cks.encrypt_batch(v) for v in (x, y, z))
+        for mode in (fp.MODES if where == dev else ("scan2",)):
+            s = copy.copy(sks)
+            s.mode = mode
+            o = (s.nand_batch(a, b), s.xor_batch(a, b), s.mux_batch(c, a, b))
+            for got, want in zip(o, (~(x & y), x ^ y, np.where(z, x, y))):
+                if not np.array_equal(cks.decrypt_batch(got), want):
+                    raise AssertionError(f"{where} {mode}: boolean gate "
+                                         f"wrong")
+            outs[(str(where), mode)] = [t.cpu() for t in o]
+    cpu = outs[("cpu", "scan2")]
+    same = {k[1]: all(torch.equal(u, v) for u, v in zip(o, cpu))
+            for k, o in outs.items() if k[0] != "cpu"}
+    say("card_vs_cpu_boolean", t0, params=small.name, identical=same)
+    if not all(same.values()):
+        raise AssertionError(f"card and CPU boolean gates differ: {same}")
+
+
+def boolean_timing(card, dev, cks, sks, rng):
+    """Gates/s and batch ms per mode at B = 64 and 256 (host clock, launch
+    cost included), split into keyswitch, blind rotation and extract."""
+    import copy
+
+    import torch
+
+    from tfhe_tpu_torch import core
+    from tfhe_tpu_torch.ops import fused_pbs as fp
+
+    t0 = time.time()
+    rates, batch_ms, split_ms = {}, {}, {}
+    for mode in fp.MODES:
+        s = copy.copy(sks)
+        s.mode = mode
+        for B in (B_MAIN, B_LARGE):
+            key = f"{mode}_B{B}"
+            a, b = (cks.encrypt_batch(rng.integers(0, 2, B).astype(bool))
+                    for _ in range(2))
+            s.nand_batch(a, b)  # warm-up
+            torch.cuda.synchronize()
+            reps = 3
+            t1 = time.time()
+            for _ in range(reps):
+                s.nand_batch(a, b)
+            torch.cuda.synchronize()
+            dt = (time.time() - t1) / reps
+            rates[key] = B / dt
+            batch_ms[key] = dt * 1e3
+            glwe = core.blind_rotate(s.bsk, s.accumulator, a, mode)
+            big = core.sample_extract(glwe, bits=32)
+            split_ms[key] = dict(
+                blind_rotate=cuda_ms(lambda: core.blind_rotate(  # noqa: B023
+                    s.bsk, s.accumulator, a, mode), 2, warmup=0),
+                sample_extract=cuda_ms(
+                    lambda: core.sample_extract(glwe, bits=32), 20),  # noqa
+                keyswitch=cuda_ms(lambda: core.keyswitch(s.ksk, big), 5))
+    say("timing_boolean", t0, card=card, params=sks.params.name,
+        gates_per_s=rates, batch_ms=batch_ms, batch_split_ms=split_ms)
+
+
 def main():
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     t_start = time.time()
@@ -496,77 +819,29 @@ def main():
         build()
         return round(time.time() - t, 3)
 
-    builds = (fused_pbs.cuda_library, fused_multibit.cuda_library,
-              prng.native_library)
+    builds = (fused_pbs.cuda_library, fused_pbs.step_library,
+              fused_multibit.cuda_library, prng.native_library)
     with ThreadPoolExecutor(len(builds)) as pool:
-        t_nvcc, t_nvcc_mb, t_gxx = pool.map(timed, builds)
+        t_nvcc, t_nvcc_step, t_nvcc_mb, t_gxx = pool.map(timed, builds)
     aes = prng.Aes128(0x0123456789ABCDEF, backend="native")
     ref = prng.Aes128(0x0123456789ABCDEF, backend="numpy")
     if not np.array_equal(aes.ctr_blocks(7, 64), ref.ctr_blocks(7, 64)):
         raise AssertionError("native AES disagrees with the numpy AES")
-    say("build", t0, nvcc_s=t_nvcc, nvcc_multibit_s=t_nvcc_mb, gxx_s=t_gxx,
-        aes_backend=aes.backend)
+    say("build", t0, nvcc_s=t_nvcc, nvcc_step_s=t_nvcc_step,
+        nvcc_multibit_s=t_nvcc_mb, gxx_s=t_gxx, aes_backend=aes.backend)
 
     # -- 3. kernels against their plain versions ----------------------------
-    t0 = time.time()
+    # the multi-bit kernels first, from a generator of their own.  Timed
+    # after the classic phases, on the shared generator's later draws, the
+    # step kernel once read 12% slower than the parent's smoke; on fixed
+    # inputs (kernel_times.py) that was not reproduced, so the cause may be
+    # the draw of subset degrees (PERF.md)
+    mb_err, mb_ms, mb_plain_ms, mb_bounds = multibit_kernels_phase(dev)
     p = PARAM_MESSAGE_2_CARRY_2_KS_PBS
     N, G, L, bl = p.polynomial_size, p.glwe_size, p.pbs_level, p.pbs_base_log
     P = 5
-    rng = np.random.default_rng(SEED)
-
-    def rand_u64(*shape):
-        return torch.from_numpy(
-            rng.integers(0, 2**64 - 1, shape, dtype=np.uint64,
-                         endpoint=True).view(np.int64)).to(dev)
-
-    steps = 4
-    raw = rand_u64(steps, L, G, G, N)
-    bsk = fused_pbs.prepare_bsk_cuda(raw, bl)
-    acc = rand_u64(B_MAIN, G, N)
-    ahat = torch.from_numpy(
-        rng.integers(0, 2 * N, (steps, B_MAIN), endpoint=True)
-        .astype(np.int32)).to(dev)
-
-    dig_k = fused_pbs.rotate_decompose(acc, ahat[0], bl, L)
-    dig_p = fused_pbs.rotate_decompose_plain(acc, ahat[0], bl, L)
-    torch.cuda.synchronize()
-    err_k1 = max_abs_err(dig_k, dig_p)
-    acc_k = fused_pbs.external_product_crt(dig_p, bsk.kspec[0],
-                                           bsk.kshoup[0], acc)
-    acc_p = fused_pbs.external_product_crt_plain(dig_p, bsk.kspec[0], acc)
-    torch.cuda.synchronize()
-    err_k2 = max_abs_err(acc_k, acc_p)
-    rot_k = fused_pbs.blind_rotate_fused(bsk, acc, ahat)
-    rot_p = acc
-    for i in range(steps):
-        d = fused_pbs.rotate_decompose_plain(rot_p, ahat[i], bl, L)
-        rot_p = fused_pbs.external_product_crt_plain(d, bsk.kspec[i], rot_p)
-    torch.cuda.synchronize()
-    err_rot = max_abs_err(rot_k, rot_p)
-    if err_k1 or err_k2 or err_rot:
-        raise AssertionError(
-            f"kernels disagree with their plain versions: rotate_decompose "
-            f"{err_k1}, external_product_crt {err_k2}, {steps}-step blind "
-            f"rotation {err_rot}")
-
-    k1 = lambda: fused_pbs.rotate_decompose(acc, ahat[0], bl, L)  # noqa: E731
-    k2 = lambda: fused_pbs.external_product_crt(  # noqa: E731
-        dig_p, bsk.kspec[0], bsk.kshoup[0], acc)
-    ms_k1, ms_k2 = graph_ms(k1, 100), graph_ms(k2, 100)
-    ms_k1_plain = graph_ms(lambda: fused_pbs.rotate_decompose_plain(
-        acc, ahat[0], bl, L), 10)
-    ms_k2_plain = graph_ms(lambda: fused_pbs.external_product_crt_plain(
-        dig_p, bsk.kspec[0], acc), 3)
-    say("kernels", t0, shape=dict(B=B_MAIN, G=G, L=L, N=N, P=P, base_log=bl),
-        max_abs_err=dict(rotate_decompose=err_k1, external_product_crt=err_k2,
-                         blind_rotation_4_steps=err_rot),
-        device_ms_per_launch=dict(rotate_decompose=ms_k1,
-                                  external_product_crt=ms_k2),
-        eager_ms_per_launch=dict(rotate_decompose=cuda_ms(k1, 200),
-                                 external_product_crt=cuda_ms(k2, 200)),
-        plain_device_ms=dict(rotate_decompose=ms_k1_plain,
-                             external_product_crt=ms_k2_plain))
-    del raw, bsk, acc, dig_k, dig_p, acc_k, acc_p, rot_k, rot_p
+    rng = np.random.default_rng(SEED)  # the timing phases' inputs
+    modes_k = modes_kernels_phase(dev)
 
     # -- 4. main path -------------------------------------------------------
     t0 = time.time()
@@ -591,16 +866,43 @@ def main():
     results["bivariate_add_mod4"] = int(np.sum(got == (msgs % 4 + msgs // 4)
                                                % 4))
     torch.cuda.synchronize()
-    launches = {fn.__name__: fn.launches for fn in fused_pbs.KERNELS}
-    t_main = time.time() - t0
+    launches = launched(fused_pbs.KERNELS)
     say("main_path", t0, params=p.name, batch=B_MAIN, keygen_s=t_keygen,
         correct=results, launches=launches)
     if any(v != B_MAIN for v in results.values()):
         raise AssertionError(f"wrong decryptions: {results} of {B_MAIN}")
-    expected = 4 * p.lwe_dimension
-    if any(v != expected for v in launches.values()):
+    expected = {k: 4 * v for k, v in
+                rotation_launches("scan2", p.lwe_dimension).items()}
+    if launches != expected:
         raise AssertionError(f"main path launched {launches}, expected "
-                             f"{expected} of each kernel")
+                             f"{expected}")
+
+    # the classic schedules at full width, on the main path's 64 messages
+    t1 = time.time()
+    lut_id = sks.generate_lookup_table(lambda x: x)
+    outs_m, launches_m = {}, {}
+    for mode in fused_pbs.MODES:
+        fused_pbs.reset_launch_counts()
+        outs_m[mode] = keyswitch_then_pbs(sks.ksk, sks.bsk, lut_id.acc,
+                                          batch.data, mode)
+        torch.cuda.synchronize()
+        launches_m[mode] = launched(fused_pbs.KERNELS)
+        for k, v in launches_m[mode].items():
+            launches[k] = launches.get(k, 0) + v
+    t_main = time.time() - t0
+    same = {m: bool(torch.equal(o, outs_m["scan2"])) for m, o in
+            outs_m.items()}
+    correct = {m: int(np.sum(cks.decrypt_batch_message_and_carry(o) == msgs))
+               for m, o in outs_m.items()}
+    say("main_path_modes", t1, params=p.name, batch=B_MAIN,
+        identical_to_scan2=same, correct=correct, launches=launches_m)
+    want_m = {m: rotation_launches(m, p.lwe_dimension)
+              for m in fused_pbs.MODES}
+    if (not all(same.values()) or any(v != B_MAIN for v in correct.values())
+            or launches_m != want_m):
+        raise AssertionError(f"classic modes: identical {same}, correct "
+                             f"{correct} of {B_MAIN}, launches {launches_m} "
+                             f"(expected {want_m})")
 
     # the same pipeline at a small size, on the card and on the CPU
     t1 = time.time()
@@ -623,23 +925,26 @@ def main():
     t0 = time.time()
     lut = sks.generate_lookup_table(lambda x: x % 4)
     rates, batch_ms, split_ms = {}, {}, {}
-    for B in (B_MAIN, B_LARGE):
+    for mode, B in ((m, B) for m in fused_pbs.MODES for B in (B_MAIN,
+                                                             B_LARGE)):
+        key = str(B) if mode == "scan2" else f"{mode}_B{B}"
         data = cks.encrypt_batch(np.arange(B) % 16).data
-        keyswitch_then_pbs(sks.ksk, sks.bsk, lut.acc, data)  # warm-up
+        keyswitch_then_pbs(sks.ksk, sks.bsk, lut.acc, data, mode)  # warm-up
         torch.cuda.synchronize()
         reps = 3
         t1 = time.time()
         for _ in range(reps):
-            keyswitch_then_pbs(sks.ksk, sks.bsk, lut.acc, data)
+            keyswitch_then_pbs(sks.ksk, sks.bsk, lut.acc, data, mode)
         torch.cuda.synchronize()
         dt = (time.time() - t1) / reps
-        rates[str(B)] = B / dt
-        batch_ms[str(B)] = dt * 1e3
+        rates[key] = B / dt
+        batch_ms[key] = dt * 1e3
         small_ct = keyswitch(sks.ksk, data)
-        split_ms[str(B)] = dict(
+        split_ms[key] = dict(
             keyswitch=cuda_ms(lambda: keyswitch(sks.ksk, data), 3),
-            blind_rotate_and_extract=cuda_ms(lambda: programmable_bootstrap(
-                sks.bsk, lut.acc, small_ct), 2, warmup=0))
+            blind_rotate_and_extract=cuda_ms(
+                lambda: programmable_bootstrap(  # noqa: B023
+                    sks.bsk, lut.acc, small_ct, mode), 2, warmup=0))
     acc = torch.zeros((B_LARGE, G, N), dtype=torch.int64, device=dev)
     acc[:, -1] = lut.acc[-1]
     ahat = torch.from_numpy(rng.integers(0, 2 * N, (B_LARGE,))
@@ -653,32 +958,54 @@ def main():
         batch_split_ms=split_ms, device_ms_per_launch_b256=dict(
             rotate_decompose=ms256_k1, external_product_crt=ms256_k2),
         bound_ms_b256={k: v[0] for k, v in
-                       bounds_ms(B_LARGE, G, L, N, P).items()})
+                       bounds_ms(B_LARGE, G, L, N, P).items()
+                       if k in ("rotate_decompose", "external_product_crt")})
 
     del sks, cks, lut, acc, dig, data, small_ct
     torch.cuda.empty_cache()
 
     # -- 6-9. the multi-bit path -------------------------------------------
-    mb_err, mb_ms, mb_plain_ms, mb_bounds = multibit_kernels_phase(
-        dev, rng, rand_u64)
     t0 = time.time()
     mb_launches, mb_cks, mb_sks = multibit_main_path(dev)
     t_main_mb = time.time() - t0
     multibit_card_vs_cpu(dev)
     multibit_timing(card, dev, mb_cks, mb_sks, rng)
+    del mb_cks, mb_sks
+    torch.cuda.empty_cache()
 
-    bounds = bounds_ms(B_MAIN, G, L, N, P)
+    # -- 10-12. boolean gates -----------------------------------------------
+    t0 = time.time()
+    bool_launches, bool_cks, bool_sks = boolean_main_path(dev)
+    t_main_bool = time.time() - t0
+    boolean_card_vs_cpu(dev)
+    boolean_timing(card, dev, bool_cks, bool_sks, rng)
+    for k, v in bool_launches.items():
+        launches[k] = launches.get(k, 0) + v
+
+    # each classic wrapper's largest error over both full widths; times
+    # and bounds at its main path's width (B = 64): K1 and K2 at
+    # PARAM_MESSAGE_2_CARRY_2_KS_PBS, the new schedules' kernels at boolean
+    # DEFAULT_PARAMETERS (the persistent launch runs all 722 steps)
+    errs = {k: max(w[0][k] for w in modes_k.values())
+            for k in modes_k["DEFAULT_PARAMETERS"][0]}
     kernels = []
-    for name, ms, plain_ms, err, line in (
-            ("rotate_decompose", ms_k1, ms_k1_plain, err_k1, 1229),
-            ("external_product_crt", ms_k2, ms_k2_plain, err_k2, 1244)):
+    for name, line, src, width in (
+            ("rotate_decompose", 1229, "pbs_kernels.cuh", p.name),
+            ("external_product_crt", 1244, "pbs_kernels.cuh", p.name),
+            ("pbs_step", 1304, "step_kernels.cuh", "DEFAULT_PARAMETERS"),
+            ("blind_rotate_persistent", 1020, "step_kernels.cuh",
+             "DEFAULT_PARAMETERS"),
+            ("ntt_mac_prime", 1503, "pbs_kernels.cuh", "DEFAULT_PARAMETERS"),
+            ("crt_accumulate", 1520, "pbs_kernels.cuh", "DEFAULT_PARAMETERS")):
+        _, ms, plain_ms, bounds = modes_k[width]
         kernels.append({
             "name": name, "route": "cuda",
-            "source": "tfhe_tpu_torch/ops/csrc/pbs_kernels.cuh",
+            "source": f"tfhe_tpu_torch/ops/csrc/{src}",
             "replaces": f"tfhe_tpu/ops/fused_pbs.py:{line}",
-            "launches": launches[name], "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bounds[name][0],
-            "bound_by": bounds[name][1], "library_ms": None})
+            "launches": launches[name], "max_abs_err": errs[name],
+            "ms": ms[name], "plain_ms": plain_ms[name],
+            "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+            "library_ms": None})
     for name, line, src in (
             ("decompose", 264, "pbs_kernels.cuh"),
             ("multibit_combine", 747, "multibit_kernels.cuh"),
@@ -693,7 +1020,8 @@ def main():
             "bound_ms": mb_bounds[name][0], "bound_by": mb_bounds[name][1],
             "library_ms": None})
     say("done", t_start, main_path_s=round(t_main, 3),
-        main_path_multibit_s=round(t_main_mb, 3))
+        main_path_multibit_s=round(t_main_mb, 3),
+        main_path_boolean_s=round(t_main_bool, 3))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     faulthandler.cancel_dump_traceback_later()

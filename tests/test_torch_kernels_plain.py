@@ -65,10 +65,34 @@ def test_wrappers_take_the_plain_version_for_cpu_tensors_only():
     out = fused_pbs.external_product_crt(dig, key.kspec[0], key.kshoup[0], acc)
     assert torch.equal(out, fused_pbs.external_product_crt_plain(
         dig, key.kspec[0], acc))
-    assert [k.launches for k in fused_pbs.KERNELS] == [0, 0]
+    step = fused_pbs.pbs_step(acc, ahat, key.kspec[0], key.kshoup[0], bl, L)
+    assert torch.equal(step, fused_pbs.pbs_step_plain(acc, ahat, key.kspec[0],
+                                                      bl, L))
+    rot = fused_pbs.blind_rotate_persistent(acc, ahat[None], key.kspec,
+                                            key.kshoup, bl, L)
+    assert torch.equal(rot, step)
+    res = torch.zeros((4, G, 2, 5, N), dtype=torch.int32)
+    for pi in range(5):
+        fused_pbs.ntt_mac_prime(dig, key.kspec[0, pi], key.kshoup[0, pi], pi,
+                                res)
+    assert torch.equal(fused_pbs.crt_accumulate(res, acc), out)
+    assert [k.launches for k in fused_pbs.KERNELS] == [0] * len(
+        fused_pbs.KERNELS)
     with pytest.raises(ValueError):
         fused_pbs.rotate_decompose(acc.to("meta"), ahat.to("meta"), bl, L)
     with pytest.raises(ValueError):
         fused_pbs.external_product_crt(dig.to("meta"), key.kspec[0].to("meta"),
                                        key.kshoup[0].to("meta"),
                                        acc.to("meta"))
+    meta_key = (key.kspec[0].to("meta"), key.kshoup[0].to("meta"))
+    with pytest.raises(ValueError):
+        fused_pbs.pbs_step(acc.to("meta"), ahat.to("meta"), *meta_key, bl, L)
+    with pytest.raises(ValueError):
+        fused_pbs.blind_rotate_persistent(
+            acc.to("meta"), ahat[None].to("meta"), key.kspec.to("meta"),
+            key.kshoup.to("meta"), bl, L)
+    with pytest.raises(ValueError):
+        fused_pbs.ntt_mac_prime(dig.to("meta"), meta_key[0][0],
+                                meta_key[1][0], 0, res.to("meta"))
+    with pytest.raises(ValueError):
+        fused_pbs.crt_accumulate(res.to("meta"), acc.to("meta"))

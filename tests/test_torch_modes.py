@@ -1,0 +1,117 @@
+"""The port's classic blind rotation in every schedule of
+`fused_pbs.MODES` (on the CPU: the plain versions of each schedule's
+kernels) == tfhe_tpu.core.blind_rotate on the reference's CRT-NTT path, bit
+for bit, at the tests/test_fused_pbs.py cases; and the pieces each schedule
+is made of agree with each other."""
+
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+from tfhe_tpu.core import pbs as ref_pbs
+from tfhe_tpu.ops.polymul_ntt import prepare_bsk_ntt
+
+from tfhe_tpu_torch import core
+from tfhe_tpu_torch.ops import fused_pbs, ntt
+from tfhe_tpu_torch.ops.torus import to_numpy, to_tensor
+from test_torch_cases import CASES, IDS, rand_inputs
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The plain versions run thousands of small tensor ops; one thread
+    each keeps them fast when several test workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@functools.cache
+def _reference(i):
+    case = CASES[i]
+    rng = np.random.default_rng(42)
+    bsk_std, lut, lwe = rand_inputs(rng, *(case[k] for k in "nLGNB"),
+                                    case["bits"])
+    want = np.asarray(ref_pbs.blind_rotate(
+        prepare_bsk_ntt(bsk_std, case["bl"], bits=case["bits"]), lut, lwe))
+    return bsk_std, lut, lwe, want
+
+
+@pytest.mark.parametrize("mode", fused_pbs.MODES)
+@pytest.mark.parametrize("i", range(len(CASES)), ids=IDS)
+def test_blind_rotate_matches_reference_in_every_mode(i, mode):
+    bl, bits = CASES[i]["bl"], CASES[i]["bits"]
+    bsk_std, lut, lwe, want = _reference(i)
+    key = core.prepare_bsk_cuda(to_tensor(bsk_std, "cpu"), bl, bits)
+    got = core.blind_rotate(key, to_tensor(lut, "cpu"), to_tensor(lwe, "cpu"),
+                            mode=mode)
+    assert np.array_equal(to_numpy(got, bits), want)
+
+
+def _step_inputs(bits, seed=5, B=4, L=2, G=3, N=256, bl=8, n=3):
+    rng = np.random.default_rng(seed)
+    hi = 2**64 - 1 if bits == 64 else 2**32 - 1
+
+    def words(*shape):
+        return torch.from_numpy(rng.integers(0, hi, shape, dtype=np.uint64,
+                                             endpoint=True).view(np.int64))
+
+    key = fused_pbs.prepare_bsk_cuda(words(n, L, G, G, N), bl, bits)
+    ahat = torch.from_numpy(rng.integers(0, 2 * N, (n, B), endpoint=True)
+                            .astype(np.int32))
+    ahat[0, 0] = 2 * N  # 2N rotates as 0 in every schedule
+    ahat[1, 1] = 0
+    return key, words(B, G, N), ahat
+
+
+@pytest.mark.parametrize("bits", [64, 32])
+def test_schedule_pieces_agree(bits):
+    key, acc, ahat = _step_inputs(bits)
+    bl, L = key.base_log, key.levels
+    digits = fused_pbs.rotate_decompose(acc, ahat[0], bl, L, bits)
+    B, _, G, N = digits.shape
+    M = 2 if bits == 64 else 1
+    residues = torch.full((B, G, M, len(ntt.PRIMES), N), -1,
+                          dtype=torch.int32)
+    for pi in range(len(ntt.PRIMES)):
+        out = fused_pbs.ntt_mac_prime(digits, key.kspec[0, pi],
+                                      key.kshoup[0, pi], pi, residues)
+        assert out is residues
+        assert bool((residues[:, :, :, pi] >= 0).all())
+        assert bool((residues[:, :, :, pi] < ntt.PRIMES[pi]).all())
+    k2 = fused_pbs.external_product_crt(digits, key.kspec[0], key.kshoup[0],
+                                        acc, bits)
+    assert torch.equal(fused_pbs.crt_accumulate(residues, acc, bits), k2)
+    step = fused_pbs.pbs_step(acc, ahat[0], key.kspec[0], key.kshoup[0], bl,
+                              L, bits)
+    assert torch.equal(step, k2)
+    rot = fused_pbs.blind_rotate_persistent(acc, ahat, key.kspec, key.kshoup,
+                                            bl, L, bits)
+    for mode in fused_pbs.MODES:
+        assert torch.equal(fused_pbs.blind_rotate_fused(key, acc, ahat, mode),
+                           rot)
+
+
+def test_rotation_by_2n_is_the_identity_in_every_mode():
+    key, acc, _ = _step_inputs(64)
+    N = acc.shape[-1]
+    full = torch.full((key.input_dim, acc.shape[0]), 2 * N, dtype=torch.int32)
+    zero = torch.zeros_like(full)
+    for mode in fused_pbs.MODES:
+        assert torch.equal(fused_pbs.blind_rotate_fused(key, acc, full, mode),
+                           acc)
+        assert torch.equal(fused_pbs.blind_rotate_fused(key, acc, zero, mode),
+                           acc)
+
+
+def test_unknown_mode_is_refused():
+    key, acc, ahat = _step_inputs(64)
+    for mode in ("scan1w", "mega", "", "SCAN2"):
+        with pytest.raises(ValueError, match="mode"):
+            fused_pbs.blind_rotate_fused(key, acc, ahat, mode)
+    lwe = torch.zeros((2, key.input_dim + 1), dtype=torch.int64)
+    with pytest.raises(ValueError, match="mode"):
+        core.programmable_bootstrap(key, acc[0], lwe, mode="grid2")

@@ -1,0 +1,163 @@
+"""The kernels of the classic schedules "scan1" (K3 `pbs_step`), "grid" (K5
+`blind_rotate_persistent`) and "scan3" (K6 `ntt_mac_prime`,
+`crt_accumulate`) against their plain versions, bit for bit, on a card
+(tolerance 0): at the tests/test_fused_pbs.py cases and at the widths of
+PARAM_MESSAGE_2_CARRY_2_KS_PBS and of boolean DEFAULT_PARAMETERS; a blind
+rotation in every mode, equal across modes, with its launch counts; the
+empty batch; a batch past 65535 ciphertexts in one persistent launch; and
+the layouts beyond the kernels' limits, refused.  Marked `cuda`: they skip
+where there is no card; on one, run
+`python -m pytest -m cuda --noconftest tests/test_torch_modes_kernels_cuda.py`
+(tests/conftest.py imports JAX, which is not needed here)."""
+
+import numpy as np
+import pytest
+import torch
+
+from tfhe_tpu_torch.ops import fused_pbs, ntt
+from test_torch_cases import CASES, IDS
+
+pytestmark = pytest.mark.cuda
+
+# n is the number of blind-rotation steps
+WIDTHS = [dict(n=3, L=1, G=2, N=2048, B=64, bl=23, bits=64),
+          dict(n=3, L=3, G=3, N=512, B=64, bl=6, bits=32)]
+WIDTH_IDS = ["n3L1G2N2048", "n3L3G3N512u32"]
+P = len(ntt.PRIMES)
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _inputs(rng, case, dev):
+    steps, L, G, N, B, bl, bits = (case[k] for k in ("n", "L", "G", "N", "B",
+                                                     "bl", "bits"))
+    hi = 2**64 - 1 if bits == 64 else 2**32 - 1
+
+    def words(*shape):
+        x = rng.integers(0, hi, shape, dtype=np.uint64, endpoint=True)
+        return torch.from_numpy(x.view(np.int64)).to(dev)
+
+    key = fused_pbs.prepare_bsk_cuda(words(steps, L, G, G, N), bl, bits)
+    ahat = torch.from_numpy(rng.integers(0, 2 * N, (steps, B), endpoint=True)
+                            .astype(np.int32)).to(dev)
+    ahat[0, 0] = 2 * N
+    return key, words(B, G, N), ahat
+
+
+@pytest.mark.parametrize("case", CASES + WIDTHS, ids=IDS + WIDTH_IDS)
+def test_kernels_match_plain(case, card):
+    rng = np.random.default_rng(13)
+    key, acc, ahat = _inputs(rng, case, card)
+    bl, L, bits = key.base_log, key.levels, key.bits
+    B, G, N = acc.shape
+    M = 2 if bits == 64 else 1
+    dig = fused_pbs.rotate_decompose_plain(acc, ahat[0], bl, L, bits)
+    res = torch.empty((B, G, M, P, N), dtype=torch.int32, device=card)
+    res_p = torch.empty_like(res)
+    for pi in range(P):
+        fused_pbs.ntt_mac_prime(dig, key.kspec[0, pi], key.kshoup[0, pi], pi,
+                                res)
+        fused_pbs.ntt_mac_prime_plain(dig, key.kspec[0, pi], pi, res_p)
+    torch.cuda.synchronize()
+    assert torch.equal(res, res_p)
+    assert torch.equal(fused_pbs.crt_accumulate(res_p, acc, bits),
+                       fused_pbs.crt_accumulate_plain(res_p, acc, bits))
+    step = fused_pbs.pbs_step(acc, ahat[0], key.kspec[0], key.kshoup[0], bl,
+                              L, bits)
+    assert torch.equal(step, fused_pbs.pbs_step_plain(acc, ahat[0],
+                                                      key.kspec[0], bl, L,
+                                                      bits))
+    rot = fused_pbs.blind_rotate_persistent(acc, ahat, key.kspec, key.kshoup,
+                                            bl, L, bits)
+    torch.cuda.synchronize()
+    assert torch.equal(rot, fused_pbs.blind_rotate_persistent_plain(
+        acc, ahat, key.kspec, bl, L, bits))
+
+
+@pytest.mark.parametrize("case", [CASES[2]] + WIDTHS,
+                         ids=[IDS[2]] + WIDTH_IDS)
+def test_every_mode_gives_the_same_rotation_with_its_launches(case, card):
+    rng = np.random.default_rng(17)
+    key, acc, ahat = _inputs(rng, case, card)
+    n = key.input_dim
+    want = {"scan2": dict(rotate_decompose=n, external_product_crt=n),
+            "scan1": dict(pbs_step=n),
+            "scan3": dict(rotate_decompose=n, ntt_mac_prime=n * P,
+                          crt_accumulate=n),
+            "grid": dict(blind_rotate_persistent=1)}
+    outs = {}
+    for mode in fused_pbs.MODES:
+        fused_pbs.reset_launch_counts()
+        outs[mode] = fused_pbs.blind_rotate_fused(key, acc, ahat, mode)
+        torch.cuda.synchronize()
+        launches = {fn.__name__: fn.launches for fn in fused_pbs.KERNELS
+                    if fn.launches}
+        assert launches == want[mode], mode
+    for mode in fused_pbs.MODES:
+        assert torch.equal(outs[mode], outs["scan2"]), mode
+
+
+def test_empty_batch_launches_nothing_in_any_mode(card):
+    key = fused_pbs.prepare_bsk_cuda(
+        torch.zeros((2, 3, 3, 3, 512), dtype=torch.int64, device=card), 6, 32)
+    acc = torch.zeros((0, 3, 512), dtype=torch.int64, device=card)
+    ahat = torch.zeros((2, 0), dtype=torch.int32, device=card)
+    fused_pbs.reset_launch_counts()
+    for mode in fused_pbs.MODES:
+        out = fused_pbs.blind_rotate_fused(key, acc, ahat, mode)
+        assert out.shape == (0, 3, 512)
+    torch.cuda.synchronize()
+    assert [k.launches for k in fused_pbs.KERNELS] == [0] * len(
+        fused_pbs.KERNELS)
+
+
+def test_persistent_batch_beyond_65535(card):
+    # one cluster per ciphertext on grid.x: 65544 ciphertexts in one launch
+    rng = np.random.default_rng(19)
+    case = dict(n=2, L=1, G=2, N=256, B=65536 + 8, bl=23, bits=64)
+    key, acc, ahat = _inputs(rng, case, card)
+    out = fused_pbs.blind_rotate_persistent(acc, ahat, key.kspec, key.kshoup,
+                                            23, 1)
+    rows = torch.cat([torch.arange(8), torch.arange(case["B"] - 16,
+                                                    case["B"])]).to(card)
+    want = fused_pbs.blind_rotate_persistent_plain(
+        acc[rows], ahat[:, rows].contiguous(), key.kspec, 23, 1)
+    torch.cuda.synchronize()
+    assert torch.equal(out[rows], want)
+
+
+def test_layouts_beyond_the_kernels_limits_are_refused(card):
+    # bad dtypes and shapes are refused by the wrappers
+    acc = torch.zeros((2, 2, 256), dtype=torch.int64, device=card)
+    key = fused_pbs.prepare_bsk_cuda(
+        torch.zeros((1, 1, 2, 2, 256), dtype=torch.int64, device=card), 23)
+    ahat = torch.zeros((1, 2), dtype=torch.int32, device=card)
+    with pytest.raises(ValueError):
+        fused_pbs.pbs_step(acc, ahat[0].long(), key.kspec[0], key.kshoup[0],
+                           23, 1)
+    with pytest.raises(ValueError):
+        fused_pbs.blind_rotate_persistent(acc, ahat, key.kspec[:, :3],
+                                          key.kshoup, 23, 1)
+    res = torch.zeros((2, 2, 2, P, 256), dtype=torch.int32, device=card)
+    dig = torch.zeros((2, 1, 2, 256), dtype=torch.int32, device=card)
+    with pytest.raises(ValueError):
+        fused_pbs.ntt_mac_prime(dig, key.kspec[0, 0], key.kshoup[0, 0], P,
+                                res)
+    with pytest.raises(ValueError):
+        fused_pbs.crt_accumulate(res, acc, bits=32)
+    # a cluster step whose shared memory exceeds a block's (G = 4, L = 4 at
+    # N = 2048: 64 KB of accumulator and 192 KB of spectra) is refused by
+    # the C entry point
+    G, L, N = 4, 4, 2048
+    big = fused_pbs.prepare_bsk_cuda(
+        torch.zeros((1, L, G, G, N), dtype=torch.int64, device=card), 8)
+    acc = torch.zeros((1, G, N), dtype=torch.int64, device=card)
+    with pytest.raises(RuntimeError, match="cudaErrorInvalidValue"):
+        fused_pbs.blind_rotate_persistent(
+            acc, torch.zeros((1, 1), dtype=torch.int32, device=card),
+            big.kspec, big.kshoup, 8, L)

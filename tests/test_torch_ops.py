@@ -123,6 +123,18 @@ def test_ntt_round_trip_and_product_mod_p(N):
             assert [v % p for v in c] == [int(v) for v in prod[r, i]]
 
 
+@pytest.mark.parametrize("prime", range(len(ntt.PRIMES)))
+def test_ntt_of_one_prime_is_that_row(prime):
+    rng = np.random.default_rng(prime)
+    a = torch.from_numpy(rng.integers(-2**31, 2**31, (3, 64)))
+    A = ntt.forward_ntt(a)
+    one = ntt.forward_ntt(a, prime)
+    assert one.shape == (3, 1, 64)
+    assert torch.equal(one, A[:, prime:prime + 1])
+    assert torch.equal(ntt.inverse_ntt(one, prime),
+                       ntt.inverse_ntt(A)[:, prime:prime + 1])
+
+
 def test_crt_to_u64_matches_python_integers():
     rng = np.random.default_rng(5)
     half = (ntt.CRT_MODULUS - 1) // 2

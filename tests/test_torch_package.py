@@ -1,6 +1,7 @@
 """Package rules of tfhe_tpu_torch: no JAX and nothing of tfhe_tpu inside
-the port or chip_smoke.py; entry points run on the card unless the caller
-asks for the CPU; chip_smoke.py refuses to run without a card."""
+the port, chip_smoke.py or kernel_times.py; entry points run on the card
+unless the caller asks for the CPU; chip_smoke.py refuses to run without a
+card."""
 
 import ast
 import os
@@ -14,16 +15,18 @@ import torch
 
 import tfhe_tpu_torch
 import tfhe_tpu_torch.weights
-from tfhe_tpu_torch import core, shortint
+from tfhe_tpu_torch import boolean, core, shortint
 from tfhe_tpu_torch.device import resolve_device
 from tfhe_tpu_torch.prng.generators import SecretRandomGenerator
 from tfhe_tpu_torch.params import (
+    BOOLEAN_TEST_PARAMETERS,
     PARAM_MESSAGE_2_CARRY_2_COMPACT_TEST,
     PARAM_MULTI_BIT_MESSAGE_2_CARRY_2_GROUP_2_TEST)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.dirname(tfhe_tpu_torch.__file__)
 SMOKE = os.path.join(ROOT, "chip_smoke.py")
+KERNEL_TIMES = os.path.join(ROOT, "kernel_times.py")
 
 
 def _port_sources():
@@ -33,6 +36,7 @@ def _port_sources():
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)
     yield SMOKE
+    yield KERNEL_TIMES
 
 
 def _imported_modules(path):
@@ -57,16 +61,18 @@ def test_port_imports_with_jax_unimportable():
     modules = sorted(
         "tfhe_tpu_torch." + os.path.relpath(p, PKG)[:-3].replace(os.sep, ".")
         .replace(".__init__", "")
-        for p in _port_sources() if p != SMOKE)
+        for p in _port_sources() if p not in (SMOKE, KERNEL_TIMES))
     code = ("import sys\n"
             "for m in ('jax', 'jaxlib', 'tfhe_tpu'): sys.modules[m] = None\n"
             "import importlib\n"
             f"for m in {modules!r}: importlib.import_module(m.replace("
             "'tfhe_tpu_torch.__init__', 'tfhe_tpu_torch'))\n"
-            "import runpy; runpy.run_path(sys.argv[1], run_name='imported')\n"
+            "import runpy\n"
+            "for f in sys.argv[1:]: runpy.run_path(f, run_name='imported')\n"
             "assert not any(k.split('.')[0] in ('jax', 'tfhe_tpu') and v "
             "for k, v in sys.modules.items())\n")
-    proc = subprocess.run([sys.executable, "-c", code, SMOKE], cwd=ROOT,
+    proc = subprocess.run([sys.executable, "-c", code, SMOKE, KERNEL_TIMES],
+                          cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
 
@@ -117,6 +123,42 @@ def test_multi_bit_entry_points_need_a_card_unless_asked_for_the_cpu():
             np.zeros((256, 5, 17), np.uint64))
     cks, sks = shortint.gen_keys(p, seed=1, device="cpu")
     assert sks.device == torch.device("cpu") and sks.is_multi_bit
+
+
+def test_boolean_modules_are_among_the_checked_sources():
+    # the walk above reaches the boolean slice's modules, and none of them
+    # imports JAX or the reference
+    checked = {os.path.relpath(p, ROOT) for p in _port_sources()}
+    new = {"tfhe_tpu_torch/boolean/__init__.py",
+           "tfhe_tpu_torch/params/boolean_params.py",
+           "tfhe_tpu_torch/ops/fused_pbs.py"}
+    assert new <= checked
+    for rel in sorted(new):
+        mods = list(_imported_modules(os.path.join(ROOT, rel)))
+        assert not [m for m in mods
+                    if m.split(".")[0] in ("jax", "jaxlib", "tfhe_tpu")]
+
+
+def test_boolean_entry_points_need_a_card_unless_asked_for_the_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the no-card refusal cannot be shown")
+    p = BOOLEAN_TEST_PARAMETERS
+    G, N, n = p.glwe_size, p.polynomial_size, p.lwe_dimension
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        boolean.gen_keys(p, seed=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        boolean.ClientKey(p, seed=1)
+    bsk = np.zeros((n, p.pbs_level, G, G, N), np.uint32)
+    ksk = np.zeros((p.big_lwe_dimension, p.ks_level, n + 1), np.uint32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        boolean.ServerKey.from_raw(p, bsk, ksk)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tfhe_tpu_torch.weights.boolean_server_key_from_reference(p, bsk, ksk)
+    cks = boolean.ClientKey(p, seed=1, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        boolean.ServerKey(cks, device="cuda")
+    sks = boolean.ServerKey(cks)
+    assert sks.device == torch.device("cpu") and sks.mode == "scan2"
 
 
 @pytest.mark.parametrize("where", ["checkout", "bare_directory"])

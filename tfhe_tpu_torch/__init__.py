@@ -1,13 +1,15 @@
 """tfhe_tpu_torch: the PyTorch + CUDA port of tfhe_tpu for NVIDIA Hopper.
 
-This port covers shortint lookup-table evaluation: keyswitch + classic PBS,
-and keyswitch + multi-bit PBS.
+This port covers shortint lookup-table evaluation (keyswitch + classic PBS,
+and keyswitch + multi-bit PBS) and boolean gates (classic PBS in either
+order, on the u32 torus).
 Entry points run on the card (device="cuda") unless the caller passes
 device="cpu", which runs the plain PyTorch versions of the kernels.  The
 package imports torch and numpy, never JAX or tfhe_tpu.
 """
 
-from . import params, shortint
+from . import boolean, params, shortint
 from .shortint import ClientKey, ServerKey, gen_keys
 
-__all__ = ["params", "shortint", "ClientKey", "ServerKey", "gen_keys"]
+__all__ = ["boolean", "params", "shortint", "ClientKey", "ServerKey",
+           "gen_keys"]

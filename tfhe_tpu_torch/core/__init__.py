@@ -1,6 +1,7 @@
 """Core crypto: keygen, encryption, keyswitch, programmable bootstrap.
 
-Port of `tfhe_tpu/core` for the classic and multi-bit shortint PBS paths."""
+Port of `tfhe_tpu/core` for the classic and multi-bit PBS paths, in both
+PBS orders for the classic one."""
 
 from .secret import GlweSecretKey, LweSecretKey, binary_ext_matrix, glwe_phase
 from .encrypt import (decrypt_glwe, decrypt_lwe, encrypt_glwe_assign,
@@ -11,7 +12,7 @@ from .keygen import (PreparedKsk, generate_binary_glwe_secret_key,
 from .keyswitch import keyswitch
 from .lut import fill_accumulator, make_lut_glwe
 from .pbs import (blind_rotate, keyswitch_then_pbs, modulus_switch,
-                  programmable_bootstrap, sample_extract)
+                  pbs_then_keyswitch, programmable_bootstrap, sample_extract)
 from .multibit import (combine_key_bits, generate_multi_bit_bootstrap_key,
                        keyswitch_then_multi_bit_pbs, multi_bit_blind_rotate,
                        multi_bit_pbs_then_keyswitch,
@@ -30,7 +31,7 @@ __all__ = [
     "PreparedKsk", "PreparedBskCuda", "prepare_bsk_cuda",
     "keyswitch", "fill_accumulator", "make_lut_glwe",
     "modulus_switch", "blind_rotate", "sample_extract",
-    "programmable_bootstrap", "keyswitch_then_pbs",
+    "programmable_bootstrap", "keyswitch_then_pbs", "pbs_then_keyswitch",
     "combine_key_bits", "generate_multi_bit_bootstrap_key",
     "PreparedMultiBitBskCuda", "prepare_multi_bit_bsk_cuda",
     "switched_subset_sums", "multi_bit_blind_rotate",

@@ -3,9 +3,10 @@
 Port of `tfhe_tpu/core/pbs.py` (ref: fft_impl/fft64/crypto/bootstrap.rs:
 242-364 and fft_impl/common.rs:26-43).  The blind rotation runs the step
 kernels of `ops/fused_pbs.py` on CUDA tensors and their plain versions on
-CPU tensors.  A zero mask element contributes an exactly-zero update
-(acc * X^0 - acc = 0), so the reference's skip-if-zero branch needs no
-data-dependent control flow.
+CPU tensors, in the schedule that `mode` names (`ops.fused_pbs.MODES`;
+every schedule gives the same words).  A zero mask element contributes an
+exactly-zero update (acc * X^0 - acc = 0), so the reference's skip-if-zero
+branch needs no data-dependent control flow.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ def modulus_switch(x: torch.Tensor, N: int, bits: int = 64) -> torch.Tensor:
 
 
 def blind_rotate(bsk: PreparedBskCuda, lut: torch.Tensor,
-                 lwe: torch.Tensor) -> torch.Tensor:
+                 lwe: torch.Tensor, mode: str = "scan2") -> torch.Tensor:
     """lut [B, G, N] (or [G, N]) int64, lwe [B, n+1] int64 -> [B, G, N].
 
     acc := lut * X^{-b~}; then for each mask element a_i:
@@ -42,7 +43,7 @@ def blind_rotate(bsk: PreparedBskCuda, lut: torch.Tensor,
     b_hat = modulus_switch(lwe[:, -1], N, bits=bits)
     acc = polymul.monomial_div(lut, b_hat[:, None], N, bits=bits)
     ahat = modulus_switch(lwe[:, :-1], N, bits=bits).t().contiguous()  # [n, B]
-    return blind_rotate_fused(bsk, acc, ahat)
+    return blind_rotate_fused(bsk, acc, ahat, mode)
 
 
 def sample_extract(glwe: torch.Tensor, bits: int = 64) -> torch.Tensor:
@@ -59,14 +60,24 @@ def sample_extract(glwe: torch.Tensor, bits: int = 64) -> torch.Tensor:
 
 
 def programmable_bootstrap(bsk: PreparedBskCuda, lut: torch.Tensor,
-                           lwe: torch.Tensor) -> torch.Tensor:
+                           lwe: torch.Tensor,
+                           mode: str = "scan2") -> torch.Tensor:
     """Classic PBS: [B, n+1] -> [B, k*N + 1] evaluating the LUT
     (ref: algorithms/lwe_programmable_bootstrapping.rs:1017)."""
-    return sample_extract(blind_rotate(bsk, lut, lwe), bits=bsk.bits)
+    return sample_extract(blind_rotate(bsk, lut, lwe, mode), bits=bsk.bits)
 
 
 def keyswitch_then_pbs(ksk: PreparedKsk, bsk: PreparedBskCuda,
-                       lut: torch.Tensor, ct_big: torch.Tensor) -> torch.Tensor:
+                       lut: torch.Tensor, ct_big: torch.Tensor,
+                       mode: str = "scan2") -> torch.Tensor:
     """The shortint default pipeline (PBSOrder::KeyswitchBootstrap,
     ref: shortint/server_key/mod.rs:783-857)."""
-    return programmable_bootstrap(bsk, lut, keyswitch(ksk, ct_big))
+    return programmable_bootstrap(bsk, lut, keyswitch(ksk, ct_big), mode)
+
+
+def pbs_then_keyswitch(ksk: PreparedKsk, bsk: PreparedBskCuda,
+                       lut: torch.Tensor, ct_small: torch.Tensor,
+                       mode: str = "scan2") -> torch.Tensor:
+    """PBSOrder::BootstrapKeyswitch, the boolean DEFAULT_PARAMETERS path
+    (tfhe_tpu/core/pbs.py:189)."""
+    return keyswitch(ksk, programmable_bootstrap(bsk, lut, ct_small, mode))

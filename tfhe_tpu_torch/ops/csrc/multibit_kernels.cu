@@ -111,7 +111,8 @@ extern "C" int tfhe_multibit_external_product(
   if (err) return err;
   tfhe_pbs::ntt_mac_kernel<true><<<dim3(B, P), ntt_threads(N), smem, st>>>(
       (const int32_t*)digits, (const uint32_t*)combined, nullptr,
-      (const uint32_t*)tables, (uint32_t*)residues, LJ, O, M, N, log2_int(N));
+      (const uint32_t*)tables, (uint32_t*)residues, LJ, O, M, N, log2_int(N),
+      0, P);
   err = (int)cudaGetLastError();
   if (err) return err;
   return crt_replace(residues, crt, out, B, O, M, P, N, bits, st);

@@ -77,11 +77,46 @@ __device__ __forceinline__ uint32_t mul_mod(uint32_t a, uint32_t b,
   return r >= p ? r - p : r;
 }
 
+// Coefficient j of acc * X^a - acc for one GLWE polynomial `row`, masked to
+// the torus width, for a in [0, 2N): coefficient j of acc * X^a is
+// +-acc[(j - a) mod N], negated when (j - a) mod 2N wraps past N (X^N == -1).
+__device__ __forceinline__ uint64_t rotated_diff(const int64_t* row, int a,
+                                                 int j, int N, uint64_t mask) {
+  const int t = (j - a) & (2 * N - 1);
+  uint64_t v = (uint64_t)row[t & (N - 1)];
+  if (t >= N) v = 0ull - v;
+  return (v - (uint64_t)row[j]) & mask;
+}
+
+// The signed gadget decomposition of one torus word
+// (tfhe_tpu/ops/decomposition.py:24-87): emit(level, digit) for each of the
+// `levels` digits, level index 0 the largest.
+template <typename Emit>
+__device__ __forceinline__ void decompose_word(uint64_t diff, int base_log,
+                                               int levels, int bits,
+                                               uint64_t mask, Emit emit) {
+  // closest_representable: round to a multiple of q / B^levels
+  const int non_rep = bits - base_log * levels;
+  uint64_t res = ((diff >> (non_rep - 1)) + 1ull) & ~1ull;
+  res = (res << (non_rep - 1)) & mask;
+  uint64_t state = res >> non_rep;
+  const uint64_t bmask = (1ull << base_log) - 1ull;
+  for (int k = 0; k < levels; ++k) {
+    const uint64_t r = state & bmask;
+    state >>= base_log;
+    uint64_t carry = ((r - 1ull) | state) & r;
+    carry >>= (base_log - 1);
+    state += carry;
+    // digits come out smallest weight first
+    emit(levels - 1 - k, (int32_t)r - ((int32_t)carry << base_log));
+  }
+}
+
 // K1 (kRotate): rotated = acc * X^ahat, diff = rotated - acc, then the
-// signed gadget decomposition of diff (tfhe_tpu/ops/decomposition.py:24-87).
-// Without kRotate, the decomposition of acc itself (the multi-bit step,
-// tfhe_tpu/ops/fused_multibit.py:264 _dec_limbs); ahat is not read.  One
-// thread per (ciphertext, GLWE polynomial, coefficient).
+// signed gadget decomposition of diff.  Without kRotate, the decomposition
+// of acc itself (the multi-bit step, tfhe_tpu/ops/fused_multibit.py:264
+// _dec_limbs); ahat is not read.  One thread per (ciphertext, GLWE
+// polynomial, coefficient).
 template <bool kRotate>
 __global__ void rotate_decompose_kernel(const int64_t* __restrict__ acc,
                                         const int32_t* __restrict__ ahat,
@@ -97,35 +132,17 @@ __global__ void rotate_decompose_kernel(const int64_t* __restrict__ acc,
 
   uint64_t diff;
   if constexpr (kRotate) {
-    // coefficient j of acc * X^a is +-acc[(j - a) mod N], negated when
-    // (j - a) mod 2N wraps past N (X^N == -1); a == 2N is the identity
-    const int a = ahat[b] & (2 * N - 1);
-    const int t = (j - a) & (2 * N - 1);
-    const int64_t* row = acc + ((long long)b * G + g) * N;
-    uint64_t v = (uint64_t)row[t & (N - 1)];
-    if (t >= N) v = 0ull - v;
-    diff = (v - (uint64_t)row[j]) & mask;
+    // a == 2N is the identity
+    diff = rotated_diff(acc + ((long long)b * G + g) * N,
+                        ahat[b] & (2 * N - 1), j, N, mask);
   } else {
     diff = (uint64_t)acc[idx] & mask;
   }
-
-  // closest_representable: round to a multiple of q / B^levels
-  const int non_rep = bits - base_log * levels;
-  uint64_t res = ((diff >> (non_rep - 1)) + 1ull) & ~1ull;
-  res = (res << (non_rep - 1)) & mask;
-  uint64_t state = res >> non_rep;
-  const uint64_t bmask = (1ull << base_log) - 1ull;
-  for (int k = 0; k < levels; ++k) {
-    const uint64_t r = state & bmask;
-    state >>= base_log;
-    uint64_t carry = ((r - 1ull) | state) & r;
-    carry >>= (base_log - 1);
-    state += carry;
-    const int32_t digit = (int32_t)r - ((int32_t)carry << base_log);
-    // digits come out smallest weight first; level index 0 is the largest
-    const int lvl = levels - 1 - k;
-    digits[(((long long)b * levels + lvl) * G + g) * N + j] = digit;
-  }
+  decompose_word(diff, base_log, levels, bits, mask,
+                 [&](int lvl, int32_t digit) {
+                   digits[(((long long)b * levels + lvl) * G + g) * N + j] =
+                       digit;
+                 });
 }
 
 // Forward negacyclic NTT of `count` polynomials held in shared memory:
@@ -179,44 +196,22 @@ __device__ __forceinline__ void ntt_inverse_smem(uint32_t* a, int count,
   }
 }
 
-// K2, first half: one block per (ciphertext, prime).  Digits mod p ->
-// forward NTT -> spectrum multiply-accumulate against the step's key ->
-// inverse NTT -> per-prime residues of the O*M convolutions.  With
-// kKeyPerCiphertext the key is [B, P, LJ, O, M, N], one per ciphertext
-// (the multi-bit combined key), its products are Barrett products and
-// kshoup is not read.
+// One prime's external product of one ciphertext, in shared memory: dsp
+// [LJ, N] holds the digits mod p (written and synchronised by the caller)
+// and is transformed in place; on return osp [O*M, N] holds the inverse
+// transforms of sum_lj dsp_lj * key_lj, not yet scaled by N^-1.  ks (and ksh)
+// point at this prime's key block [LJ, O*M, N]; with kKeyPerCiphertext the
+// key varies per ciphertext (the multi-bit combined key), its products are
+// Barrett products and ksh is not read.
 template <bool kKeyPerCiphertext>
-__global__ void ntt_mac_kernel(const int32_t* __restrict__ digits,
-                               const uint32_t* __restrict__ kspec,
-                               const uint32_t* __restrict__ kshoup,
-                               const uint32_t* __restrict__ tables,
-                               uint32_t* __restrict__ residues, int LJ, int O,
-                               int M, int N, int log_n) {
-  extern __shared__ uint32_t smem[];
-  const int b = blockIdx.x;
-  const int pi = blockIdx.y;
-  const int P = gridDim.y;
-  const int OM = O * M;
-  const uint32_t* tab = tables + (long long)pi * 5 * N;
-  const uint32_t ninv = tab[4 * N];
-  const uint32_t ninv_sh = tab[4 * N + 1];
+__device__ __forceinline__ void ntt_mac_smem(uint32_t* dsp, uint32_t* osp,
+                                             const uint32_t* ks,
+                                             const uint32_t* ksh,
+                                             const uint32_t* tab, int LJ,
+                                             int OM, int N, int log_n) {
   const uint32_t p = tab[4 * N + 2];
   const uint32_t mu = tab[4 * N + 3];
-  uint32_t* dsp = smem;           // [LJ, N] digit spectra
-  uint32_t* osp = smem + LJ * N;  // [O*M, N] output spectra
-
-  const int32_t* dig = digits + (long long)b * LJ * N;
-  for (int idx = threadIdx.x; idx < LJ * N; idx += blockDim.x) {
-    int32_t r = dig[idx] % (int32_t)p;
-    dsp[idx] = (uint32_t)(r < 0 ? r + (int32_t)p : r);
-  }
-  __syncthreads();
   ntt_forward_smem(dsp, LJ, N, log_n, tab, tab + N, p);
-
-  const long long kstride = (long long)LJ * OM * N;
-  const long long kblock = kKeyPerCiphertext ? (long long)b * P + pi : pi;
-  const uint32_t* ks = kspec + kblock * kstride;
-  const uint32_t* ksh = kKeyPerCiphertext ? nullptr : kshoup + pi * kstride;
   for (int idx = threadIdx.x; idx < OM * N; idx += blockDim.x) {
     const int n = idx & (N - 1);
     uint32_t s = 0;
@@ -232,6 +227,46 @@ __global__ void ntt_mac_kernel(const int32_t* __restrict__ digits,
   }
   __syncthreads();
   ntt_inverse_smem(osp, OM, N, log_n, tab + 2 * N, tab + 3 * N, p);
+}
+
+// K2, first half, and K6's per-prime stage: one block per (ciphertext,
+// prime).  Digits mod p -> forward NTT -> spectrum multiply-accumulate
+// against the step's key -> inverse NTT -> per-prime residues of the O*M
+// convolutions.  The block's prime is prime0 + blockIdx.y of P; kspec (and
+// kshoup) start at prime prime0's block, [gridDim.y, LJ, O, M, N], or with
+// kKeyPerCiphertext are the whole [B, P, LJ, O, M, N].
+template <bool kKeyPerCiphertext>
+__global__ void ntt_mac_kernel(const int32_t* __restrict__ digits,
+                               const uint32_t* __restrict__ kspec,
+                               const uint32_t* __restrict__ kshoup,
+                               const uint32_t* __restrict__ tables,
+                               uint32_t* __restrict__ residues, int LJ, int O,
+                               int M, int N, int log_n, int prime0, int P) {
+  extern __shared__ uint32_t smem[];
+  const int b = blockIdx.x;
+  const int pi = prime0 + blockIdx.y;
+  const int OM = O * M;
+  const uint32_t* tab = tables + (long long)pi * 5 * N;
+  const uint32_t ninv = tab[4 * N];
+  const uint32_t ninv_sh = tab[4 * N + 1];
+  const uint32_t p = tab[4 * N + 2];
+  uint32_t* dsp = smem;           // [LJ, N] digit spectra
+  uint32_t* osp = smem + LJ * N;  // [O*M, N] output spectra
+
+  const int32_t* dig = digits + (long long)b * LJ * N;
+  for (int idx = threadIdx.x; idx < LJ * N; idx += blockDim.x) {
+    int32_t r = dig[idx] % (int32_t)p;
+    dsp[idx] = (uint32_t)(r < 0 ? r + (int32_t)p : r);
+  }
+  __syncthreads();
+
+  const long long kstride = (long long)LJ * OM * N;
+  const long long kblock =
+      kKeyPerCiphertext ? (long long)b * P + pi : blockIdx.y;
+  ntt_mac_smem<kKeyPerCiphertext>(
+      dsp, osp, kspec + kblock * kstride,
+      kKeyPerCiphertext ? nullptr : kshoup + kblock * kstride, tab, LJ, OM, N,
+      log_n);
 
   for (int idx = threadIdx.x; idx < OM * N; idx += blockDim.x) {
     const int n = idx & (N - 1);
@@ -241,12 +276,41 @@ __global__ void ntt_mac_kernel(const int32_t* __restrict__ digits,
   }
 }
 
-// K2, second half: balanced Garner reconstruction of each convolution (the
-// unique integer in (-M/2, M/2) with the given residues, M = prod p), its
-// planes recombined as conv_0 + 2^32 conv_1, added to the accumulator mod
-// 2^64 (kAccumulate) or written as the new accumulator (the multi-bit
-// step; acc is not read).  One thread per (ciphertext, output polynomial,
-// coefficient).
+// Balanced Garner reconstruction of one convolution coefficient from its P
+// canonical residues, residue(i) for prime i: the unique integer in
+// (-Q/2, Q/2), Q = prod p, with those residues, as a word mod 2^64.
+template <typename Residue>
+__device__ __forceinline__ uint64_t garner(Residue residue,
+                                           const int64_t* __restrict__ crt,
+                                           int P) {
+  const int W = 2 * P + 4;  // row width of the Garner table
+  int32_t bs[kMaxPrimes];
+  uint64_t x = 0;
+  for (int i = 0; i < P; ++i) {
+    const int64_t* row = crt + (long long)i * W;
+    const uint32_t p = (uint32_t)row[2 * P + 2];
+    uint32_t partial = 0;
+    for (int j = 0; j < i; ++j) {
+      // |b_j| < p_j / 2 < p_i (primes ascend), so one add canonicalizes
+      const uint32_t bj = (uint32_t)(bs[j] < 0 ? bs[j] + (int32_t)p : bs[j]);
+      partial = add_mod(partial,
+                        mul_shoup(bj, (uint32_t)row[j], (uint32_t)row[P + j],
+                                  p),
+                        p);
+    }
+    uint32_t d = sub_mod(residue(i), partial, p);
+    d = mul_shoup(d, (uint32_t)row[2 * P], (uint32_t)row[2 * P + 1], p);
+    bs[i] = d > p / 2 ? (int32_t)d - (int32_t)p : (int32_t)d;
+    x += (uint64_t)(int64_t)bs[i] * (uint64_t)row[2 * P + 3];
+  }
+  return x;
+}
+
+// K2, second half, and K6's last stage: Garner's reconstruction of each
+// convolution, its planes recombined as conv_0 + 2^32 conv_1, added to the
+// accumulator mod 2^64 (kAccumulate) or written as the new accumulator (the
+// multi-bit step; acc is not read).  One thread per (ciphertext, output
+// polynomial, coefficient).
 template <bool kAccumulate>
 __global__ void crt_accumulate_kernel(const uint32_t* __restrict__ residues,
                                       const int64_t* __restrict__ crt,
@@ -257,29 +321,11 @@ __global__ void crt_accumulate_kernel(const uint32_t* __restrict__ residues,
   if (idx >= (long long)B * O * N) return;
   const int n = (int)(idx % N);
   const long long bo = idx / N;  // b * O + o
-  const int W = 2 * P + 4;       // row width of the Garner table
   uint64_t total = kAccumulate ? (uint64_t)acc[idx] : 0ull;
   for (int m = 0; m < M; ++m) {
     const uint32_t* r = residues + ((bo * M + m) * P) * N + n;
-    int32_t bs[kMaxPrimes];
-    uint64_t x = 0;
-    for (int i = 0; i < P; ++i) {
-      const int64_t* row = crt + (long long)i * W;
-      const uint32_t p = (uint32_t)row[2 * P + 2];
-      uint32_t partial = 0;
-      for (int j = 0; j < i; ++j) {
-        // |b_j| < p_j / 2 < p_i (primes ascend), so one add canonicalizes
-        const uint32_t bj = (uint32_t)(bs[j] < 0 ? bs[j] + (int32_t)p : bs[j]);
-        partial = add_mod(partial,
-                          mul_shoup(bj, (uint32_t)row[j], (uint32_t)row[P + j],
-                                    p),
-                          p);
-      }
-      uint32_t d = sub_mod(r[(long long)i * N], partial, p);
-      d = mul_shoup(d, (uint32_t)row[2 * P], (uint32_t)row[2 * P + 1], p);
-      bs[i] = d > p / 2 ? (int32_t)d - (int32_t)p : (int32_t)d;
-      x += (uint64_t)(int64_t)bs[i] * (uint64_t)row[2 * P + 3];
-    }
+    const uint64_t x =
+        garner([&](int i) { return r[(long long)i * N]; }, crt, P);
     total += m == 0 ? x : (x << 32);
   }
   if (bits == 32) total &= 0xFFFFFFFFull;

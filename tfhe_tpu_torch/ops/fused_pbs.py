@@ -1,19 +1,34 @@
-"""Blind rotation on two hand-written CUDA kernels, and their plain versions.
+"""Classic blind rotation on hand-written CUDA kernels, in four schedules,
+and the kernels' plain versions.
 
-Port of `tfhe_tpu/ops/fused_pbs.py`: `fused_blind_rotate_scan2` (:1213), the
-default TPU schedule, launches two Pallas kernels per blind-rotation step,
-`rot_kernel` (:1229) and `pc_kernel` (:1244).  Their counterparts here:
+Port of `tfhe_tpu/ops/fused_pbs.py`.  The reference picks one of its TPU
+schedules with the environment variable TFHE_TPU_FUSED_MODE (:1568-1580);
+here `blind_rotate_fused(..., mode=...)` takes it as an argument, one of
+`MODES`, and raises on any other value:
 
-  rotate_decompose      K1: negacyclic rotation of the accumulator by
-                        X^{a_i}, rotated - acc, signed gadget decomposition;
-  external_product_crt  K2: per prime, forward NTT of the digits, product
-                        with the step's key spectra, inverse NTT; then CRT
-                        back to u64 and the add into the accumulator.
+  "scan2" (the default; K1 + K2, `fused_blind_rotate_scan2` :1213)
+      rotate_decompose      K1 (`rot_kernel` :1229): negacyclic rotation of
+                            the accumulator by X^{a_i}, rotated - acc,
+                            signed gadget decomposition;
+      external_product_crt  K2 (`pc_kernel` :1244): per prime, forward NTT
+                            of the digits, product with the step's key
+                            spectra, inverse NTT; then CRT back to the torus
+                            and the add into the accumulator;
+  "scan1" (K3, `fused_blind_rotate_scan1` :1281)
+      pbs_step              a whole step in one launch;
+  "scan3" (K6, `fused_blind_rotate_scan` :1470)
+      rotate_decompose, then ntt_mac_prime once per prime, then
+      crt_accumulate: 1 + P + 1 launches per step, the TPU's three-unit
+      split;
+  "grid" (K5, `fused_blind_rotate_grid` :1341)
+      blind_rotate_persistent  all n steps in one launch, the accumulator
+                            held on chip throughout.
 
-Both are CUDA C++ for sm_90a (`csrc/pbs_kernels.cuh`), built by nvcc at first
-use into the package's `_build/` directory and called through ctypes.  Each
-wrapper takes its plain PyTorch version (`*_plain`) for CPU tensors, launches
-the kernel for CUDA tensors, and raises for anything else: nothing falls back.
+The kernels are CUDA C++ for sm_90a (`csrc/pbs_kernels.cuh` for K1, K2 and
+K6, `csrc/step_kernels.cuh` for K3 and K5), built by nvcc at first use into
+the package's `_build/` directory and called through ctypes.  Each wrapper
+takes its plain PyTorch version (`*_plain`) for CPU tensors, launches its
+kernel for CUDA tensors, and raises for anything else: nothing falls back.
 Each wrapper counts its launches in its `launches` attribute.
 
 The TPU's int8 limb planes and [R*ld, C*B] tiling are TPU scheduling; the
@@ -54,7 +69,8 @@ def _nvcc() -> str:
 
 @functools.cache
 def cuda_library() -> ctypes.CDLL:
-    """Build (once per source hash) and load the kernels' shared library.
+    """Build (once per source hash) and load the step kernels' shared
+    library (K1, K2, K6).
 
     Raises `tfhe_tpu_torch._native.BuildError` with nvcc's stderr."""
     path = build_shared_library(
@@ -64,9 +80,28 @@ def cuda_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(path)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.tfhe_rotate_decompose.argtypes = [ptr, ptr, ptr] + [i32] * 6 + [ptr]
-    lib.tfhe_rotate_decompose.restype = i32
     lib.tfhe_external_product_crt.argtypes = [ptr] * 8 + [i32] * 7 + [ptr]
-    lib.tfhe_external_product_crt.restype = i32
+    lib.tfhe_ntt_mac_prime.argtypes = [ptr] * 5 + [i32] * 7 + [ptr]
+    lib.tfhe_crt_accumulate.argtypes = [ptr] * 4 + [i32] * 6 + [ptr]
+    for fn in (lib.tfhe_rotate_decompose, lib.tfhe_external_product_crt,
+               lib.tfhe_ntt_mac_prime, lib.tfhe_crt_accumulate):
+        fn.restype = i32
+    return lib
+
+
+@functools.cache
+def step_library() -> ctypes.CDLL:
+    """Build (once per source hash) and load the cluster step kernel's
+    shared library (K3, K5).  Raises `tfhe_tpu_torch._native.BuildError`."""
+    path = build_shared_library(
+        "step_kernels", [os.path.join(_CSRC, "step_kernels.cu")],
+        [_nvcc(), *NVCC_FLAGS], timeout=BUILD_TIMEOUT_S,
+        headers=(os.path.join(_CSRC, "step_kernels.cuh"),
+                 os.path.join(_CSRC, "pbs_kernels.cuh")))
+    lib = ctypes.CDLL(path)
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.tfhe_blind_rotate_cluster.argtypes = [ptr] * 7 + [i32] * 9 + [ptr]
+    lib.tfhe_blind_rotate_cluster.restype = i32
     return lib
 
 
@@ -158,15 +193,21 @@ def spectral_mac(dspec: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
     return (prod % p.unsqueeze(-1)).sum(dim=2) % p
 
 
-def spectra_to_u64(spec: torch.Tensor, bits: int = 64) -> torch.Tensor:
-    """[B, P, O, M, N] canonical spectra -> [B, O, N] int64: the inverse
-    NTT, the CRT, and the M 32-bit planes joined into one torus word."""
-    coef = ntt.inverse_ntt(spec.permute(0, 2, 3, 1, 4))  # [B, O, M, P, N]
-    conv = ntt.crt_to_u64_centered(coef)  # [B, O, M, N]
+def residues_to_torus(res: torch.Tensor, bits: int = 64) -> torch.Tensor:
+    """[B, O, M, P, N] canonical residues of the convolutions -> [B, O, N]
+    int64: the CRT, and the M 32-bit planes joined into one torus word."""
+    conv = ntt.crt_to_u64_centered(res.to(torch.int64))  # [B, O, M, N]
     out = conv[:, :, 0]
-    if spec.shape[3] == 2:
+    if res.shape[2] == 2:
         out = out + (conv[:, :, 1] << 32)
     return wrap(out, bits)
+
+
+def spectra_to_u64(spec: torch.Tensor, bits: int = 64) -> torch.Tensor:
+    """[B, P, O, M, N] canonical spectra -> [B, O, N] int64: the inverse
+    NTT, then `residues_to_torus`."""
+    return residues_to_torus(ntt.inverse_ntt(spec.permute(0, 2, 3, 1, 4)),
+                             bits)
 
 
 def external_product_crt_plain(digits: torch.Tensor, kspec: torch.Tensor,
@@ -217,7 +258,199 @@ def external_product_crt(digits: torch.Tensor, kspec: torch.Tensor,
 
 external_product_crt.launches = 0
 
-KERNELS = (rotate_decompose, external_product_crt)
+
+# ---------------------------------------------------------------------------
+# K6: one prime's NTT-MAC-INTT, and the CRT, as launches of their own
+# ---------------------------------------------------------------------------
+
+
+def ntt_mac_prime_plain(digits: torch.Tensor, kspec_p: torch.Tensor,
+                        prime_index: int,
+                        residues: torch.Tensor) -> torch.Tensor:
+    """digits [B, L, G, N] int32, kspec_p [LJ, O, M, N] (prime prime_index's
+    canonical key spectra) -> writes that prime's residues of the O*M
+    convolutions into residues [B, O, M, P, N] int32 and returns it.  Only
+    that prime's transforms and products are computed."""
+    B, L, G, N = digits.shape
+    p = int(ntt.PRIMES[prime_index])
+    dspec = ntt.forward_ntt(digits.reshape(B, L * G, N).to(torch.int64),
+                            prime_index)[:, :, 0]  # [B, LJ, N]
+    prod = dspec[:, :, None, None, :] * kspec_p.to(torch.int64)
+    spec = (prod % p).sum(dim=1) % p  # [B, O, M, N]
+    coef = ntt.inverse_ntt(spec[..., None, :], prime_index)  # [B, O, M, 1, N]
+    residues[:, :, :, prime_index] = coef[:, :, :, 0].to(torch.int32)
+    return residues
+
+
+def ntt_mac_prime(digits: torch.Tensor, kspec_p: torch.Tensor,
+                  kshoup_p: torch.Tensor, prime_index: int,
+                  residues: torch.Tensor) -> torch.Tensor:
+    """K6's per-prime stage (replaces prime_kernel -> _prime_block,
+    tfhe_tpu/ops/fused_pbs.py:1503, :672): `ntt_mac_kernel` for one prime.
+    Writes that prime's rows of residues in place and returns it."""
+    if digits.device.type == "cpu":
+        return ntt_mac_prime_plain(digits, kspec_p, prime_index, residues)
+    if digits.device.type != "cuda":
+        raise ValueError(f"ntt_mac_prime: unsupported device {digits.device}")
+    dev = digits.device
+    B, L, G, N = digits.shape
+    LJ, O, M, _ = kspec_p.shape
+    P = len(ntt.PRIMES)
+    _check("digits", digits, torch.int32, (B, L, G, N), dev)
+    _check("kspec_p", kspec_p, torch.int32, (L * G, G, M, N), dev)
+    _check("kshoup_p", kshoup_p, torch.int32, (L * G, G, M, N), dev)
+    _check("residues", residues, torch.int32, (B, G, M, P, N), dev)
+    if not 0 <= prime_index < P or M not in (1, 2):
+        raise ValueError(f"prime {prime_index} of {P}, M={M}")
+    if B == 0:  # a grid of zero blocks is an invalid launch
+        return residues
+    err = cuda_library().tfhe_ntt_mac_prime(
+        digits.data_ptr(), kspec_p.data_ptr(), kshoup_p.data_ptr(),
+        ntt.tables_for(N, dev).kernel.data_ptr(), residues.data_ptr(), B, LJ,
+        O, M, P, N, prime_index, _stream(dev))
+    _check_launch(err, "ntt_mac_prime")
+    ntt_mac_prime.launches += 1
+    return residues
+
+
+ntt_mac_prime.launches = 0
+
+
+def crt_accumulate_plain(residues: torch.Tensor, acc: torch.Tensor,
+                         bits: int = 64) -> torch.Tensor:
+    """residues [B, O, M, P, N] int32, acc [B, O, N] int64 ->
+    acc + the reconstructed convolutions (mod 2^bits)."""
+    return wrap(acc + residues_to_torus(residues, bits), bits)
+
+
+def crt_accumulate(residues: torch.Tensor, acc: torch.Tensor,
+                   bits: int = 64) -> torch.Tensor:
+    """K6's last stage (replaces crt_kernel -> _crt_accumulate,
+    tfhe_tpu/ops/fused_pbs.py:1520, :709): `crt_accumulate_kernel`.
+    Returns a new accumulator."""
+    if residues.device.type == "cpu":
+        return crt_accumulate_plain(residues, acc, bits)
+    if residues.device.type != "cuda":
+        raise ValueError(
+            f"crt_accumulate: unsupported device {residues.device}")
+    dev = residues.device
+    B, O, M, P, N = residues.shape
+    _check("residues", residues, torch.int32, (B, O, M, len(ntt.PRIMES), N),
+           dev)
+    _check("acc", acc, torch.int64, (B, O, N), dev)
+    if M != (2 if bits == 64 else 1):
+        raise ValueError(f"{M} residue planes do not match bits={bits}")
+    out = torch.empty_like(acc)
+    if B == 0:  # a grid of zero blocks is an invalid launch
+        return out
+    err = cuda_library().tfhe_crt_accumulate(
+        residues.data_ptr(), ntt.tables_for(N, dev).crt.data_ptr(),
+        acc.data_ptr(), out.data_ptr(), B, O, M, P, N, bits, _stream(dev))
+    _check_launch(err, "crt_accumulate")
+    crt_accumulate.launches += 1
+    return out
+
+
+crt_accumulate.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K3 and K5: whole steps on one thread-block cluster per ciphertext
+# ---------------------------------------------------------------------------
+
+
+def pbs_step_plain(acc: torch.Tensor, ahat: torch.Tensor, kspec: torch.Tensor,
+                   base_log: int, levels: int,
+                   bits: int = 64) -> torch.Tensor:
+    """One blind-rotation step: acc + GGSW (x) (acc * X^ahat - acc), with
+    acc [B, G, N] int64, ahat [B] int32, kspec [P, LJ, O, M, N]."""
+    digits = rotate_decompose_plain(acc, ahat, base_log, levels, bits)
+    return external_product_crt_plain(digits, kspec, acc, bits)
+
+
+def blind_rotate_persistent_plain(acc: torch.Tensor, ahat: torch.Tensor,
+                                  kspec: torch.Tensor, base_log: int,
+                                  levels: int,
+                                  bits: int = 64) -> torch.Tensor:
+    """All steps: ahat [n, B], kspec [n, P, LJ, O, M, N]."""
+    for i in range(ahat.shape[0]):
+        acc = pbs_step_plain(acc, ahat[i], kspec[i], base_log, levels, bits)
+    return acc
+
+
+def _launch_cluster(name: str, acc: torch.Tensor, ahat: torch.Tensor,
+                    kspec: torch.Tensor, kshoup: torch.Tensor, base_log: int,
+                    levels: int, bits: int) -> torch.Tensor:
+    """Checks, then `blind_rotate_cluster_kernel` over ahat.shape[0] steps;
+    ahat [n, B], kspec / kshoup [n, P, LJ, O, M, N]."""
+    dev = acc.device
+    B, G, N = acc.shape
+    n = ahat.shape[0]
+    P, M = len(ntt.PRIMES), (2 if bits == 64 else 1)
+    _check("acc", acc, torch.int64, (B, G, N), dev)
+    _check("ahat", ahat, torch.int32, (n, B), dev)
+    for key_name, key in (("kspec", kspec), ("kshoup", kshoup)):
+        _check(key_name, key, torch.int32, (n, P, levels * G, G, M, N), dev)
+    if N & (N - 1) or bits - base_log * levels < 1:
+        raise ValueError("N must be a power of two and the decomposition "
+                         "must leave at least one bit")
+    out = torch.empty_like(acc)
+    if B == 0:  # a grid of zero blocks is an invalid launch
+        return out
+    tab = ntt.tables_for(N, dev)
+    err = step_library().tfhe_blind_rotate_cluster(
+        acc.data_ptr(), ahat.data_ptr(), kspec.data_ptr(), kshoup.data_ptr(),
+        tab.kernel.data_ptr(), tab.crt.data_ptr(), out.data_ptr(), B, n, G, M,
+        P, N, base_log, levels, bits, _stream(dev))
+    _check_launch(err, name)
+    return out
+
+
+def pbs_step(acc: torch.Tensor, ahat: torch.Tensor, kspec: torch.Tensor,
+             kshoup: torch.Tensor, base_log: int, levels: int,
+             bits: int = 64) -> torch.Tensor:
+    """K3 (replaces step_kernel, tfhe_tpu/ops/fused_pbs.py:1304): one whole
+    step in one launch of `blind_rotate_cluster_kernel`.  acc [B, G, N],
+    ahat [B], kspec / kshoup [P, LJ, O, M, N]; returns a new accumulator."""
+    if acc.device.type == "cpu":
+        return pbs_step_plain(acc, ahat, kspec, base_log, levels, bits)
+    if acc.device.type != "cuda":
+        raise ValueError(f"pbs_step: unsupported device {acc.device}")
+    out = _launch_cluster("pbs_step", acc, ahat[None], kspec[None],
+                          kshoup[None], base_log, levels, bits)
+    if acc.shape[0]:
+        pbs_step.launches += 1
+    return out
+
+
+pbs_step.launches = 0
+
+
+def blind_rotate_persistent(acc: torch.Tensor, ahat: torch.Tensor,
+                            kspec: torch.Tensor, kshoup: torch.Tensor,
+                            base_log: int, levels: int,
+                            bits: int = 64) -> torch.Tensor:
+    """K5 (replaces _make_grid_kernel, tfhe_tpu/ops/fused_pbs.py:1020): all
+    n steps in one launch of `blind_rotate_cluster_kernel`, the accumulator
+    held in the clusters' shared memory throughout.  ahat [n, B],
+    kspec / kshoup [n, P, LJ, O, M, N]; returns a new accumulator."""
+    if acc.device.type == "cpu":
+        return blind_rotate_persistent_plain(acc, ahat, kspec, base_log,
+                                             levels, bits)
+    if acc.device.type != "cuda":
+        raise ValueError(
+            f"blind_rotate_persistent: unsupported device {acc.device}")
+    out = _launch_cluster("blind_rotate_persistent", acc, ahat, kspec, kshoup,
+                          base_log, levels, bits)
+    if acc.shape[0]:
+        blind_rotate_persistent.launches += 1
+    return out
+
+
+blind_rotate_persistent.launches = 0
+
+KERNELS = (rotate_decompose, external_product_crt, pbs_step,
+           blind_rotate_persistent, ntt_mac_prime, crt_accumulate)
 
 
 def reset_launch_counts() -> None:
@@ -282,15 +515,44 @@ def prepare_bsk_cuda(raw_bsk: torch.Tensor, base_log: int,
                            input_dim=n, bits=bits)
 
 
+MODES = ("scan2", "scan1", "scan3", "grid")
+
+
+def check_mode(mode: str) -> None:
+    """Raises unless `mode` is one of `MODES`."""
+    if mode not in MODES:
+        raise ValueError(f"unknown blind-rotation mode {mode!r}; expected one "
+                         f"of {MODES}")
+
+
 def blind_rotate_fused(bsk: PreparedBskCuda, acc: torch.Tensor,
-                       ahat: torch.Tensor) -> torch.Tensor:
+                       ahat: torch.Tensor, mode: str = "scan2") -> torch.Tensor:
     """The step loop of `_blind_rotate_fused_chunk` (tfhe_tpu/ops/
-    fused_pbs.py:1730): acc [B, G, N] int64 (already rotated by X^-b),
-    ahat [n, B] int32 modulus-switched mask -> rotated accumulator."""
+    fused_pbs.py:1730) in one of `MODES`: acc [B, G, N] int64 (already
+    rotated by X^-b), ahat [n, B] int32 modulus-switched mask in [0, 2N]
+    (2N rotates as 0 in every mode) -> rotated accumulator.  Every mode
+    gives the same words."""
+    check_mode(mode)
     acc = acc.contiguous()
+    shape = (bsk.base_log, bsk.levels, bsk.bits)
+    if mode == "grid":
+        return blind_rotate_persistent(acc, ahat, bsk.kspec, bsk.kshoup,
+                                       *shape)
+    if mode == "scan3":
+        B, G, N = acc.shape
+        P, M = bsk.kspec.shape[1], bsk.kspec.shape[-2]
+        residues = torch.empty((B, G, M, P, N), dtype=torch.int32,
+                               device=acc.device)
     for i in range(bsk.input_dim):
-        digits = rotate_decompose(acc, ahat[i], bsk.base_log, bsk.levels,
-                                  bsk.bits)
-        acc = external_product_crt(digits, bsk.kspec[i], bsk.kshoup[i], acc,
-                                   bsk.bits)
+        ks, ksh = bsk.kspec[i], bsk.kshoup[i]
+        if mode == "scan1":
+            acc = pbs_step(acc, ahat[i], ks, ksh, *shape)
+            continue
+        digits = rotate_decompose(acc, ahat[i], *shape)
+        if mode == "scan2":
+            acc = external_product_crt(digits, ks, ksh, acc, bsk.bits)
+            continue
+        for pi in range(P):
+            ntt_mac_prime(digits, ks[pi], ksh[pi], pi, residues)
+        acc = crt_accumulate(residues, acc, bsk.bits)
     return acc

@@ -226,46 +226,58 @@ def tables_for(N: int, device: torch.device) -> NttTables:
     return ntt_tables(N, str(torch.device(device)))
 
 
-def forward_ntt(x: torch.Tensor) -> torch.Tensor:
+def _rows(N: int, device: torch.device, prime: int | None):
+    """The NTT tables of every prime, or of prime `prime` alone."""
+    tab = tables_for(N, device)
+    rows = slice(None) if prime is None else slice(prime, prime + 1)
+    return (tab.primes[rows], tab.psi_rev[rows], tab.psi_inv_rev[rows],
+            tab.n_inv[rows])
+
+
+def forward_ntt(x: torch.Tensor, prime: int | None = None) -> torch.Tensor:
     """x [..., N] int64 (any sign) -> [..., P, N] canonical spectra,
-    bit-reversed order, one per prime."""
+    bit-reversed order, one per prime (or [..., 1, N] for prime `prime`
+    alone)."""
     N = x.shape[-1]
-    tab = tables_for(N, x.device)
+    primes, psi_rev, _, _ = _rows(N, x.device, prime)
+    P = primes.numel()
     lead = x.shape[:-1]
-    p = tab.primes.view(-1, 1, 1)
-    a = torch.remainder(x.unsqueeze(-2), tab.primes.view(-1, 1))  # [..., P, N]
+    p = primes.view(-1, 1, 1)
+    a = torch.remainder(x.unsqueeze(-2), primes.view(-1, 1))  # [..., P, N]
     m, t = 1, N
     while m < N:
         t //= 2
-        a = a.reshape(*lead, len(PRIMES), m, 2, t)
-        S = tab.psi_rev[:, m:2 * m].reshape(-1, m, 1)
+        a = a.reshape(*lead, P, m, 2, t)
+        S = psi_rev[:, m:2 * m].reshape(-1, m, 1)
         u = a[..., 0, :]
         v = a[..., 1, :] * S % p
         a = torch.stack([(u + v) % p, (u - v) % p], dim=-2)
         m *= 2
-    return a.reshape(*lead, len(PRIMES), N)
+    return a.reshape(*lead, P, N)
 
 
-def inverse_ntt(spec: torch.Tensor) -> torch.Tensor:
+def inverse_ntt(spec: torch.Tensor, prime: int | None = None) -> torch.Tensor:
     """[..., P, N] canonical bit-reversed spectra -> [..., P, N] canonical
-    coefficients (negacyclic convolution residues)."""
+    coefficients (negacyclic convolution residues); [..., 1, N] for prime
+    `prime` alone."""
     N = spec.shape[-1]
-    tab = tables_for(N, spec.device)
+    primes, _, psi_inv_rev, n_inv = _rows(N, spec.device, prime)
+    P = primes.numel()
     lead = spec.shape[:-2]
-    p = tab.primes.view(-1, 1, 1)
+    p = primes.view(-1, 1, 1)
     a = spec
     m, t = N, 1
     while m > 1:
         h = m // 2
-        a = a.reshape(*lead, len(PRIMES), h, 2, t)
-        S = tab.psi_inv_rev[:, h:2 * h].reshape(-1, h, 1)
+        a = a.reshape(*lead, P, h, 2, t)
+        S = psi_inv_rev[:, h:2 * h].reshape(-1, h, 1)
         u = a[..., 0, :]
         v = a[..., 1, :]
         a = torch.stack([(u + v) % p, (u - v) % p * S % p], dim=-2)
         t *= 2
         m = h
-    a = a.reshape(*lead, len(PRIMES), N)
-    return a * tab.n_inv.view(-1, 1) % tab.primes.view(-1, 1)
+    a = a.reshape(*lead, P, N)
+    return a * n_inv.view(-1, 1) % primes.view(-1, 1)
 
 
 def crt_to_u64_centered(res: torch.Tensor) -> torch.Tensor:

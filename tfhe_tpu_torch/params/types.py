@@ -1,5 +1,5 @@
 """Parameter dataclasses (copy of `tfhe_tpu/params/types.py`: classic and
-multi-bit PBS).
+multi-bit PBS, and boolean).
 
 A frozen dataclass carries plain ints plus derived helpers, so parameter sets
 are hashable and compare field by field with the reference's.
@@ -128,3 +128,38 @@ class MultiBitPBSParameters:
     max_degree = ClassicPBSParameters.max_degree
     max_noise_level = ClassicPBSParameters.max_noise_level
     ciphertext_lwe_size = ClassicPBSParameters.ciphertext_lwe_size
+
+
+@dataclass(frozen=True)
+class BooleanParameters:
+    """Boolean-scheme parameters over the u32 torus.
+
+    (ref: tfhe/src/boolean/parameters/mod.rs:123-194)
+    """
+
+    name: str
+    lwe_dimension: int
+    glwe_dimension: int
+    polynomial_size: int
+    lwe_modular_std_dev: float
+    glwe_modular_std_dev: float
+    pbs_base_log: int
+    pbs_level: int
+    ks_base_log: int
+    ks_level: int
+    encryption_key_choice: EncryptionKeyChoice = EncryptionKeyChoice.SMALL
+    torus_bits: int = 32
+
+    @property
+    def glwe_size(self) -> int:
+        return self.glwe_dimension + 1
+
+    @property
+    def big_lwe_dimension(self) -> int:
+        return self.glwe_dimension * self.polynomial_size
+
+    @property
+    def pbs_order(self) -> PBSOrder:
+        if self.encryption_key_choice is EncryptionKeyChoice.BIG:
+            return PBSOrder.KEYSWITCH_BOOTSTRAP
+        return PBSOrder.BOOTSTRAP_KEYSWITCH

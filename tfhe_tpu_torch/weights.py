@@ -1,7 +1,9 @@
 """Keys carried across from the JAX package.
 
 The reference keeps key material as numpy arrays (`ServerKey.raw_bsk` /
-`raw_ksk`, `ClientKey.lwe_sk.bits_array` / `glwe_sk.bits_array`).  These
+`raw_ksk`, `ClientKey.lwe_sk.bits_array` / `glwe_sk.bits_array`); its
+boolean `ServerKey` keeps no raw keys, so those come from its
+`core.generate_bootstrap_key` / `generate_keyswitch_key`.  These
 functions turn such arrays into the port's keys, so both packages can
 compute on the same keys.  They take plain numpy arrays and import nothing
 from the JAX package.
@@ -11,7 +13,9 @@ from __future__ import annotations
 
 from typing import Optional
 
-from .params import ClassicPBSParameters, MultiBitPBSParameters
+from . import boolean
+from .params import (BooleanParameters, ClassicPBSParameters,
+                     MultiBitPBSParameters)
 from .shortint import ClientKey, ServerKey
 
 
@@ -41,3 +45,36 @@ def client_key_from_reference(
     `ClientKey.from_raw` inputs, client_key.py:30)."""
     return ClientKey.from_raw(params, lwe_sk_bits, glwe_sk_bits, seed=seed,
                               device=device)
+
+
+def boolean_client_key_from_reference(
+        params: BooleanParameters, lwe_sk_bits, glwe_sk_bits,
+        seed: Optional[int] = None, device="cuda") -> boolean.ClientKey:
+    """Secret-key bits [n] and [k, N] of a boolean client key."""
+    n, k, N = (params.lwe_dimension, params.glwe_dimension,
+               params.polynomial_size)
+    for name, bits, want in (("LWE key", lwe_sk_bits, (n,)),
+                             ("GLWE key", glwe_sk_bits, (k, N))):
+        if tuple(bits.shape) != want:
+            raise ValueError(f"{params.name}: {name} of shape "
+                             f"{tuple(bits.shape)}, expected {want}")
+    return boolean.ClientKey.from_raw(params, lwe_sk_bits, glwe_sk_bits,
+                                      seed=seed, device=device)
+
+
+def boolean_server_key_from_reference(
+        params: BooleanParameters, raw_bsk, raw_ksk, device="cuda",
+        mode: str = "scan2") -> boolean.ServerKey:
+    """raw_bsk [n, L, G, G, N] and raw_ksk [k*N, ks_level, n+1] uint32 (the
+    reference's standard-domain boolean keys)."""
+    G, N = params.glwe_size, params.polynomial_size
+    n, L = params.lwe_dimension, params.pbs_level
+    for name, key, want in (
+            ("BSK", raw_bsk, (n, L, G, G, N)),
+            ("KSK", raw_ksk, (params.big_lwe_dimension, params.ks_level,
+                              n + 1))):
+        if tuple(key.shape) != want:
+            raise ValueError(f"{params.name}: raw {name} of shape "
+                             f"{tuple(key.shape)}, expected {want}")
+    return boolean.ServerKey.from_raw(params, raw_bsk, raw_ksk, device=device,
+                                      mode=mode)
