@@ -4,29 +4,40 @@
 
 Phases, each printing one flushed line with its wall time:
   1. card: the card's name and power limit (nvidia-smi) and torch's name;
-  2. build: nvcc builds the classic, the cluster-step and the multi-bit
-     kernels' libraries and g++ the native AES generator, from the sources
-     in this checkout, all four at once;
-  3. kernels_modes: every classic-schedule wrapper (K1, K2, and the new
-     pbs_step, blind_rotate_persistent, ntt_mac_prime, crt_accumulate)
-     against its plain PyTorch version at the widths of
-     PARAM_MESSAGE_2_CARRY_2_KS_PBS (N=2048, G=2, L=1, base_log 23, u64) and
-     of boolean DEFAULT_PARAMETERS (N=512, G=3, L=3, base_log 6, u32), 5
-     primes, B=64, one step each, the persistent rotation at its main
-     path's depth (742 and 722 steps) and a 4-step rotation in every mode,
-     bit-exact (tolerance 0), with device, eager and plain times per launch
-     and bounds;
+  2. build: nvcc builds the classic, the cluster-step, the single-CTA and
+     the multi-bit kernels' libraries and g++ the native AES generator,
+     from the sources in this checkout, all five at once;
+  3. kernels_modes: every classic-schedule wrapper (K1, K2, pbs_step,
+     blind_rotate_persistent, ntt_mac_prime, crt_accumulate, and
+     pbs_step_single_cta, blind_rotate_single_cta) against its plain
+     PyTorch version at the widths of PARAM_MESSAGE_2_CARRY_2_KS_PBS (N=2048,
+     G=2, L=1, base_log 23, u64) and of boolean DEFAULT_PARAMETERS (N=512,
+     G=3, L=3, base_log 6, u32), 5 primes, B=64, one step each, the
+     persistent and single-CTA rotations at their main path's depth (742 and
+     722 steps) and a 4-step rotation in every mode, bit-exact (tolerance
+     0), with device, eager and plain times per launch and bounds;
   4. main path: PARAM_MESSAGE_2_CARRY_2_KS_PBS keys generated on the card,
      64 messages covering all 16 message+carry values, three univariate LUTs
      and one bivariate LUT through the ServerKey entry points, every result
      decrypted and checked; then core.keyswitch_then_pbs on the same 64
-     messages in each mode (scan2, scan1, scan3, grid), identical and
-     decrypted right, with exact launch counts per mode; then the same
-     pipeline on a small insecure parameter set, on the card and on the CPU,
-     bit-identical;
+     messages in each of the six modes (scan2, scan1, scan1w, scan3, grid,
+     mega), identical and decrypted right, with exact launch counts per
+     mode; then the same pipeline on a small insecure parameter set, on the
+     card and on the CPU, bit-identical; then main_path_shortint_ops on the
+     same keys (every bivariate op family's LUT over the 16 clean pairs in
+     one many-LUT PBS batch, the neg / sub / scalar / trivial / extract
+     batches over the 16 values, each op family through the one-block API,
+     the `_clean` path at a saturated carry, checked_add refusing; the
+     many-LUT batch again in scan1w and mega, identical), and
+     main_path_pbs_ks (PARAM_MESSAGE_2_CARRY_2_COMPACT_PK_PBS_KS keys on
+     the card, ciphertexts under the small key, PBS then keyswitch, three
+     univariate and one bivariate LUT on 64 messages) with
+     card_vs_cpu_both_orders (both PBS orders, classic and multi-bit, on
+     small copies of the test sets, bit-identical);
   5. timing: keyswitch_then_pbs throughput at B=64 and B=256 in each mode
      (host clock, launch overhead included), its split into keyswitch and
-     blind rotation, and K1/K2's device time per launch at B=256;
+     blind rotation, the PBS_KS set's pbs_then_keyswitch throughput in
+     scan2, and K1/K2's device time per launch at B=256;
   6. kernels_multibit (run first, before phase 3): the four multi-bit
      kernels against their plain versions at
      PARAM_MULTI_BIT_MESSAGE_2_CARRY_2_GROUP_3_KS_PBS's width (N=2048, G=2,
@@ -46,17 +57,18 @@ Phases, each printing one flushed line with its wall time:
  10. main_path_boolean: boolean DEFAULT_PARAMETERS keys generated on the
      card (n=722, N=512, k=2, u32, PBS then keyswitch), every gate and mux
      on 64 seeded bit pairs and triples through boolean.ServerKey in each of
-     the four modes, every decryption equal to the clear gate, identical
+     the six modes, every decryption equal to the clear gate, identical
      ciphertexts across modes, exact launch counts per blind rotation
-     (scan2: n of K1 and of K2; scan1: n; scan3: n(P+2); grid: 1);
+     (scan2: n of K1 and of K2; scan1, scan1w: n; scan3: n(P+2); grid,
+     mega: 1);
  11. card_vs_cpu_boolean: BOOLEAN_TEST_PARAMETERS gates on the card in
      every mode, bit-identical to the CPU's plain versions;
  12. timing_boolean: gates/s and batch ms per mode at B=64 and B=256, split
      into blind rotation, sample extract and keyswitch.
 Kernel times are device times: a CUDA graph of many launches replayed
-between CUDA events (a persistent rotation: CUDA events around a few eager
-launches); the eager per-launch times beside them include the host's launch
-cost.
+between CUDA events (a whole rotation, persistent or single-CTA: CUDA events
+around a few eager launches); the eager per-launch times beside them include
+the host's launch cost.
 Then a `kernels` JSON line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.  Any failed phase raises, so the script exits
 non-zero and prints no result; it needs a card and refuses to run without
@@ -175,7 +187,7 @@ def classic_work(B, G, L, N, P, bits, steps=1):
                + B * P * OM * N * LJ * 7      # spectrum MAC
                + B * P * LJ * N * 4)          # digits mod p
     garner = B * OM * N * (P * (P - 1) // 2 * 7 + P * 10)
-    return {
+    work = {
         "rotate_decompose": (acc + B * 4 + B * LJ * N * 4, k1_ops),
         "external_product_crt": (B * LJ * N * 4 + key + 2 * acc,
                                  mac_ops + garner),
@@ -187,6 +199,10 @@ def classic_work(B, G, L, N, P, bits, steps=1):
             2 * acc + steps * (B * 4 + key),
             steps * (k1_ops + mac_ops + garner)),
     }
+    # K4 does K3's work per step and K7 K5's per rotation
+    work["pbs_step_single_cta"] = work["pbs_step"]
+    work["blind_rotate_single_cta"] = work["blind_rotate_persistent"]
+    return work
 
 
 def bounds_ms(B, G, L, N, P, bits=64, steps=1):
@@ -517,9 +533,11 @@ def multibit_timing(card, dev, cks, sks, rng):
 def rotation_launches(mode, n, P=5):
     return {"scan2": {"rotate_decompose": n, "external_product_crt": n},
             "scan1": {"pbs_step": n},
+            "scan1w": {"pbs_step_single_cta": n},
             "scan3": {"rotate_decompose": n, "ntt_mac_prime": n * P,
                       "crt_accumulate": n},
-            "grid": {"blind_rotate_persistent": 1}}[mode]
+            "grid": {"blind_rotate_persistent": 1},
+            "mega": {"blind_rotate_single_cta": 1}}[mode]
 
 
 def launched(kernels):
@@ -530,10 +548,10 @@ def launched(kernels):
 def modes_kernels_phase(dev):
     """Every classic-schedule wrapper against its plain version at the
     widths of PARAM_MESSAGE_2_CARRY_2_KS_PBS and boolean DEFAULT_PARAMETERS
-    (B = 64), bit-exact: one step each, the persistent rotation at its main
-    path's depth (n = 742, 722 steps), and besides a 4-step rotation in
-    every mode; with device, eager and plain times and bounds per launch.
-    Returns, per width, errors, times and bounds."""
+    (B = 64), bit-exact: one step each, the persistent and the single-CTA
+    rotations at their main path's depth (n = 742, 722 steps), and besides
+    a 4-step rotation in every mode; with device, eager and plain times and
+    bounds per launch.  Returns, per width, errors, times and bounds."""
     import numpy as np
     import torch
 
@@ -594,13 +612,26 @@ def modes_kernels_phase(dev):
             "pbs_step": (
                 lambda: fp.pbs_step(acc, ahat[0], ks, ksh, bl, L, bits),
                 lambda: fp.pbs_step_plain(acc, ahat[0], ks, bl, L, bits)),
+            "pbs_step_single_cta": (
+                lambda: fp.pbs_step_single_cta(acc, ahat[0], ks, ksh, bl, L,
+                                               bits),
+                lambda: fp.pbs_step_plain(acc, ahat[0], ks, bl, L, bits)),
             "blind_rotate_persistent": (
                 lambda: fp.blind_rotate_persistent(acc, ahat_n, key_n.kspec,
                                                    key_n.kshoup, bl, L, bits),
                 lambda: fp.blind_rotate_persistent_plain(
                     acc, ahat_n, key_n.kspec, bl, L, bits)),
+            "blind_rotate_single_cta": (
+                lambda: fp.blind_rotate_single_cta(acc, ahat_n, key_n.kspec,
+                                                   key_n.kshoup, bl, L, bits),
+                lambda: fp.blind_rotate_persistent_plain(
+                    acc, ahat_n, key_n.kspec, bl, L, bits)),
         }
-        err = {k: max_abs_err(kern(), plain())
+        # the whole rotations (K5, K7) share one plain rotation: the same
+        # function on the same inputs
+        whole = ("blind_rotate_persistent", "blind_rotate_single_cta")
+        plain_n = calls[whole[0]][1]()
+        err = {k: max_abs_err(kern(), plain_n if k in whole else plain())
                for k, (kern, plain) in calls.items() if k != "ntt_mac_prime"}
         err["ntt_mac_prime"] = max_abs_err(res_k, res_p)
         want = fp.blind_rotate_persistent_plain(acc, ahat, key.kspec, bl, L,
@@ -611,20 +642,18 @@ def modes_kernels_phase(dev):
             raise AssertionError(
                 f"{p.name}: classic kernels disagree with their plain "
                 f"versions: {err}, {steps}-step rotation per mode {err_rot}")
-        # a persistent launch runs a whole rotation: CUDA events around
-        # eager launches, not a graph of 100; its plain version, n steps of
-        # plain ops, as one graph replayed once
-        per_launch = {k: v for k, v in calls.items()
-                      if k != "blind_rotate_persistent"}
+        # a persistent or single-CTA launch runs a whole rotation: CUDA
+        # events around eager launches, not a graph of 100; their plain
+        # version, n steps of plain ops, as one graph replayed once
+        per_launch = {k: v for k, v in calls.items() if k not in whole}
         ms = {k: graph_ms(kern, 100) for k, (kern, _) in per_launch.items()}
         eager = {k: cuda_ms(kern, 100) for k, (kern, _) in per_launch.items()}
-        ms["blind_rotate_persistent"] = cuda_ms(
-            calls["blind_rotate_persistent"][0], 3)
-        eager["blind_rotate_persistent"] = ms["blind_rotate_persistent"]
         plain_ms = {k: graph_ms(plain, 3) for k, (_, plain) in
                     per_launch.items()}
-        plain_ms["blind_rotate_persistent"] = graph_ms(
-            calls["blind_rotate_persistent"][1], 1, replays=1)
+        plain_whole = graph_ms(calls[whole[0]][1], 1, replays=1)
+        for k in whole:
+            ms[k] = eager[k] = cuda_ms(calls[k][0], 3)
+            plain_ms[k] = plain_whole
         rot_ms = {m: cuda_ms(lambda: fp.blind_rotate_fused(  # noqa: B023
             key, acc, ahat, m), 5) for m in fp.MODES}
         bounds = bounds_ms(B_MAIN, G, L, N, P, bits, n)
@@ -638,7 +667,7 @@ def modes_kernels_phase(dev):
             bound_by={k: v[1] for k, v in bounds.items()})
         out[p.name] = (err, ms, plain_ms, bounds)
         del key, key_n, acc, ahat, ahat_n, dig, res_p, res_k, res_t, calls
-        del want
+        del want, plain_n
         torch.cuda.empty_cache()
     return out
 
@@ -649,7 +678,7 @@ BOOLEAN_GATES = ("and", "or", "nand", "nor", "xor", "xnor")
 def boolean_main_path(dev):
     """DEFAULT_PARAMETERS keys on the card; every gate and mux on 64 seeded
     bit pairs and triples through boolean.ServerKey in each mode.  Returns
-    the launches of each classic wrapper over the four modes, and the
+    the launches of each classic wrapper over the six modes, and the
     keys."""
     import copy
 
@@ -787,6 +816,235 @@ def boolean_timing(card, dev, cks, sks, rng):
         gates_per_s=rates, batch_ms=batch_ms, batch_split_ms=split_ms)
 
 
+BIVARIATE_OPS = {
+    "mul_lsb": lambda x, y: (x * y) % 4, "mul_msb": lambda x, y: (x * y) // 4,
+    "div": lambda x, y: (x // y) % 4 if y else 3,
+    "mod_": lambda x, y: (x % y) % 4 if y else x % 4,
+    "bitand": lambda x, y: x & y, "bitor": lambda x, y: x | y,
+    "bitxor": lambda x, y: x ^ y, "eq": lambda x, y: int(x == y),
+    "ne": lambda x, y: int(x != y), "lt": lambda x, y: int(x < y),
+    "le": lambda x, y: int(x <= y), "gt": lambda x, y: int(x > y),
+    "ge": lambda x, y: int(x >= y)}
+
+
+def counting_pbs(sks):
+    """A copy of sks whose `_pbs_device` adds one to `calls[0]` per PBS
+    batch; returns (copy, calls)."""
+    import copy
+
+    counted, calls = copy.copy(sks), [0]
+
+    def pbs(data, acc):
+        calls[0] += 1
+        return sks._pbs_device(data, acc)
+
+    counted._pbs_device = pbs
+    return counted, calls
+
+
+def shortint_ops_main_path(cks, sks):
+    """The shortint op families at PARAM_MESSAGE_2_CARRY_2_KS_PBS on the
+    main path's keys: every bivariate family's LUT over the 16 clean pairs
+    in one many-LUT PBS batch; the neg, sub, scalar-add, scalar-mul,
+    trivial and extract batches over the 16 message+carry values; each op
+    family once through the one-block API, add and sub at a saturated carry
+    (the `_clean` path), checked_add refusing an overflow; then the
+    many-LUT batch in scan1w and mega, identical to scan2.  Every
+    decryption is checked; launches are exact (n of K1 and of K2 per PBS
+    batch in scan2).  Returns the launches."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from tfhe_tpu_torch import shortint
+    from tfhe_tpu_torch.ops import fused_pbs as fp
+
+    t0 = time.time()
+    p = sks.params
+    n, msg, total = p.lwe_dimension, p.message_modulus, p.total_modulus
+    fp.reset_launch_counts()
+    s, calls = counting_pbs(sks)
+    names = sorted(BIVARIATE_OPS)
+    x, y = np.divmod(np.arange(msg * msg), msg)
+    lhs, rhs = np.tile(x, len(names)), np.tile(y, len(names))
+    selector = np.repeat(np.arange(len(names)), msg * msg)
+    luts = [s.generate_lookup_table_bivariate(BIVARIATE_OPS[k]).acc
+            for k in names]
+    packed = s.unchecked_add_batch(
+        s.unchecked_scalar_mul_batch(cks.encrypt_batch(lhs), msg),
+        cks.encrypt_batch(rhs))
+    many = s.apply_many_lookup_tables_batch(packed, luts, selector)
+    clear = np.array([BIVARIATE_OPS[names[k]](a, b)
+                      for k, a, b in zip(selector, lhs, rhs)])
+    correct = {"many_luts": int(np.sum(cks.decrypt_batch(many) == clear))}
+    wanted = {"many_luts": len(clear)}
+
+    values = np.arange(total)
+    vb = cks.encrypt_batch(values)
+    xb, yb = cks.encrypt_batch(x), cks.encrypt_batch(y)
+    neg, z = s.unchecked_neg_batch(vb)
+    sub, _ = s.unchecked_sub_batch(xb, yb)
+    batches = {  # name: (batch, clear result, decrypted with its carry)
+        "neg": (neg, (z - values) % total, True),
+        "sub": (sub, (x - y) % msg, False),
+        "scalar_add": (s.unchecked_scalar_add_batch(vb, 5),
+                       (values + 5) % total, True),
+        "scalar_mul": (s.unchecked_scalar_mul_batch(vb, 3),
+                       values * 3 % total, True),
+        "trivial": (s.trivial_batch(values * 7, total), values * 7 % total,
+                    True),
+        "message_extract": (s.message_extract_batch(vb), values % msg, True),
+        "carry_extract": (s.carry_extract_batch(vb), values // msg, True)}
+    for k, (b, want, with_carry) in batches.items():
+        got = (cks.decrypt_batch_message_and_carry(b) if with_carry
+               else cks.decrypt_batch(b))
+        correct[k], wanted[k] = int(np.sum(got == want)), len(want)
+
+    rng = np.random.default_rng(SEED + 3)
+    pairs = rng.integers(0, msg, (len(names) + 2, 2))
+    ones = {}
+    for (a, b), k in zip(pairs, names + ["add", "sub"]):
+        ca, cb = cks.encrypt(int(a)), cks.encrypt(int(b))
+        want = (BIVARIATE_OPS[k](a, b) if k in BIVARIATE_OPS
+                else (a + b) % msg if k == "add" else (a - b) % msg)
+        ones[k] = cks.decrypt(getattr(s, k)(ca, cb)) == want
+    a = cks.encrypt(msg - 1)
+    ones["neg"] = cks.decrypt(s.neg(a)) == 1
+    ones["scalar_left_shift"] = cks.decrypt(s.scalar_left_shift(a, 1)) == (
+        (msg - 1) << 1) % msg
+    ones["scalar_right_shift"] = cks.decrypt(s.scalar_right_shift(a, 1)) == (
+        (msg - 1) >> 1)
+    six = s.unchecked_add(cks.encrypt(3), cks.encrypt(3))
+    twelve = s.unchecked_add(six, six)
+    ones["add_saturated"] = (not s.is_add_possible(twelve, six)
+                             and cks.decrypt(s.add(twelve, six)) == 18 % msg)
+    ones["sub_saturated"] = cks.decrypt(s.sub(twelve, six)) == 6 % msg
+    try:
+        s.checked_add(twelve, six)
+        ones["checked_add_refuses"] = False
+    except shortint.CheckError:
+        ones["checked_add_refuses"] = True
+    ones = {k: bool(v) for k, v in ones.items()}
+    torch.cuda.synchronize()
+    launches = launched(fp.KERNELS)
+    rotations = calls[0]
+
+    # the many-LUT batch in the single-CTA schedules, on the same input
+    same, mode_launches = {}, {}
+    for mode in ("scan1w", "mega"):
+        sm = copy.copy(sks)
+        sm.mode = mode
+        fp.reset_launch_counts()
+        out = sm.apply_many_lookup_tables_batch(packed, luts, selector)
+        torch.cuda.synchronize()
+        mode_launches[mode] = launched(fp.KERNELS)
+        same[mode] = bool(torch.equal(out.data, many.data))
+    say("main_path_shortint_ops", t0, params=p.name,
+        many_lut_batch=len(clear), correct=correct, of=wanted,
+        one_block_right=ones, pbs_batches=rotations, launches=launches,
+        many_luts_identical_to_scan2=same, mode_launches=mode_launches)
+    if correct != wanted or not all(ones.values()):
+        raise AssertionError(f"shortint ops wrong: {correct} of {wanted}, "
+                             f"one-block {ones}")
+    want_l = {k: v * rotations for k, v in
+              rotation_launches("scan2", n).items()}
+    want_m = {m: rotation_launches(m, n) for m in ("scan1w", "mega")}
+    if launches != want_l or mode_launches != want_m or not all(
+            same.values()):
+        raise AssertionError(f"shortint ops launched {launches} (expected "
+                             f"{want_l}), modes {mode_launches} (expected "
+                             f"{want_m}), identical {same}")
+    for v in mode_launches.values():
+        for name, c in v.items():
+            launches[name] = launches.get(name, 0) + c
+    return launches
+
+
+def pbs_ks_main_path(dev):
+    """PARAM_MESSAGE_2_CARRY_2_COMPACT_PK_PBS_KS (ciphertexts under the
+    small key, PBS then keyswitch) on the card: keys, three univariate LUTs
+    and one bivariate LUT on 64 messages through the ServerKey, decrypted
+    right, launches exact; then both PBS orders, classic and multi-bit, on
+    the card and on the CPU at small SMALL- and BIG-key copies of the test
+    sets, bit-identical.  Returns the launches and the keys."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from tfhe_tpu_torch import shortint
+    from tfhe_tpu_torch.ops import fused_pbs as fp
+    from tfhe_tpu_torch.params import (
+        PARAM_MESSAGE_2_CARRY_2_COMPACT_PK_PBS_KS as pk,
+        PARAM_MESSAGE_2_CARRY_2_COMPACT_TEST,
+        PARAM_MULTI_BIT_MESSAGE_2_CARRY_2_GROUP_2_TEST, EncryptionKeyChoice,
+        PBSOrder)
+
+    t0 = time.time()
+    fp.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    cks, sks = shortint.gen_keys(pk, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    t_keygen = time.time() - t0
+    msgs = np.arange(B_MAIN) % pk.total_modulus
+    batch = cks.encrypt_batch(msgs)
+    correct = {}
+    for name, f in (("identity", lambda v: v), ("mod4", lambda v: v % 4),
+                    ("div4", lambda v: v // 4)):
+        out = sks.apply_lookup_table_batch(batch,
+                                           sks.generate_lookup_table(f))
+        got = cks.decrypt_batch_message_and_carry(out)
+        correct[name] = int(np.sum(got == np.array([f(int(m)) for m in msgs])
+                                   % pk.total_modulus))
+    blut = sks.generate_lookup_table_bivariate(lambda a, b: (a * b) % 4)
+    got = cks.decrypt_batch(sks.unchecked_bivariate_batch(
+        cks.encrypt_batch(msgs % 4), cks.encrypt_batch(msgs // 4), blut))
+    correct["bivariate_mul_mod4"] = int(np.sum(
+        got == (msgs % 4) * (msgs // 4) % 4))
+    torch.cuda.synchronize()
+    launches = launched(fp.KERNELS)
+    say("main_path_pbs_ks", t0, params=pk.name, order=pk.pbs_order.name,
+        ciphertext_words=batch.data.shape[1], batch=B_MAIN,
+        keygen_s=t_keygen, correct=correct, launches=launches,
+        peak_device_mb=torch.cuda.max_memory_allocated() / 2**20)
+    if (pk.pbs_order is not PBSOrder.BOOTSTRAP_KEYSWITCH
+            or batch.data.shape[1] != pk.lwe_dimension + 1
+            or any(v != B_MAIN for v in correct.values())):
+        raise AssertionError(f"PBS-then-keyswitch LUTs wrong: {correct} of "
+                             f"{B_MAIN}")
+    expected = {k: 4 * v for k, v in
+                rotation_launches("scan2", pk.lwe_dimension).items()}
+    if launches != expected:
+        raise AssertionError(f"PBS_KS path launched {launches}, expected "
+                             f"{expected}")
+
+    # both orders, classic and multi-bit, card against CPU
+    t1 = time.time()
+    same = {}
+    for small in (PARAM_MESSAGE_2_CARRY_2_COMPACT_TEST,
+                  PARAM_MULTI_BIT_MESSAGE_2_CARRY_2_GROUP_2_TEST):
+        for choice in (EncryptionKeyChoice.SMALL, EncryptionKeyChoice.BIG):
+            q = dataclasses.replace(small, encryption_key_choice=choice)
+            outs = {}
+            for where in (dev, "cpu"):
+                c, s = shortint.gen_keys(q, seed=SEED, device=where)
+                b = c.encrypt_batch(np.arange(16))
+                o = s.apply_lookup_table_batch(b, s.generate_lookup_table(
+                    lambda v: (7 * v + 5) % 16))
+                dec = c.decrypt_batch_message_and_carry(o)
+                if not np.array_equal(dec, (7 * np.arange(16) + 5) % 16):
+                    raise AssertionError(f"{where} {q.name} {choice}: LUT "
+                                         f"wrong: {dec}")
+                outs[str(where)] = o.data.cpu()
+            same[f"{q.name}:{q.pbs_order.name}"] = bool(
+                torch.equal(outs[str(dev)], outs["cpu"]))
+    say("card_vs_cpu_both_orders", t1, identical=same)
+    if not all(same.values()):
+        raise AssertionError(f"card and CPU differ: {same}")
+    return launches, cks, sks
+
+
 def main():
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     t_start = time.time()
@@ -799,6 +1057,7 @@ def main():
         return 1
     from tfhe_tpu_torch import prng, shortint
     from tfhe_tpu_torch.core import (keyswitch, keyswitch_then_pbs,
+                                     pbs_then_keyswitch,
                                      programmable_bootstrap)
     from tfhe_tpu_torch.ops import fused_multibit, fused_pbs
     from tfhe_tpu_torch.params import (PARAM_MESSAGE_2_CARRY_2_COMPACT_TEST,
@@ -820,14 +1079,17 @@ def main():
         return round(time.time() - t, 3)
 
     builds = (fused_pbs.cuda_library, fused_pbs.step_library,
-              fused_multibit.cuda_library, prng.native_library)
+              fused_pbs.single_cta_library, fused_multibit.cuda_library,
+              prng.native_library)
     with ThreadPoolExecutor(len(builds)) as pool:
-        t_nvcc, t_nvcc_step, t_nvcc_mb, t_gxx = pool.map(timed, builds)
+        t_nvcc, t_nvcc_step, t_nvcc_single, t_nvcc_mb, t_gxx = pool.map(
+            timed, builds)
     aes = prng.Aes128(0x0123456789ABCDEF, backend="native")
     ref = prng.Aes128(0x0123456789ABCDEF, backend="numpy")
     if not np.array_equal(aes.ctr_blocks(7, 64), ref.ctr_blocks(7, 64)):
         raise AssertionError("native AES disagrees with the numpy AES")
     say("build", t0, nvcc_s=t_nvcc, nvcc_step_s=t_nvcc_step,
+        nvcc_single_cta_s=t_nvcc_single,
         nvcc_multibit_s=t_nvcc_mb, gxx_s=t_gxx, aes_backend=aes.backend)
 
     # -- 3. kernels against their plain versions ----------------------------
@@ -921,6 +1183,17 @@ def main():
         raise AssertionError("card and CPU PBS results differ")
     say("card_vs_cpu", t1, params=small.name, identical=True)
 
+    # -- the shortint op families, and the PBS-then-keyswitch order ---------
+    t1 = time.time()
+    for k, v in shortint_ops_main_path(cks, sks).items():
+        launches[k] = launches.get(k, 0) + v
+    t_ops = time.time() - t1
+    t1 = time.time()
+    pk_launches, pk_cks, pk_sks = pbs_ks_main_path(dev)
+    t_pbs_ks = time.time() - t1
+    for k, v in pk_launches.items():
+        launches[k] = launches.get(k, 0) + v
+
     # -- 5. timing ----------------------------------------------------------
     t0 = time.time()
     lut = sks.generate_lookup_table(lambda x: x % 4)
@@ -954,6 +1227,20 @@ def main():
                         100)
     ms256_k2 = graph_ms(lambda: fused_pbs.external_product_crt(
         dig, sks.bsk.kspec[0], sks.bsk.kshoup[0], acc), 100)
+    # the PBS_KS set (PBS then keyswitch, n = 1024) in scan2
+    for B in (B_MAIN, B_LARGE):
+        key = f"{pk_sks.params.name}_B{B}"
+        data = pk_cks.encrypt_batch(np.arange(B) % 16).data
+        pk_lut = pk_sks.generate_lookup_table(lambda x: x % 4).acc
+        pbs_then_keyswitch(pk_sks.ksk, pk_sks.bsk, pk_lut, data)  # warm-up
+        torch.cuda.synchronize()
+        t1 = time.time()
+        for _ in range(3):
+            pbs_then_keyswitch(pk_sks.ksk, pk_sks.bsk, pk_lut, data)
+        torch.cuda.synchronize()
+        dt = (time.time() - t1) / 3
+        rates[key] = B / dt
+        batch_ms[key] = dt * 1e3
     say("timing", t0, card=card, pbs_per_s=rates, batch_ms=batch_ms,
         batch_split_ms=split_ms, device_ms_per_launch_b256=dict(
             rotate_decompose=ms256_k1, external_product_crt=ms256_k2),
@@ -961,7 +1248,7 @@ def main():
                        bounds_ms(B_LARGE, G, L, N, P).items()
                        if k in ("rotate_decompose", "external_product_crt")})
 
-    del sks, cks, lut, acc, dig, data, small_ct
+    del sks, cks, lut, acc, dig, data, small_ct, pk_sks, pk_cks, pk_lut
     torch.cuda.empty_cache()
 
     # -- 6-9. the multi-bit path -------------------------------------------
@@ -996,7 +1283,11 @@ def main():
             ("blind_rotate_persistent", 1020, "step_kernels.cuh",
              "DEFAULT_PARAMETERS"),
             ("ntt_mac_prime", 1503, "pbs_kernels.cuh", "DEFAULT_PARAMETERS"),
-            ("crt_accumulate", 1520, "pbs_kernels.cuh", "DEFAULT_PARAMETERS")):
+            ("crt_accumulate", 1520, "pbs_kernels.cuh", "DEFAULT_PARAMETERS"),
+            ("pbs_step_single_cta", 983, "single_cta_kernels.cuh",
+             "DEFAULT_PARAMETERS"),
+            ("blind_rotate_single_cta", 1403, "single_cta_kernels.cuh",
+             "DEFAULT_PARAMETERS")):
         _, ms, plain_ms, bounds = modes_k[width]
         kernels.append({
             "name": name, "route": "cuda",
@@ -1020,6 +1311,8 @@ def main():
             "bound_ms": mb_bounds[name][0], "bound_by": mb_bounds[name][1],
             "library_ms": None})
     say("done", t_start, main_path_s=round(t_main, 3),
+        main_path_shortint_ops_s=round(t_ops, 3),
+        main_path_pbs_ks_s=round(t_pbs_ks, 3),
         main_path_multibit_s=round(t_main_mb, 3),
         main_path_boolean_s=round(t_main_bool, 3))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -88,11 +88,63 @@ def test_schedule_pieces_agree(bits):
     step = fused_pbs.pbs_step(acc, ahat[0], key.kspec[0], key.kshoup[0], bl,
                               L, bits)
     assert torch.equal(step, k2)
+    step_w = fused_pbs.pbs_step_single_cta(acc, ahat[0], key.kspec[0],
+                                           key.kshoup[0], bl, L, bits)
+    assert torch.equal(step_w, k2)
     rot = fused_pbs.blind_rotate_persistent(acc, ahat, key.kspec, key.kshoup,
                                             bl, L, bits)
+    assert torch.equal(fused_pbs.blind_rotate_single_cta(
+        acc, ahat, key.kspec, key.kshoup, bl, L, bits), rot)
     for mode in fused_pbs.MODES:
         assert torch.equal(fused_pbs.blind_rotate_fused(key, acc, ahat, mode),
                            rot)
+
+
+@pytest.mark.parametrize("N", [256, 512, 2048])
+def test_explicit_crt_constants_reconstruct_the_convolution(N):
+    # the single-CTA kernels' CRT, in Python integers: from the unscaled
+    # inverse transforms r_i = N x mod p_i of a convolution x with
+    # |x| < 2^67, c_i = r_i w_i mod p_i, the u32 fraction sum_i c_i T_i,
+    # k = round(fraction / 2^28), and x = sum_i c_i Q_i - k Q mod 2^64
+    tab = ntt.tables_for(N, "cpu").xcrt.tolist()
+    rng = np.random.default_rng(N)
+    xs = [int(v) for v in rng.integers(-2**62, 2**62, 200)]
+    xs += [v * 32 + 7 for v in xs[:50]]
+    xs += [2**67 - 1, -(2**67 - 1), 0, 1, -1]
+    u64 = lambda v: v % (1 << 64)  # noqa: E731
+    for x in xs:
+        acc, frac = 0, 0
+        for p, w, wsh, q_i, t, q in tab:
+            r = N * x % p
+            c = r * w % p
+            assert c == (r * w - (r * wsh >> 32) * p) % p  # the Shoup form
+            frac += c * t
+            acc += c * u64(q_i)
+        assert frac < 1 << 32
+        k = (frac + (1 << (ntt.XCRT_FRAC_BITS - 1))) >> ntt.XCRT_FRAC_BITS
+        assert u64(acc - k * u64(tab[0][5])) == u64(x), x
+
+
+def test_single_cta_wrappers_take_the_plain_version_for_cpu_tensors_only():
+    key, acc, ahat = _step_inputs(64)
+    bl, L = key.base_log, key.levels
+    fused_pbs.reset_launch_counts()
+    step = fused_pbs.pbs_step_single_cta(acc, ahat[0], key.kspec[0],
+                                         key.kshoup[0], bl, L)
+    assert torch.equal(step, fused_pbs.pbs_step_plain(acc, ahat[0],
+                                                      key.kspec[0], bl, L))
+    rot = fused_pbs.blind_rotate_single_cta(acc, ahat, key.kspec, key.kshoup,
+                                            bl, L)
+    assert torch.equal(rot, fused_pbs.blind_rotate_persistent_plain(
+        acc, ahat, key.kspec, bl, L))
+    assert (fused_pbs.pbs_step_single_cta.launches,
+            fused_pbs.blind_rotate_single_cta.launches) == (0, 0)
+    meta = [t.to("meta") for t in (acc, ahat, key.kspec, key.kshoup)]
+    with pytest.raises(ValueError, match="unsupported device"):
+        fused_pbs.pbs_step_single_cta(meta[0], meta[1][0], meta[2][0],
+                                      meta[3][0], bl, L)
+    with pytest.raises(ValueError, match="unsupported device"):
+        fused_pbs.blind_rotate_single_cta(*meta, bl, L)
 
 
 def test_rotation_by_2n_is_the_identity_in_every_mode():
@@ -109,7 +161,7 @@ def test_rotation_by_2n_is_the_identity_in_every_mode():
 
 def test_unknown_mode_is_refused():
     key, acc, ahat = _step_inputs(64)
-    for mode in ("scan1w", "mega", "", "SCAN2"):
+    for mode in ("scan1x", "megakernel", "", "SCAN2"):
         with pytest.raises(ValueError, match="mode"):
             fused_pbs.blind_rotate_fused(key, acc, ahat, mode)
     lwe = torch.zeros((2, key.input_dim + 1), dtype=torch.int64)

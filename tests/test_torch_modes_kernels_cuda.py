@@ -1,12 +1,13 @@
-"""The kernels of the classic schedules "scan1" (K3 `pbs_step`), "grid" (K5
-`blind_rotate_persistent`) and "scan3" (K6 `ntt_mac_prime`,
+"""The kernels of the classic schedules "scan1" (K3 `pbs_step`), "scan1w"
+(K4 `pbs_step_single_cta`), "grid" (K5 `blind_rotate_persistent`), "mega"
+(K7 `blind_rotate_single_cta`) and "scan3" (K6 `ntt_mac_prime`,
 `crt_accumulate`) against their plain versions, bit for bit, on a card
 (tolerance 0): at the tests/test_fused_pbs.py cases and at the widths of
 PARAM_MESSAGE_2_CARRY_2_KS_PBS and of boolean DEFAULT_PARAMETERS; a blind
 rotation in every mode, equal across modes, with its launch counts; the
-empty batch; a batch past 65535 ciphertexts in one persistent launch; and
-the layouts beyond the kernels' limits, refused.  Marked `cuda`: they skip
-where there is no card; on one, run
+empty batch; a batch past 65535 ciphertexts in one persistent launch and in
+one single-CTA launch; and the layouts beyond the kernels' limits, refused.
+Marked `cuda`: they skip where there is no card; on one, run
 `python -m pytest -m cuda --noconftest tests/test_torch_modes_kernels_cuda.py`
 (tests/conftest.py imports JAX, which is not needed here)."""
 
@@ -72,11 +73,21 @@ def test_kernels_match_plain(case, card):
     assert torch.equal(step, fused_pbs.pbs_step_plain(acc, ahat[0],
                                                       key.kspec[0], bl, L,
                                                       bits))
+    step_w = fused_pbs.pbs_step_single_cta(acc, ahat[0], key.kspec[0],
+                                           key.kshoup[0], bl, L, bits)
+    torch.cuda.synchronize()
+    assert torch.equal(step_w, fused_pbs.pbs_step_plain(
+        acc, ahat[0], key.kspec[0], bl, L, bits))
+    want = fused_pbs.blind_rotate_persistent_plain(acc, ahat, key.kspec, bl,
+                                                   L, bits)
     rot = fused_pbs.blind_rotate_persistent(acc, ahat, key.kspec, key.kshoup,
                                             bl, L, bits)
     torch.cuda.synchronize()
-    assert torch.equal(rot, fused_pbs.blind_rotate_persistent_plain(
-        acc, ahat, key.kspec, bl, L, bits))
+    assert torch.equal(rot, want)
+    rot_single = fused_pbs.blind_rotate_single_cta(acc, ahat, key.kspec,
+                                                   key.kshoup, bl, L, bits)
+    torch.cuda.synchronize()
+    assert torch.equal(rot_single, want)
 
 
 @pytest.mark.parametrize("case", [CASES[2]] + WIDTHS,
@@ -89,7 +100,9 @@ def test_every_mode_gives_the_same_rotation_with_its_launches(case, card):
             "scan1": dict(pbs_step=n),
             "scan3": dict(rotate_decompose=n, ntt_mac_prime=n * P,
                           crt_accumulate=n),
-            "grid": dict(blind_rotate_persistent=1)}
+            "scan1w": dict(pbs_step_single_cta=n),
+            "grid": dict(blind_rotate_persistent=1),
+            "mega": dict(blind_rotate_single_cta=1)}
     outs = {}
     for mode in fused_pbs.MODES:
         fused_pbs.reset_launch_counts()
@@ -131,6 +144,21 @@ def test_persistent_batch_beyond_65535(card):
     assert torch.equal(out[rows], want)
 
 
+def test_single_cta_batch_beyond_65535(card):
+    # one CTA per ciphertext on grid.x: 65544 ciphertexts in one launch
+    rng = np.random.default_rng(23)
+    case = dict(n=2, L=1, G=2, N=256, B=65536 + 8, bl=23, bits=64)
+    key, acc, ahat = _inputs(rng, case, card)
+    out = fused_pbs.blind_rotate_single_cta(acc, ahat, key.kspec, key.kshoup,
+                                            23, 1)
+    rows = torch.cat([torch.arange(8), torch.arange(case["B"] - 16,
+                                                    case["B"])]).to(card)
+    want = fused_pbs.blind_rotate_persistent_plain(
+        acc[rows], ahat[:, rows].contiguous(), key.kspec, 23, 1)
+    torch.cuda.synchronize()
+    assert torch.equal(out[rows], want)
+
+
 def test_layouts_beyond_the_kernels_limits_are_refused(card):
     # bad dtypes and shapes are refused by the wrappers
     acc = torch.zeros((2, 2, 256), dtype=torch.int64, device=card)
@@ -161,3 +189,15 @@ def test_layouts_beyond_the_kernels_limits_are_refused(card):
         fused_pbs.blind_rotate_persistent(
             acc, torch.zeros((1, 1), dtype=torch.int32, device=card),
             big.kspec, big.kshoup, 8, L)
+    # and so is a single-CTA step at that layout (64 KB of accumulator,
+    # 64 KB of fractions, 256 KB of digits and their spectra)
+    ahat1 = torch.zeros((1, 1), dtype=torch.int32, device=card)
+    with pytest.raises(RuntimeError, match="cudaErrorInvalidValue"):
+        fused_pbs.pbs_step_single_cta(acc, ahat1[0], big.kspec[0],
+                                      big.kshoup[0], 8, L)
+    with pytest.raises(RuntimeError, match="cudaErrorInvalidValue"):
+        fused_pbs.blind_rotate_single_cta(acc, ahat1, big.kspec, big.kshoup,
+                                          8, L)
+    with pytest.raises(ValueError):
+        fused_pbs.blind_rotate_single_cta(acc, ahat1.long(), big.kspec,
+                                          big.kshoup, 8, L)

@@ -157,5 +157,14 @@ def test_mode_must_be_named_and_pbs_then_keyswitch_is_not_ported():
     with pytest.raises(ValueError):
         core.prepare_multi_bit_bsk_cuda(
             torch.zeros((1, 3, L, G, G, N), dtype=torch.int64), bl, gf)
-    with pytest.raises(NotImplementedError):
-        core.multi_bit_pbs_then_keyswitch(None, key, acc[0], acc)
+    # PBS then keyswitch is now ported: the keyswitch of the PBS's output
+    n = key.input_dim
+    rng = np.random.default_rng(3)
+    ksk = core.prepare_ksk(to_tensor(rng.integers(
+        0, 1 << 64, ((G - 1) * N, 2, n + 1), dtype=np.uint64), "cpu"), 4)
+    lwe = to_tensor(rng.integers(0, 1 << 64, (2, n + 1), dtype=np.uint64),
+                    "cpu")
+    got = core.multi_bit_pbs_then_keyswitch(ksk, key, acc[0], lwe)
+    want = core.keyswitch(ksk, core.multi_bit_programmable_bootstrap(
+        key, acc[0], lwe))
+    assert got.shape == (2, n + 1) and torch.equal(got, want)

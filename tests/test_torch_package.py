@@ -161,6 +161,39 @@ def test_boolean_entry_points_need_a_card_unless_asked_for_the_cpu():
     assert sks.device == torch.device("cpu") and sks.mode == "scan2"
 
 
+def test_shortint_slice_modules_are_among_the_checked_sources():
+    # the walk above reaches the modules of the shortint op families, the
+    # PBS-then-keyswitch order and the single-CTA schedules, and none of
+    # them imports JAX or the reference; the new kernel sources are there
+    checked = {os.path.relpath(p, ROOT) for p in _port_sources()}
+    new = {"tfhe_tpu_torch/shortint/server_key.py",
+           "tfhe_tpu_torch/shortint/ciphertext.py",
+           "tfhe_tpu_torch/params/shortint_params.py",
+           "tfhe_tpu_torch/core/multibit.py",
+           "tfhe_tpu_torch/ops/fused_pbs.py",
+           "tfhe_tpu_torch/weights.py"}
+    assert new <= checked
+    for rel in sorted(new):
+        mods = list(_imported_modules(os.path.join(ROOT, rel)))
+        assert not [m for m in mods
+                    if m.split(".")[0] in ("jax", "jaxlib", "tfhe_tpu")]
+    for src in ("single_cta_kernels.cu", "single_cta_kernels.cuh"):
+        assert os.path.exists(os.path.join(PKG, "ops", "csrc", src))
+
+
+def test_shortint_server_key_refuses_an_unknown_mode():
+    cks = shortint.ClientKey(PARAM_MESSAGE_2_CARRY_2_COMPACT_TEST, seed=1,
+                             device="cpu")
+    with pytest.raises(ValueError, match="mode"):
+        shortint.ServerKey(cks, mode="bogus")
+    with pytest.raises(ValueError, match="mode"):
+        shortint.gen_keys(PARAM_MULTI_BIT_MESSAGE_2_CARRY_2_GROUP_2_TEST,
+                          seed=1, device="cpu", mode="mega")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            shortint.ServerKey(cks, device="cuda", mode="mega")
+
+
 @pytest.mark.parametrize("where", ["checkout", "bare_directory"])
 def test_chip_smoke_fails_without_a_card(where, tmp_path):
     if torch.cuda.is_available():

@@ -1,8 +1,9 @@
 """tfhe_tpu_torch: the PyTorch + CUDA port of tfhe_tpu for NVIDIA Hopper.
 
-This port covers shortint lookup-table evaluation (keyswitch + classic PBS,
-and keyswitch + multi-bit PBS) and boolean gates (classic PBS in either
-order, on the u32 torus).
+This port covers shortint (lookup tables, the batch primitives, the degree
+and noise guards and every op family, with classic or multi-bit PBS, in
+either PBS order) and boolean gates (classic PBS in either order, on the
+u32 torus).
 Entry points run on the card (device="cuda") unless the caller passes
 device="cpu", which runs the plain PyTorch versions of the kernels.  The
 package imports torch and numpy, never JAX or tfhe_tpu.

@@ -1,7 +1,7 @@
 """Core crypto: keygen, encryption, keyswitch, programmable bootstrap.
 
-Port of `tfhe_tpu/core` for the classic and multi-bit PBS paths, in both
-PBS orders for the classic one."""
+Port of `tfhe_tpu/core` for the classic and multi-bit PBS paths, each in
+both PBS orders."""
 
 from .secret import GlweSecretKey, LweSecretKey, binary_ext_matrix, glwe_phase
 from .encrypt import (decrypt_glwe, decrypt_lwe, encrypt_glwe_assign,

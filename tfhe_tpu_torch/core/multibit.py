@@ -172,6 +172,8 @@ def multi_bit_pbs_then_keyswitch(ksk: PreparedKsk,
                                  mbsk: PreparedMultiBitBskCuda,
                                  lut: torch.Tensor, ct_small: torch.Tensor,
                                  mode: str = "scan3") -> torch.Tensor:
-    """PBSOrder::BootstrapKeyswitch: not ported, as for the classic PBS."""
-    raise NotImplementedError(
-        "only the keyswitch-then-bootstrap order is ported")
+    """PBSOrder::BootstrapKeyswitch: the PBS on the small-key ciphertext,
+    then the keyswitch of its big-key output back to the small key
+    (tfhe_tpu/core/multibit.py:312)."""
+    return keyswitch(ksk, multi_bit_programmable_bootstrap(mbsk, lut,
+                                                           ct_small, mode))

@@ -58,6 +58,14 @@ from .fused_pbs import (BUILD_TIMEOUT_S, NVCC_FLAGS, PreparedBskCuda,
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 MODES = ("scan3", "scan1")
+
+
+def check_mode(mode: str) -> None:
+    """Raises unless `mode` is one of `MODES`."""
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+
+
 BITS = 64  # every multi-bit parameter set is on the 64-bit torus
 M = 2  # 32-bit key planes of a 64-bit word
 
@@ -332,8 +340,7 @@ def multi_bit_blind_rotate_cuda(bsk: PreparedMultiBitBskCuda,
     """The group-step loop: acc [B, G, N] int64 (already rotated by X^-b),
     d_all [n/gf, B, 2^gf] int32 switched subset sums mod 2N -> rotated
     accumulator.  `mode` picks the schedule: "scan3" (K8) or "scan1" (K9)."""
-    if mode not in MODES:
-        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    check_mode(mode)
     acc = acc.contiguous()
     for g in range(bsk.input_dim // bsk.grouping_factor):
         digits = decompose(acc, bsk.base_log, bsk.levels)

@@ -1,8 +1,8 @@
-"""Classic blind rotation on hand-written CUDA kernels, in four schedules,
+"""Classic blind rotation on hand-written CUDA kernels, in six schedules,
 and the kernels' plain versions.
 
 Port of `tfhe_tpu/ops/fused_pbs.py`.  The reference picks one of its TPU
-schedules with the environment variable TFHE_TPU_FUSED_MODE (:1568-1580);
+schedules with the environment variable TFHE_TPU_FUSED_MODE (:1568-1581);
 here `blind_rotate_fused(..., mode=...)` takes it as an argument, one of
 `MODES`, and raises on any other value:
 
@@ -15,21 +15,29 @@ here `blind_rotate_fused(..., mode=...)` takes it as an argument, one of
                             spectra, inverse NTT; then CRT back to the torus
                             and the add into the accumulator;
   "scan1" (K3, `fused_blind_rotate_scan1` :1281)
-      pbs_step              a whole step in one launch;
+      pbs_step              a whole step in one launch, on a cluster of one
+                            CTA per prime;
+  "scan1w" (K4, `fused_blind_rotate_scan1w` :965)
+      pbs_step_single_cta   a whole step in one launch, on one CTA per
+                            ciphertext, the primes in turn;
   "scan3" (K6, `fused_blind_rotate_scan` :1470)
       rotate_decompose, then ntt_mac_prime once per prime, then
       crt_accumulate: 1 + P + 1 launches per step, the TPU's three-unit
       split;
   "grid" (K5, `fused_blind_rotate_grid` :1341)
-      blind_rotate_persistent  all n steps in one launch, the accumulator
-                            held on chip throughout.
+      blind_rotate_persistent  all n steps in one launch on the clusters,
+                            the accumulator held on chip throughout;
+  "mega" (K7, `fused_blind_rotate_planes` :1545)
+      blind_rotate_single_cta  all n steps in one launch on one CTA per
+                            ciphertext, the accumulator held on chip.
 
 The kernels are CUDA C++ for sm_90a (`csrc/pbs_kernels.cuh` for K1, K2 and
-K6, `csrc/step_kernels.cuh` for K3 and K5), built by nvcc at first use into
-the package's `_build/` directory and called through ctypes.  Each wrapper
-takes its plain PyTorch version (`*_plain`) for CPU tensors, launches its
-kernel for CUDA tensors, and raises for anything else: nothing falls back.
-Each wrapper counts its launches in its `launches` attribute.
+K6, `csrc/step_kernels.cuh` for K3 and K5, `csrc/single_cta_kernels.cuh`
+for K4 and K7), built by nvcc at first use into the package's `_build/`
+directory and called through ctypes.  Each wrapper takes its plain PyTorch
+version (`*_plain`) for CPU tensors, launches its kernel for CUDA tensors,
+and raises for anything else: nothing falls back.  Each wrapper counts its
+launches in its `launches` attribute.
 
 The TPU's int8 limb planes and [R*ld, C*B] tiling are TPU scheduling; the
 port's layouts are its own (see the header of `csrc/pbs_kernels.cuh`), and
@@ -102,6 +110,23 @@ def step_library() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.tfhe_blind_rotate_cluster.argtypes = [ptr] * 7 + [i32] * 9 + [ptr]
     lib.tfhe_blind_rotate_cluster.restype = i32
+    return lib
+
+
+@functools.cache
+def single_cta_library() -> ctypes.CDLL:
+    """Build (once per source hash) and load the single-CTA step kernel's
+    shared library (K4, K7).  Raises `tfhe_tpu_torch._native.BuildError`."""
+    path = build_shared_library(
+        "single_cta_kernels", [os.path.join(_CSRC, "single_cta_kernels.cu")],
+        [_nvcc(), *NVCC_FLAGS], timeout=BUILD_TIMEOUT_S,
+        headers=(os.path.join(_CSRC, "single_cta_kernels.cuh"),
+                 os.path.join(_CSRC, "pbs_kernels.cuh")))
+    lib = ctypes.CDLL(path)
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.tfhe_blind_rotate_single_cta.argtypes = ([ptr] * 7 + [i32] * 10
+                                                 + [ptr])
+    lib.tfhe_blind_rotate_single_cta.restype = i32
     return lib
 
 
@@ -378,11 +403,12 @@ def blind_rotate_persistent_plain(acc: torch.Tensor, ahat: torch.Tensor,
     return acc
 
 
-def _launch_cluster(name: str, acc: torch.Tensor, ahat: torch.Tensor,
+def _check_rotation(acc: torch.Tensor, ahat: torch.Tensor,
                     kspec: torch.Tensor, kshoup: torch.Tensor, base_log: int,
-                    levels: int, bits: int) -> torch.Tensor:
-    """Checks, then `blind_rotate_cluster_kernel` over ahat.shape[0] steps;
-    ahat [n, B], kspec / kshoup [n, P, LJ, O, M, N]."""
+                    levels: int, bits: int) -> tuple:
+    """Checks the inputs of a launch over ahat.shape[0] steps: acc [B, G, N]
+    int64, ahat [n, B] int32, kspec / kshoup [n, P, LJ, O, M, N] int32.
+    Returns (B, n, G, M, P, N)."""
     dev = acc.device
     B, G, N = acc.shape
     n = ahat.shape[0]
@@ -394,14 +420,24 @@ def _launch_cluster(name: str, acc: torch.Tensor, ahat: torch.Tensor,
     if N & (N - 1) or bits - base_log * levels < 1:
         raise ValueError("N must be a power of two and the decomposition "
                          "must leave at least one bit")
+    return B, n, G, M, P, N
+
+
+def _launch_cluster(name: str, acc: torch.Tensor, ahat: torch.Tensor,
+                    kspec: torch.Tensor, kshoup: torch.Tensor, base_log: int,
+                    levels: int, bits: int) -> torch.Tensor:
+    """Checks, then `blind_rotate_cluster_kernel` over ahat.shape[0] steps;
+    ahat [n, B], kspec / kshoup [n, P, LJ, O, M, N]."""
+    B, n, G, M, P, N = _check_rotation(acc, ahat, kspec, kshoup, base_log,
+                                       levels, bits)
     out = torch.empty_like(acc)
     if B == 0:  # a grid of zero blocks is an invalid launch
         return out
-    tab = ntt.tables_for(N, dev)
+    tab = ntt.tables_for(N, acc.device)
     err = step_library().tfhe_blind_rotate_cluster(
         acc.data_ptr(), ahat.data_ptr(), kspec.data_ptr(), kshoup.data_ptr(),
         tab.kernel.data_ptr(), tab.crt.data_ptr(), out.data_ptr(), B, n, G, M,
-        P, N, base_log, levels, bits, _stream(dev))
+        P, N, base_log, levels, bits, _stream(acc.device))
     _check_launch(err, name)
     return out
 
@@ -449,8 +485,83 @@ def blind_rotate_persistent(acc: torch.Tensor, ahat: torch.Tensor,
 
 blind_rotate_persistent.launches = 0
 
+# ---------------------------------------------------------------------------
+# K4 and K7: whole steps on one CTA per ciphertext, the primes in turn
+# ---------------------------------------------------------------------------
+
+
+def _launch_single_cta(name: str, acc: torch.Tensor, ahat: torch.Tensor,
+                       kspec: torch.Tensor, kshoup: torch.Tensor,
+                       base_log: int, levels: int, bits: int,
+                       wide: bool) -> torch.Tensor:
+    """Checks, then `blind_rotate_single_cta_kernel<wide>` over
+    ahat.shape[0] steps; ahat [n, B], kspec / kshoup [n, P, LJ, O, M, N]."""
+    B, n, G, M, P, N = _check_rotation(acc, ahat, kspec, kshoup, base_log,
+                                       levels, bits)
+    out = torch.empty_like(acc)
+    if B == 0:  # a grid of zero blocks is an invalid launch
+        return out
+    tab = ntt.tables_for(N, acc.device)
+    err = single_cta_library().tfhe_blind_rotate_single_cta(
+        acc.data_ptr(), ahat.data_ptr(), kspec.data_ptr(), kshoup.data_ptr(),
+        tab.kernel.data_ptr(), tab.xcrt.data_ptr(), out.data_ptr(), B, n, G,
+        M, P, N, base_log, levels, bits, int(wide), _stream(acc.device))
+    _check_launch(err, name)
+    return out
+
+
+def pbs_step_single_cta(acc: torch.Tensor, ahat: torch.Tensor,
+                        kspec: torch.Tensor, kshoup: torch.Tensor,
+                        base_log: int, levels: int,
+                        bits: int = 64) -> torch.Tensor:
+    """K4 (replaces step_kernel, tfhe_tpu/ops/fused_pbs.py:983): one whole
+    step in one launch of `blind_rotate_single_cta_kernel<true>`, each
+    prime's outputs through one inverse-NTT pass.  acc [B, G, N], ahat [B],
+    kspec / kshoup [P, LJ, O, M, N]; returns a new accumulator.  Its plain
+    version is `pbs_step_plain`."""
+    if acc.device.type == "cpu":
+        return pbs_step_plain(acc, ahat, kspec, base_log, levels, bits)
+    if acc.device.type != "cuda":
+        raise ValueError(f"pbs_step_single_cta: unsupported device "
+                         f"{acc.device}")
+    out = _launch_single_cta("pbs_step_single_cta", acc, ahat[None],
+                             kspec[None], kshoup[None], base_log, levels,
+                             bits, wide=True)
+    if acc.shape[0]:
+        pbs_step_single_cta.launches += 1
+    return out
+
+
+pbs_step_single_cta.launches = 0
+
+
+def blind_rotate_single_cta(acc: torch.Tensor, ahat: torch.Tensor,
+                            kspec: torch.Tensor, kshoup: torch.Tensor,
+                            base_log: int, levels: int,
+                            bits: int = 64) -> torch.Tensor:
+    """K7 (replaces _make_kernel, tfhe_tpu/ops/fused_pbs.py:1403): all n
+    steps in one launch of `blind_rotate_single_cta_kernel<false>`, the
+    accumulator held in the CTA's shared memory throughout.  ahat [n, B],
+    kspec / kshoup [n, P, LJ, O, M, N]; returns a new accumulator.  Its
+    plain version is `blind_rotate_persistent_plain`."""
+    if acc.device.type == "cpu":
+        return blind_rotate_persistent_plain(acc, ahat, kspec, base_log,
+                                             levels, bits)
+    if acc.device.type != "cuda":
+        raise ValueError(f"blind_rotate_single_cta: unsupported device "
+                         f"{acc.device}")
+    out = _launch_single_cta("blind_rotate_single_cta", acc, ahat, kspec,
+                             kshoup, base_log, levels, bits, wide=False)
+    if acc.shape[0]:
+        blind_rotate_single_cta.launches += 1
+    return out
+
+
+blind_rotate_single_cta.launches = 0
+
 KERNELS = (rotate_decompose, external_product_crt, pbs_step,
-           blind_rotate_persistent, ntt_mac_prime, crt_accumulate)
+           blind_rotate_persistent, ntt_mac_prime, crt_accumulate,
+           pbs_step_single_cta, blind_rotate_single_cta)
 
 
 def reset_launch_counts() -> None:
@@ -515,7 +626,7 @@ def prepare_bsk_cuda(raw_bsk: torch.Tensor, base_log: int,
                            input_dim=n, bits=bits)
 
 
-MODES = ("scan2", "scan1", "scan3", "grid")
+MODES = ("scan2", "scan1", "scan1w", "scan3", "grid", "mega")
 
 
 def check_mode(mode: str) -> None:
@@ -538,6 +649,9 @@ def blind_rotate_fused(bsk: PreparedBskCuda, acc: torch.Tensor,
     if mode == "grid":
         return blind_rotate_persistent(acc, ahat, bsk.kspec, bsk.kshoup,
                                        *shape)
+    if mode == "mega":
+        return blind_rotate_single_cta(acc, ahat, bsk.kspec, bsk.kshoup,
+                                       *shape)
     if mode == "scan3":
         B, G, N = acc.shape
         P, M = bsk.kspec.shape[1], bsk.kspec.shape[-2]
@@ -547,6 +661,9 @@ def blind_rotate_fused(bsk: PreparedBskCuda, acc: torch.Tensor,
         ks, ksh = bsk.kspec[i], bsk.kshoup[i]
         if mode == "scan1":
             acc = pbs_step(acc, ahat[i], ks, ksh, *shape)
+            continue
+        if mode == "scan1w":
+            acc = pbs_step_single_cta(acc, ahat[i], ks, ksh, *shape)
             continue
         digits = rotate_decompose(acc, ahat[i], *shape)
         if mode == "scan2":

@@ -99,7 +99,8 @@ class NttTables:
     constant of a product of two residues);  crt [P, 2P + 4] int64,
     Garner's constants for prime i with Q_j = p_0...p_{j-1}: Q_j mod p_i
     (j < P), their Shoup companions, Q_i^-1 mod p_i, its companion, p_i,
-    Q_i mod 2^64 (as int64 bits)."""
+    Q_i mod 2^64 (as int64 bits);  xcrt [P, XCRT_WIDTH] int64, the
+    explicit CRT's constants (`_explicit_crt_host`)."""
 
     primes: torch.Tensor
     psi_rev: torch.Tensor
@@ -107,6 +108,7 @@ class NttTables:
     n_inv: torch.Tensor
     kernel: torch.Tensor
     crt: torch.Tensor
+    xcrt: torch.Tensor
 
 
 def _as_i32_bits(u: np.ndarray) -> np.ndarray:
@@ -133,6 +135,45 @@ def _garner_host() -> np.ndarray:
     return out
 
 
+# the explicit CRT's fraction sum_i c_i / p_i, as a u32 fixed-point number
+# with XCRT_FRAC_BITS fraction bits
+XCRT_FRAC_BITS = 28
+XCRT_WIDTH = 6
+
+
+def _int64_bits(v: int) -> int:
+    v %= 1 << 64
+    return v - (1 << 64) if v >= 1 << 63 else v
+
+
+@functools.cache
+def _explicit_crt_host(N: int) -> np.ndarray:
+    """Constants of the explicit CRT (the single-CTA kernels', after the
+    reference's `_crt_accumulate`, tfhe_tpu/ops/fused_pbs.py:709), per prime
+    i with Q = prod p and Q_i = Q / p_i: p_i; w_i = N^-1 (Q_i)^-1 mod p_i
+    and its Shoup companion; Q_i mod 2^64; T_i = round(2^28 / p_i); Q mod
+    2^64 (the last two as int64 bits).
+
+    For the unscaled inverse transform r_i of a convolution x,
+    c_i = r_i w_i mod p_i gives x = sum_i c_i Q_i - k Q with
+    k = round(sum_i c_i / p_i).  The kernel sums c_i T_i in a u32 (below
+    P (2^28 + 2^16) < 2^32 for P <= 8) and takes k = (sum + 2^27) >> 28:
+    each term is off by at most c_i / 2 < 2^16 units of 2^-28, so the sum
+    is within P 2^-12 of sum_i c_i / p_i, which is within |x| / Q of the
+    integer k.  For |x| < 2^67 and these five primes (Q > 2^77) the two
+    errors add to below 0.003, far from the 1/2 at which k could round
+    the wrong way: x is exact."""
+    P = len(PRIMES)
+    Q = int(CRT_MODULUS)
+    out = np.zeros((P, XCRT_WIDTH), np.int64)
+    for i, p in enumerate(PRIMES):
+        q_i = Q // p
+        w = pow(N, p - 2, p) * pow(q_i % p, p - 2, p) % p
+        out[i] = (p, w, (w << 32) // p, _int64_bits(q_i),
+                  ((1 << XCRT_FRAC_BITS) + p // 2) // p, _int64_bits(Q))
+    return out
+
+
 @functools.cache
 def ntt_tables(N: int, device: str) -> NttTables:
     fwd, inv, ninv = _host_tables(N)
@@ -151,7 +192,7 @@ def ntt_tables(N: int, device: str) -> NttTables:
     dev = torch.device(device)
     t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
     return NttTables(t(primes), t(fwd), t(inv), t(ninv), t(kern),
-                     t(_garner_host()))
+                     t(_garner_host()), t(_explicit_crt_host(N)))
 
 
 @functools.cache

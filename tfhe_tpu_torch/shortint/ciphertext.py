@@ -2,7 +2,9 @@
 
 Port of `tfhe_tpu/shortint/ciphertext.py` (ref: tfhe/src/shortint/ciphertext/
 mod.rs:27-259).  The LWE data is an int64 tensor on the key's device;
-degree and noise level are numpy bookkeeping, as in the reference.
+degree and noise level are numpy bookkeeping, as in the reference: `checked_`
+operations validate them against the server key's maximum degree and noise
+level, and the op families use them to decide when to clean a carry.
 """
 
 from __future__ import annotations
@@ -11,6 +13,11 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+
+class CheckError(Exception):
+    """Raised when an operation would overflow the degree or noise budget
+    (ref: shortint/server_key/mod.rs CheckError)."""
 
 
 NOMINAL_NOISE = 1
@@ -26,6 +33,20 @@ class Ciphertext:
     carry_modulus: int
     noise_level: int = NOMINAL_NOISE
     is_trivial: bool = False
+
+    def copy(self) -> "Ciphertext":
+        return Ciphertext(data=self.data.clone(), degree=self.degree,
+                          message_modulus=self.message_modulus,
+                          carry_modulus=self.carry_modulus,
+                          noise_level=self.noise_level,
+                          is_trivial=self.is_trivial)
+
+    @property
+    def total_modulus(self) -> int:
+        return self.message_modulus * self.carry_modulus
+
+    def carry_is_empty(self) -> bool:
+        return self.degree < self.message_modulus
 
 
 @dataclass
@@ -48,3 +69,8 @@ class ShortintBatch:
 
     def __len__(self):
         return self.data.shape[0]
+
+    def copy(self) -> "ShortintBatch":
+        return ShortintBatch(self.data.clone(), self.degrees.copy(),
+                             self.message_modulus, self.carry_modulus,
+                             self.noise.copy())

@@ -1,10 +1,15 @@
-"""Shortint server key and its lookup-table operations.
+"""Shortint server key: lookup tables, batch primitives, degree and noise
+guards, and the op families.
 
 Port of `tfhe_tpu/shortint/server_key.py` (ref: tfhe/src/shortint/server_key/
-mod.rs).  Every operation reduces to `_pbs_device`: one keyswitch + PBS over
-a whole batch of blocks (ref: mod.rs:783-857), which on a card runs the
-blind-rotation kernels of `ops/fused_pbs.py` (classic parameters) or of
-`ops/fused_multibit.py` (multi-bit parameters, in the default schedule).
+mod.rs, and the op files add.rs, sub.rs, neg.rs, mul.rs, div_mod.rs,
+bitwise_op.rs, shift.rs, comp_op.rs, scalar_*.rs, bivariate_pbs.rs).  Every
+PBS reduces to `_pbs_device`: one keyswitch + PBS over a whole batch of
+blocks (ref: mod.rs:783-857), in the parameter set's PBS order
+(keyswitch-then-bootstrap for ciphertexts under the big key, bootstrap-then-
+keyswitch under the small key) with the classic or the multi-bit blind
+rotation.  On a card the rotation runs the kernels of `ops/fused_pbs.py` or
+`ops/fused_multibit.py` in the schedule the key's `mode` names.
 The reference's XLA shape buckets and on-disk key cache have no counterpart
 here: PyTorch runs eagerly at any batch size, and nothing is written to
 disk.
@@ -20,9 +25,10 @@ import torch
 
 from .. import core
 from ..device import resolve_device
+from ..ops import fused_multibit, fused_pbs
 from ..ops.torus import to_tensor
 from ..params import ClassicPBSParameters, MultiBitPBSParameters, PBSOrder
-from .ciphertext import ShortintBatch
+from .ciphertext import CheckError, Ciphertext, NOMINAL_NOISE, ShortintBatch
 from .client_key import ClientKey
 
 
@@ -47,20 +53,29 @@ def _as_key_tensor(x, device) -> torch.Tensor:
 
 
 class ServerKey:
-    def __init__(self, cks: ClientKey, _raw=None, device=None):
+    """`mode` picks the blind rotation's schedule: one of `fused_pbs.MODES`
+    for classic parameters (default "scan2"), of `fused_multibit.MODES` for
+    multi-bit ones (default "scan3"); any other value raises."""
+
+    def __init__(self, cks: ClientKey, _raw=None, device=None,
+                 mode: Optional[str] = None):
         p = cks.params
-        if p.pbs_order is not PBSOrder.KEYSWITCH_BOOTSTRAP:
-            raise NotImplementedError(
-                "only the keyswitch-then-bootstrap order is ported")
         self.params = p
         self.device = resolve_device(device if device is not None
                                      else cks.device)
         self.message_modulus = p.message_modulus
         self.carry_modulus = p.carry_modulus
         self.max_degree = p.total_modulus - 1
+        # (ref: shortint/ciphertext/mod.rs MaxNoiseLevel::from_msg_carry_modulus)
+        self.max_noise_level = (p.carry_modulus * p.message_modulus - 1) // (
+            p.message_modulus - 1)
+        self.delta = p.delta
         self.is_multi_bit = isinstance(p, MultiBitPBSParameters)
         if self.is_multi_bit and p.torus_bits != 64:
             raise ValueError("multi-bit keys are on the 64-bit torus only")
+        schedules = fused_multibit if self.is_multi_bit else fused_pbs
+        self.mode = schedules.MODES[0] if mode is None else mode
+        schedules.check_mode(self.mode)
         if _raw is None:
             if self.is_multi_bit:
                 bsk = core.generate_multi_bit_bootstrap_key(
@@ -88,13 +103,14 @@ class ServerKey:
 
     @classmethod
     def from_raw(cls, params: ClassicPBSParameters | MultiBitPBSParameters,
-                 bsk, ksk, device="cuda") -> "ServerKey":
+                 bsk, ksk, device="cuda",
+                 mode: Optional[str] = None) -> "ServerKey":
         """Rebuild a server key from raw standard-domain BSK / KSK arrays
         (numpy uint64 or int64 tensors); a multi-bit BSK is
         [n/gf, 2^gf, L, G, G, N]."""
         shell = ClientKey.__new__(ClientKey)
         shell.params = params
-        return cls(shell, _raw=(bsk, ksk), device=device)
+        return cls(shell, _raw=(bsk, ksk), device=device, mode=mode)
 
     # -- lookup tables --
 
@@ -131,14 +147,19 @@ class ServerKey:
 
     def _pbs_device(self, data: torch.Tensor, acc: torch.Tensor
                     ) -> torch.Tensor:
-        """Keyswitch + bootstrap over a batch: [B, lwe_size] -> [B, k*N+1]."""
+        """One keyswitch + PBS over a batch, in the parameters' PBS order:
+        [B, lwe_size] -> [B, lwe_size].  acc is one LUT [G, N] or one per
+        element [B, G, N]."""
         if data.device != self.device:
             raise ValueError(f"ciphertexts are on {data.device}, the key on "
                              f"{self.device}")
-        if self.is_multi_bit:
-            return core.keyswitch_then_multi_bit_pbs(self.ksk, self.bsk, acc,
-                                                     data)
-        return core.keyswitch_then_pbs(self.ksk, self.bsk, acc, data)
+        if self.params.pbs_order is PBSOrder.KEYSWITCH_BOOTSTRAP:
+            fn = (core.keyswitch_then_multi_bit_pbs if self.is_multi_bit
+                  else core.keyswitch_then_pbs)
+        else:
+            fn = (core.multi_bit_pbs_then_keyswitch if self.is_multi_bit
+                  else core.pbs_then_keyswitch)
+        return fn(self.ksk, self.bsk, acc, data, mode=self.mode)
 
     def apply_lookup_table_batch(self, batch: ShortintBatch,
                                  lut: LookupTable) -> ShortintBatch:
@@ -148,12 +169,45 @@ class ServerKey:
             message_modulus=batch.message_modulus,
             carry_modulus=batch.carry_modulus)
 
+    def apply_many_lookup_tables_batch(self, batch: ShortintBatch,
+                                       luts: list[LookupTable],
+                                       selector) -> ShortintBatch:
+        """Each element i evaluates luts[selector[i]]: one PBS call over the
+        batch, with an accumulator per element."""
+        selector = np.asarray(selector, dtype=np.int64)
+        index = torch.from_numpy(selector).to(self.device)
+        accs = torch.stack([lut.acc for lut in luts])[index]
+        out = self._pbs_device(batch.data, accs)
+        degs = np.array([luts[s].degree for s in selector], dtype=np.int64)
+        return ShortintBatch(
+            data=out, degrees=degs, message_modulus=batch.message_modulus,
+            carry_modulus=batch.carry_modulus)
+
     def unchecked_add_batch(self, a: ShortintBatch,
                             b: ShortintBatch) -> ShortintBatch:
         return ShortintBatch(
             data=a.data + b.data, degrees=a.degrees + b.degrees,
             message_modulus=a.message_modulus,
             carry_modulus=a.carry_modulus, noise=a.noise + b.noise)
+
+    def _body_addend(self, values: np.ndarray) -> torch.Tensor:
+        """values * delta as u64 words (their int64 bit patterns), on the
+        key's device."""
+        with np.errstate(over="ignore"):
+            words = values.astype(np.uint64) * np.uint64(self.delta)
+        return torch.from_numpy(words.view(np.int64)).to(self.device)
+
+    def unchecked_scalar_add_batch(self, a: ShortintBatch,
+                                   scalars) -> ShortintBatch:
+        scalars = np.broadcast_to(np.asarray(scalars, dtype=np.int64),
+                                  (len(a),))
+        data = a.data.clone()
+        data[:, -1] += self._body_addend(
+            scalars % (2 * self.params.total_modulus))
+        return ShortintBatch(
+            data=data, degrees=a.degrees + scalars,
+            message_modulus=a.message_modulus, carry_modulus=a.carry_modulus,
+            noise=a.noise.copy())
 
     def unchecked_scalar_mul_batch(self, a: ShortintBatch,
                                    scalars) -> ShortintBatch:
@@ -165,6 +219,23 @@ class ServerKey:
             message_modulus=a.message_modulus,
             carry_modulus=a.carry_modulus, noise=a.noise * scalars)
 
+    def unchecked_neg_batch(self, a: ShortintBatch):
+        """(ref: neg.rs:223-245) -> (result, correcting terms z): -a plus
+        z * delta, z = ceil(degree / msg) * msg, at least msg."""
+        msg = self.message_modulus
+        z = np.maximum(-(-a.degrees // msg), 1) * msg
+        data = 0 - a.data
+        data[:, -1] += self._body_addend(z)
+        return (ShortintBatch(data=data, degrees=z,
+                              message_modulus=a.message_modulus,
+                              carry_modulus=a.carry_modulus,
+                              noise=a.noise.copy()), z)
+
+    def unchecked_sub_batch(self, a: ShortintBatch, b: ShortintBatch):
+        """-> (a - b with b's correcting term added, z)."""
+        nb, z = self.unchecked_neg_batch(b)
+        return self.unchecked_add_batch(a, nb), z
+
     def unchecked_bivariate_batch(self, a: ShortintBatch, b: ShortintBatch,
                                   blut: BivariateLookupTable
                                   ) -> ShortintBatch:
@@ -175,10 +246,185 @@ class ServerKey:
             self.unchecked_scalar_mul_batch(a, blut.factor), b)
         return self.apply_lookup_table_batch(packed, blut.acc)
 
+    def message_extract_batch(self, a: ShortintBatch) -> ShortintBatch:
+        lut = self.generate_lookup_table(lambda x: x % self.message_modulus)
+        return self.apply_lookup_table_batch(a, lut)
+
+    def carry_extract_batch(self, a: ShortintBatch) -> ShortintBatch:
+        lut = self.generate_lookup_table(lambda x: x // self.message_modulus)
+        return self.apply_lookup_table_batch(a, lut)
+
+    def trivial_batch(self, values, n: int) -> ShortintBatch:
+        """n noiseless ciphertexts (0, ..., 0, value * delta), values reduced
+        mod the total modulus."""
+        p = self.params
+        values = np.asarray(values, dtype=np.uint64) % np.uint64(
+            p.total_modulus)
+        lwe_size = self.ciphertext_lwe_size
+        if n == 0:
+            data = torch.zeros((0, lwe_size), dtype=torch.int64,
+                               device=self.device)
+        else:
+            data = core.trivial_lwe(self._body_addend(values), lwe_size - 1,
+                                    device=self.device)
+        return ShortintBatch(
+            data=data.reshape(n, lwe_size), degrees=values.astype(np.int64),
+            message_modulus=p.message_modulus, carry_modulus=p.carry_modulus,
+            noise=np.zeros(n, dtype=np.int64))
+
+    # -- degree / noise guards --
+
+    def is_add_possible(self, a: Ciphertext, b: Ciphertext) -> bool:
+        return (a.degree + b.degree <= self.max_degree
+                and a.noise_level + b.noise_level <= self.max_noise_level)
+
+    def checked_add(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
+        if not self.is_add_possible(a, b):
+            raise CheckError("degree or noise overflow in add")
+        return self.unchecked_add(a, b)
+
+    # -- one-block API over Ciphertext --
+
+    def _b1(self, ct: Ciphertext) -> ShortintBatch:
+        return ShortintBatch(
+            data=ct.data[None].clone(), degrees=np.array([ct.degree]),
+            message_modulus=ct.message_modulus,
+            carry_modulus=ct.carry_modulus, noise=np.array([ct.noise_level]))
+
+    def _c1(self, b: ShortintBatch, trivial: bool = False) -> Ciphertext:
+        return Ciphertext(
+            data=b.data[0], degree=int(b.degrees[0]),
+            message_modulus=b.message_modulus, carry_modulus=b.carry_modulus,
+            noise_level=int(b.noise[0]), is_trivial=trivial)
+
+    def create_trivial(self, value: int) -> Ciphertext:
+        return self._c1(self.trivial_batch(np.asarray([value]), 1),
+                        trivial=True)
+
+    def apply_lookup_table(self, ct: Ciphertext, lut_or_f) -> Ciphertext:
+        lut = (lut_or_f if isinstance(lut_or_f, LookupTable)
+               else self.generate_lookup_table(lut_or_f))
+        return self._c1(self.apply_lookup_table_batch(self._b1(ct), lut))
+
+    def unchecked_add(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
+        return self._c1(self.unchecked_add_batch(self._b1(a), self._b1(b)))
+
+    def unchecked_sub(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
+        out, _ = self.unchecked_sub_batch(self._b1(a), self._b1(b))
+        return self._c1(out)
+
+    def unchecked_neg(self, a: Ciphertext) -> Ciphertext:
+        out, _ = self.unchecked_neg_batch(self._b1(a))
+        return self._c1(out)
+
+    def unchecked_scalar_add(self, a: Ciphertext, s: int) -> Ciphertext:
+        return self._c1(self.unchecked_scalar_add_batch(self._b1(a), s))
+
+    def unchecked_scalar_mul(self, a: Ciphertext, s: int) -> Ciphertext:
+        return self._c1(self.unchecked_scalar_mul_batch(self._b1(a), s))
+
+    def unchecked_bivariate(self, a: Ciphertext, b: Ciphertext,
+                            f) -> Ciphertext:
+        blut = self.generate_lookup_table_bivariate(f)
+        return self._c1(
+            self.unchecked_bivariate_batch(self._b1(a), self._b1(b), blut))
+
+    def message_extract(self, a: Ciphertext) -> Ciphertext:
+        return self.apply_lookup_table(a, lambda x: x % self.message_modulus)
+
+    def carry_extract(self, a: Ciphertext) -> Ciphertext:
+        return self.apply_lookup_table(a, lambda x: x // self.message_modulus)
+
+    def _clean(self, ct: Ciphertext) -> Ciphertext:
+        """Refresh a block so its carry space is empty."""
+        if ct.carry_is_empty() and ct.noise_level <= NOMINAL_NOISE:
+            return ct
+        return self.message_extract(ct)
+
+    def _smart_bivariate(self, a: Ciphertext, b: Ciphertext,
+                         f) -> Ciphertext:
+        if a.degree >= self.message_modulus or a.noise_level > NOMINAL_NOISE:
+            a = self.message_extract(a)
+        if b.degree >= self.message_modulus or b.noise_level > NOMINAL_NOISE:
+            b = self.message_extract(b)
+        return self.unchecked_bivariate(a, b, f)
+
+    # -- the op families, each a LUT family of the reference's op files --
+
+    def add(self, a, b):  # (ref: add.rs)
+        if not self.is_add_possible(a, b):
+            a, b = self._clean(a), self._clean(b)
+        return self.message_extract(self.unchecked_add(a, b))
+
+    def sub(self, a, b):  # (ref: sub.rs)
+        if a.degree + ((b.degree // self.message_modulus + 1)
+                       * self.message_modulus) > self.max_degree:
+            a, b = self._clean(a), self._clean(b)
+        return self.message_extract(self.unchecked_sub(a, b))
+
+    def neg(self, a):  # (ref: neg.rs)
+        return self.message_extract(self.unchecked_neg(a))
+
+    def mul_lsb(self, a, b):  # (ref: mul.rs)
+        m = self.message_modulus
+        return self._smart_bivariate(a, b, lambda x, y: (x * y) % m)
+
+    def mul_msb(self, a, b):
+        m = self.message_modulus
+        return self._smart_bivariate(a, b, lambda x, y: (x * y) // m)
+
+    def div(self, a, b):  # (ref: div_mod.rs; division by zero yields msg-1)
+        m = self.message_modulus
+        return self._smart_bivariate(
+            a, b, lambda x, y: (x // y) % m if y != 0 else m - 1)
+
+    def mod_(self, a, b):
+        m = self.message_modulus
+        return self._smart_bivariate(
+            a, b, lambda x, y: (x % y) % m if y != 0 else x % m)
+
+    def bitand(self, a, b):  # (ref: bitwise_op.rs)
+        return self._smart_bivariate(a, b, lambda x, y: x & y)
+
+    def bitor(self, a, b):
+        return self._smart_bivariate(a, b, lambda x, y: x | y)
+
+    def bitxor(self, a, b):
+        return self._smart_bivariate(a, b, lambda x, y: x ^ y)
+
+    def scalar_left_shift(self, a, shift: int):  # (ref: shift.rs)
+        m = self.message_modulus
+        return self.apply_lookup_table(a, lambda x: ((x % m) << shift) % m)
+
+    def scalar_right_shift(self, a, shift: int):
+        m = self.message_modulus
+        return self.apply_lookup_table(a, lambda x: (x % m) >> shift)
+
+    # comparisons return 0/1 blocks (ref: comp_op.rs)
+    def eq(self, a, b):
+        return self._smart_bivariate(a, b, lambda x, y: int(x == y))
+
+    def ne(self, a, b):
+        return self._smart_bivariate(a, b, lambda x, y: int(x != y))
+
+    def lt(self, a, b):
+        return self._smart_bivariate(a, b, lambda x, y: int(x < y))
+
+    def le(self, a, b):
+        return self._smart_bivariate(a, b, lambda x, y: int(x <= y))
+
+    def gt(self, a, b):
+        return self._smart_bivariate(a, b, lambda x, y: int(x > y))
+
+    def ge(self, a, b):
+        return self._smart_bivariate(a, b, lambda x, y: int(x >= y))
+
 
 def gen_keys(params: ClassicPBSParameters | MultiBitPBSParameters,
-             seed: Optional[int] = None, device="cuda"):
+             seed: Optional[int] = None, device="cuda",
+             mode: Optional[str] = None):
     """(ref: shortint/mod.rs:87 gen_keys) -> (ClientKey, ServerKey), both on
-    `device`.  Nothing is cached on disk."""
+    `device`, the server key's blind rotation in schedule `mode` (None: the
+    key kind's default).  Nothing is cached on disk."""
     cks = ClientKey(params, seed=seed, device=device)
-    return cks, ServerKey(cks)
+    return cks, ServerKey(cks, mode=mode)

@@ -21,20 +21,26 @@ from .shortint import ClientKey, ServerKey
 
 def server_key_from_reference(
         params: ClassicPBSParameters | MultiBitPBSParameters, raw_bsk, raw_ksk,
-        device="cuda") -> ServerKey:
-    """raw_bsk and raw_ksk [k*N, ks_level, n+1] uint64 (the reference's
-    `ServerKey.raw_bsk` / `raw_ksk`, its `from_raw` inputs,
-    server_key.py:103-108).  raw_bsk is [n, L, G, G, N] for classic
-    parameters and [n/gf, 2^gf, L, G, G, N] for multi-bit ones."""
+        device="cuda", mode: Optional[str] = None) -> ServerKey:
+    """raw_bsk and raw_ksk (the reference's `ServerKey.raw_bsk` /
+    `raw_ksk`, its `from_raw` inputs, server_key.py:103-108), in either PBS
+    order: raw_bsk is [n, L, G, G, N] for classic parameters and
+    [n/gf, 2^gf, L, G, G, N] for multi-bit ones; raw_ksk, from the big key
+    to the small one, is [k*N, ks_level, n+1].  The server key's blind
+    rotation runs in schedule `mode` (None: the key kind's default)."""
     gf = getattr(params, "grouping_factor", None)
     G, N = params.glwe_size, params.polynomial_size
     n, L = params.lwe_dimension, params.pbs_level
-    want = ((n, L, G, G, N) if gf is None
-            else (n // gf, 1 << gf, L, G, G, N))
-    if tuple(raw_bsk.shape) != want:
-        raise ValueError(f"{params.name}: raw BSK of shape "
-                         f"{tuple(raw_bsk.shape)}, expected {want}")
-    return ServerKey.from_raw(params, raw_bsk, raw_ksk, device=device)
+    want_bsk = ((n, L, G, G, N) if gf is None
+                else (n // gf, 1 << gf, L, G, G, N))
+    want_ksk = (params.big_lwe_dimension, params.ks_level, n + 1)
+    for name, key, want in (("BSK", raw_bsk, want_bsk),
+                            ("KSK", raw_ksk, want_ksk)):
+        if tuple(key.shape) != want:
+            raise ValueError(f"{params.name}: raw {name} of shape "
+                             f"{tuple(key.shape)}, expected {want}")
+    return ServerKey.from_raw(params, raw_bsk, raw_ksk, device=device,
+                              mode=mode)
 
 
 def client_key_from_reference(
