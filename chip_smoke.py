@@ -4,9 +4,9 @@
 
 Phases, each printing one flushed line with its wall time:
   1. card: the card's name and power limit (nvidia-smi) and torch's name;
-  2. build: nvcc builds the classic, the cluster-step, the single-CTA and
-     the multi-bit kernels' libraries and g++ the native AES generator,
-     from the sources in this checkout, all five at once;
+  2. build: nvcc builds the classic, the cluster-step, the single-CTA, the
+     multi-bit and the Shoup MAC kernels' libraries and g++ the native AES
+     generator, from the sources in this checkout, all six at once;
   3. kernels_modes: every classic-schedule wrapper (K1, K2, pbs_step,
      blind_rotate_persistent, ntt_mac_prime, crt_accumulate, and
      pbs_step_single_cta, blind_rotate_single_cta) against its plain
@@ -64,7 +64,29 @@ Phases, each printing one flushed line with its wall time:
  11. card_vs_cpu_boolean: BOOLEAN_TEST_PARAMETERS gates on the card in
      every mode, bit-identical to the CPU's plain versions;
  12. timing_boolean: gates/s and batch ms per mode at B=64 and B=256, split
-     into blind rotation, sample extract and keyswitch.
+     into blind rotation, sample extract and keyswitch;
+ 13. kernels_ntt (run after phase 3): K10 `shoup_mac` against its plain
+     version at the widths of the CRT-NTT key layout's three paths
+     (shortint LJ=2, GM=4, N=2048; boolean 9, 3, 512; u128 2, 8, 2048),
+     every prime, B=64, bit-exact, with device, eager and plain times and
+     bounds;
+ 14. main_path_ntt: mode="ntt" (the CRT-NTT layout, K10 once per prime and
+     step) at full width: PARAM_MESSAGE_2_CARRY_2_KS_PBS keys on the card,
+     two LUTs on 64 messages, and boolean DEFAULT_PARAMETERS, every gate and
+     mux on 64 seeded bits; decrypted right, word for word equal to scan2
+     keys rebuilt from the same raw keys, K10 launched exactly 5 n times per
+     PBS batch and nothing else launched;
+ 15. main_path_u128: the u128 PBS at the PBS widths and noise of
+     PARAM_MESSAGE_2_CARRY_2_KS_PBS (n=742, N=2048, k=1, base_log 23, one
+     level): keygen on the card, the identity and (3x+1) mod 4 LUTs on 64
+     encryptions, all decrypted right, 5 n K10 launches per rotation;
+ 16. card_vs_cpu_ntt: mode="ntt" shortint and boolean at the TEST sets and
+     the u128 PBS at tests/test_u128.py's toy size, card == CPU word for
+     word (keys, ciphertexts, outputs);
+ 17. timing_ntt: PBS/s (gates/s) and batch ms at B=64 and B=256 for
+     shortint mode="ntt", the u128 PBS and boolean mode="ntt", and a
+     CUDA-event split of one step into decomposition, forward NTT, K10 (five
+     launches), inverse NTT and CRT.
 Kernel times are device times: a CUDA graph of many launches replayed
 between CUDA events (a whole rotation, persistent or single-CTA: CUDA events
 around a few eager launches); the eager per-launch times beside them include
@@ -1045,6 +1067,396 @@ def pbs_ks_main_path(dev):
     return launches, cks, sks
 
 
+# the CRT-NTT key layout on K10 (the Shoup MAC), at the three torus widths:
+# (name, LJ = L*G digit rows, GM = G*M output planes, N)
+NTT_WIDTHS = (("shortint", 2, 4, 2048), ("boolean", 9, 3, 512),
+              ("u128", 2, 8, 2048))
+# the u128 PBS at the PBS widths and noise of PARAM_MESSAGE_2_CARRY_2_KS_PBS
+U128_MSUP = 4
+U128_LUTS = (("identity", lambda x: x),
+             ("3x_plus_1", lambda x: (3 * x + 1) % 4))
+
+
+def shoup_mac_bound_ms(B, LJ, GM, N):
+    """Least time for one K10 launch: its bytes (digit spectra, key spectra
+    and companions read once, the sums written once) over the bandwidth,
+    against its operations (per term a Shoup product 6, four corrections 2
+    each and the add; per output the centring 5) over the peak."""
+    nbytes = (B * LJ * N + 2 * LJ * GM * N + B * GM * N) * 4
+    ops = B * GM * N * (LJ * 15 + 5)
+    tb = nbytes / PEAK_BYTES_PER_S * 1e3
+    to = ops / PEAK_OPS_PER_S * 1e3
+    return max(tb, to), "bytes" if tb >= to else "operations"
+
+
+def ntt_kernels_phase(dev):
+    """K10 against its plain version at the three widths, every prime,
+    B = 64, bit-exact; device (a CUDA graph of 100 launches), eager and
+    plain times per launch, prime 0's inputs, and bounds."""
+    import numpy as np
+    import torch
+
+    from tfhe_tpu_torch.ops import ntt
+    from tfhe_tpu_torch.ops import shoup_mac as sm
+
+    t0 = time.time()
+    rng = np.random.default_rng([SEED, 10])
+    err, ms, eager, plain_ms, bounds = {}, {}, {}, {}, {}
+    for name, LJ, GM, N in NTT_WIDTHS:
+        worst = 0
+        for i, p in enumerate(ntt.PRIMES):
+            h = p // 2
+            a = torch.from_numpy(rng.integers(-h, h + 1, (B_MAIN, LJ, N))
+                                 .astype(np.int32)).to(dev)
+            ks = torch.from_numpy(rng.integers(-h, h + 1, (LJ, GM, N))
+                                  .astype(np.int32)).to(dev)
+            ksh = ntt.shoup16(ks, p)
+            worst = max(worst, max_abs_err(sm.shoup_mac(a, ks, ksh, p),
+                                           sm.shoup_mac_plain(a, ks, ksh, p)))
+            if i == 0:
+                def kern(a=a, ks=ks, ksh=ksh, p=p):
+                    return sm.shoup_mac(a, ks, ksh, p)
+
+                def plain(a=a, ks=ks, ksh=ksh, p=p):
+                    return sm.shoup_mac_plain(a, ks, ksh, p)
+
+                ms[name] = graph_ms(kern, 100)
+                eager[name] = cuda_ms(kern, 100)
+                plain_ms[name] = graph_ms(plain, 3)
+        err[name] = worst
+        bounds[name] = shoup_mac_bound_ms(B_MAIN, LJ, GM, N)
+    say("kernels_ntt", t0, batch=B_MAIN,
+        shapes={n: dict(LJ=lj, GM=gm, N=nn) for n, lj, gm, nn in NTT_WIDTHS},
+        max_abs_err=err, device_ms_per_launch=ms, eager_ms_per_launch=eager,
+        plain_device_ms=plain_ms,
+        bound_ms={k: v[0] for k, v in bounds.items()},
+        bound_by={k: v[1] for k, v in bounds.items()})
+    if any(err.values()):
+        raise AssertionError(f"shoup_mac disagrees with its plain version: "
+                             f"{err}")
+    return err, ms, plain_ms, bounds
+
+
+def all_launches():
+    """Every wrapper's launch count, by name."""
+    from tfhe_tpu_torch.ops import fused_multibit, fused_pbs, shoup_mac
+
+    return launched(fused_pbs.KERNELS + fused_multibit.KERNELS
+                    + shoup_mac.KERNELS)
+
+
+def reset_all_launches():
+    from tfhe_tpu_torch.ops import fused_multibit, fused_pbs, shoup_mac
+
+    for mod in (fused_pbs, fused_multibit, shoup_mac):
+        mod.reset_launch_counts()
+
+
+def ntt_main_path(dev):
+    """mode="ntt" at full width: PARAM_MESSAGE_2_CARRY_2_KS_PBS keys on the
+    card, two LUTs on 64 messages, decrypted right and equal word for word
+    to a scan2 key rebuilt from the same raw keys; boolean DEFAULT_PARAMETERS
+    gates and mux the same way.  K10 launches are exact: 5 n per PBS batch,
+    nothing else launches.  Returns K10's launches."""
+    import numpy as np
+    import torch
+
+    from tfhe_tpu_torch import boolean, shortint
+    from tfhe_tpu_torch.params import DEFAULT_PARAMETERS as bp
+    from tfhe_tpu_torch.params import PARAM_MESSAGE_2_CARRY_2_KS_PBS as p
+
+    t0 = time.time()
+    torch.cuda.reset_peak_memory_stats()
+    cks, sks = shortint.gen_keys(p, seed=SEED, device=dev, mode="ntt")
+    torch.cuda.synchronize()
+    t_keygen = time.time() - t0
+    msgs = np.arange(B_MAIN) % p.total_modulus
+    batch = cks.encrypt_batch(msgs)
+    funcs = (("identity", lambda x: x), ("div4", lambda x: x // 4))
+    reset_all_launches()
+    t1 = time.time()
+    outs = {name: sks.apply_lookup_table_batch(
+        batch, sks.generate_lookup_table(f)).data for name, f in funcs}
+    torch.cuda.synchronize()
+    t_luts = time.time() - t1
+    launches = {"shortint": all_launches()}
+    correct = {name: int(np.sum(cks.decrypt_batch_message_and_carry(outs[name])
+                                == np.array([f(int(m)) for m in msgs])))
+               for name, f in funcs}
+    scan2 = shortint.ServerKey.from_raw(p, sks.raw_bsk, sks.raw_ksk,
+                                        device=dev, mode="scan2")
+    same = {name: bool(torch.equal(scan2.apply_lookup_table_batch(
+        batch, scan2.generate_lookup_table(f)).data, outs[name]))
+        for name, f in funcs}
+    peak_shortint = torch.cuda.max_memory_allocated() / 2**20
+    del cks, sks, scan2, batch, outs
+    torch.cuda.empty_cache()
+
+    # boolean gates and mux
+    t2 = time.time()
+    bcks, bsks = boolean.gen_keys(bp, seed=SEED, device=dev, mode="ntt")
+    torch.cuda.synchronize()
+    t_keygen_bool = time.time() - t2
+    x, y, z = np.random.default_rng(SEED + 1).integers(
+        0, 2, (3, B_MAIN)).astype(bool)
+    a, b, c = (bcks.encrypt_batch(v) for v in (x, y, z))
+    clear = {"and": x & y, "or": x | y, "nand": ~(x & y), "nor": ~(x | y),
+             "xor": x ^ y, "xnor": ~(x ^ y), "mux": np.where(z, x, y)}
+    reset_all_launches()
+    t1 = time.time()
+    gates = {g: getattr(bsks, f"{g}_batch")(a, b) for g in BOOLEAN_GATES}
+    gates["mux"] = bsks.mux_batch(c, a, b)
+    torch.cuda.synchronize()
+    t_gates = time.time() - t1
+    launches["boolean"] = all_launches()
+    for g, o in gates.items():
+        correct[f"boolean_{g}"] = int(np.sum(bcks.decrypt_batch(o)
+                                             == clear[g]))
+    bscan2 = boolean.ServerKey.from_raw(bp, bsks.raw_bsk, bsks.raw_ksk,
+                                        device=dev, mode="scan2")
+    for g in BOOLEAN_GATES:
+        same[f"boolean_{g}"] = bool(torch.equal(
+            getattr(bscan2, f"{g}_batch")(a, b), gates[g]))
+    same["boolean_mux"] = bool(torch.equal(bscan2.mux_batch(c, a, b),
+                                           gates["mux"]))
+    expected = {"shortint": {"shoup_mac": 5 * p.lwe_dimension * len(funcs)},
+                "boolean": {"shoup_mac": 5 * bp.lwe_dimension
+                            * (len(BOOLEAN_GATES) + 1)}}
+    say("main_path_ntt", t0, params=[p.name, bp.name], batch=B_MAIN,
+        keygen_s=dict(shortint=t_keygen, boolean=t_keygen_bool),
+        two_luts_s=t_luts, seven_gate_batches_s=t_gates, correct=correct,
+        identical_to_scan2=same, launches=launches,
+        peak_device_mb=dict(
+            shortint=peak_shortint,
+            boolean=torch.cuda.max_memory_allocated() / 2**20))
+    if any(v != B_MAIN for v in correct.values()) or not all(same.values()):
+        raise AssertionError(f"mode='ntt': correct {correct} of {B_MAIN}, "
+                             f"identical to scan2 {same}")
+    if launches != expected:
+        raise AssertionError(f"mode='ntt' launched {launches}, expected "
+                             f"{expected}")
+    return sum(v["shoup_mac"] for v in launches.values())
+
+
+def u128_keys(dev, n, k, N, base_log, levels, lwe_std, glwe_std, seed):
+    """u128 secret keys, bootstrap key and its NTT layout on `dev`."""
+    from tfhe_tpu_torch import core
+    from tfhe_tpu_torch.prng import Seeder
+    from tfhe_tpu_torch.prng.generators import (EncryptionRandomGenerator,
+                                                SecretRandomGenerator)
+
+    sec = SecretRandomGenerator(seed)
+    enc = EncryptionRandomGenerator(seed + 1, Seeder(seed + 1))
+    lwe = core.generate_binary_lwe_secret_key_u128(n, sec, device=dev)
+    glwe = core.generate_binary_lwe_secret_key_u128(k * N, sec,
+                                                    device=dev).reshape(k, N)
+    raw = core.generate_bootstrap_key_u128(lwe, glwe, base_log, levels,
+                                           glwe_std, enc)
+    return lwe, glwe, raw, core.prepare_bsk_ntt(raw, base_log, bits=128,
+                                                device=dev), enc
+
+
+def u128_lut_check(bsk, lwe, glwe, enc, lwe_std, B):
+    """The u128 PBS of the two LUTs on B encryptions of x in [0, 4):
+    returns outputs, the ciphertexts, and the count decrypted right."""
+    import numpy as np
+
+    from tfhe_tpu_torch import core
+    from tfhe_tpu_torch.ops import u128
+
+    k, N = glwe.shape
+    delta = (1 << 128) // (2 * U128_MSUP)
+    msgs = np.arange(B) % U128_MSUP
+    cts = core.encrypt_lwe_u128(lwe, [int(m) * delta for m in msgs], lwe_std,
+                                enc)
+    outs, correct = {}, {}
+    for name, f in U128_LUTS:
+        acc = core.fill_accumulator_u128(f, N, k + 1, U128_MSUP, delta,
+                                         device=glwe.device)
+        outs[name] = core.programmable_bootstrap(bsk, acc, cts)
+        phases = u128.np_unpack(u128.to_numpy(core.decrypt_lwe_u128(
+            glwe.reshape(-1), outs[name])))
+        got = [((ph + delta // 2) // delta) % (2 * U128_MSUP)
+               for ph in phases]
+        correct[name] = int(sum(g == f(int(m)) % U128_MSUP
+                                for g, m in zip(got, msgs)))
+    return outs, cts, correct
+
+
+def u128_main_path(dev):
+    """The u128 PBS at the PBS widths and noise of
+    PARAM_MESSAGE_2_CARRY_2_KS_PBS (n = 742, N = 2048, k = 1, base_log 23,
+    one level): keygen on the card, the CRT-NTT layout, the identity and
+    (3x+1) mod 4 LUTs on 64 encryptions, all decrypted right; 5 n K10
+    launches per rotation.  Returns K10's launches and the keys."""
+    import torch
+
+    from tfhe_tpu_torch.params import PARAM_MESSAGE_2_CARRY_2_KS_PBS as p
+
+    t0 = time.time()
+    torch.cuda.reset_peak_memory_stats()
+    lwe, glwe, raw, bsk, enc = u128_keys(
+        dev, p.lwe_dimension, p.glwe_dimension, p.polynomial_size,
+        p.pbs_base_log, p.pbs_level, p.lwe_modular_std_dev,
+        p.glwe_modular_std_dev, SEED)
+    torch.cuda.synchronize()
+    t_keygen = time.time() - t0
+    reset_all_launches()
+    t1 = time.time()
+    _, _, correct = u128_lut_check(bsk, lwe, glwe, enc,
+                                   p.lwe_modular_std_dev, B_MAIN)
+    torch.cuda.synchronize()
+    t_luts = time.time() - t1
+    launches = all_launches()
+    expected = {"shoup_mac": 5 * p.lwe_dimension * len(U128_LUTS)}
+    say("main_path_u128", t0, widths_of=p.name, n=p.lwe_dimension,
+        N=p.polynomial_size, k=p.glwe_dimension, base_log=p.pbs_base_log,
+        levels=p.pbs_level, batch=B_MAIN, keygen_s=t_keygen,
+        two_luts_and_decrypt_s=t_luts, correct=correct, launches=launches,
+        peak_device_mb=torch.cuda.max_memory_allocated() / 2**20)
+    if any(v != B_MAIN for v in correct.values()):
+        raise AssertionError(f"u128 LUTs wrong: {correct} of {B_MAIN}")
+    if launches != expected:
+        raise AssertionError(f"u128 path launched {launches}, expected "
+                             f"{expected}")
+    del raw
+    return launches["shoup_mac"], (lwe, glwe, bsk, enc)
+
+
+def ntt_card_vs_cpu(dev):
+    """mode="ntt" on the card == the CPU's plain path, word for word: the
+    shortint and boolean TEST sets, and the u128 PBS at tests/test_u128.py's
+    toy size (n = 4, k = 1, N = 64, base_log 18, 2 levels)."""
+    import numpy as np
+    import torch
+
+    from tfhe_tpu_torch import boolean, shortint
+    from tfhe_tpu_torch.params import (BOOLEAN_TEST_PARAMETERS,
+                                       PARAM_MESSAGE_2_CARRY_2_COMPACT_TEST)
+
+    t0 = time.time()
+    outs = {}
+    x, y = np.random.default_rng(SEED + 4).integers(0, 2, (2, 16)).astype(
+        bool)
+    for where in (dev, "cpu"):
+        c, s = shortint.gen_keys(PARAM_MESSAGE_2_CARRY_2_COMPACT_TEST,
+                                 seed=SEED, device=where, mode="ntt")
+        o = s.apply_lookup_table_batch(c.encrypt_batch(np.arange(16)),
+                                       s.generate_lookup_table(
+                                           lambda v: (3 * v + 1) % 16))
+        if not np.array_equal(c.decrypt_batch_message_and_carry(o),
+                              (3 * np.arange(16) + 1) % 16):
+            raise AssertionError(f"{where}: ntt shortint LUT wrong")
+        bc, bs = boolean.gen_keys(BOOLEAN_TEST_PARAMETERS, seed=SEED,
+                                  device=where, mode="ntt")
+        g = bs.xor_batch(bc.encrypt_batch(x), bc.encrypt_batch(y))
+        if not np.array_equal(bc.decrypt_batch(g), x ^ y):
+            raise AssertionError(f"{where}: ntt boolean gate wrong")
+        lwe, glwe, raw, bsk, enc = u128_keys(where, 4, 1, 64, 18, 2,
+                                             2.0 ** -60, 2.0 ** -60, SEED)
+        u_outs, _, correct = u128_lut_check(bsk, lwe, glwe, enc, 2.0 ** -60,
+                                            16)
+        if any(v != 16 for v in correct.values()):
+            raise AssertionError(f"{where}: toy u128 LUTs wrong: {correct}")
+        outs[str(where)] = [o.data.cpu(), g.cpu(), raw.cpu()] + [
+            u.cpu() for u in u_outs.values()]
+    names = ("shortint", "boolean", "u128_bsk") + tuple(
+        f"u128_{n}" for n, _ in U128_LUTS)
+    same = {n: bool(torch.equal(u, v)) for n, u, v in
+            zip(names, outs[str(dev)], outs["cpu"])}
+    say("card_vs_cpu_ntt", t0, identical=same)
+    if not all(same.values()):
+        raise AssertionError(f"card and CPU differ in mode='ntt': {same}")
+
+
+def ntt_timing(card, dev, u128_state, rng):
+    """PBS/s and batch ms (host clock after a warm-up, launch cost
+    included) at B = 64 and 256: shortint mode="ntt", the u128 PBS, boolean
+    gates; and a CUDA-event split of one shortint and one u128 step into
+    decomposition, forward NTT, K10 (five launches), inverse NTT and CRT."""
+    import numpy as np
+    import torch
+
+    from tfhe_tpu_torch import boolean, core, shortint
+    from tfhe_tpu_torch.ops import polymul_ntt as pn
+    from tfhe_tpu_torch.ops import u128
+    from tfhe_tpu_torch.params import DEFAULT_PARAMETERS as bp
+    from tfhe_tpu_torch.params import PARAM_MESSAGE_2_CARRY_2_KS_PBS as p
+
+    t0 = time.time()
+    rates, batch_ms, split_ms = {}, {}, {}
+
+    def clock(key, B, run):
+        run()  # warm-up
+        torch.cuda.synchronize()
+        reps = 2 if B == B_MAIN else 1
+        t1 = time.time()
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+        dt = (time.time() - t1) / reps
+        rates[key], batch_ms[key] = B / dt, dt * 1e3
+
+    def split(key, bsk, acc, bits):
+        """One step's stages on the accumulator acc, CUDA events each."""
+        G = bsk.glwe_size
+        diff = acc  # any torus words: the stages' times do not depend on them
+        digits = pn.decompose_digits(diff, bsk.base_log, bsk.levels, bits)
+        dspec = pn.digit_spectra(digits)
+        prods = pn.spectral_mac(dspec, bsk.spectra[0], bsk.shoup[0])
+        res = pn.inverse_residues(prods, G, bits // 32)
+        split_ms[key] = dict(
+            decompose=cuda_ms(lambda: pn.decompose_digits(
+                diff, bsk.base_log, bsk.levels, bits), 20),
+            forward_ntt=cuda_ms(lambda: pn.digit_spectra(digits), 20),
+            shoup_mac_5_primes=cuda_ms(lambda: pn.spectral_mac(
+                dspec, bsk.spectra[0], bsk.shoup[0]), 20),
+            inverse_ntt=cuda_ms(lambda: pn.inverse_residues(
+                prods, G, bits // 32), 20),
+            crt_and_planes=cuda_ms(lambda: pn.residues_to_words(res, bits),
+                                   20),
+            whole_step=cuda_ms(lambda: pn.external_product_ntt(
+                diff, bsk.spectra[0], bsk.shoup[0], bsk.base_log,
+                bsk.levels, bits), 20))
+
+    cks, sks = shortint.gen_keys(p, seed=SEED + 5, device=dev, mode="ntt")
+    lut = sks.generate_lookup_table(lambda x: x % 4)
+    for B in (B_MAIN, B_LARGE):
+        data = cks.encrypt_batch(np.arange(B) % 16).data
+        clock(f"shortint_ntt_B{B}", B, lambda: core.keyswitch_then_pbs(
+            sks.ksk, sks.bsk, lut.acc, data, "ntt"))  # noqa: B023
+        acc = torch.from_numpy(rng.integers(
+            0, 2**63, (B, p.glwe_size, p.polynomial_size))).to(dev)
+        split(f"shortint_B{B}", sks.bsk, acc, 64)
+    del cks, sks, lut, data, acc
+    torch.cuda.empty_cache()
+
+    lwe, glwe, bsk, enc = u128_state
+    k, N = glwe.shape
+    delta = (1 << 128) // (2 * U128_MSUP)
+    acc128 = core.fill_accumulator_u128(lambda x: x, N, k + 1, U128_MSUP,
+                                        delta, device=dev)
+    for B in (B_MAIN, B_LARGE):
+        cts = core.encrypt_lwe_u128(
+            lwe, [int(m) * delta for m in np.arange(B) % U128_MSUP],
+            p.lwe_modular_std_dev, enc)
+        clock(f"u128_B{B}", B, lambda: core.programmable_bootstrap(
+            bsk, acc128, cts))  # noqa: B023
+        acc = u128.to_tensor(rng.integers(0, 2**64 - 1, (B, k + 1, N, 2),
+                                          dtype=np.uint64, endpoint=True),
+                             dev)
+        split(f"u128_B{B}", bsk, acc, 128)
+    del cts, acc
+
+    bcks, bsks = boolean.gen_keys(bp, seed=SEED + 6, device=dev, mode="ntt")
+    for B in (B_MAIN, B_LARGE):
+        a, b = (bcks.encrypt_batch(rng.integers(0, 2, B).astype(bool))
+                for _ in range(2))
+        clock(f"boolean_ntt_B{B}", B, lambda: bsks.nand_batch(a, b))  # noqa
+    say("timing_ntt", t0, card=card, pbs_or_gates_per_s=rates,
+        batch_ms=batch_ms, step_split_ms=split_ms)
+
+
 def main():
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     t_start = time.time()
@@ -1059,7 +1471,7 @@ def main():
     from tfhe_tpu_torch.core import (keyswitch, keyswitch_then_pbs,
                                      pbs_then_keyswitch,
                                      programmable_bootstrap)
-    from tfhe_tpu_torch.ops import fused_multibit, fused_pbs
+    from tfhe_tpu_torch.ops import fused_multibit, fused_pbs, shoup_mac
     from tfhe_tpu_torch.params import (PARAM_MESSAGE_2_CARRY_2_COMPACT_TEST,
                                        PARAM_MESSAGE_2_CARRY_2_KS_PBS)
 
@@ -1080,17 +1492,17 @@ def main():
 
     builds = (fused_pbs.cuda_library, fused_pbs.step_library,
               fused_pbs.single_cta_library, fused_multibit.cuda_library,
-              prng.native_library)
+              shoup_mac.cuda_library, prng.native_library)
     with ThreadPoolExecutor(len(builds)) as pool:
-        t_nvcc, t_nvcc_step, t_nvcc_single, t_nvcc_mb, t_gxx = pool.map(
-            timed, builds)
+        (t_nvcc, t_nvcc_step, t_nvcc_single, t_nvcc_mb, t_nvcc_shoup,
+         t_gxx) = pool.map(timed, builds)
     aes = prng.Aes128(0x0123456789ABCDEF, backend="native")
     ref = prng.Aes128(0x0123456789ABCDEF, backend="numpy")
     if not np.array_equal(aes.ctr_blocks(7, 64), ref.ctr_blocks(7, 64)):
         raise AssertionError("native AES disagrees with the numpy AES")
     say("build", t0, nvcc_s=t_nvcc, nvcc_step_s=t_nvcc_step,
-        nvcc_single_cta_s=t_nvcc_single,
-        nvcc_multibit_s=t_nvcc_mb, gxx_s=t_gxx, aes_backend=aes.backend)
+        nvcc_single_cta_s=t_nvcc_single, nvcc_multibit_s=t_nvcc_mb,
+        nvcc_shoup_mac_s=t_nvcc_shoup, gxx_s=t_gxx, aes_backend=aes.backend)
 
     # -- 3. kernels against their plain versions ----------------------------
     # the multi-bit kernels first, from a generator of their own.  Timed
@@ -1104,6 +1516,7 @@ def main():
     P = 5
     rng = np.random.default_rng(SEED)  # the timing phases' inputs
     modes_k = modes_kernels_phase(dev)
+    ntt_k = ntt_kernels_phase(dev)
 
     # -- 4. main path -------------------------------------------------------
     t0 = time.time()
@@ -1268,6 +1681,20 @@ def main():
     boolean_timing(card, dev, bool_cks, bool_sks, rng)
     for k, v in bool_launches.items():
         launches[k] = launches.get(k, 0) + v
+    del bool_cks, bool_sks
+    torch.cuda.empty_cache()
+
+    # -- 13-17. the CRT-NTT key layout on K10, at 32, 64 and 128 bits -------
+    t0 = time.time()
+    ntt_launches = ntt_main_path(dev)
+    t_main_ntt = time.time() - t0
+    t0 = time.time()
+    u128_launches, u128_state = u128_main_path(dev)
+    t_main_u128 = time.time() - t0
+    ntt_card_vs_cpu(dev)
+    ntt_timing(card, dev, u128_state, rng)
+    del u128_state
+    torch.cuda.empty_cache()
 
     # each classic wrapper's largest error over both full widths; times
     # and bounds at its main path's width (B = 64): K1 and K2 at
@@ -1310,11 +1737,23 @@ def main():
             "ms": mb_ms[name], "plain_ms": mb_plain_ms[name],
             "bound_ms": mb_bounds[name][0], "bound_by": mb_bounds[name][1],
             "library_ms": None})
+    ntt_err, ntt_ms, ntt_plain_ms, ntt_bounds = ntt_k
+    kernels.append({
+        "name": "shoup_mac", "route": "cuda",
+        "source": "tfhe_tpu_torch/ops/csrc/shoup_mac_kernels.cuh",
+        "replaces": "tfhe_tpu/ops/pallas_kernels.py:64",
+        "launches": ntt_launches + u128_launches,
+        "max_abs_err": max(ntt_err.values()), "ms": ntt_ms["shortint"],
+        "plain_ms": ntt_plain_ms["shortint"],
+        "bound_ms": ntt_bounds["shortint"][0],
+        "bound_by": ntt_bounds["shortint"][1], "library_ms": None})
     say("done", t_start, main_path_s=round(t_main, 3),
         main_path_shortint_ops_s=round(t_ops, 3),
         main_path_pbs_ks_s=round(t_pbs_ks, 3),
         main_path_multibit_s=round(t_main_mb, 3),
-        main_path_boolean_s=round(t_main_bool, 3))
+        main_path_boolean_s=round(t_main_bool, 3),
+        main_path_ntt_s=round(t_main_ntt, 3),
+        main_path_u128_s=round(t_main_u128, 3))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     faulthandler.cancel_dump_traceback_later()

@@ -207,3 +207,52 @@ def test_chip_smoke_fails_without_a_card(where, tmp_path):
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_ntt_slice_modules_are_among_the_checked_sources():
+    # the walk above reaches the CRT-NTT layout's and the u128 torus's
+    # modules, and none of them imports JAX or the reference; the K10
+    # kernel's sources are there
+    checked = {os.path.relpath(p, ROOT) for p in _port_sources()}
+    new = {"tfhe_tpu_torch/ops/shoup_mac.py",
+           "tfhe_tpu_torch/ops/polymul_ntt.py",
+           "tfhe_tpu_torch/ops/u128.py",
+           "tfhe_tpu_torch/core/u128_crypto.py",
+           "tfhe_tpu_torch/core/pbs.py",
+           "tfhe_tpu_torch/weights.py"}
+    assert new <= checked
+    for rel in sorted(new):
+        mods = list(_imported_modules(os.path.join(ROOT, rel)))
+        assert not [m for m in mods
+                    if m.split(".")[0] in ("jax", "jaxlib", "tfhe_tpu")]
+    for src in ("shoup_mac_kernels.cu", "shoup_mac_kernels.cuh"):
+        assert os.path.exists(os.path.join(PKG, "ops", "csrc", src))
+
+
+def test_ntt_entry_points_need_a_card_unless_asked_for_the_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the no-card refusal cannot be shown")
+    bsk = np.zeros((2, 1, 2, 2, 256), np.uint64)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        core.prepare_bsk_ntt(bsk, 23)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        core.prepare_bsk_ntt(bsk, 23, device="cuda")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tfhe_tpu_torch.weights.bootstrap_key_u128_from_reference(
+            np.zeros((2, 1, 2, 2, 64, 2), np.uint64), 18, 2, 1, 64, 1)
+    gen = SecretRandomGenerator(1)
+    for call in (lambda: core.generate_binary_lwe_secret_key_u128(4, gen),
+                 lambda: core.fill_accumulator_u128(lambda x: x, 64, 2, 4,
+                                                    1 << 125)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    cks = shortint.ClientKey(PARAM_MESSAGE_2_CARRY_2_COMPACT_TEST, seed=1,
+                             device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        shortint.ServerKey(cks, device="cuda", mode="ntt")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        boolean.gen_keys(BOOLEAN_TEST_PARAMETERS, seed=1, mode="ntt")
+    sks = shortint.ServerKey(cks, mode="ntt")
+    assert sks.device == torch.device("cpu")
+    assert isinstance(sks.bsk, core.PreparedBskNtt)
+    assert sks.bsk.spectra.device == torch.device("cpu")

@@ -11,8 +11,10 @@ Ciphertexts are int64 tensors of u32 words ([n+1], or [B, n+1] for a batch)
 on the keys' device.  Every gate has a batched form (one keyswitch + PBS over
 the whole batch) and a scalar form with the reference's trivial-ciphertext
 dispatch.  The blind rotation runs in the schedule the server key's `mode`
-names (`ops.fused_pbs.MODES`), the port's explicit counterpart of the
-reference's global TFHE_TPU_FUSED_MODE; every schedule gives the same words.
+names (`core.CLASSIC_MODES`: the six of `ops.fused_pbs.MODES`, the port's
+explicit counterpart of the reference's global TFHE_TPU_FUSED_MODE, and
+"ntt", the CRT-NTT key layout the reference runs off the TPU); every
+schedule gives the same words.
 
 `PublicKey` (tfhe_tpu/boolean/__init__.py:251-277) needs the public-key
 encryption of `core/public_key.py`, which is not ported yet: it raises.
@@ -28,7 +30,6 @@ import torch
 
 from .. import core
 from ..device import resolve_device
-from ..ops.fused_pbs import check_mode
 from ..ops.torus import MASK32, to_tensor
 from ..params import (DEFAULT_PARAMETERS, BooleanParameters,
                       EncryptionKeyChoice, PBSOrder)
@@ -126,11 +127,13 @@ def _add_constant(x: torch.Tensor, c: int) -> torch.Tensor:
 class ServerKey:
     """BSK (small -> GLWE) + KSK (big -> small) (ref: boolean/server_key).
 
-    `mode` picks the blind rotation's schedule for every gate."""
+    `mode` picks the blind rotation's schedule for every gate.  The raw
+    standard-domain keys stay in `raw_bsk` / `raw_ksk`, so a key of another
+    mode can be rebuilt from them with `from_raw`."""
 
     def __init__(self, cks: ClientKey, device=None, mode: str = "scan2",
                  _raw=None):
-        check_mode(mode)
+        core.check_classic_mode(mode)
         p = cks.params
         self.params = p
         self.mode = mode
@@ -144,11 +147,14 @@ class ServerKey:
                 cks.big_sk, cks.lwe_sk, p.ks_base_log, p.ks_level,
                 p.lwe_modular_std_dev, cks.enc_gen)
         else:
-            bsk, ksk = (to_tensor(np.asarray(k), self.device) for k in _raw)
-        self.bsk = core.prepare_bsk_cuda(bsk.to(self.device), p.pbs_base_log,
-                                         bits=BITS)
-        self.ksk = core.prepare_ksk(ksk.to(self.device), p.ks_base_log,
-                                    bits=BITS)
+            bsk, ksk = (k if isinstance(k, torch.Tensor)
+                        else to_tensor(np.asarray(k), self.device)
+                        for k in _raw)
+        self.raw_bsk = bsk.to(device=self.device, dtype=torch.int64)
+        self.raw_ksk = ksk.to(device=self.device, dtype=torch.int64)
+        self.bsk = core.prepare_classic_bsk(self.raw_bsk, p.pbs_base_log,
+                                            BITS, mode)
+        self.ksk = core.prepare_ksk(self.raw_ksk, p.ks_base_log, bits=BITS)
         self.accumulator = torch.zeros((p.glwe_size, p.polynomial_size),
                                        dtype=torch.int64, device=self.device)
         self.accumulator[-1] = PLAINTEXT_TRUE
@@ -157,7 +163,8 @@ class ServerKey:
     def from_raw(cls, params: BooleanParameters, bsk, ksk, device="cuda",
                  mode: str = "scan2") -> "ServerKey":
         """Rebuild a server key from raw standard-domain keys (numpy uint32
-        or uint64): bsk [n, L, G, G, N], ksk [k*N, ks_level, n+1]."""
+        or uint64, or int64 tensors of u32 words): bsk [n, L, G, G, N], ksk
+        [k*N, ks_level, n+1]."""
         shell = ClientKey.__new__(ClientKey)
         shell.params = params
         return cls(shell, device=device, mode=mode, _raw=(bsk, ksk))

@@ -1,7 +1,8 @@
 """Core crypto: keygen, encryption, keyswitch, programmable bootstrap.
 
 Port of `tfhe_tpu/core` for the classic and multi-bit PBS paths, each in
-both PBS orders."""
+both PBS orders, on the kernels' key layouts or (classic) the CRT-NTT
+layout, and for the 128-bit torus."""
 
 from .secret import GlweSecretKey, LweSecretKey, binary_ext_matrix, glwe_phase
 from .encrypt import (decrypt_glwe, decrypt_lwe, encrypt_glwe_assign,
@@ -10,9 +11,16 @@ from .keygen import (PreparedKsk, generate_binary_glwe_secret_key,
                      generate_binary_lwe_secret_key, generate_bootstrap_key,
                      generate_keyswitch_key, prepare_ksk)
 from .keyswitch import keyswitch
-from .lut import fill_accumulator, make_lut_glwe
-from .pbs import (blind_rotate, keyswitch_then_pbs, modulus_switch,
-                  pbs_then_keyswitch, programmable_bootstrap, sample_extract)
+from .lut import fill_accumulator, fill_accumulator_u128, make_lut_glwe
+from .pbs import (CLASSIC_MODES, NTT_MODE, blind_rotate, check_classic_mode,
+                  keyswitch_then_pbs, modulus_switch, pbs_then_keyswitch,
+                  prepare_classic_bsk, programmable_bootstrap, sample_extract,
+                  sample_extract_u128)
+from .u128_crypto import (decrypt_glwe_u128, decrypt_lwe_u128,
+                          encrypt_glwe_preset_u128, encrypt_lwe_u128,
+                          generate_binary_lwe_secret_key_u128,
+                          generate_bootstrap_key_u128, glwe_phase_u128,
+                          negacyclic_mul_binary)
 from .multibit import (combine_key_bits, generate_multi_bit_bootstrap_key,
                        keyswitch_then_multi_bit_pbs, multi_bit_blind_rotate,
                        multi_bit_pbs_then_keyswitch,
@@ -21,6 +29,7 @@ from .multibit import (combine_key_bits, generate_multi_bit_bootstrap_key,
 from ..ops.fused_pbs import PreparedBskCuda, prepare_bsk_cuda
 from ..ops.fused_multibit import (PreparedMultiBitBskCuda,
                                   prepare_multi_bit_bsk_cuda)
+from ..ops.polymul_ntt import PreparedBskNtt, prepare_bsk_ntt
 
 __all__ = [
     "LweSecretKey", "GlweSecretKey", "binary_ext_matrix", "glwe_phase",
@@ -37,4 +46,10 @@ __all__ = [
     "switched_subset_sums", "multi_bit_blind_rotate",
     "multi_bit_programmable_bootstrap", "keyswitch_then_multi_bit_pbs",
     "multi_bit_pbs_then_keyswitch",
+    "PreparedBskNtt", "prepare_bsk_ntt", "NTT_MODE", "CLASSIC_MODES",
+    "check_classic_mode", "prepare_classic_bsk", "fill_accumulator_u128",
+    "sample_extract_u128", "encrypt_lwe_u128", "decrypt_lwe_u128",
+    "encrypt_glwe_preset_u128", "decrypt_glwe_u128",
+    "generate_binary_lwe_secret_key_u128", "generate_bootstrap_key_u128",
+    "glwe_phase_u128", "negacyclic_mul_binary",
 ]

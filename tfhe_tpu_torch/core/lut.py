@@ -10,8 +10,10 @@ the right box.  Built on the host, returned on `device`.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..device import resolve_device
+from ..ops import u128
 from ..ops.torus import to_tensor
 
 
@@ -45,3 +47,26 @@ def make_lut_glwe(values, polynomial_size: int, glwe_size: int,
     """LUT from an explicit table values[i] (i in [0, modulus_sup))."""
     return fill_accumulator(lambda i: values[i], polynomial_size, glwe_size,
                             modulus_sup, delta, bits=bits, device=device)
+
+
+def fill_accumulator_u128(f, polynomial_size: int, glwe_size: int,
+                          modulus_sup: int, delta: int,
+                          device="cuda") -> torch.Tensor:
+    """u128-torus LUT accumulator -> [G, N, 2] int64 (lo, hi) words, built
+    on the host in Python integers (tfhe_tpu/core/lut.py:49-69)."""
+    device = resolve_device(device)
+    MOD = 1 << 128
+    N = polynomial_size
+    box = N // modulus_sup
+    body = [0] * N
+    for i in range(modulus_sup):
+        v = (int(f(i)) * delta) % MOD
+        for t in range(i * box, (i + 1) * box):
+            body[t] = v
+    half = box // 2
+    for t in range(half):
+        body[t] = (-body[t]) % MOD
+    body = body[half:] + body[:half]
+    out = np.zeros((glwe_size, N, 2), dtype=np.uint64)
+    out[-1] = u128.np_pack(body)
+    return u128.to_tensor(out, device)

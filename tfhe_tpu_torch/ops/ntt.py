@@ -34,6 +34,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from . import u128
+
 # NTT-friendly primes == 1 mod 4096, so 2N-th roots exist for N <= 2048.
 PRIMES: tuple[int, ...] = (12289, 40961, 61441, 65537, 86017)
 CRT_MODULUS = int(np.prod([int(p) for p in PRIMES], dtype=object))
@@ -321,20 +323,13 @@ def inverse_ntt(spec: torch.Tensor, prime: int | None = None) -> torch.Tensor:
     return a * n_inv.view(-1, 1) % primes.view(-1, 1)
 
 
-def crt_to_u64_centered(res: torch.Tensor) -> torch.Tensor:
-    """[..., P, N] canonical residues -> [..., N] int64: the integer x with
-    |x| <= (M-1)/2 (M = prod p) congruent to them, as a u64 torus word.
-
-    Balanced Garner: mixed-radix digits b_i in [-(p_i-1)/2, (p_i-1)/2] give
-    x = sum_i b_i p_0...p_{i-1}, which spans exactly the centered range.  The
-    convolutions reconstructed here are below 2^67 << M/2 ~ 2^76, so x is
-    the true integer; its value mod 2^64 needs only wrapping int64 products.
-    """
+def _garner_digits(res: torch.Tensor) -> list[torch.Tensor]:
+    """[..., P, N] canonical residues -> the balanced mixed-radix digits
+    b_i in [-(p_i-1)/2, (p_i-1)/2], int64 [..., N] each, with
+    x = sum_i b_i p_0...p_{i-1}."""
     tab = tables_for(res.shape[-1], res.device)
     primes = [int(p) for p in PRIMES]
-    P = len(PRIMES)
-    inv = tab.crt[:, 2 * P]
-    pp = tab.crt[:, 2 * P + 3]
+    inv = tab.crt[:, 2 * len(PRIMES)]
     bs = []
     for i, p in enumerate(primes):
         partial = torch.zeros_like(res[..., 0, :])
@@ -344,7 +339,55 @@ def crt_to_u64_centered(res: torch.Tensor) -> torch.Tensor:
             coef = coef * primes[j] % p
         d = torch.remainder(res[..., i, :] - partial, p) * inv[i] % p
         bs.append(torch.where(d > p // 2, d - p, d))
+    return bs
+
+
+def crt_to_u64_centered(res: torch.Tensor) -> torch.Tensor:
+    """[..., P, N] canonical residues -> [..., N] int64: the integer x with
+    |x| <= (M-1)/2 (M = prod p) congruent to them, as a u64 torus word.
+
+    Balanced Garner: mixed-radix digits b_i in [-(p_i-1)/2, (p_i-1)/2] give
+    x = sum_i b_i p_0...p_{i-1}, which spans exactly the centered range.  The
+    convolutions reconstructed here are below 2^67 << M/2 ~ 2^76, so x is
+    the true integer; its value mod 2^64 needs only wrapping int64 products.
+    """
+    pp = tables_for(res.shape[-1], res.device).crt[:, 2 * len(PRIMES) + 3]
+    bs = _garner_digits(res.to(torch.int64))
     x = torch.zeros_like(bs[0])
-    for i in range(len(primes)):
+    for i in range(len(PRIMES)):
         x = x + bs[i] * pp[i]
     return x
+
+
+def crt_to_u128_centered(res: torch.Tensor) -> torch.Tensor:
+    """[..., P, N] canonical residues -> [..., N, 2] int64 (lo, hi) words:
+    the same balanced-Garner integer x as `crt_to_u64_centered`, mod 2^128
+    (counterpart of tfhe_tpu/ops/ntt.py:539).  Each prefix product
+    Q_i = p_0...p_{i-1} (< 2^61) is split into 32-bit halves; the sums
+    s_m = sum_i b_i (Q_i >> 32m & (2^32-1)) stay below 5 * 2^15 * 2^32 in
+    magnitude, so x = s_0 + s_1 2^32 is exact in int64 pieces."""
+    bs = _garner_digits(res.to(torch.int64))
+    halves, q = [], 1
+    for p in PRIMES:
+        halves.append((q & 0xFFFFFFFF, q >> 32))
+        q *= int(p)
+    s = torch.stack([sum(b * h[m] for b, h in zip(bs, halves))
+                     for m in range(2)], dim=-2)  # [..., 2, N]
+    return u128.from_signed_planes(s)
+
+
+def to_balanced(x: torch.Tensor, p) -> torch.Tensor:
+    """Canonical residues in [0, p) (p an int or a tensor broadcastable
+    against x) -> balanced int32 in [-(p-1)/2, (p-1)/2]."""
+    return torch.where(x > p // 2, x - p, x).to(torch.int32)
+
+
+def shoup16(b: torch.Tensor, p) -> torch.Tensor:
+    """Balanced residues b -> their 16-bit Shoup companions
+    round(b * 2^16 / p) as int32, rounded as tfhe_tpu/ops/polymul_ntt.py:28
+    (shoup_precompute_device) and ops/ntt.py:447 (shoup_precompute_host)
+    do: b * 2^16 / p is never a half-integer for odd p, so rounding half up
+    away from zero is rounding to nearest."""
+    num = b.to(torch.int64) << 16
+    return torch.where(num >= 0, (num + p // 2) // p,
+                       -((-num + p // 2) // p)).to(torch.int32)

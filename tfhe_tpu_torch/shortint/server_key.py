@@ -53,9 +53,11 @@ def _as_key_tensor(x, device) -> torch.Tensor:
 
 
 class ServerKey:
-    """`mode` picks the blind rotation's schedule: one of `fused_pbs.MODES`
-    for classic parameters (default "scan2"), of `fused_multibit.MODES` for
-    multi-bit ones (default "scan3"); any other value raises."""
+    """`mode` picks the blind rotation's schedule: for classic parameters
+    one of `fused_pbs.MODES` (default "scan2") or "ntt", the CRT-NTT key
+    layout on the Shoup MAC kernel (`core.CLASSIC_MODES`); for multi-bit
+    ones one of `fused_multibit.MODES` (default "scan3"); any other value
+    raises."""
 
     def __init__(self, cks: ClientKey, _raw=None, device=None,
                  mode: Optional[str] = None):
@@ -73,9 +75,12 @@ class ServerKey:
         self.is_multi_bit = isinstance(p, MultiBitPBSParameters)
         if self.is_multi_bit and p.torus_bits != 64:
             raise ValueError("multi-bit keys are on the 64-bit torus only")
-        schedules = fused_multibit if self.is_multi_bit else fused_pbs
-        self.mode = schedules.MODES[0] if mode is None else mode
-        schedules.check_mode(self.mode)
+        if self.is_multi_bit:
+            self.mode = fused_multibit.MODES[0] if mode is None else mode
+            fused_multibit.check_mode(self.mode)
+        else:
+            self.mode = fused_pbs.MODES[0] if mode is None else mode
+            core.check_classic_mode(self.mode)
         if _raw is None:
             if self.is_multi_bit:
                 bsk = core.generate_multi_bit_bootstrap_key(
@@ -96,7 +101,8 @@ class ServerKey:
             self.bsk = core.prepare_multi_bit_bsk_cuda(bsk, p.pbs_base_log,
                                                        p.grouping_factor)
         else:
-            self.bsk = core.prepare_bsk_cuda(bsk, p.pbs_base_log)
+            self.bsk = core.prepare_classic_bsk(bsk, p.pbs_base_log,
+                                                p.torus_bits, self.mode)
         self.ksk = core.prepare_ksk(ksk, p.ks_base_log)
         self._lut_cache: dict = {}
         self.ciphertext_lwe_size = p.ciphertext_lwe_size

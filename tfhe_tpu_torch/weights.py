@@ -3,7 +3,8 @@
 The reference keeps key material as numpy arrays (`ServerKey.raw_bsk` /
 `raw_ksk`, `ClientKey.lwe_sk.bits_array` / `glwe_sk.bits_array`); its
 boolean `ServerKey` keeps no raw keys, so those come from its
-`core.generate_bootstrap_key` / `generate_keyswitch_key`.  These
+`core.generate_bootstrap_key` / `generate_keyswitch_key`, and its u128
+bootstrap key from `core.generate_bootstrap_key_u128`.  These
 functions turn such arrays into the port's keys, so both packages can
 compute on the same keys.  They take plain numpy arrays and import nothing
 from the JAX package.
@@ -13,7 +14,10 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
+
 from . import boolean
+from .ops.polymul_ntt import PreparedBskNtt, prepare_bsk_ntt
 from .params import (BooleanParameters, ClassicPBSParameters,
                      MultiBitPBSParameters)
 from .shortint import ClientKey, ServerKey
@@ -27,7 +31,8 @@ def server_key_from_reference(
     order: raw_bsk is [n, L, G, G, N] for classic parameters and
     [n/gf, 2^gf, L, G, G, N] for multi-bit ones; raw_ksk, from the big key
     to the small one, is [k*N, ks_level, n+1].  The server key's blind
-    rotation runs in schedule `mode` (None: the key kind's default)."""
+    rotation runs in schedule `mode` (None: the key kind's default; "ntt",
+    classic keys only, prepares the CRT-NTT layout)."""
     gf = getattr(params, "grouping_factor", None)
     G, N = params.glwe_size, params.polynomial_size
     n, L = params.lwe_dimension, params.pbs_level
@@ -84,3 +89,17 @@ def boolean_server_key_from_reference(
                              f"{tuple(key.shape)}, expected {want}")
     return boolean.ServerKey.from_raw(params, raw_bsk, raw_ksk, device=device,
                                       mode=mode)
+
+
+def bootstrap_key_u128_from_reference(
+        raw_bsk, base_log: int, lwe_dimension: int, glwe_dimension: int,
+        polynomial_size: int, levels: int, device="cuda") -> PreparedBskNtt:
+    """The reference's u128 bootstrap key (`core.generate_bootstrap_key_
+    u128`: numpy uint64 [n, L, G, G, N, 2], (lo, hi) pairs) -> the port's
+    CRT-NTT key at 128 bits, after a check of its type and shape."""
+    G = glwe_dimension + 1
+    want = (lwe_dimension, levels, G, G, polynomial_size, 2)
+    if raw_bsk.dtype != np.uint64 or tuple(raw_bsk.shape) != want:
+        raise ValueError(f"u128 BSK of {raw_bsk.dtype} {tuple(raw_bsk.shape)}"
+                         f", expected uint64 {want}")
+    return prepare_bsk_ntt(raw_bsk, base_log, bits=128, device=device)
