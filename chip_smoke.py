@@ -14,8 +14,10 @@ Phases, each printing one flushed line with its wall time:
      G=2, L=1, base_log 23, u64) and of boolean DEFAULT_PARAMETERS (N=512,
      G=3, L=3, base_log 6, u32), 5 primes, B=64, one step each, the
      persistent and single-CTA rotations at their main path's depth (742 and
-     722 steps) and a 4-step rotation in every mode, bit-exact (tolerance
-     0), with device, eager and plain times per launch and bounds;
+     722 steps), the single-CTA one at B=256 too (each batch naming the K7
+     kernel that ran it, one CTA or a cluster per ciphertext), and a 4-step
+     rotation in every mode, bit-exact (tolerance 0), with device, eager and
+     plain times per launch and bounds;
   4. main path: PARAM_MESSAGE_2_CARRY_2_KS_PBS keys generated on the card,
      64 messages covering all 16 message+carry values, three univariate LUTs
      and one bivariate LUT through the ServerKey entry points, every result
@@ -91,8 +93,10 @@ Kernel times are device times: a CUDA graph of many launches replayed
 between CUDA events (a whole rotation, persistent or single-CTA: CUDA events
 around a few eager launches); the eager per-launch times beside them include
 the host's launch cost.
-Then a `kernels` JSON line, the nvidia-smi line, and as the last line
-{"ok": true, "device": {...}}.  Any failed phase raises, so the script exits
+Then a `kernels` JSON line (each kernel's `redesigned` names the source
+it was rebuilt on after its first port: K2 and K7, on the register-resident
+NTT core; null for the others), the nvidia-smi line, and as the last
+line {"ok": true, "device": {...}}.  Any failed phase raises, so the script exits
 non-zero and prints no result; it needs a card and refuses to run without
 one.  A watchdog ends a hung run with a traceback.
 """
@@ -114,6 +118,11 @@ B_LARGE = 256
 # the rate the integer arithmetic of these kernels is held against.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
+
+# kernels rebuilt for Hopper after their first port, and the source they
+# were rebuilt on: K2 and K7 on the register-resident NTT core
+REDESIGNED = dict.fromkeys(("external_product_crt", "blind_rotate_single_cta"),
+                           "tfhe_tpu_torch/ops/csrc/ntt_core.cuh")
 
 
 def say(phase, t0, **fields):
@@ -571,8 +580,9 @@ def modes_kernels_phase(dev):
     """Every classic-schedule wrapper against its plain version at the
     widths of PARAM_MESSAGE_2_CARRY_2_KS_PBS and boolean DEFAULT_PARAMETERS
     (B = 64), bit-exact: one step each, the persistent and the single-CTA
-    rotations at their main path's depth (n = 742, 722 steps), and besides
-    a 4-step rotation in every mode; with device, eager and plain times and
+    rotations at their main path's depth (n = 742, 722 steps), the
+    single-CTA one (K7) at B = 256 too, naming the kernel that ran each
+    batch, and besides a 4-step rotation in every mode; with device, eager and plain times and
     bounds per launch.  Returns, per width, errors, times and bounds."""
     import numpy as np
     import torch
@@ -660,10 +670,31 @@ def modes_kernels_phase(dev):
                                                 bits)
         err_rot = {m: max_abs_err(fp.blind_rotate_fused(key, acc, ahat, m),
                                   want) for m in fp.MODES}
-        if any(err.values()) or any(err_rot.values()):
+        # K7 at the main path's depth at both batch sizes of the main paths:
+        # each batch gets the kernel blind_rotate_single_cta_form names
+        # (one CTA or a cluster of P per ciphertext)
+        rng_l = np.random.default_rng([SEED, n, B_LARGE])
+        acc_l = torch.from_numpy(rng_l.integers(
+            0, 2**bits - 1, (B_LARGE, G, N), dtype=np.uint64, endpoint=True)
+            .view(np.int64)).to(dev)
+        ahat_l = torch.from_numpy(rng_l.integers(0, 2 * N, (n, B_LARGE),
+                                                 endpoint=True)
+                                  .astype(np.int32)).to(dev)
+        k7_form = {B: fp.blind_rotate_single_cta_form(B, N, G, L, bits)
+                   for B in (B_MAIN, B_LARGE)}
+        k7_err = {B_MAIN: err["blind_rotate_single_cta"],
+                  B_LARGE: max_abs_err(
+                      fp.blind_rotate_single_cta(acc_l, ahat_l, key_n.kspec,
+                                                 key_n.kshoup, bl, L, bits),
+                      fp.blind_rotate_persistent_plain(
+                          acc_l, ahat_l, key_n.kspec, bl, L, bits))}
+        k7_checked = {f"B{B}": dict(kernel=k7_form[B], max_abs_err=k7_err[B])
+                      for B in (B_MAIN, B_LARGE)}
+        if any(err.values()) or any(err_rot.values()) or any(k7_err.values()):
             raise AssertionError(
                 f"{p.name}: classic kernels disagree with their plain "
-                f"versions: {err}, {steps}-step rotation per mode {err_rot}")
+                f"versions: {err}, {steps}-step rotation per mode {err_rot}, "
+                f"K7 at depth {n} {k7_checked}")
         # a persistent or single-CTA launch runs a whole rotation: CUDA
         # events around eager launches, not a graph of 100; their plain
         # version, n steps of plain ops, as one graph replayed once
@@ -683,13 +714,14 @@ def modes_kernels_phase(dev):
             shape=dict(B=B_MAIN, G=G, L=L, N=N, P=P, base_log=bl, bits=bits,
                        persistent_steps=n, rotation_steps=steps),
             max_abs_err=err, rotation_max_abs_err=err_rot,
+            blind_rotate_single_cta_at_depth=k7_checked,
             device_ms_per_launch=ms, eager_ms_per_launch=eager,
             plain_device_ms=plain_ms, rotation_ms_per_mode=rot_ms,
             bound_ms={k: v[0] for k, v in bounds.items()},
             bound_by={k: v[1] for k, v in bounds.items()})
         out[p.name] = (err, ms, plain_ms, bounds)
         del key, key_n, acc, ahat, ahat_n, dig, res_p, res_k, res_t, calls
-        del want, plain_n
+        del want, plain_n, acc_l, ahat_l
         torch.cuda.empty_cache()
     return out
 
@@ -1705,7 +1737,7 @@ def main():
     kernels = []
     for name, line, src, width in (
             ("rotate_decompose", 1229, "pbs_kernels.cuh", p.name),
-            ("external_product_crt", 1244, "pbs_kernels.cuh", p.name),
+            ("external_product_crt", 1244, "ntt_core_kernels.cuh", p.name),
             ("pbs_step", 1304, "step_kernels.cuh", "DEFAULT_PARAMETERS"),
             ("blind_rotate_persistent", 1020, "step_kernels.cuh",
              "DEFAULT_PARAMETERS"),
@@ -1713,7 +1745,7 @@ def main():
             ("crt_accumulate", 1520, "pbs_kernels.cuh", "DEFAULT_PARAMETERS"),
             ("pbs_step_single_cta", 983, "single_cta_kernels.cuh",
              "DEFAULT_PARAMETERS"),
-            ("blind_rotate_single_cta", 1403, "single_cta_kernels.cuh",
+            ("blind_rotate_single_cta", 1403, "ntt_core_kernels.cuh",
              "DEFAULT_PARAMETERS")):
         _, ms, plain_ms, bounds = modes_k[width]
         kernels.append({
@@ -1723,7 +1755,7 @@ def main():
             "launches": launches[name], "max_abs_err": errs[name],
             "ms": ms[name], "plain_ms": plain_ms[name],
             "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
-            "library_ms": None})
+            "library_ms": None, "redesigned": REDESIGNED.get(name)})
     for name, line, src in (
             ("decompose", 264, "pbs_kernels.cuh"),
             ("multibit_combine", 747, "multibit_kernels.cuh"),
@@ -1736,7 +1768,7 @@ def main():
             "launches": mb_launches[name], "max_abs_err": mb_err[name],
             "ms": mb_ms[name], "plain_ms": mb_plain_ms[name],
             "bound_ms": mb_bounds[name][0], "bound_by": mb_bounds[name][1],
-            "library_ms": None})
+            "library_ms": None, "redesigned": REDESIGNED.get(name)})
     ntt_err, ntt_ms, ntt_plain_ms, ntt_bounds = ntt_k
     kernels.append({
         "name": "shoup_mac", "route": "cuda",
@@ -1746,7 +1778,8 @@ def main():
         "max_abs_err": max(ntt_err.values()), "ms": ntt_ms["shortint"],
         "plain_ms": ntt_plain_ms["shortint"],
         "bound_ms": ntt_bounds["shortint"][0],
-        "bound_by": ntt_bounds["shortint"][1], "library_ms": None})
+        "bound_by": ntt_bounds["shortint"][1], "library_ms": None,
+        "redesigned": REDESIGNED.get("shoup_mac")})
     say("done", t_start, main_path_s=round(t_main, 3),
         main_path_shortint_ops_s=round(t_ops, 3),
         main_path_pbs_ks_s=round(t_pbs_ks, 3),

@@ -14,8 +14,14 @@ three times between CUDA events: K1 `rotate_decompose` and K2
 `external_product_crt` (N=2048, G=2, L=1, base_log 23, u64), and K8
 (`decompose`, `multibit_combine`, `multibit_external_product`) and K9
 `multibit_step` at PARAM_MULTI_BIT_MESSAGE_2_CARRY_2_GROUP_3_KS_PBS's
-width (gf=3).  Only functions that both trees of the port have are called.
-Prints one JSON line, with the card's name and power limit.
+width (gf=3).  Then, from a generator of their own per seed and width
+(default_rng([seed, n])), K2 at boolean DEFAULT_PARAMETERS' width (N=512,
+G=3, L=3, base_log 6, u32) and both widths at B = 256 (graphs of 100), and
+K7 `blind_rotate_single_cta`, a whole rotation at the main path's depth
+(742 and 722 steps), at both widths and B = 64 and 256 (CUDA events
+around 3 launches after 2 warm-ups).  Only functions that both trees of the
+port have are called.  Prints one JSON line, with the card's name and power
+limit.
 """
 
 import argparse
@@ -23,7 +29,7 @@ import json
 import os
 import sys
 
-from chip_smoke import B_MAIN, SEED, card_line, graph_ms
+from chip_smoke import B_LARGE, B_MAIN, SEED, card_line, cuda_ms, graph_ms
 
 
 def times(seed):
@@ -77,7 +83,52 @@ def times(seed):
             mdig, comb),
         "multibit_step": lambda: fm.multibit_step(mdig, d[0], ks, ksh),
     }
-    return {k: graph_ms(fn, 100) for k, fn in calls.items()}
+    out = {k: graph_ms(fn, 100) for k, fn in calls.items()}
+    out.update(redesigned(seed))
+    return out
+
+
+def redesigned(seed):
+    """K2 at both widths and B = 64 / 256 (the shortint width at B = 64 is
+    timed above), and K7 at both widths, depths and batch sizes."""
+    import numpy as np
+    import torch
+
+    from tfhe_tpu_torch.ops import fused_pbs as fp
+    from tfhe_tpu_torch.params import (
+        DEFAULT_PARAMETERS, PARAM_MESSAGE_2_CARRY_2_KS_PBS)
+
+    dev = torch.device("cuda")
+    out = {}
+    for p, tag in ((PARAM_MESSAGE_2_CARRY_2_KS_PBS, "shortint"),
+                   (DEFAULT_PARAMETERS, "boolean")):
+        N, G, L, bl, bits, n = (p.polynomial_size, p.glwe_size, p.pbs_level,
+                                p.pbs_base_log, p.torus_bits,
+                                p.lwe_dimension)
+        rng = np.random.default_rng([seed, n])
+
+        def words(*shape):
+            return torch.from_numpy(rng.integers(  # noqa: B023
+                0, 2**bits - 1, shape, dtype=np.uint64, endpoint=True)
+                .view(np.int64)).to(dev)
+
+        key = fp.prepare_bsk_cuda(words(n, L, G, G, N), bl, bits)
+        for B in (B_MAIN, B_LARGE):
+            acc = words(B, G, N)
+            ahat = torch.from_numpy(rng.integers(0, 2 * N, (n, B),
+                                                 endpoint=True)
+                                    .astype(np.int32)).to(dev)
+            dig = fp.rotate_decompose_plain(acc, ahat[0], bl, L, bits)
+            if (tag, B) != ("shortint", B_MAIN):
+                out[f"external_product_crt_{tag}_B{B}"] = graph_ms(
+                    lambda: fp.external_product_crt(  # noqa: B023
+                        dig, key.kspec[0], key.kshoup[0], acc, bits), 100)
+            out[f"blind_rotate_single_cta_{tag}_B{B}"] = cuda_ms(
+                lambda: fp.blind_rotate_single_cta(  # noqa: B023
+                    acc, ahat, key.kspec, key.kshoup, bl, L, bits), 3)
+        del key
+        torch.cuda.empty_cache()
+    return out
 
 
 def main():
@@ -95,6 +146,7 @@ def main():
     from tfhe_tpu_torch.ops import fused_multibit, fused_pbs
 
     fused_pbs.cuda_library()
+    fused_pbs.single_cta_library()
     fused_multibit.cuda_library()
     out = {str(s): times(s) for s in args.seeds}
     print(json.dumps({"card": card_line(), "root": args.root,

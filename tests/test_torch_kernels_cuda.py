@@ -1,7 +1,11 @@
 """The port's CUDA kernels against their plain versions, bit for bit, on a
 card (tolerance 0): one step of each at the tests/test_fused_pbs.py cases
 and at the width of PARAM_MESSAGE_2_CARRY_2_KS_PBS, a short blind rotation,
-and a batch past the 65535 blocks of a grid's y dimension.  Marked `cuda`: they skip where there is no card; on one, run
+and a batch past the 65535 blocks of a grid's y dimension; K2 on the
+register-resident NTT core at every width the port runs (both full widths,
+the PBS_KS set's base_log 21, the TEST sets, the sets at N = 1024 and the
+cases) and at batch
+sizes around one and two waves of the card's 132 SMs.  Marked `cuda`: they skip where there is no card; on one, run
 `python -m pytest -m cuda --noconftest tests/test_torch_kernels_cuda.py`
 (tests/conftest.py imports JAX, which is not needed here)."""
 
@@ -17,6 +21,29 @@ pytestmark = pytest.mark.cuda
 # the tests/test_fused_pbs.py cases, then the width of
 # PARAM_MESSAGE_2_CARRY_2_KS_PBS; n is the number of blind-rotation steps
 FULL_WIDTH = dict(n=3, L=1, G=2, N=2048, B=64, bl=23, bits=64)
+
+# K2's widths: PARAM_MESSAGE_2_CARRY_2_KS_PBS, boolean DEFAULT_PARAMETERS,
+# PARAM_MESSAGE_2_CARRY_2_COMPACT_PK_PBS_KS (base_log 21),
+# PARAM_MESSAGE_2_CARRY_2_COMPACT_TEST, BOOLEAN_TEST_PARAMETERS; the sets
+# at N = 1024, the one size whose pass plan has a first pass of one stage
+# (PARAM_MESSAGE_2_CARRY_1_KS_PBS, boolean
+# PARAMETERS_ERROR_PROB_2_POW_MINUS_165, its _KS_PBS variant and
+# TFHE_LIB_PARAMETERS); then the cases (their B is replaced by each of
+# BATCHES)
+WIDTHS = [dict(L=1, G=2, N=2048, bl=23, bits=64),
+          dict(L=3, G=3, N=512, bl=6, bits=32),
+          dict(L=1, G=2, N=2048, bl=21, bits=64),
+          dict(L=1, G=2, N=256, bl=23, bits=64),
+          dict(L=3, G=3, N=256, bl=6, bits=32),
+          dict(L=1, G=3, N=1024, bl=23, bits=64),
+          dict(L=2, G=3, N=1024, bl=10, bits=32),
+          dict(L=4, G=2, N=1024, bl=5, bits=32),
+          dict(L=3, G=2, N=1024, bl=7, bits=32)] + [
+    {k: c[k] for k in ("L", "G", "N", "bl", "bits")} for c in CASES]
+WIDTH_IDS = ["shortint", "boolean", "pbs_ks", "shortint_test",
+             "boolean_test", "shortint_n1024", "boolean_165",
+             "boolean_165_ks_pbs", "boolean_tfhe_lib"] + IDS
+BATCHES = [1, 63, 64, 65, 132, 133, 256]
 
 
 @pytest.fixture
@@ -59,6 +86,26 @@ def test_kernels_match_plain(case, card):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("B", BATCHES)
+@pytest.mark.parametrize("width", WIDTHS, ids=WIDTH_IDS)
+def test_external_product_on_the_core_matches_plain(width, B, card):
+    rng = np.random.default_rng([29, B])
+    L, G, N, bl, bits = (width[k] for k in ("L", "G", "N", "bl", "bits"))
+    key = fused_pbs.prepare_bsk_cuda(_words(rng, (1, L, G, G, N), bits,
+                                            card), bl, bits)
+    acc = _words(rng, (B, G, N), bits, card)
+    ahat = torch.from_numpy(rng.integers(0, 2 * N, (B,), endpoint=True)
+                            .astype(np.int32)).to(card)
+    dig = fused_pbs.rotate_decompose_plain(acc, ahat, bl, L, bits)
+    fused_pbs.reset_launch_counts()
+    out = fused_pbs.external_product_crt(dig, key.kspec[0], key.kshoup[0], acc,
+                                         bits)
+    torch.cuda.synchronize()
+    assert fused_pbs.external_product_crt.launches == 1
+    assert torch.equal(out, fused_pbs.external_product_crt_plain(
+        dig, key.kspec[0], acc, bits))
+
+
 def test_batch_beyond_a_grid_dimension_of_65535(card):
     # K2's kernel puts the batch on grid.x: B past 65535 (grid.y's limit)
     # launches, and each ciphertext's result is its own
@@ -99,3 +146,14 @@ def test_wrappers_reject_bad_inputs(card):
         fused_pbs.rotate_decompose(acc, ahat, 23, 1)
     with pytest.raises(ValueError):
         fused_pbs.rotate_decompose(acc[:, :, ::2], ahat.int(), 23, 1)
+    # the core's limits: L*G <= 9 (the launch is refused) and
+    # 256 <= N <= 2048 (no tables)
+    for L, G, N, error, match in ((5, 2, 256, RuntimeError, "InvalidValue"),
+                                  (1, 2, 128, ValueError, "NTT core")):
+        key = fused_pbs.prepare_bsk_cuda(
+            torch.zeros((1, L, G, G, N), dtype=torch.int64, device=card), 8)
+        dig = torch.zeros((1, L, G, N), dtype=torch.int32, device=card)
+        with pytest.raises(error, match=match):
+            fused_pbs.external_product_crt(
+                dig, key.kspec[0], key.kshoup[0],
+                torch.zeros((1, G, N), dtype=torch.int64, device=card))

@@ -6,7 +6,10 @@
 PARAM_MESSAGE_2_CARRY_2_KS_PBS and of boolean DEFAULT_PARAMETERS; a blind
 rotation in every mode, equal across modes, with its launch counts; the
 empty batch; a batch past 65535 ciphertexts in one persistent launch and in
-one single-CTA launch; and the layouts beyond the kernels' limits, refused.
+one single-CTA launch; K7 on the register-resident NTT core at every width
+the port runs (the sets at N = 1024 among them), at batch sizes around one and two waves of the card's 132
+SMs, and at the main paths' depth (742 and 722 steps); and the layouts
+beyond the kernels' limits, refused.
 Marked `cuda`: they skip where there is no card; on one, run
 `python -m pytest -m cuda --noconftest tests/test_torch_modes_kernels_cuda.py`
 (tests/conftest.py imports JAX, which is not needed here)."""
@@ -25,6 +28,27 @@ WIDTHS = [dict(n=3, L=1, G=2, N=2048, B=64, bl=23, bits=64),
           dict(n=3, L=3, G=3, N=512, B=64, bl=6, bits=32)]
 WIDTH_IDS = ["n3L1G2N2048", "n3L3G3N512u32"]
 P = len(ntt.PRIMES)
+# K7's widths: PARAM_MESSAGE_2_CARRY_2_KS_PBS, boolean DEFAULT_PARAMETERS,
+# PARAM_MESSAGE_2_CARRY_2_COMPACT_PK_PBS_KS (base_log 21),
+# PARAM_MESSAGE_2_CARRY_2_COMPACT_TEST, BOOLEAN_TEST_PARAMETERS; the sets
+# at N = 1024, the one size whose pass plan has a first pass of one stage
+# (PARAM_MESSAGE_2_CARRY_1_KS_PBS, boolean
+# PARAMETERS_ERROR_PROB_2_POW_MINUS_165, its _KS_PBS variant and
+# TFHE_LIB_PARAMETERS); then the cases (their n and B replaced)
+CORE_WIDTHS = [dict(L=1, G=2, N=2048, bl=23, bits=64),
+               dict(L=3, G=3, N=512, bl=6, bits=32),
+               dict(L=1, G=2, N=2048, bl=21, bits=64),
+               dict(L=1, G=2, N=256, bl=23, bits=64),
+               dict(L=3, G=3, N=256, bl=6, bits=32),
+               dict(L=1, G=3, N=1024, bl=23, bits=64),
+               dict(L=2, G=3, N=1024, bl=10, bits=32),
+               dict(L=4, G=2, N=1024, bl=5, bits=32),
+               dict(L=3, G=2, N=1024, bl=7, bits=32)] + [
+    {k: c[k] for k in ("L", "G", "N", "bl", "bits")} for c in CASES]
+CORE_WIDTH_IDS = ["shortint", "boolean", "pbs_ks", "shortint_test",
+                  "boolean_test", "shortint_n1024", "boolean_165",
+                  "boolean_165_ks_pbs", "boolean_tfhe_lib"] + IDS
+BATCHES = [1, 63, 64, 65, 132, 133, 256]
 
 
 @pytest.fixture
@@ -113,6 +137,41 @@ def test_every_mode_gives_the_same_rotation_with_its_launches(case, card):
         assert launches == want[mode], mode
     for mode in fused_pbs.MODES:
         assert torch.equal(outs[mode], outs["scan2"]), mode
+
+
+@pytest.mark.parametrize("B", BATCHES)
+@pytest.mark.parametrize("width", CORE_WIDTHS, ids=CORE_WIDTH_IDS)
+def test_single_cta_rotation_on_the_core_matches_plain(width, B, card):
+    rng = np.random.default_rng([31, B])
+    key, acc, ahat = _inputs(rng, dict(width, n=3, B=B), card)
+    bl, L, bits = key.base_log, key.levels, key.bits
+    fused_pbs.reset_launch_counts()
+    got = fused_pbs.blind_rotate_single_cta(acc, ahat, key.kspec, key.kshoup,
+                                            bl, L, bits)
+    torch.cuda.synchronize()
+    assert fused_pbs.blind_rotate_single_cta.launches == 1
+    assert torch.equal(got, fused_pbs.blind_rotate_persistent_plain(
+        acc, ahat, key.kspec, bl, L, bits))
+
+
+@pytest.mark.parametrize("B", [64, 256])
+@pytest.mark.parametrize("width,n", [(CORE_WIDTHS[0], 742),
+                                     (CORE_WIDTHS[1], 722)],
+                         ids=["shortint742", "boolean722"])
+def test_single_cta_rotation_on_the_core_at_the_main_paths_depth(width, n, B,
+                                                                card):
+    # the main paths' batches; on an H100 the shortint B = 256 runs one CTA
+    # per ciphertext, the others a cluster of P
+    rng = np.random.default_rng([37, B])
+    key, acc, ahat = _inputs(rng, dict(width, n=n, B=B), card)
+    bl, L, bits = key.base_log, key.levels, key.bits
+    form = fused_pbs.blind_rotate_single_cta_form(B, width["N"], width["G"],
+                                                  L, bits)
+    got = fused_pbs.blind_rotate_single_cta(acc, ahat, key.kspec, key.kshoup,
+                                            bl, L, bits)
+    torch.cuda.synchronize()
+    assert torch.equal(got, fused_pbs.blind_rotate_persistent_plain(
+        acc, ahat, key.kspec, bl, L, bits)), form
 
 
 def test_empty_batch_launches_nothing_in_any_mode(card):

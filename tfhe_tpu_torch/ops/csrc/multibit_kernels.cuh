@@ -35,7 +35,8 @@
 // spectra once per kCombineBatch ciphertexts and writes the
 // combined key, 320 KiB per ciphertext at N = 2048, and is bound by that
 // write.  The external product with the combined key does the
-// NTT work of K2, bound by integer issue, with Barrett products in its MAC.
+// NTT work of K2's first port, bound by latency in the shared-memory NTTs
+// (PERF.md section 6), with Barrett products in its MAC.
 // multibit_step never writes the combined key: it reorders the MAC as
 //     sum_j X^{d_j} (sum_lj D_lj K_j),
 // so each K_j keeps its Shoup companion and the monomial is the table's

@@ -31,7 +31,10 @@
 // What bounds them on the card: rotate_decompose moves 8 bytes in and
 // 4*L bytes out per coefficient and is bound by memory.  ntt_mac does
 // (LJ + O*M) NTTs of N points per (ciphertext, prime), 32-bit Shoup
-// products throughout, and is bound by integer issue; it keeps every
+// products throughout; it runs far above its integer-issue bound, its time
+// going to barrier and load latency (a shared round trip and two twiddle
+// loads a butterfly, a barrier a stage: PERF.md section 6); K2 moved
+// to the register-resident core of ntt_core.cuh.  It keeps every
 // transform in shared memory, so device memory sees only the digits, the
 // step's key spectra (shared by all ciphertexts, so mostly from L2) and the
 // residues.  crt_accumulate reads the residues and the accumulator once and
@@ -43,6 +46,10 @@
 namespace tfhe_pbs {
 
 constexpr int kMaxPrimes = 8;
+// the explicit CRT's constants per prime (ntt._explicit_crt_host): p, w,
+// w's Shoup companion, Q/p mod 2^64, round(2^kFracBits / p), Q mod 2^64
+constexpr int kXcrtWidth = 6;
+constexpr int kFracBits = 28;
 
 __device__ __forceinline__ uint32_t add_mod(uint32_t a, uint32_t b,
                                             uint32_t p) {

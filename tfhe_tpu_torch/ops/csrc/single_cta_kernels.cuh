@@ -1,46 +1,42 @@
 // Whole blind-rotation steps on one thread block (CTA) per ciphertext, for
-// Hopper (sm_90a): the port's counterpart of the two TPU schedules of
-// `tfhe_tpu/ops/fused_pbs.py` that run every prime of a step in one body.
+// Hopper (sm_90a): the port's counterpart of the TPU schedule of
+// `tfhe_tpu/ops/fused_pbs.py` that runs every prime of a step in one body
+// and batches a prime's output polynomials in lanes.
 //
-//   blind_rotate_single_cta_kernel<true>, one step per launch
+//   blind_rotate_single_cta_kernel, one step per launch
 //       <- fused_blind_rotate_scan1w (:965) -> step_kernel (:983)
 //          -> _primes_crt_math_wide (:826)                             (K4)
-//   blind_rotate_single_cta_kernel<false>, all n steps in one launch
-//       <- fused_blind_rotate_planes (:1545) -> _make_kernel (:1403)
-//          -> _step_math (:755), _prime_block (:672)                   (K7)
+//
+// (K7, the other such schedule, runs on the register-resident core of
+// ntt_core_kernels.cuh.)
 //
 // One CTA owns one ciphertext and holds its accumulator [G, N] in shared
 // memory.  A step (single_cta_step):
 //   1. the signed gadget digits of acc * X^a - acc into shared memory, once
 //      (rotate_decompose's math);
 //   2. for each prime in turn: the digits mod p, the forward NTTs of the LJ
-//      digit polynomials, the MAC against the step's key spectra with Shoup
-//      products, the inverse NTTs, and the explicit CRT's running sums:
-//      acc += c * (Q/p mod 2^64) in place, and the fixed-point fraction
-//      frac += c * round(2^28/p), with c = r * N^-1 (Q/p)^-1 mod p for the
-//      unscaled inverse transform r (ops/ntt.py `_explicit_crt_host`);
+//      digit polynomials, the MAC of all O*M output spectra against the
+//      step's key spectra with Shoup products, one inverse-NTT pass over
+//      them together, and the explicit CRT's running sums: acc += c *
+//      (Q/p mod 2^64) in place, and the fixed-point fraction frac += c *
+//      round(2^28/p), with c = r * N^-1 (Q/p)^-1 mod p for the unscaled
+//      inverse transform r (ops/ntt.py `_explicit_crt_host`);
 //   3. the correction acc -= round(frac) * Q per output plane (the
 //      reference's `_crt_accumulate`, :709).
-// kWide (K4): the MAC writes all O*M output spectra of a prime, and one
-// inverse-NTT pass transforms them together, as K4 batches them in lanes.
-// Otherwise (K7): one output at a time, MAC, inverse NTT and CRT sums,
-// as `_prime_block` does per om; its spectrum buffer is one polynomial, so
-// at N = 2048 two CTAs fit on an SM where K4's layout fits one.
-// The primes run in turn inside the CTA, as the TPU bodies run them: no
+// The primes run in turn inside the CTA, as the TPU body runs them: no
 // cluster, no residue exchange, and no residues kept past their prime.
 //
 // Layouts are those of pbs_kernels.cuh:
 //   acc_in, acc_out [B, G, N] int64; ahat [n, B] int32 in [0, 2N];
 //   kspec, kshoup [n, P, LJ, O, M, N] uint32; tables [P, 5, N];
-//   xcrt [P, 6] int64 (p, w, w's Shoup companion, Q/p mod 2^64,
-//   round(2^28/p), Q mod 2^64).
+//   xcrt [P, kXcrtWidth] int64.
 // Shared memory: G*N*8 (accumulator) + O*M*N*4 (fractions) + 2*LJ*N*4
-// (digits, digit spectra) + (kWide ? O*M : 1)*N*4 (output spectra): 128 KB
-// (K4) and 104 KB (K7) at PARAM_MESSAGE_2_CARRY_2_KS_PBS, 60 and 56 KB at
-// boolean DEFAULT_PARAMETERS.
+// (digits, digit spectra) + O*M*N*4 (output spectra): 128 KB at
+// PARAM_MESSAGE_2_CARRY_2_KS_PBS, 60 KB at boolean DEFAULT_PARAMETERS.
 //
-// What bounds it on the card: integer issue in the NTTs, as K2 and the
-// cluster kernel.  Per step device memory sees only the key slice
+// What bounds it on the card: latency in the shared-memory NTTs (a
+// barrier a stage, two twiddle loads a butterfly), not integer issue
+// (PERF.md section 6).  Per step device memory sees only the key slice
 // [P, LJ, O, M, N] (shared by every ciphertext, so mostly from L2).
 #pragma once
 
@@ -50,25 +46,19 @@
 
 namespace tfhe_pbs {
 
-constexpr int kXcrtWidth = 6;
-constexpr int kFracBits = 28;
-
-// One output spectrum (or kWide: all O*M) of one prime:
-// osp[om', n] = sum_lj dsp[lj, n] * key[lj, om, n] mod p for om in
-// [om0, om0 + count).
+// The O*M output spectra of one prime:
+// osp[om, n] = sum_lj dsp[lj, n] * key[lj, om, n] mod p.
 __device__ __forceinline__ void spectrum_mac(const uint32_t* dsp,
                                              uint32_t* osp,
                                              const uint32_t* __restrict__ ks,
                                              const uint32_t* __restrict__ ksh,
-                                             int LJ, int OM, int om0,
-                                             int count, int N, int log_n,
+                                             int LJ, int OM, int N,
                                              uint32_t p) {
-  for (int idx = threadIdx.x; idx < count * N; idx += blockDim.x) {
+  for (int idx = threadIdx.x; idx < OM * N; idx += blockDim.x) {
     const int n = idx & (N - 1);
-    const long long col = (long long)(om0 + (idx >> log_n)) * N + n;
     uint32_t s = 0;
     for (int lj = 0; lj < LJ; ++lj) {
-      const long long k = (long long)lj * OM * N + col;
+      const long long k = (long long)lj * OM * N + idx;
       s = add_mod(s, mul_shoup(dsp[lj * N + n], ks[k], ksh[k], p), p);
     }
     osp[idx] = s;
@@ -94,7 +84,6 @@ __device__ __forceinline__ void crt_add(uint64_t* acc, uint32_t* frac,
 // modulus-switched mask element in [0, 2N).  On entry acc holds the
 // accumulator and frac is zero; on return acc holds
 // acc + GGSW (x) (acc * X^a - acc) and frac is zero again.
-template <bool kWide>
 __device__ __forceinline__ void single_cta_step(
     uint64_t* acc, uint32_t* frac, int32_t* dig, uint32_t* dsp,
     uint32_t* osp, int a, const uint32_t* __restrict__ kspec,
@@ -137,26 +126,15 @@ __device__ __forceinline__ void single_cta_step(
     __syncthreads();
     ntt_forward_smem(dsp, LJ, N, log_n, tab, tab + N, p);
 
-    if constexpr (kWide) {
-      spectrum_mac(dsp, osp, ks, ksh, LJ, OM, 0, OM, N, log_n, p);
-      ntt_inverse_smem(osp, OM, N, log_n, tab + 2 * N, tab + 3 * N, p);
-      // one thread per accumulator word, both of its planes
-      for (int idx = threadIdx.x; idx < G * N; idx += blockDim.x) {
-        const int o = idx >> log_n;
-        const int n = idx & (N - 1);
-        for (int m = 0; m < M; ++m)
-          crt_add(acc, frac, osp[(o * M + m) * N + n], o, m, o * M + m, n, N,
-                  p, w, wsh, q_i, t);
-      }
-    } else {
-      for (int om = 0; om < OM; ++om) {
-        spectrum_mac(dsp, osp, ks, ksh, LJ, OM, om, 1, N, log_n, p);
-        ntt_inverse_smem(osp, 1, N, log_n, tab + 2 * N, tab + 3 * N, p);
-        for (int n = threadIdx.x; n < N; n += blockDim.x)
-          crt_add(acc, frac, osp[n], om / M, om % M, om, n, N, p, w, wsh,
-                  q_i, t);
-        __syncthreads();  // osp is rewritten by the next output's MAC
-      }
+    spectrum_mac(dsp, osp, ks, ksh, LJ, OM, N, p);
+    ntt_inverse_smem(osp, OM, N, log_n, tab + 2 * N, tab + 3 * N, p);
+    // one thread per accumulator word, both of its planes
+    for (int idx = threadIdx.x; idx < G * N; idx += blockDim.x) {
+      const int o = idx >> log_n;
+      const int n = idx & (N - 1);
+      for (int m = 0; m < M; ++m)
+        crt_add(acc, frac, osp[(o * M + m) * N + n], o, m, o * M + m, n, N,
+                p, w, wsh, q_i, t);
     }
     __syncthreads();  // dsp is rewritten by the next prime
   }
@@ -181,7 +159,6 @@ __device__ __forceinline__ void single_cta_step(
 // n_steps steps of the blind rotation; CTA b owns ciphertext b.  kspec /
 // kshoup hold the n_steps steps' keys and ahat their [n_steps, B] mask
 // elements.  acc_out may not alias acc_in.
-template <bool kWide>
 __global__ void blind_rotate_single_cta_kernel(
     const int64_t* __restrict__ acc_in, const int32_t* __restrict__ ahat,
     const uint32_t* __restrict__ kspec, const uint32_t* __restrict__ kshoup,
@@ -196,7 +173,7 @@ __global__ void blind_rotate_single_cta_kernel(
   uint32_t* frac = (uint32_t*)(acc + G * N);  // [O*M, N]
   int32_t* dig = (int32_t*)(frac + OM * N);   // [LJ, N] signed digits
   uint32_t* dsp = (uint32_t*)(dig + LJ * N);  // [LJ, N] digit spectra
-  uint32_t* osp = dsp + LJ * N;               // [O*M or 1, N] outputs
+  uint32_t* osp = dsp + LJ * N;               // [O*M, N] output spectra
 
   const int64_t* src = acc_in + b * G * N;
   for (int idx = threadIdx.x; idx < G * N; idx += blockDim.x)
@@ -207,7 +184,7 @@ __global__ void blind_rotate_single_cta_kernel(
   const long long step_words = (long long)P * LJ * OM * N;
   for (int s = 0; s < n_steps; ++s) {
     const int a = ahat[(long long)s * B + b] & (2 * N - 1);  // 2N is 0
-    single_cta_step<kWide>(acc, frac, dig, dsp, osp, a,
+    single_cta_step(acc, frac, dig, dsp, osp, a,
                            kspec + s * step_words, kshoup + s * step_words,
                            tables, xcrt, G, M, P, N, log_n, base_log, levels,
                            bits);

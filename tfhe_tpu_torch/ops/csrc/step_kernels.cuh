@@ -29,7 +29,8 @@
 // Shared memory per CTA: G*N*8 + (LJ + O*M)*N*4 bytes (36 KB at boolean
 // DEFAULT_PARAMETERS, 80 KB at PARAM_MESSAGE_2_CARRY_2_KS_PBS).
 //
-// What bounds it on the card: integer issue in the NTTs, as K2; the
+// What bounds it on the card: latency in the shared-memory NTTs, as K2's
+// first port (PERF.md section 6), not integer issue; the
 // schedule removes K2's residue round trip, the digits' and accumulator's
 // trips through device memory and, in the persistent form, every launch
 // but one.  The clusters are independent (no grid-wide barrier), so a batch

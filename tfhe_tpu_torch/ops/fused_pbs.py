@@ -29,12 +29,17 @@ here `blind_rotate_fused(..., mode=...)` takes it as an argument, one of
                             the accumulator held on chip throughout;
   "mega" (K7, `fused_blind_rotate_planes` :1545)
       blind_rotate_single_cta  all n steps in one launch on one CTA per
-                            ciphertext, the accumulator held on chip.
+                            ciphertext (or, for a batch that leaves SMs
+                            idle, a cluster of one CTA per prime), the
+                            accumulator held on chip.
 
-The kernels are CUDA C++ for sm_90a (`csrc/pbs_kernels.cuh` for K1, K2 and
+The kernels are CUDA C++ for sm_90a (`csrc/pbs_kernels.cuh` for K1 and
 K6, `csrc/step_kernels.cuh` for K3 and K5, `csrc/single_cta_kernels.cuh`
-for K4 and K7), built by nvcc at first use into the package's `_build/`
-directory and called through ctypes.  Each wrapper takes its plain PyTorch
+for K4, `csrc/ntt_core_kernels.cuh` for K2 and K7), built by nvcc at first
+use into the package's `_build/` directory and called through ctypes.  K2
+and K7 run on the register-resident NTT core of `csrc/ntt_core.cuh`, with
+the per-pass twiddle tables of `ntt.pass_tables_for`; the others on the
+shared-memory core of `csrc/pbs_kernels.cuh`.  Each wrapper takes its plain PyTorch
 version (`*_plain`) for CPU tensors, launches its kernel for CUDA tensors,
 and raises for anything else: nothing falls back.  Each wrapper counts its
 launches in its `launches` attribute.
@@ -75,6 +80,15 @@ def _nvcc() -> str:
                         "nvcc")
 
 
+# the register-resident core and the kernels on it (K2, K7), which
+# pbs_kernels.cu and single_cta_kernels.cu both include
+_CORE_HEADERS = ("ntt_core.cuh", "ntt_core_kernels.cuh")
+
+
+def _headers(*names: str) -> tuple[str, ...]:
+    return tuple(os.path.join(_CSRC, n) for n in dict.fromkeys(names))
+
+
 @functools.cache
 def cuda_library() -> ctypes.CDLL:
     """Build (once per source hash) and load the step kernels' shared
@@ -84,7 +98,7 @@ def cuda_library() -> ctypes.CDLL:
     path = build_shared_library(
         "pbs_kernels", [os.path.join(_CSRC, "pbs_kernels.cu")],
         [_nvcc(), *NVCC_FLAGS], timeout=BUILD_TIMEOUT_S,
-        headers=(os.path.join(_CSRC, "pbs_kernels.cuh"),))
+        headers=_headers("pbs_kernels.cuh", *_CORE_HEADERS))
     lib = ctypes.CDLL(path)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.tfhe_rotate_decompose.argtypes = [ptr, ptr, ptr] + [i32] * 6 + [ptr]
@@ -120,13 +134,15 @@ def single_cta_library() -> ctypes.CDLL:
     path = build_shared_library(
         "single_cta_kernels", [os.path.join(_CSRC, "single_cta_kernels.cu")],
         [_nvcc(), *NVCC_FLAGS], timeout=BUILD_TIMEOUT_S,
-        headers=(os.path.join(_CSRC, "single_cta_kernels.cuh"),
-                 os.path.join(_CSRC, "pbs_kernels.cuh")))
+        headers=_headers("single_cta_kernels.cuh", "pbs_kernels.cuh",
+                         *_CORE_HEADERS))
     lib = ctypes.CDLL(path)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.tfhe_blind_rotate_single_cta.argtypes = ([ptr] * 7 + [i32] * 10
                                                  + [ptr])
     lib.tfhe_blind_rotate_single_cta.restype = i32
+    lib.tfhe_blind_rotate_single_cta_form.argtypes = [i32] * 6 + [ptr]
+    lib.tfhe_blind_rotate_single_cta_form.restype = i32
     return lib
 
 
@@ -248,8 +264,11 @@ def external_product_crt(digits: torch.Tensor, kspec: torch.Tensor,
                          kshoup: torch.Tensor, acc: torch.Tensor,
                          bits: int = 64) -> torch.Tensor:
     """K2 (replaces pc_kernel, tfhe_tpu/ops/fused_pbs.py:1244).  Returns a
-    new accumulator; the two CUDA kernels (ntt_mac, crt_accumulate) run
-    back to back on one stream and count as one launch."""
+    new accumulator, from one launch of `external_product_cluster_kernel`:
+    a cluster of one CTA per prime and ciphertext on the register-resident
+    NTT core, the explicit CRT in the same launch.  The core takes
+    256 <= N <= 2048 (`ntt.pass_tables_for` raises otherwise) and L*G <= 9
+    digit polynomials (the launch is refused otherwise)."""
     if digits.device.type == "cpu":
         return external_product_crt_plain(digits, kspec, acc, bits)
     if digits.device.type != "cuda":
@@ -264,17 +283,15 @@ def external_product_crt(digits: torch.Tensor, kspec: torch.Tensor,
     _check("acc", acc, torch.int64, (B, G, N), dev)
     if P != len(ntt.PRIMES) or M != (2 if bits == 64 else 1):
         raise ValueError(f"key layout P={P}, M={M} does not match bits={bits}")
-    if (L * G + G * M) * N * 4 > 227 * 1024:
-        raise ValueError("digit and output spectra exceed shared memory")
+    twiddles = ntt.pass_tables_for(N, dev)
     tab = ntt.tables_for(N, dev)
-    residues = torch.empty((B, O, M, P, N), dtype=torch.int32, device=dev)
     out = torch.empty_like(acc)
     if B == 0:  # a grid of zero blocks is an invalid launch
         return out
     err = cuda_library().tfhe_external_product_crt(
         digits.data_ptr(), kspec.data_ptr(), kshoup.data_ptr(),
-        tab.kernel.data_ptr(), tab.crt.data_ptr(), acc.data_ptr(),
-        residues.data_ptr(), out.data_ptr(), B, LJ, O, M, P, N, bits,
+        twiddles.data_ptr(), tab.xcrt.data_ptr(),
+        acc.data_ptr(), None, out.data_ptr(), B, LJ, O, M, P, N, bits,
         _stream(dev))
     _check_launch(err, "external_product_crt")
     external_product_crt.launches += 1
@@ -486,7 +503,7 @@ def blind_rotate_persistent(acc: torch.Tensor, ahat: torch.Tensor,
 blind_rotate_persistent.launches = 0
 
 # ---------------------------------------------------------------------------
-# K4 and K7: whole steps on one CTA per ciphertext, the primes in turn
+# K4 and K7: whole steps in one launch, the accumulator held on chip
 # ---------------------------------------------------------------------------
 
 
@@ -494,17 +511,21 @@ def _launch_single_cta(name: str, acc: torch.Tensor, ahat: torch.Tensor,
                        kspec: torch.Tensor, kshoup: torch.Tensor,
                        base_log: int, levels: int, bits: int,
                        wide: bool) -> torch.Tensor:
-    """Checks, then `blind_rotate_single_cta_kernel<wide>` over
-    ahat.shape[0] steps; ahat [n, B], kspec / kshoup [n, P, LJ, O, M, N]."""
+    """Checks, then over ahat.shape[0] steps `blind_rotate_single_cta_
+    kernel` (wide, K4) or K7 on the register-resident core (one CTA or a
+    cluster of P CTAs per ciphertext, chosen by the C entry point); ahat
+    [n, B], kspec / kshoup [n, P, LJ, O, M, N]."""
     B, n, G, M, P, N = _check_rotation(acc, ahat, kspec, kshoup, base_log,
                                        levels, bits)
     out = torch.empty_like(acc)
     if B == 0:  # a grid of zero blocks is an invalid launch
         return out
     tab = ntt.tables_for(N, acc.device)
+    # K7's core refuses an N outside 256 ... 2048 here, other layouts in C
+    twiddles = tab.kernel if wide else ntt.pass_tables_for(N, acc.device)
     err = single_cta_library().tfhe_blind_rotate_single_cta(
         acc.data_ptr(), ahat.data_ptr(), kspec.data_ptr(), kshoup.data_ptr(),
-        tab.kernel.data_ptr(), tab.xcrt.data_ptr(), out.data_ptr(), B, n, G,
+        twiddles.data_ptr(), tab.xcrt.data_ptr(), out.data_ptr(), B, n, G,
         M, P, N, base_log, levels, bits, int(wide), _stream(acc.device))
     _check_launch(err, name)
     return out
@@ -515,7 +536,7 @@ def pbs_step_single_cta(acc: torch.Tensor, ahat: torch.Tensor,
                         base_log: int, levels: int,
                         bits: int = 64) -> torch.Tensor:
     """K4 (replaces step_kernel, tfhe_tpu/ops/fused_pbs.py:983): one whole
-    step in one launch of `blind_rotate_single_cta_kernel<true>`, each
+    step in one launch of `blind_rotate_single_cta_kernel`, each
     prime's outputs through one inverse-NTT pass.  acc [B, G, N], ahat [B],
     kspec / kshoup [P, LJ, O, M, N]; returns a new accumulator.  Its plain
     version is `pbs_step_plain`."""
@@ -540,8 +561,14 @@ def blind_rotate_single_cta(acc: torch.Tensor, ahat: torch.Tensor,
                             base_log: int, levels: int,
                             bits: int = 64) -> torch.Tensor:
     """K7 (replaces _make_kernel, tfhe_tpu/ops/fused_pbs.py:1403): all n
-    steps in one launch of `blind_rotate_single_cta_kernel<false>`, the
-    accumulator held in the CTA's shared memory throughout.  ahat [n, B],
+    steps in one launch on the register-resident NTT core, the accumulator
+    held in shared memory throughout: `blind_rotate_core_kernel` (one CTA
+    per ciphertext, the primes in turn) or, when the batch would leave SMs
+    idle, `blind_rotate_cluster_core_kernel` (a cluster of one CTA per
+    prime); the C entry point picks one from B and the device's SM count
+    (`blind_rotate_single_cta_form` says which).  256 <= N <= 2048
+    (`ntt.pass_tables_for` raises otherwise) and L*G <= 9, or the launch
+    is refused.  ahat [n, B],
     kspec / kshoup [n, P, LJ, O, M, N]; returns a new accumulator.  Its
     plain version is `blind_rotate_persistent_plain`."""
     if acc.device.type == "cpu":
@@ -558,6 +585,20 @@ def blind_rotate_single_cta(acc: torch.Tensor, ahat: torch.Tensor,
 
 
 blind_rotate_single_cta.launches = 0
+
+
+def blind_rotate_single_cta_form(B: int, N: int, G: int, levels: int,
+                                 bits: int = 64) -> str:
+    """The kernel that `blind_rotate_single_cta` launches for a batch of B
+    on the current card: "blind_rotate_core_kernel" or
+    "blind_rotate_cluster_core_kernel".  Launches nothing."""
+    cluster = ctypes.c_int(0)
+    err = single_cta_library().tfhe_blind_rotate_single_cta_form(
+        B, G, 2 if bits == 64 else 1, len(ntt.PRIMES), N, levels,
+        ctypes.byref(cluster))
+    _check_launch(err, "blind_rotate_single_cta_form")
+    return ("blind_rotate_cluster_core_kernel" if cluster.value
+            else "blind_rotate_core_kernel")
 
 KERNELS = (rotate_decompose, external_product_crt, pbs_step,
            blind_rotate_persistent, ntt_mac_prime, crt_accumulate,

@@ -176,6 +176,87 @@ def _explicit_crt_host(N: int) -> np.ndarray:
     return out
 
 
+# The register-resident NTT core (csrc/ntt_core.cuh): a thread holds
+# PASS_RADIX = 2^PASS_LOG_RADIX words of a polynomial and runs up to
+# PASS_LOG_RADIX butterfly stages on them in registers (a pass); shared
+# memory only moves words between passes.  In the layout of shift a, thread
+# tid holds the words j(k) = (tid >> a) << (a + PASS_LOG_RADIX) | k << a |
+# (tid & (2^a - 1)), k in [0, PASS_RADIX): the butterflies of the stages with
+# half-distance 2^a ... 2^(a + PASS_LOG_RADIX - 1) pair words of one thread.
+PASS_LOG_RADIX = 3
+PASS_RADIX = 1 << PASS_LOG_RADIX
+PASS_RECORD = 2 * PASS_RADIX  # twiddles, then their Shoup companions
+PASS_HEADER = 8  # p, 2p, floor(2^32 / p), p - 2^31 mod p, then zeros
+
+
+def pass_plan(N: int) -> tuple[int, list[int]]:
+    """(s0, shifts): the forward transform's passes, shift a of each, in
+    order; the first pass runs its first s0 stages only (the half-distances
+    N/2 ... N/2^s0), every other pass all PASS_LOG_RADIX.  The last forward
+    pass has shift 0, so it holds PASS_RADIX adjacent spectral words.  The
+    inverse runs the same passes in reverse, the last one its last s0
+    stages."""
+    log_n = N.bit_length() - 1
+    R = PASS_LOG_RADIX
+    passes = -(-log_n // R)
+    s0 = log_n - R * (passes - 1)
+    return s0, [log_n - R] + [log_n - s0 - q * R for q in range(1, passes)]
+
+
+def _pass_records(N: int, psi: np.ndarray, p: int, inverse: bool
+                  ) -> np.ndarray:
+    """One direction's records for one prime, pass after pass (the inverse's
+    in its own order): for each group h = tid >> a, PASS_RADIX twiddles and
+    PASS_RADIX companions.  Forward (Cooley-Tukey) stage u of a pass pairs
+    k with k + r/2^(u+1) and reads entry 2^u - 1 + (k >> (R - u)), which is
+    psi^bitrev[2^(log N - a - R + u) + (h << u) + c]; inverse
+    (Gentleman-Sande) stage u pairs k with k + 2^u and reads entry
+    r - r/2^u + (k >> (u + 1)), psi^-bitrev[2^(log N - a - u - 1)
+    + (h << (R - 1 - u)) + c].  Entries of stages a pass does not run, and
+    the last entry, are 0."""
+    log_n = N.bit_length() - 1
+    R, r = PASS_LOG_RADIX, PASS_RADIX
+    s0, shifts = pass_plan(N)
+    order = shifts[::-1] if inverse else shifts
+    out = []
+    for q, a in enumerate(order):
+        first = q == 0 and not inverse
+        last = q == len(order) - 1 and inverse
+        groups = N >> (a + R)
+        tw = np.zeros((groups, r), np.int64)
+        for u in range(R):
+            if (first and u >= s0) or (last and u < R - s0):
+                continue
+            h = np.arange(groups)[:, None]
+            if inverse:
+                c = np.arange(r >> (u + 1))[None, :]
+                tw[h, r - (r >> u) + c] = psi[
+                    (1 << (log_n - a - u - 1)) + (h << (R - 1 - u)) + c]
+            else:
+                c = np.arange(1 << u)[None, :]
+                tw[h, (1 << u) - 1 + c] = psi[
+                    (1 << (log_n - a - R + u)) + (h << u) + c]
+        out.append(np.concatenate([tw, _shoup(tw, p).astype(np.int64)], 1))
+    return np.concatenate(out).reshape(-1)
+
+
+@functools.cache
+def _host_pass_tables(N: int) -> np.ndarray:
+    """[P, PASS_HEADER + 2 W] int64 (uint32 values): per prime the header
+    (p, 2p, floor(2^32 / p), p - 2^31 mod p, 0, 0, 0, 0), then the forward
+    records, then the inverse records (W words each)."""
+    if not 256 <= N <= 2048 or N & (N - 1):
+        raise ValueError(f"the NTT core takes N in 256 ... 2048, not {N}")
+    fwd, inv, _ = _host_tables(N)
+    rows = []
+    for i, p in enumerate(PRIMES):
+        head = np.array([p, 2 * p, (1 << 32) // p, p - (1 << 31) % p, 0, 0,
+                         0, 0], np.int64)
+        rows.append(np.concatenate([head, _pass_records(N, fwd[i], p, False),
+                                    _pass_records(N, inv[i], p, True)]))
+    return np.stack(rows)
+
+
 @functools.cache
 def ntt_tables(N: int, device: str) -> NttTables:
     fwd, inv, ninv = _host_tables(N)
@@ -267,6 +348,18 @@ def monomial_spectra(d: torch.Tensor, N: int) -> torch.Tensor:
 
 def tables_for(N: int, device: torch.device) -> NttTables:
     return ntt_tables(N, str(torch.device(device)))
+
+
+@functools.cache
+def _pass_tables(N: int, device: str) -> torch.Tensor:
+    return torch.from_numpy(_as_i32_bits(_host_pass_tables(N))).to(
+        torch.device(device))
+
+
+def pass_tables_for(N: int, device: torch.device) -> torch.Tensor:
+    """The NTT core's tables on `device`: [P, PASS_HEADER + 2 W] int32 bit
+    patterns of `_host_pass_tables(N)`."""
+    return _pass_tables(N, str(torch.device(device)))
 
 
 def _rows(N: int, device: torch.device, prime: int | None):
