@@ -15,9 +15,10 @@ Phases, each printing one flushed line with its wall time:
      G=3, L=3, base_log 6, u32), 5 primes, B=64, one step each, the
      persistent and single-CTA rotations at their main path's depth (742 and
      722 steps), the single-CTA one at B=256 too (each batch naming the K7
-     kernel that ran it, one CTA or a cluster per ciphertext), and a 4-step
-     rotation in every mode, bit-exact (tolerance 0), with device, eager and
-     plain times per launch and bounds;
+     kernel that ran it, one CTA or a cluster per ciphertext), K4 and
+     ntt_mac_prime at B=256 too (K4 naming its kernel per batch), and a
+     4-step rotation in every mode, bit-exact (tolerance 0), with device,
+     eager and plain times per launch and bounds;
   4. main path: PARAM_MESSAGE_2_CARRY_2_KS_PBS keys generated on the card,
      64 messages covering all 16 message+carry values, three univariate LUTs
      and one bivariate LUT through the ServerKey entry points, every result
@@ -94,11 +95,12 @@ between CUDA events (a whole rotation, persistent or single-CTA: CUDA events
 around a few eager launches); the eager per-launch times beside them include
 the host's launch cost.
 Then a `kernels` JSON line (each kernel's `redesigned` names the source
-it was rebuilt on after its first port: K2 and K7, on the register-resident
-NTT core; null for the others), the nvidia-smi line, and as the last
-line {"ok": true, "device": {...}}.  Any failed phase raises, so the script exits
-non-zero and prints no result; it needs a card and refuses to run without
-one.  A watchdog ends a hung run with a traceback.
+it was rebuilt on after its first port: K2, K4, ntt_mac_prime and K7, on
+the register-resident NTT core; null for the others), the nvidia-smi line,
+and as the last line {"ok": true, "device": {...}}.  Any failed phase
+raises, so the script exits non-zero and prints no result; it needs a card
+and refuses to run without one.  A watchdog ends a hung run with a
+traceback.
 """
 
 import faulthandler
@@ -120,8 +122,10 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
 
 # kernels rebuilt for Hopper after their first port, and the source they
-# were rebuilt on: K2 and K7 on the register-resident NTT core
-REDESIGNED = dict.fromkeys(("external_product_crt", "blind_rotate_single_cta"),
+# were rebuilt on: K2, K4, K6's ntt_mac_prime and K7 on the
+# register-resident NTT core
+REDESIGNED = dict.fromkeys(("external_product_crt", "pbs_step_single_cta",
+                            "ntt_mac_prime", "blind_rotate_single_cta"),
                            "tfhe_tpu_torch/ops/csrc/ntt_core.cuh")
 
 
@@ -690,11 +694,30 @@ def modes_kernels_phase(dev):
                           acc_l, ahat_l, key_n.kspec, bl, L, bits))}
         k7_checked = {f"B{B}": dict(kernel=k7_form[B], max_abs_err=k7_err[B])
                       for B in (B_MAIN, B_LARGE)}
-        if any(err.values()) or any(err_rot.values()) or any(k7_err.values()):
+        # K4 and K6's ntt_mac_prime at B = 256 too, on the same batch; K4
+        # names its kernel for each batch (a cluster or one CTA per
+        # ciphertext)
+        dig_l = fp.rotate_decompose_plain(acc_l, ahat_l[0], bl, L, bits)
+        res_l = torch.empty((B_LARGE, G, M, P, N), dtype=torch.int32,
+                            device=dev)
+        res_lp = torch.empty_like(res_l)
+        for pi in range(P):
+            fp.ntt_mac_prime(dig_l, ks[pi], ksh[pi], pi, res_l)
+            fp.ntt_mac_prime_plain(dig_l, ks[pi], pi, res_lp)
+        err_l = {
+            "pbs_step_single_cta": max_abs_err(
+                fp.pbs_step_single_cta(acc_l, ahat_l[0], ks, ksh, bl, L,
+                                       bits),
+                fp.pbs_step_plain(acc_l, ahat_l[0], ks, bl, L, bits)),
+            "ntt_mac_prime": max_abs_err(res_l, res_lp)}
+        k4_form = {f"B{B}": fp.pbs_step_single_cta_form(B, N, G, L, bits)
+                   for B in (B_MAIN, B_LARGE)}
+        if (any(err.values()) or any(err_rot.values())
+                or any(k7_err.values()) or any(err_l.values())):
             raise AssertionError(
                 f"{p.name}: classic kernels disagree with their plain "
                 f"versions: {err}, {steps}-step rotation per mode {err_rot}, "
-                f"K7 at depth {n} {k7_checked}")
+                f"K7 at depth {n} {k7_checked}, B = {B_LARGE} {err_l}")
         # a persistent or single-CTA launch runs a whole rotation: CUDA
         # events around eager launches, not a graph of 100; their plain
         # version, n steps of plain ops, as one graph replayed once
@@ -715,13 +738,15 @@ def modes_kernels_phase(dev):
                        persistent_steps=n, rotation_steps=steps),
             max_abs_err=err, rotation_max_abs_err=err_rot,
             blind_rotate_single_cta_at_depth=k7_checked,
+            max_abs_err_b256=err_l, pbs_step_single_cta_kernel=k4_form,
             device_ms_per_launch=ms, eager_ms_per_launch=eager,
             plain_device_ms=plain_ms, rotation_ms_per_mode=rot_ms,
             bound_ms={k: v[0] for k, v in bounds.items()},
             bound_by={k: v[1] for k, v in bounds.items()})
-        out[p.name] = (err, ms, plain_ms, bounds)
+        out[p.name] = ({k: max(v, err_l.get(k, 0)) for k, v in err.items()},
+                       ms, plain_ms, bounds)
         del key, key_n, acc, ahat, ahat_n, dig, res_p, res_k, res_t, calls
-        del want, plain_n, acc_l, ahat_l
+        del want, plain_n, acc_l, ahat_l, dig_l, res_l, res_lp
         torch.cuda.empty_cache()
     return out
 
@@ -1741,9 +1766,10 @@ def main():
             ("pbs_step", 1304, "step_kernels.cuh", "DEFAULT_PARAMETERS"),
             ("blind_rotate_persistent", 1020, "step_kernels.cuh",
              "DEFAULT_PARAMETERS"),
-            ("ntt_mac_prime", 1503, "pbs_kernels.cuh", "DEFAULT_PARAMETERS"),
+            ("ntt_mac_prime", 1503, "ntt_core_kernels.cuh",
+             "DEFAULT_PARAMETERS"),
             ("crt_accumulate", 1520, "pbs_kernels.cuh", "DEFAULT_PARAMETERS"),
-            ("pbs_step_single_cta", 983, "single_cta_kernels.cuh",
+            ("pbs_step_single_cta", 983, "ntt_core_kernels.cuh",
              "DEFAULT_PARAMETERS"),
             ("blind_rotate_single_cta", 1403, "ntt_core_kernels.cuh",
              "DEFAULT_PARAMETERS")):

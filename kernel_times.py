@@ -16,12 +16,15 @@ three times between CUDA events: K1 `rotate_decompose` and K2
 `multibit_step` at PARAM_MULTI_BIT_MESSAGE_2_CARRY_2_GROUP_3_KS_PBS's
 width (gf=3).  Then, from a generator of their own per seed and width
 (default_rng([seed, n])), K2 at boolean DEFAULT_PARAMETERS' width (N=512,
-G=3, L=3, base_log 6, u32) and both widths at B = 256 (graphs of 100), and
-K7 `blind_rotate_single_cta`, a whole rotation at the main path's depth
-(742 and 722 steps), at both widths and B = 64 and 256 (CUDA events
-around 3 launches after 2 warm-ups).  Only functions that both trees of the
-port have are called.  Prints one JSON line, with the card's name and power
-limit.
+G=3, L=3, base_log 6, u32) and both widths at B = 256, and at both
+widths and B = 64 and 256 K4 `pbs_step_single_cta` (one step), K7
+`blind_rotate_single_cta` over one step (the kernel K7's launcher picks
+for that batch; CUDA events around 100 eager launches, as its launcher
+queries the device) and K6's `ntt_mac_prime` for prime 0 (graphs of
+100), and K7 a whole rotation at the main path's depth (742 and 722
+steps; CUDA events around 3 launches after 2 warm-ups).  Only functions
+that both trees of the port have are called.  Prints one JSON line, with
+the card's name and power limit.
 """
 
 import argparse
@@ -90,7 +93,9 @@ def times(seed):
 
 def redesigned(seed):
     """K2 at both widths and B = 64 / 256 (the shortint width at B = 64 is
-    timed above), and K7 at both widths, depths and batch sizes."""
+    timed above); K4 (one step), K7 over one step and K6's `ntt_mac_prime`
+    (prime 0) at both widths and batch sizes; and K7 at both widths, depths
+    and batch sizes."""
     import numpy as np
     import torch
 
@@ -123,6 +128,22 @@ def redesigned(seed):
                 out[f"external_product_crt_{tag}_B{B}"] = graph_ms(
                     lambda: fp.external_product_crt(  # noqa: B023
                         dig, key.kspec[0], key.kshoup[0], acc, bits), 100)
+            # K4 (one step), K7's form of one step (one CTA or a cluster
+            # per ciphertext, as blind_rotate_single_cta_form picks), and
+            # K6's ntt_mac_prime for prime 0
+            res = torch.empty((B, G, 2 if bits == 64 else 1, 5, N),
+                              dtype=torch.int32, device=dev)
+            out[f"pbs_step_single_cta_{tag}_B{B}"] = graph_ms(
+                lambda: fp.pbs_step_single_cta(  # noqa: B023
+                    acc, ahat[0], key.kspec[0], key.kshoup[0], bl, L, bits),
+                100)
+            out[f"blind_rotate_single_cta_1step_{tag}_B{B}"] = cuda_ms(
+                lambda: fp.blind_rotate_single_cta(  # noqa: B023
+                    acc, ahat[:1], key.kspec[:1], key.kshoup[:1], bl, L,
+                    bits), 100)
+            out[f"ntt_mac_prime_{tag}_B{B}"] = graph_ms(
+                lambda: fp.ntt_mac_prime(  # noqa: B023
+                    dig, key.kspec[0, 0], key.kshoup[0, 0], 0, res), 100)
             out[f"blind_rotate_single_cta_{tag}_B{B}"] = cuda_ms(
                 lambda: fp.blind_rotate_single_cta(  # noqa: B023
                     acc, ahat, key.kspec, key.kshoup, bl, L, bits), 3)

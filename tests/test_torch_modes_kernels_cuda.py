@@ -6,10 +6,11 @@
 PARAM_MESSAGE_2_CARRY_2_KS_PBS and of boolean DEFAULT_PARAMETERS; a blind
 rotation in every mode, equal across modes, with its launch counts; the
 empty batch; a batch past 65535 ciphertexts in one persistent launch and in
-one single-CTA launch; K7 on the register-resident NTT core at every width
-the port runs (the sets at N = 1024 among them), at batch sizes around one and two waves of the card's 132
-SMs, and at the main paths' depth (742 and 722 steps); and the layouts
-beyond the kernels' limits, refused.
+one single-CTA launch; K4, K6's `ntt_mac_prime` and K7 on the
+register-resident NTT core at every width the port runs (the sets at
+N = 1024 among them), at batch sizes around one and two waves of the
+card's 132 SMs, and K7 at the main paths' depth (742 and 722 steps); and
+the layouts beyond the kernels' limits, refused.
 Marked `cuda`: they skip where there is no card; on one, run
 `python -m pytest -m cuda --noconftest tests/test_torch_modes_kernels_cuda.py`
 (tests/conftest.py imports JAX, which is not needed here)."""
@@ -174,6 +175,46 @@ def test_single_cta_rotation_on_the_core_at_the_main_paths_depth(width, n, B,
         acc, ahat, key.kspec, bl, L, bits)), form
 
 
+@pytest.mark.parametrize("B", BATCHES)
+@pytest.mark.parametrize("width", CORE_WIDTHS, ids=CORE_WIDTH_IDS)
+def test_step_on_the_core_matches_plain(width, B, card):
+    # K4: one launch a step, the digits made inside (a cluster per
+    # ciphertext, or one CTA where that fills the card in fewer waves)
+    rng = np.random.default_rng([41, B])
+    key, acc, ahat = _inputs(rng, dict(width, n=1, B=B), card)
+    bl, L, bits = key.base_log, key.levels, key.bits
+    fused_pbs.reset_launch_counts()
+    got = fused_pbs.pbs_step_single_cta(acc, ahat[0], key.kspec[0],
+                                        key.kshoup[0], bl, L, bits)
+    torch.cuda.synchronize()
+    assert fused_pbs.pbs_step_single_cta.launches == 1
+    assert torch.equal(got, fused_pbs.pbs_step_plain(acc, ahat[0],
+                                                     key.kspec[0], bl, L,
+                                                     bits))
+
+
+@pytest.mark.parametrize("B", BATCHES)
+@pytest.mark.parametrize("width", CORE_WIDTHS, ids=CORE_WIDTH_IDS)
+def test_prime_stage_on_the_core_matches_plain(width, B, card):
+    # K6's ntt_mac_prime: one launch per prime, each writing only its rows
+    rng = np.random.default_rng([43, B])
+    key, acc, ahat = _inputs(rng, dict(width, n=1, B=B), card)
+    bl, L, bits = key.base_log, key.levels, key.bits
+    G, N = width["G"], width["N"]
+    M = 2 if bits == 64 else 1
+    dig = fused_pbs.rotate_decompose_plain(acc, ahat[0], bl, L, bits)
+    got = torch.full((B, G, M, P, N), -1, dtype=torch.int32, device=card)
+    want = torch.full_like(got, -1)
+    fused_pbs.reset_launch_counts()
+    for pi in range(P):
+        fused_pbs.ntt_mac_prime(dig, key.kspec[0, pi], key.kshoup[0, pi], pi,
+                                got)
+        fused_pbs.ntt_mac_prime_plain(dig, key.kspec[0, pi], pi, want)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), pi
+    assert fused_pbs.ntt_mac_prime.launches == P
+
+
 def test_empty_batch_launches_nothing_in_any_mode(card):
     key = fused_pbs.prepare_bsk_cuda(
         torch.zeros((2, 3, 3, 3, 512), dtype=torch.int64, device=card), 6, 32)
@@ -248,8 +289,9 @@ def test_layouts_beyond_the_kernels_limits_are_refused(card):
         fused_pbs.blind_rotate_persistent(
             acc, torch.zeros((1, 1), dtype=torch.int32, device=card),
             big.kspec, big.kshoup, 8, L)
-    # and so is a single-CTA step at that layout (64 KB of accumulator,
-    # 64 KB of fractions, 256 KB of digits and their spectra)
+    # and so are a whole step (K4) and one prime's stage (K6) on the
+    # register-resident core at that layout: L*G = 16 digit polynomials,
+    # beyond the core's 9
     ahat1 = torch.zeros((1, 1), dtype=torch.int32, device=card)
     with pytest.raises(RuntimeError, match="cudaErrorInvalidValue"):
         fused_pbs.pbs_step_single_cta(acc, ahat1[0], big.kspec[0],
@@ -257,6 +299,23 @@ def test_layouts_beyond_the_kernels_limits_are_refused(card):
     with pytest.raises(RuntimeError, match="cudaErrorInvalidValue"):
         fused_pbs.blind_rotate_single_cta(acc, ahat1, big.kspec, big.kshoup,
                                           8, L)
+    dig16 = torch.zeros((1, L, G, N), dtype=torch.int32, device=card)
+    res16 = torch.zeros((1, G, 2, P, N), dtype=torch.int32, device=card)
+    with pytest.raises(RuntimeError, match="cudaErrorInvalidValue"):
+        fused_pbs.ntt_mac_prime(dig16, big.kspec[0, 0], big.kshoup[0, 0], 0,
+                                res16)
+    # and an N outside 256 ... 2048, by the core's tables
+    small = fused_pbs.prepare_bsk_cuda(
+        torch.zeros((1, 1, 2, 2, 128), dtype=torch.int64, device=card), 23)
+    with pytest.raises(ValueError):
+        fused_pbs.pbs_step_single_cta(
+            torch.zeros((1, 2, 128), dtype=torch.int64, device=card),
+            ahat1[0], small.kspec[0], small.kshoup[0], 23, 1)
+    with pytest.raises(ValueError):
+        fused_pbs.ntt_mac_prime(
+            torch.zeros((1, 1, 2, 128), dtype=torch.int32, device=card),
+            small.kspec[0, 0], small.kshoup[0, 0], 0,
+            torch.zeros((1, 2, 2, P, 128), dtype=torch.int32, device=card))
     with pytest.raises(ValueError):
         fused_pbs.blind_rotate_single_cta(acc, ahat1.long(), big.kspec,
                                           big.kshoup, 8, L)

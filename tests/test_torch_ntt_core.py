@@ -164,27 +164,37 @@ def explicit_crt(c, acc, bits):
     return total & M32 if bits == 32 else total
 
 
-def model_external_product(digits, kspec, kshoup, acc, bits):
-    """K2 as the kernel computes it: per prime (a CTA of the cluster), the
+def prime_product(c, digits, kspec_p, kshoup_p):
+    """One prime's external product as a CTA of the core computes it:
+    digits [B, L, G, N], the prime's key block kspec_p / kshoup_p [LJ, O, M,
+    N] -> its O*M unscaled inverse transforms [B, O*M, N] in [0, 2p): the
     digits' forward transforms, the MAC in the last pass's registers with
-    the first inverse pass, the inverse passes, c_i = r_i w_i mod p_i; then
-    the explicit CRT over the primes' values."""
+    the first inverse pass, the inverse passes."""
+    B, L, G, N = digits.shape
+    LJ, O, M, _ = kspec_p.shape
+    d = c.forward(c.digit_mod(digits.reshape(B, LJ, N)))  # [B, LJ, T, r]
+    # the thread's 8 adjacent spectral words of each key polynomial
+    pos = elem(c.T, 0)
+    ks = kspec_p.to(torch.int64).reshape(LJ, O * M, N)[..., pos] & M32
+    ksh = kshoup_p.to(torch.int64).reshape(LJ, O * M, N)[..., pos] & M32
+    o = torch.zeros((B, O * M, c.T, r), dtype=torch.int64)
+    for lj in range(LJ):
+        o = (o + shoup_lazy(d[:, lj, None], ks[lj], ksh[lj], c.p)) & M32
+    # the first inverse pass runs on these registers, with no store
+    return c.inverse(shoup_lazy(o, 1, c.one_sh, c.p))
+
+
+def model_external_product(digits, kspec, kshoup, acc, bits):
+    """K2 as the kernel computes it: per prime (a CTA of the cluster),
+    `prime_product`, then c_i = r_i w_i mod p_i; then the explicit CRT over
+    the primes' values."""
     B, L, G, N = digits.shape
     P, LJ, O, M, _ = kspec.shape
     xcrt = ntt.tables_for(N, "cpu").xcrt
     res = torch.empty((B, O, M, P, N), dtype=torch.int64)
     for pi in range(P):
         c = Core(N, pi)
-        d = c.forward(c.digit_mod(digits.reshape(B, LJ, N)))  # [B, LJ, T, r]
-        # the thread's 8 adjacent spectral words of each key polynomial
-        pos = elem(c.T, 0)
-        ks = kspec[pi].to(torch.int64).reshape(LJ, O * M, N)[..., pos] & M32
-        ksh = kshoup[pi].to(torch.int64).reshape(LJ, O * M, N)[..., pos] & M32
-        o = torch.zeros((B, O * M, c.T, r), dtype=torch.int64)
-        for lj in range(LJ):
-            o = (o + shoup_lazy(d[:, lj, None], ks[lj], ksh[lj], c.p)) & M32
-        # the first inverse pass runs on these registers, with no store
-        out = c.inverse(shoup_lazy(o, 1, c.one_sh, c.p))  # [B, OM, N]
+        out = prime_product(c, digits, kspec[pi], kshoup[pi])  # [B, OM, N]
         res[:, :, :, pi] = c.canonical(out, int(xcrt[pi, 1]),
                                        int(xcrt[pi, 2])).reshape(B, O, M, N)
     return explicit_crt(res, acc, bits)

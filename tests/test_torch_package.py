@@ -177,7 +177,7 @@ def test_shortint_slice_modules_are_among_the_checked_sources():
         mods = list(_imported_modules(os.path.join(ROOT, rel)))
         assert not [m for m in mods
                     if m.split(".")[0] in ("jax", "jaxlib", "tfhe_tpu")]
-    for src in ("single_cta_kernels.cu", "single_cta_kernels.cuh"):
+    for src in ("single_cta_kernels.cu", "ntt_core_kernels.cuh"):
         assert os.path.exists(os.path.join(PKG, "ops", "csrc", src))
 
 

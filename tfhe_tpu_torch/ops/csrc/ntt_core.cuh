@@ -1,7 +1,7 @@
 // A register-resident negacyclic NTT core for Hopper (sm_90a), and the
-// per-prime external product built on it.  K2 and K7 (ntt_core_kernels.cuh)
-// run on it; K3-K6, K8 and K9 keep the shared-memory core of
-// pbs_kernels.cuh.
+// per-prime external product built on it.  K2, K4, K6's per-prime stage
+// and K7 (ntt_core_kernels.cuh) run on it; K3, K5, K8 and K9 keep the
+// shared-memory core of pbs_kernels.cuh.
 //
 // What bounded the old core (`ntt_forward_smem` / `ntt_inverse_smem`,
 // pbs_kernels.cuh): a radix-2 loop that puts each of the log2 N stages
@@ -42,6 +42,7 @@
 // elem(tid, a, k) = (tid >> a) << (a + 3) | k << a | (tid & (2^a - 1)).
 #pragma once
 
+#include <cooperative_groups.h>
 #include <stdint.h>
 
 namespace tfhe_core {
@@ -49,7 +50,8 @@ namespace tfhe_core {
 constexpr int kLogRadix = 3;
 constexpr int kRadix = 1 << kLogRadix;  // words of a polynomial a thread holds
 constexpr int kRecord = 2 * kRadix;     // one twiddle record, in words
-constexpr int kHeader = 8;              // per-prime constants before the records
+constexpr int kHeader = 8;  // per-prime constants before the records:
+                            // PrimeConsts, N^-1 and its companion, 0, 0
 constexpr int kMinLogN = 8;             // the swizzle's and the plan's range
 constexpr int kMaxLogN = 11;            // (the primes' 2N-th roots)
 
@@ -223,12 +225,22 @@ __device__ __forceinline__ void inverse_stages(uint32_t (&x)[kRadix],
 // shift a0; on return every thread has read only its own words of shift
 // a0 since its last barrier, so two calls may follow each other with no
 // barrier between them.  LJ <= LJ_MAX.
-template <int LJ_MAX, typename Digit, typename Emit>
+//
+// kParts = 2 splits the product over a cluster of two CTAs: CTA rank r
+// transforms the digit polynomials lj = r, r + 2, ... (digit is asked for
+// those only), the two exchange their spectra through distributed shared
+// memory between two cluster barriers, and CTA r runs the MAC and inverse
+// transforms of the outputs om = r, r + 2, ... (emitted for those only),
+// output om in buf's polynomial om / 2.
+template <int LJ_MAX, int kParts = 1, typename Digit, typename Emit>
 __device__ __forceinline__ void external_product_prime(
     uint32_t* buf, int LJ, int OM, int N, const Plan& pl,
     const uint32_t* __restrict__ tab, const uint32_t* __restrict__ ks,
     const uint32_t* __restrict__ ksh, Digit digit, Emit emit) {
+  static_assert(kParts == 1 || kParts == 2, "one CTA or a pair");
   const int tid = threadIdx.x;
+  const int part =
+      kParts == 1 ? 0 : (int)cooperative_groups::this_cluster().block_rank();
   const PrimeConsts c = load_consts(tab);
   const uint32_t* fwd = tab + kHeader;
   const uint32_t* inv = fwd + pl.words;
@@ -243,7 +255,7 @@ __device__ __forceinline__ void external_product_prime(
   int off = kRecord;
 #pragma unroll
   for (int lj = 0; lj < LJ_MAX; ++lj) {
-    if (lj < LJ) {
+    if (lj < LJ && lj % kParts == part) {
 #pragma unroll
       for (int k = 0; k < kRadix; ++k) d[lj][k] = digit_mod(digit(lj, k), c);
       forward_stages(d[lj], w, wsh, pl.s0, c.p, c.p2);
@@ -251,6 +263,7 @@ __device__ __forceinline__ void external_product_prime(
     }
   }
   // forward passes 1 .. passes-1; the last (shift 0) stays in registers
+  // (and, split, goes to buf for the other CTA)
   for (int q = 1; q < pl.passes; ++q) {
     a = pl.fwd_shift(q);
     const bool last = q == pl.passes - 1;
@@ -260,18 +273,29 @@ __device__ __forceinline__ void external_product_prime(
     off += (N >> (a + kLogRadix)) * kRecord;
 #pragma unroll
     for (int lj = 0; lj < LJ_MAX; ++lj) {
-      if (lj < LJ) {
+      if (lj < LJ && lj % kParts == part) {
         load_words(buf + lj * N, a, offs, d[lj]);
         forward_stages(d[lj], w, wsh, kLogRadix, c.p, c.p2);
-        if (!last) store_words(buf + lj * N, a, offs, d[lj]);
+        if (!last || kParts > 1) store_words(buf + lj * N, a, offs, d[lj]);
       }
     }
+  }
+  if constexpr (kParts > 1) {
+    const cooperative_groups::cluster_group cluster =
+        cooperative_groups::this_cluster();
+    cluster.sync();  // both CTAs' spectra are in their bufs
+    const uint32_t* other = cluster.map_shared_rank(buf, part ^ 1);
+#pragma unroll
+    for (int lj = 0; lj < LJ_MAX; ++lj)
+      if (lj < LJ && lj % kParts != part)
+        load_words(other + lj * N, 0, offs, d[lj]);
+    cluster.sync();  // the other CTA has read this one's spectra
   }
 
   // the MAC and inverse pass 0 (shift 0, the same words): no barrier
   load_record(inv + tid * kRecord, w, wsh);
   off = (N >> kLogRadix) * kRecord;
-  for (int om = 0; om < OM; ++om) {
+  for (int om = part; om < OM; om += kParts) {
     uint32_t o[kRadix];
 #pragma unroll
     for (int k = 0; k < kRadix; ++k) o[k] = 0;
@@ -296,7 +320,7 @@ __device__ __forceinline__ void external_product_prime(
     for (int k = 0; k < kRadix; ++k)
       o[k] = shoup_lazy(o[k], 1u, c.one_sh, c.p);  // sum < 2 LJ p -> [0, 2p)
     inverse_stages(o, w, wsh, 0, c.p, c.p2);
-    store_words(buf + om * N, 0, offs, o);
+    store_words(buf + om / kParts * N, 0, offs, o);
   }
   // inverse passes 1 .. passes-1; the last (shift a0) emits
   for (int iq = 1; iq < pl.passes; ++iq) {
@@ -306,15 +330,15 @@ __device__ __forceinline__ void external_product_prime(
     __syncthreads();
     load_record(inv + off + (tid >> a) * kRecord, w, wsh);
     off += (N >> (a + kLogRadix)) * kRecord;
-    for (int om = 0; om < OM; ++om) {
+    for (int om = part; om < OM; om += kParts) {
       uint32_t o[kRadix];
-      load_words(buf + om * N, a, offs, o);
+      load_words(buf + om / kParts * N, a, offs, o);
       inverse_stages(o, w, wsh, last ? kLogRadix - pl.s0 : 0, c.p, c.p2);
       if (last) {
 #pragma unroll
         for (int k = 0; k < kRadix; ++k) emit(om, k, o[k]);
       } else {
-        store_words(buf + om * N, a, offs, o);
+        store_words(buf + om / kParts * N, a, offs, o);
       }
     }
   }

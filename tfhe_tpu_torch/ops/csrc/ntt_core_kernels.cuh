@@ -1,21 +1,29 @@
-// K2 and K7 on the register-resident NTT core (ntt_core.cuh), for Hopper
-// (sm_90a):
+// K2, K4, K6's per-prime stage and K7 on the register-resident NTT core
+// (ntt_core.cuh), for Hopper (sm_90a):
 //
 //   external_product_cluster_kernel   <- fused_blind_rotate_scan2 (:1213)
 //                                        -> pc_kernel (:1244)
 //                                        -> _primes_crt_math (:1069)  (K2)
+//   pbs_step_cluster_kernel           <- fused_blind_rotate_scan1w (:965)
+//                                        -> step_kernel (:983)
+//                                        -> _primes_crt_math_wide (:826)
+//                                                                     (K4)
+//   ntt_mac_prime_kernel              <- fused_blind_rotate_scan (:1470)
+//                                        -> prime_kernel (:1503)
+//                                        -> _prime_block (:672)       (K6)
 //   blind_rotate_core_kernel,         <- fused_blind_rotate_planes (:1545)
 //   blind_rotate_cluster_core_kernel     -> _make_kernel (:1403)
 //                                        -> _step_math (:755)         (K7)
 // (lines of tfhe_tpu/ops/fused_pbs.py).  Layouts are those of
-// pbs_kernels.cuh and single_cta_kernels.cuh; `tables` is
-// ntt.pass_tables_for(N) [P, kHeader + 2 W], `xcrt` the explicit CRT's
-// constants [P, 6] (ntt._explicit_crt_host).  All take LJ = L*G <= 9
-// (every parameter set of the catalog) and 256 <= N <= 2048; their
-// launchers refuse anything else.  Registers from `nvcc -Xptxas -v` (sm_90a,
-// CUDA 12.8), none spilled, for LJ <= 2 / 4 / 9: external_product_cluster
-// 80 / 110 / 152, blind_rotate_core 102 / 120 / 162, blind_rotate_cluster_
-// core 128 / 182 / 226.
+// pbs_kernels.cuh; `tables` is ntt.pass_tables_for(N) [P, kHeader + 2 W],
+// `xcrt` the explicit CRT's constants [P, 6] (ntt._explicit_crt_host).
+// All take LJ = L*G <= 9 (every parameter set of the catalog) and
+// 256 <= N <= 2048; their launchers (core_launch.cuh) refuse anything
+// else.  Registers from `nvcc -Xptxas -v` (sm_90a, CUDA 12.8), none
+// spilled, for LJ <= 2 / 4 / 9: external_product_cluster 80 / 110 / 150,
+// pbs_step_cluster 79 / 110 / 154, ntt_mac_prime 80 / 96 / 148 (one CTA)
+// and 77 / 104 / 146 (a pair), blind_rotate_core 102 / 120 / 162,
+// blind_rotate_cluster_core 128 / 182 / 226.
 //
 // K2, first design: one CTA of 512 threads per (ciphertext, prime)
 // on the shared-memory core, 22 stage barriers and 48 KB at
@@ -57,6 +65,33 @@
 // On an H100 at B = 64: 34.6 ms (shortint, 742 steps) and 20.8 ms
 // (boolean, 722 steps) a rotation, both in the cluster form, 10x and 15x
 // the bound; latency of the key and twiddle loads binds, as in K2.
+//
+// K4, first design: K7's first form with one step, one CTA of 512 threads
+// per ciphertext running the five primes in turn on the shared-memory
+// core (11 + 11 stage barriers a prime, scalar key loads, `%` digits), 128
+// KB of shared memory at PARAM_MESSAGE_2_CARRY_2_KS_PBS, so one CTA an SM;
+// 0.165 ms a step at B = 64 (36x its bound), 0.33 at B = 256.  New, one
+// launch a step either way: pbs_step_cluster_kernel, K2's cluster with
+// the rotation and decomposition inside, each CTA making 1/P of the
+// digits; or, when the batch fills the card in fewer waves that way, K7's
+// blind_rotate_core_kernel over one step (single_cta_kernels.cu picks by
+// K7's rule).  On an H100: 0.030 ms (shortint, B = 64, the cluster), 0.095
+// (B = 256, one CTA per ciphertext: the clusters would take 4 waves, 0.114
+// ms), 0.025 and 0.058 at boolean width (clusters).
+//
+// K6's per-prime stage, first design: ntt_mac_kernel<false> of
+// pbs_kernels.cuh, one CTA of 512 threads per ciphertext, 22 stage
+// barriers, scalar key loads, `%` digits; 0.0332 ms at shortint width and
+// B = 64.  New: ntt_mac_prime_kernel, external_product_prime for the one
+// prime, its outputs scaled by N^-1 (the pass table's header) and written
+// canonical at each thread's own words.  At B = 64 one CTA per ciphertext
+// leaves half the SMs idle, so the launcher (pbs_kernels.cu) splits each
+// ciphertext over a cluster of two when all the pairs fit on the card at
+// once: each CTA transforms half the digits, they swap spectra through
+// distributed shared memory, each runs half the outputs.  On an H100:
+// 0.0094 ms (shortint, B = 64, a pair; one CTA 0.0111), 0.0152 (B = 256,
+// one CTA; a pair 0.0229), 0.0128 and 0.0164 at boolean width (pairs).
+
 #pragma once
 
 #include <cooperative_groups.h>
@@ -92,14 +127,16 @@ __device__ __forceinline__ Xcrt load_xcrt(const int64_t* __restrict__ xcrt,
 }
 
 // total + the word (o, n) of the product, from the P primes' values
-// c_i = r_i N^-1 (Q/p_i)^-1 mod p_i, cs[i] pointing at prime i's [OM, N]
-// (swizzled) in its CTA's shared memory: per plane m, sum_i c_i Q/p_i minus
-// round(sum_i c_i t_i / 2^28) Q, shifted by 32 m bits, all mod 2^64.  The
-// same words as single_cta_kernels.cuh's running sums and correction.
-__device__ __forceinline__ uint64_t crt_word(const uint32_t* const* cs,
-                                             const Xcrt& x, int P, int o,
-                                             int M, int N, int n,
-                                             uint64_t total) {
+// c_i = r_i N^-1 (Q/p_i)^-1 mod p_i, value(i, w) giving word w of prime i's
+// [OM, N] (swizzled) in its CTA's shared memory, and consts(i, q_i, t_i)
+// prime i's Q/p_i mod 2^64 and round(2^28 / p_i): per plane m, sum_i c_i
+// q_i minus round(sum_i c_i t_i / 2^28) Q, shifted by 32 m bits, all mod
+// 2^64 (Q = Q mod 2^64).  The same words as blind_rotate_core_kernel's
+// running sums and correction.
+template <typename Value, typename Consts>
+__device__ __forceinline__ uint64_t crt_word(Value value, Consts consts,
+                                             uint64_t Q, int P, int o, int M,
+                                             int N, int n, uint64_t total) {
   for (int m = 0; m < M; ++m) {
     const int at = (o * M + m) * N + swz(n);
     uint64_t sum = 0;
@@ -107,14 +144,17 @@ __device__ __forceinline__ uint64_t crt_word(const uint32_t* const* cs,
 #pragma unroll
     for (int i = 0; i < tfhe_pbs::kMaxPrimes; ++i) {
       if (i < P) {
-        const uint32_t c = cs[i][at];
-        sum += (uint64_t)c * x.q[i];
-        frac += c * x.t[i];
+        const uint32_t c = value(i, at);
+        uint64_t q;
+        uint32_t t;
+        consts(i, q, t);
+        sum += (uint64_t)c * q;
+        frac += c * t;
       }
     }
     const uint64_t k = (frac + (1u << (tfhe_pbs::kFracBits - 1))) >>
                        tfhe_pbs::kFracBits;
-    total += (sum - k * x.Q) << (32 * m);
+    total += (sum - k * Q) << (32 * m);
   }
   return total;
 }
@@ -127,11 +167,82 @@ constexpr int min_ctas() {
   return LJ_MAX <= 2 ? 3 : (LJ_MAX <= 4 ? 2 : 1);
 }
 
-// K2 in one launch: a cluster of P CTAs per ciphertext, CTA rank i running
-// prime i (grid B * P, N/8 threads).  Each CTA leaves its prime's values
-// c_i at its own words of buf; after a cluster barrier each takes 1/P of
-// the G*N output words and runs the explicit CRT over the P CTAs' values,
-// read through distributed shared memory: out = acc + the product.
+// One prime of a cluster's external product of one ciphertext, then the
+// explicit CRT over the cluster, as K2 and K4 run it: CTA rank i runs prime
+// i (N/8 threads) and leaves its values c_i at its own words of buf; after
+// a cluster barrier each CTA takes 1/P of the G*N output words and reads
+// the P CTAs' values through distributed shared memory: out = acc + the
+// product, for the cluster's ciphertext b = blockIdx.x / P of acc and out
+// [B, G, N] (found again after the transforms, so that no pointer of its
+// row stays in a register through them); digit(lj, k) as in
+// external_product_prime.  kLeanCrt reads each prime's value window and
+// constants as the CRT needs them, where P window pointers and the P
+// primes' constants held in registers (some 40) would make K4 spill at
+// the 80 registers of its LJ <= 2 variant; held, they keep K2 faster.
+template <int LJ_MAX, bool kLeanCrt, typename Digit>
+__device__ __forceinline__ void cluster_external_product(
+    uint32_t* buf, Digit digit, const uint32_t* __restrict__ kspec,
+    const uint32_t* __restrict__ kshoup, const uint32_t* __restrict__ tables,
+    const int64_t* __restrict__ xcrt, const int64_t* __restrict__ acc,
+    int64_t* __restrict__ out, int LJ, int G, int M, int N, int log_n,
+    int bits) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int P = (int)cluster.num_blocks();
+  const int pi = (int)cluster.block_rank();
+  const int tid = threadIdx.x;
+  const int OM = G * M;
+  const Plan pl = make_plan(log_n);
+  const uint32_t* tab = tables + (long long)pi * (kHeader + 2 * pl.words);
+  const int stride = N >> kLogRadix;
+  const long long kblock = (long long)LJ * OM * N;
+  const int64_t* row = xcrt + pi * tfhe_pbs::kXcrtWidth;
+  const uint32_t p = (uint32_t)row[0];
+  const uint32_t w = (uint32_t)row[1];
+  const uint32_t wsh = (uint32_t)row[2];
+  external_product_prime<LJ_MAX>(
+      buf, LJ, OM, N, pl, tab, kspec + pi * kblock, kshoup + pi * kblock,
+      digit, [&](int om, int k, uint32_t x) {
+        buf[om * N + swz(tid + k * stride)] = shoup_canonical(x, w, wsh, p);
+      });
+  cluster.sync();  // every prime's values are in its CTA's buf
+
+  const uint64_t mask = bits == 64 ? ~0ull : 0xFFFFFFFFull;
+  const long long at = blockIdx.x / P * (long long)(G * N);
+  const int share = (G * N + P - 1) / P;
+  const int end = min(G * N, (pi + 1) * share);
+  auto crt = [&](auto value, auto consts, uint64_t Q) {
+    for (int idx = pi * share + tid; idx < end; idx += blockDim.x)
+      out[at + idx] = (int64_t)(crt_word(value, consts, Q, P, idx >> log_n,
+                                         M, N, idx & (N - 1),
+                                         (uint64_t)acc[at + idx]) &
+                                mask);
+  };
+  if constexpr (kLeanCrt) {
+    crt([&](int i, int w) { return cluster.map_shared_rank(buf, i)[w]; },
+        [&](int i, uint64_t& q, uint32_t& t) {
+          const int64_t* r = xcrt + i * tfhe_pbs::kXcrtWidth;
+          q = (uint64_t)__ldg(r + 3);
+          t = (uint32_t)__ldg(r + 4);
+        },
+        (uint64_t)__ldg(xcrt + 5));
+  } else {
+    const uint32_t* cs[tfhe_pbs::kMaxPrimes];
+#pragma unroll
+    for (int i = 0; i < tfhe_pbs::kMaxPrimes; ++i)
+      cs[i] = i < P ? cluster.map_shared_rank(buf, i) : buf;
+    const Xcrt x = load_xcrt(xcrt, P);
+    crt([&](int i, int w) { return cs[i][w]; },
+        [&](int i, uint64_t& q, uint32_t& t) {
+          q = x.q[i];
+          t = x.t[i];
+        },
+        x.Q);
+  }
+  cluster.sync();  // no CTA leaves while another reads its buf
+}
+
+// K2 in one launch: a cluster of P CTAs per ciphertext (grid B * P), the
+// digits [B, L, G, N] read from device memory at each thread's own words.
 template <int LJ_MAX>
 __global__ void __launch_bounds__(256, min_ctas<LJ_MAX>())
     external_product_cluster_kernel(const int32_t* __restrict__ digits,
@@ -144,42 +255,106 @@ __global__ void __launch_bounds__(256, min_ctas<LJ_MAX>())
                                     int M, int N, int log_n, int bits) {
   extern __shared__ uint4 core_smem[];
   uint32_t* buf = reinterpret_cast<uint32_t*>(core_smem);
+  const long long b = blockIdx.x / cg::this_cluster().num_blocks();
+  const int stride = N >> kLogRadix;
+  const int32_t* dig = digits + b * LJ * N + threadIdx.x;
+  cluster_external_product<LJ_MAX, false>(
+      buf, [&](int lj, int k) { return dig[lj * N + k * stride]; }, kspec,
+      kshoup, tables, xcrt, acc, out, LJ, G, M, N, log_n, bits);
+}
+
+// K4, a whole step in one launch: K2's cluster with K1's rotation and
+// decomposition inside (acc [B, G, N] and ahat [B] read from device
+// memory).  The P CTAs share the digits' making: CTA i makes the digits of
+// every word its share of the thread indices owns, tid in [floor(i T / P),
+// floor((i + 1) T / P)) (T = N/8 threads a CTA; thread tid owns the words
+// tid + k N/8 of each polynomial), into its `dig` [LJ, N]; after a cluster
+// barrier each thread reads its own words' digits from the one CTA that
+// made them, through distributed shared memory.  No digits in device
+// memory, and each CTA makes 1/P of them.  Shared memory: max(LJ, OM) + LJ
+// polynomials.
+template <int LJ_MAX>
+__global__ void __launch_bounds__(256, min_ctas<LJ_MAX>())
+    pbs_step_cluster_kernel(const int64_t* __restrict__ acc,
+                            const int32_t* __restrict__ ahat,
+                            const uint32_t* __restrict__ kspec,
+                            const uint32_t* __restrict__ kshoup,
+                            const uint32_t* __restrict__ tables,
+                            const int64_t* __restrict__ xcrt,
+                            int64_t* __restrict__ out, int LJ, int G, int M,
+                            int N, int log_n, int base_log, int levels,
+                            int bits) {
+  extern __shared__ uint4 core_smem[];
+  const int OM = G * M;
+  uint32_t* buf = reinterpret_cast<uint32_t*>(core_smem);
+  int32_t* dig = reinterpret_cast<int32_t*>(buf + (LJ > OM ? LJ : OM) * N);
   cg::cluster_group cluster = cg::this_cluster();
   const int P = (int)cluster.num_blocks();
   const int pi = (int)cluster.block_rank();
-  const int tid = threadIdx.x;
   const long long b = blockIdx.x / P;
-  const int OM = G * M;
-  const Plan pl = make_plan(log_n);
-  const uint32_t* tab = tables + (long long)pi * (kHeader + 2 * pl.words);
+  const int tid = threadIdx.x;
+  const int T = N >> kLogRadix;  // threads a CTA, and the stride of k
+  const uint64_t mask = bits == 64 ? ~0ull : 0xFFFFFFFFull;
+  const int64_t* row = acc + b * G * N;
+  const int a_rot = ahat[b] & (2 * N - 1);  // 2N is 0
+  // this CTA's share: threads v0 .. v0 + n - 1, all k and g, n G 8 words
+  // over T threads, f = ((g 8 + k) n + v - v0); one word at a time, which
+  // keeps the 64-bit words' registers within the transforms' budget
+  const int v0 = pi * T / P;
+  const int n = (pi + 1) * T / P - v0;
+#pragma unroll 1
+  for (int f = tid; f < n * G * kRadix; f += T) {
+    const int gk = f / n;
+    const int j = v0 + f - gk * n + (gk & (kRadix - 1)) * T;
+    const int g = gk >> kLogRadix;
+    tfhe_pbs::decompose_word(
+        tfhe_pbs::rotated_diff(row + g * N, a_rot, j, N, mask), base_log,
+        levels, bits, mask, [&](int lvl, int32_t digit) {
+          dig[(lvl * G + g) * N + j] = digit;
+        });
+  }
+  cluster.sync();  // every CTA's share of the digits is made
+  // the CTA that made this thread's digits: the i with
+  // floor(i T / P) <= tid < floor((i + 1) T / P)
+  const int32_t* mine =
+      cluster.map_shared_rank(dig, ((tid + 1) * P - 1) / T) + tid;
+  cluster_external_product<LJ_MAX, (LJ_MAX <= 2)>(
+      buf, [&](int lj, int k) { return mine[lj * N + k * T]; }, kspec, kshoup,
+      tables, xcrt, acc, out, LJ, G, M, N, log_n, bits);
+}
+
+// K6's per-prime stage: prime `prime`'s external product of ciphertext
+// blockIdx.x / kParts, its residues r N^-1 mod p written canonical into
+// residues [B, O, M, P, N] at the thread's own words; by one CTA of N/8
+// threads or (kParts = 2) a cluster of two, each transforming half of the
+// digits and emitting half of the outputs (external_product_prime).
+// digits [B, L, G, N]; kspec / kshoup the prime's key block [LJ, O, M, N].
+// Shared memory: max(LJ, OM) polynomials.
+template <int LJ_MAX, int kParts>
+__global__ void __launch_bounds__(256, min_ctas<LJ_MAX>())
+    ntt_mac_prime_kernel(const int32_t* __restrict__ digits,
+                         const uint32_t* __restrict__ kspec,
+                         const uint32_t* __restrict__ kshoup,
+                         const uint32_t* __restrict__ tables,
+                         uint32_t* __restrict__ residues, int LJ, int OM,
+                         int N, int log_n, int prime, int P) {
+  extern __shared__ uint4 core_smem[];
+  uint32_t* buf = reinterpret_cast<uint32_t*>(core_smem);
+  const long long b = blockIdx.x / kParts;
   const int stride = N >> kLogRadix;
-  const int32_t* dig = digits + b * LJ * N + tid;
-  const long long kblock = (long long)LJ * OM * N;
-  const int64_t* row = xcrt + pi * tfhe_pbs::kXcrtWidth;
-  const uint32_t p = (uint32_t)row[0];
-  const uint32_t w = (uint32_t)row[1];
-  const uint32_t wsh = (uint32_t)row[2];
-  external_product_prime<LJ_MAX>(
-      buf, LJ, OM, N, pl, tab, kspec + pi * kblock, kshoup + pi * kblock,
+  const Plan pl = make_plan(log_n);
+  const uint32_t* tab = tables + (long long)prime * (kHeader + 2 * pl.words);
+  const uint32_t p = __ldg(tab);
+  const uint2 ninv = __ldg(reinterpret_cast<const uint2*>(tab + 4));
+  const int32_t* dig = digits + b * LJ * N + threadIdx.x;
+  uint32_t* res = residues + (b * OM * P + prime) * N + threadIdx.x;
+  external_product_prime<LJ_MAX, kParts>(
+      buf, LJ, OM, N, pl, tab, kspec, kshoup,
       [&](int lj, int k) { return dig[lj * N + k * stride]; },
       [&](int om, int k, uint32_t x) {
-        buf[om * N + swz(tid + k * stride)] = shoup_canonical(x, w, wsh, p);
+        res[(long long)om * P * N + k * stride] =
+            shoup_canonical(x, ninv.x, ninv.y, p);
       });
-  cluster.sync();  // every prime's values are in its CTA's buf
-
-  const uint32_t* cs[tfhe_pbs::kMaxPrimes];
-#pragma unroll
-  for (int i = 0; i < tfhe_pbs::kMaxPrimes; ++i)
-    cs[i] = i < P ? cluster.map_shared_rank(buf, i) : buf;
-  const Xcrt x = load_xcrt(xcrt, P);
-  const uint64_t mask = bits == 64 ? ~0ull : 0xFFFFFFFFull;
-  const int share = (G * N + P - 1) / P;
-  const int end = min(G * N, (pi + 1) * share);
-  for (int idx = pi * share + tid; idx < end; idx += blockDim.x)
-    out[b * G * N + idx] = (int64_t)(
-        crt_word(cs, x, P, idx >> log_n, M, N, idx & (N - 1),
-                 (uint64_t)acc[b * G * N + idx]) & mask);
-  cluster.sync();  // no CTA leaves while another reads its buf
 }
 
 // K7 split over a cluster of P CTAs per ciphertext, CTA rank i running
@@ -264,8 +439,14 @@ __global__ void __launch_bounds__(256, min_ctas<LJ_MAX>() > 2 ? 2 : 1)
     // every prime's values are ready, and every CTA has read its acc
     cluster.sync();
     for (int idx = pi * share + tid; idx < end; idx += blockDim.x) {
-      const uint64_t v = crt_word(cs, x, P, idx >> log_n, M, N,
-                                  idx & (N - 1), acc[idx]) & mask;
+      const uint64_t v =
+          crt_word([&](int i, int w) { return cs[i][w]; },
+                   [&](int i, uint64_t& q, uint32_t& t) {
+                     q = x.q[i];
+                     t = x.t[i];
+                   },
+                   x.Q, P, idx >> log_n, M, N, idx & (N - 1), acc[idx]) &
+          mask;
 #pragma unroll
       for (int i = 0; i < tfhe_pbs::kMaxPrimes; ++i)
         if (i < P) accs[i][idx] = v;

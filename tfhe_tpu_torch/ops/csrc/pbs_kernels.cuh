@@ -1,18 +1,22 @@
-// Blind-rotation step kernels for Hopper (sm_90a): the port's counterparts of
-// the two Pallas kernels that `tfhe_tpu/ops/fused_pbs.py:1213`
-// (`fused_blind_rotate_scan2`) launches once per step.
+// Blind-rotation step kernels for Hopper (sm_90a) on the shared-memory NTT
+// core, and the device functions the other kernels share:
 //
 //   rotate_decompose_kernel  <- rot_kernel (:1229) -> _rot_dec_limbs (:614)
-//   ntt_mac_kernel +
-//   crt_accumulate_kernel    <- pc_kernel (:1244) -> _primes_crt_math (:1069)
+//                               of `tfhe_tpu/ops/fused_pbs.py:1213`
+//                               (`fused_blind_rotate_scan2`), K1
+//   crt_accumulate_kernel    <- crt_kernel (:1520) -> _crt_accumulate (:709),
+//                               K6's last stage
+//   ntt_mac_kernel           <- K8's mac_kernel (multibit_kernels.cuh)
 //
-// Each is a template on one flag.  The classic step instantiates
-// rotate_decompose_kernel<true>, ntt_mac_kernel<false> and
-// crt_accumulate_kernel<true>; the multi-bit step (`multibit_kernels.cuh`)
-// the other three: the decomposition of the accumulator itself with no
-// rotation, a key per ciphertext instead of one shared key, and a CRT that
-// starts from zero because the multi-bit external product replaces the
-// accumulator.
+// Each is a template on one flag.  The classic schedules instantiate
+// rotate_decompose_kernel<true> and crt_accumulate_kernel<true>; the
+// multi-bit step (`multibit_kernels.cuh`) rotate_decompose_kernel<false>,
+// ntt_mac_kernel<true> and crt_accumulate_kernel<false>: the decomposition
+// of the accumulator itself with no rotation, a key per ciphertext instead
+// of one shared key, and a CRT that starts from zero because the multi-bit
+// external product replaces the accumulator.  The classic per-prime stage
+// (ntt_mac_kernel<false>, K2's and K6's first port) moved to the
+// register-resident core of ntt_core.cuh.
 //
 // Integer arithmetic only; every result is bit-exact.  Layouts (all dense):
 //   acc       [B, G, N]          int64  u64 torus words (u32: in [0, 2^32))
@@ -33,8 +37,8 @@
 // (LJ + O*M) NTTs of N points per (ciphertext, prime), 32-bit Shoup
 // products throughout; it runs far above its integer-issue bound, its time
 // going to barrier and load latency (a shared round trip and two twiddle
-// loads a butterfly, a barrier a stage: PERF.md section 6); K2 moved
-// to the register-resident core of ntt_core.cuh.  It keeps every
+// loads a butterfly, a barrier a stage: PERF.md section 6); K2, K4 and K6
+// moved to the register-resident core of ntt_core.cuh.  It keeps every
 // transform in shared memory, so device memory sees only the digits, the
 // step's key spectra (shared by all ciphertexts, so mostly from L2) and the
 // residues.  crt_accumulate reads the residues and the accumulator once and
@@ -236,7 +240,8 @@ __device__ __forceinline__ void ntt_mac_smem(uint32_t* dsp, uint32_t* osp,
   ntt_inverse_smem(osp, OM, N, log_n, tab + 2 * N, tab + 3 * N, p);
 }
 
-// K2, first half, and K6's per-prime stage: one block per (ciphertext,
+// K8's external product (kKeyPerCiphertext; the <false> form, K2's and K6's
+// first port, is launched by nothing now): one block per (ciphertext,
 // prime).  Digits mod p -> forward NTT -> spectrum multiply-accumulate
 // against the step's key -> inverse NTT -> per-prime residues of the O*M
 // convolutions.  The block's prime is prime0 + blockIdx.y of P; kspec (and
@@ -313,7 +318,7 @@ __device__ __forceinline__ uint64_t garner(Residue residue,
   return x;
 }
 
-// K2, second half, and K6's last stage: Garner's reconstruction of each
+// K6's last stage and K8's CRT: Garner's reconstruction of each
 // convolution, its planes recombined as conv_0 + 2^32 conv_1, added to the
 // accumulator mod 2^64 (kAccumulate) or written as the new accumulator (the
 // multi-bit step; acc is not read).  One thread per (ciphertext, output

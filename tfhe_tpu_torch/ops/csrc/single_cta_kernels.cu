@@ -1,74 +1,40 @@
-// Plain C entry points for the single-CTA blind-rotation kernels, loaded by
-// tfhe_tpu_torch/ops/fused_pbs.py with ctypes.  `pbs_step_single_cta` (K4,
-// scan1w) calls tfhe_blind_rotate_single_cta with one step and wide = 1,
-// which launches blind_rotate_single_cta_kernel (single_cta_kernels.cuh) on
-// the tables ntt.tables_for(N).kernel; `blind_rotate_single_cta` (K7, mega)
-// with all of them and wide = 0, which launches blind_rotate_core_kernel or
-// blind_rotate_cluster_core_kernel (ntt_core_kernels.cuh) on the tables
-// ntt.pass_tables_for(N), and refuses as well LJ beyond
-// tfhe_core::kMaxDigitPolys and N outside 256 ... 2048.
-// tfhe_blind_rotate_single_cta_form says which of K7's two kernels a batch
-// gets.  As in pbs_kernels.cu the launches go on the caller's stream, do
-// not synchronise, allocate nothing, and return cudaGetLastError() (0 on
-// success).  A layout beyond the kernel's limits (more than kMaxPrimes
-// primes, or more shared memory than the device allows a block) launches
-// nothing and returns cudaErrorInvalidValue.
+// Plain C entry points for the kernels that hold a step's accumulator on
+// chip, on the register-resident core (ntt_core_kernels.cuh), loaded by
+// tfhe_tpu_torch/ops/fused_pbs.py with ctypes, on the tables
+// ntt.pass_tables_for(N):
+//
+//   tfhe_blind_rotate_single_cta    K7 (mega), all n steps in one launch:
+//                                   blind_rotate_core_kernel or
+//                                   blind_rotate_cluster_core_kernel
+//   tfhe_pbs_step_single_cta        K4 (scan1w), one step:
+//                                   pbs_step_cluster_kernel or
+//                                   blind_rotate_core_kernel over one step
+//
+// and *_form, which say which kernel a batch gets.  As in pbs_kernels.cu
+// the launches go on the caller's stream, do not synchronise, allocate
+// nothing, and return cudaGetLastError() (0 on success).  A layout beyond
+// the kernels' limits (LJ beyond tfhe_core::kMaxDigitPolys, N outside
+// 256 ... 2048, more than kMaxPrimes primes, or more shared memory than
+// the device allows a block) launches nothing and returns
+// cudaErrorInvalidValue.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libsingle_cta_kernels.so single_cta_kernels.cu
 #include <cuda_runtime.h>
 
-#include <type_traits>
+#include <map>
+#include <mutex>
+#include <tuple>
 
-#include "ntt_core_kernels.cuh"
-#include "single_cta_kernels.cuh"
+#include "core_launch.cuh"
 
 namespace {
 
-int log2_int(int n) {
-  int l = 0;
-  while ((1 << l) < n) ++l;
-  return l;
-}
-
-// K4: one CTA per ciphertext on the shared-memory core
-int launch_wide(const void* acc_in, const void* ahat, const void* kspec,
-                const void* kshoup, const void* tables, const void* xcrt,
-                void* acc_out, int B, int n_steps, int G, int M, int P, int N,
-                int base_log, int levels, int bits, cudaStream_t st) {
-  const int kInvalid = (int)cudaErrorInvalidValue;
-  if (P < 1 || P > tfhe_pbs::kMaxPrimes) return kInvalid;
-  const size_t LJ = (size_t)levels * G, OM = (size_t)G * M;
-  const size_t smem = (size_t)G * N * sizeof(uint64_t) +
-                      (2 * OM + 2 * LJ) * N * sizeof(uint32_t);
-  int dev = 0, limit = 0;
-  int err = (int)cudaGetDevice(&dev);
-  if (!err)
-    err = (int)cudaDeviceGetAttribute(
-        &limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err) return err;
-  if (smem > (size_t)limit) return kInvalid;
-  if (smem > 48 * 1024) {
-    err = (int)cudaFuncSetAttribute(
-        tfhe_pbs::blind_rotate_single_cta_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err) return err;
-  }
-  // one CTA per ciphertext; the batch rides on grid.x
-  tfhe_pbs::blind_rotate_single_cta_kernel
-      <<<(unsigned)B, N >= 1024 ? 512 : N / 2, smem, st>>>(
-          (const int64_t*)acc_in, (const int32_t*)ahat,
-          (const uint32_t*)kspec, (const uint32_t*)kshoup,
-          (const uint32_t*)tables, (const int64_t*)xcrt, (int64_t*)acc_out,
-          B, n_steps, G, M, P, N, log2_int(N), base_log, levels, bits);
-  return (int)cudaGetLastError();
-}
-
-int allow_smem(const void* kernel, size_t smem) {
-  if (smem <= 48 * 1024) return 0;
-  return (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-}
+using tfhe_core::allow_smem;
+using tfhe_core::by_digit_polys;
+using tfhe_core::cluster_config;
+using tfhe_core::launch_clusters;
+using tfhe_core::log2_int;
 
 // K7 on the register-resident core: blind_rotate_core_kernel (a CTA per
 // ciphertext, the primes in turn) or blind_rotate_cluster_core_kernel (a
@@ -83,74 +49,56 @@ int allow_smem(const void* kernel, size_t smem) {
 // B = 256 for boolean (3 waves of 105 clusters) but not for shortint (5
 // waves of 52 clusters against one of 264 CTAs).
 
-// The core's limits, and the shared memory of its two forms: the
+// The core's limits, and the shared memory of K7's two forms: the
 // accumulator, the digits and the exchange buffer; the single CTA keeps
-// the explicit CRT's fractions besides.
+// the explicit CRT's fractions besides.  A size beyond the device's limit
+// is refused when the form is picked (allow_smem).
 int core_layout(int G, int M, int P, int N, int levels, size_t* smem,
                 size_t* cluster_smem) {
   const int LJ = levels * G, OM = G * M;
-  const int log_n = log2_int(N);
-  if (P < 1 || P > tfhe_pbs::kMaxPrimes || (1 << log_n) != N ||
-      log_n < tfhe_core::kMinLogN || log_n > tfhe_core::kMaxLogN ||
-      LJ < 1 || LJ > tfhe_core::kMaxDigitPolys)
-    return (int)cudaErrorInvalidValue;
-  *cluster_smem = (size_t)G * N * sizeof(uint64_t) +
-                  (size_t)(LJ + (LJ > OM ? LJ : OM)) * N * sizeof(uint32_t);
-  *smem = *cluster_smem + (size_t)OM * N * sizeof(uint32_t);
-  int dev = 0, limit = 0;
-  int err = (int)cudaGetDevice(&dev);
-  if (!err)
-    err = (int)cudaDeviceGetAttribute(
-        &limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  const int err = tfhe_core::core_refuses(LJ, N, P);
   if (err) return err;
-  return *smem > (size_t)limit ? (int)cudaErrorInvalidValue : 0;
+  *cluster_smem = (size_t)G * N * sizeof(uint64_t) +
+                  (size_t)LJ * N * sizeof(uint32_t) +
+                  tfhe_core::product_smem(LJ, OM, N);
+  *smem = *cluster_smem + (size_t)OM * N * sizeof(uint32_t);
+  return 0;
 }
 
-// f(std::integral_constant<int, LJ_MAX>) for the kernels' variant that
-// takes LJ digit polynomials
-template <class F>
-int by_digit_polys(int LJ, F f) {
-  if (LJ <= 2) return f(std::integral_constant<int, 2>{});
-  if (LJ <= 4) return f(std::integral_constant<int, 4>{});
-  return f(std::integral_constant<int, tfhe_core::kMaxDigitPolys>{});
-}
-
-// The cluster form's launch: one cluster of P CTAs per ciphertext, the
-// batch on grid.x; attr is the configuration's storage.
-cudaLaunchConfig_t cluster_config(int B, int P, int N, size_t smem,
-                                  cudaStream_t st,
-                                  cudaLaunchAttribute* attr) {
-  cudaLaunchConfig_t config = {};
-  config.gridDim = dim3((unsigned)((long long)B * P));
-  config.blockDim = dim3(N / tfhe_core::kRadix);
-  config.dynamicSmemBytes = smem;
-  config.stream = st;
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = P;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  config.attrs = attr;
-  config.numAttrs = 1;
-  return config;
-}
-
-// *cluster = 1 if a batch of B runs as clusters, 0 as single CTAs
-template <int LJ_MAX>
-int pick_form(int B, int P, int N, size_t smem, size_t cluster_smem,
-              int* cluster) {
-  auto single = tfhe_core::blind_rotate_core_kernel<LJ_MAX>;
-  auto split = tfhe_core::blind_rotate_cluster_core_kernel<LJ_MAX>;
-  int err = allow_smem((const void*)single, smem);
+// *cluster = 1 if a batch of B runs as `split` (a cluster of P CTAs per
+// ciphertext, cluster_smem bytes a CTA), 0 as `single` (a CTA per
+// ciphertext, smem bytes), by the rule above.  The answer is cached per
+// kernels, device, B, N and sizes, so the host asks the occupancy API once.
+template <class Single, class Split>
+int pick_form(Single single, Split split, int B, int P, int N, size_t smem,
+              size_t cluster_smem, int* cluster) {
+  static std::mutex mu;
+  static std::map<std::tuple<const void*, const void*, int, int, int, int,
+                             size_t, size_t>,
+                  int>
+      known;
+  int dev = 0;
+  int err = (int)cudaGetDevice(&dev);
+  if (err) return err;
+  const auto key = std::make_tuple((const void*)single, (const void*)split,
+                                   dev, B, P, N, smem, cluster_smem);
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    const auto it = known.find(key);
+    if (it != known.end()) {
+      *cluster = it->second;
+      return 0;
+    }
+  }
+  err = allow_smem((const void*)single, smem);
   if (!err) err = allow_smem((const void*)split, cluster_smem);
   if (err) return err;
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t config =
       cluster_config(B, P, N, cluster_smem, 0, attr);
-  int dev = 0, sms = 0, per_sm = 0, clusters = 0;
-  err = (int)cudaGetDevice(&dev);
-  if (!err)
-    err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                      dev);
+  int sms = 0, per_sm = 0, clusters = 0;
+  err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev);
   if (!err)
     err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &per_sm, single, N / tfhe_core::kRadix, smem);
@@ -164,7 +112,47 @@ int pick_form(int B, int P, int N, size_t smem, size_t cluster_smem,
                                              : -1;
   *cluster = waves_split > 0 && (waves_single < 0 ||
                                  10 * waves_split < 7 * P * waves_single);
+  std::lock_guard<std::mutex> lock(mu);
+  known[key] = *cluster;
   return 0;
+}
+
+// K7's two forms, and K4's: its own cluster kernel, or K7's single CTA
+// over one step.  K4's cluster holds max(LJ, OM) + LJ polynomials a CTA.
+template <int LJ_MAX>
+int pick_rotation_form(int B, int P, int N, size_t smem, size_t cluster_smem,
+                       int* cluster) {
+  return pick_form(tfhe_core::blind_rotate_core_kernel<LJ_MAX>,
+                   tfhe_core::blind_rotate_cluster_core_kernel<LJ_MAX>, B, P,
+                   N, smem, cluster_smem, cluster);
+}
+
+size_t step_cluster_smem(int G, int M, int N, int levels) {
+  const int LJ = levels * G;
+  return tfhe_core::product_smem(LJ, G * M, N) +
+         (size_t)LJ * N * sizeof(uint32_t);
+}
+
+template <int LJ_MAX>
+int pick_step_form(int B, int G, int M, int P, int N, int levels,
+                   size_t smem, int* cluster) {
+  return pick_form(tfhe_core::blind_rotate_core_kernel<LJ_MAX>,
+                   tfhe_core::pbs_step_cluster_kernel<LJ_MAX>, B, P, N, smem,
+                   step_cluster_smem(G, M, N, levels), cluster);
+}
+
+template <int LJ_MAX>
+int launch_single(const void* acc_in, const void* ahat, const void* kspec,
+                  const void* kshoup, const void* tables, const void* xcrt,
+                  void* acc_out, int B, int n_steps, int G, int M, int P,
+                  int N, int base_log, int levels, int bits, size_t smem,
+                  cudaStream_t st) {
+  return tfhe_core::launch_ctas(
+      tfhe_core::blind_rotate_core_kernel<LJ_MAX>, B, N, smem, st,
+      (const int64_t*)acc_in, (const int32_t*)ahat, (const uint32_t*)kspec,
+      (const uint32_t*)kshoup, (const uint32_t*)tables, (const int64_t*)xcrt,
+      (int64_t*)acc_out, B, n_steps, G, M, P, N, log2_int(N), base_log,
+      levels, bits);
 }
 
 template <int LJ_MAX>
@@ -174,43 +162,19 @@ int launch_core_as(const void* acc_in, const void* ahat, const void* kspec,
                    int N, int base_log, int levels, int bits, size_t smem,
                    size_t cluster_smem, cudaStream_t st) {
   int cluster = 0;
-  int err = pick_form<LJ_MAX>(B, P, N, smem, cluster_smem, &cluster);
+  const int err =
+      pick_rotation_form<LJ_MAX>(B, P, N, smem, cluster_smem, &cluster);
   if (err) return err;
-  if (cluster) {
-    cudaLaunchAttribute attr[1];
-    const cudaLaunchConfig_t config =
-        cluster_config(B, P, N, cluster_smem, st, attr);
-    err = (int)cudaLaunchKernelEx(
-        &config, tfhe_core::blind_rotate_cluster_core_kernel<LJ_MAX>,
-        (const int64_t*)acc_in, (const int32_t*)ahat, (const uint32_t*)kspec,
-        (const uint32_t*)kshoup, (const uint32_t*)tables,
-        (const int64_t*)xcrt, (int64_t*)acc_out, B, n_steps, G, M, N,
-        log2_int(N), base_log, levels, bits);
-    if (err) return err;
-    return (int)cudaGetLastError();
-  }
-  // one CTA per ciphertext; the batch rides on grid.x
-  tfhe_core::blind_rotate_core_kernel<LJ_MAX>
-      <<<(unsigned)B, N / tfhe_core::kRadix, smem, st>>>(
-          (const int64_t*)acc_in, (const int32_t*)ahat,
-          (const uint32_t*)kspec, (const uint32_t*)kshoup,
-          (const uint32_t*)tables, (const int64_t*)xcrt, (int64_t*)acc_out,
-          B, n_steps, G, M, P, N, log2_int(N), base_log, levels, bits);
-  return (int)cudaGetLastError();
-}
-
-int launch_core(const void* acc_in, const void* ahat, const void* kspec,
-                const void* kshoup, const void* tables, const void* xcrt,
-                void* acc_out, int B, int n_steps, int G, int M, int P, int N,
-                int base_log, int levels, int bits, cudaStream_t st) {
-  size_t smem = 0, cluster_smem = 0;
-  const int err = core_layout(G, M, P, N, levels, &smem, &cluster_smem);
-  if (err) return err;
-  return by_digit_polys(levels * G, [&](auto lj_max) {
-    return launch_core_as<decltype(lj_max)::value>(
-        acc_in, ahat, kspec, kshoup, tables, xcrt, acc_out, B, n_steps, G, M,
-        P, N, base_log, levels, bits, smem, cluster_smem, st);
-  });
+  if (cluster)
+    return launch_clusters(
+        tfhe_core::blind_rotate_cluster_core_kernel<LJ_MAX>, B, P, N,
+        cluster_smem, st, (const int64_t*)acc_in, (const int32_t*)ahat,
+        (const uint32_t*)kspec, (const uint32_t*)kshoup,
+        (const uint32_t*)tables, (const int64_t*)xcrt, (int64_t*)acc_out, B,
+        n_steps, G, M, N, log2_int(N), base_log, levels, bits);
+  return launch_single<LJ_MAX>(acc_in, ahat, kspec, kshoup, tables, xcrt,
+                               acc_out, B, n_steps, G, M, P, N, base_log,
+                               levels, bits, smem, st);
 }
 
 }  // namespace
@@ -219,16 +183,19 @@ extern "C" int tfhe_blind_rotate_single_cta(
     const void* acc_in, const void* ahat, const void* kspec,
     const void* kshoup, const void* tables, const void* xcrt, void* acc_out,
     int B, int n_steps, int G, int M, int P, int N, int base_log, int levels,
-    int bits, int wide, void* stream) {
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (wide)
-    return launch_wide(acc_in, ahat, kspec, kshoup, tables, xcrt, acc_out,
-                       B, n_steps, G, M, P, N, base_log, levels, bits, st);
-  return launch_core(acc_in, ahat, kspec, kshoup, tables, xcrt, acc_out, B,
-                     n_steps, G, M, P, N, base_log, levels, bits, st);
+    int bits, void* stream) {
+  size_t smem = 0, cluster_smem = 0;
+  const int err = core_layout(G, M, P, N, levels, &smem, &cluster_smem);
+  if (err) return err;
+  return by_digit_polys(levels * G, [&](auto lj_max) {
+    return launch_core_as<decltype(lj_max)::value>(
+        acc_in, ahat, kspec, kshoup, tables, xcrt, acc_out, B, n_steps, G, M,
+        P, N, base_log, levels, bits, smem, cluster_smem,
+        (cudaStream_t)stream);
+  });
 }
 
-// *cluster = 1 if K7 (wide = 0) runs a batch of B as
+// *cluster = 1 if K7 runs a batch of B as
 // blind_rotate_cluster_core_kernel, 0 if as blind_rotate_core_kernel;
 // cudaErrorInvalidValue for a layout the core refuses.
 extern "C" int tfhe_blind_rotate_single_cta_form(int B, int G, int M, int P,
@@ -238,7 +205,52 @@ extern "C" int tfhe_blind_rotate_single_cta_form(int B, int G, int M, int P,
   const int err = core_layout(G, M, P, N, levels, &smem, &cluster_smem);
   if (err) return err;
   return by_digit_polys(levels * G, [&](auto lj_max) {
-    return pick_form<decltype(lj_max)::value>(B, P, N, smem, cluster_smem,
-                                              cluster);
+    return pick_rotation_form<decltype(lj_max)::value>(B, P, N, smem,
+                                                       cluster_smem, cluster);
+  });
+}
+
+// K4: one step, acc, out [B, G, N], ahat [B], kspec / kshoup [P, LJ, G, M,
+// N]: pbs_step_cluster_kernel, or blind_rotate_core_kernel over one step
+// where the rule above prefers one CTA per ciphertext.
+extern "C" int tfhe_pbs_step_single_cta(
+    const void* acc, const void* ahat, const void* kspec, const void* kshoup,
+    const void* tables, const void* xcrt, void* out, int B, int G, int M,
+    int P, int N, int base_log, int levels, int bits, void* stream) {
+  size_t smem = 0, rotation_cluster_smem = 0;
+  const int err =
+      core_layout(G, M, P, N, levels, &smem, &rotation_cluster_smem);
+  if (err) return err;
+  const cudaStream_t st = (cudaStream_t)stream;
+  return by_digit_polys(levels * G, [&](auto lj_max) {
+    constexpr int kLJ = decltype(lj_max)::value;
+    int cluster = 0;
+    const int e = pick_step_form<kLJ>(B, G, M, P, N, levels, smem, &cluster);
+    if (e) return e;
+    if (cluster)
+      return launch_clusters(
+          tfhe_core::pbs_step_cluster_kernel<kLJ>, B, P, N,
+          step_cluster_smem(G, M, N, levels), st, (const int64_t*)acc,
+          (const int32_t*)ahat, (const uint32_t*)kspec,
+          (const uint32_t*)kshoup, (const uint32_t*)tables,
+          (const int64_t*)xcrt, (int64_t*)out, levels * G, G, M, N,
+          log2_int(N), base_log, levels, bits);
+    return launch_single<kLJ>(acc, ahat, kspec, kshoup, tables, xcrt, out, B,
+                              1, G, M, P, N, base_log, levels, bits, smem, st);
+  });
+}
+
+// *cluster = 1 if K4 runs a batch of B as pbs_step_cluster_kernel, 0 if as
+// blind_rotate_core_kernel over one step.
+extern "C" int tfhe_pbs_step_single_cta_form(int B, int G, int M, int P,
+                                             int N, int levels,
+                                             int* cluster) {
+  size_t smem = 0, rotation_cluster_smem = 0;
+  const int err =
+      core_layout(G, M, P, N, levels, &smem, &rotation_cluster_smem);
+  if (err) return err;
+  return by_digit_polys(levels * G, [&](auto lj_max) {
+    return pick_step_form<decltype(lj_max)::value>(B, G, M, P, N, levels,
+                                                   smem, cluster);
   });
 }

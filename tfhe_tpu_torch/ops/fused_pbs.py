@@ -18,12 +18,14 @@ here `blind_rotate_fused(..., mode=...)` takes it as an argument, one of
       pbs_step              a whole step in one launch, on a cluster of one
                             CTA per prime;
   "scan1w" (K4, `fused_blind_rotate_scan1w` :965)
-      pbs_step_single_cta   a whole step in one launch, on one CTA per
-                            ciphertext, the primes in turn;
+      pbs_step_single_cta   a whole step in one launch: K1's rotation and
+                            decomposition inside K2's cluster of one CTA
+                            per prime (or, for a batch that fills the card,
+                            one CTA per ciphertext, the primes in turn);
   "scan3" (K6, `fused_blind_rotate_scan` :1470)
-      rotate_decompose, then ntt_mac_prime once per prime, then
-      crt_accumulate: 1 + P + 1 launches per step, the TPU's three-unit
-      split;
+      rotate_decompose, then ntt_mac_prime once per prime (a pair of CTAs
+      or one CTA per ciphertext), then crt_accumulate: 1 + P + 1 launches
+      per step, the TPU's three-unit split;
   "grid" (K5, `fused_blind_rotate_grid` :1341)
       blind_rotate_persistent  all n steps in one launch on the clusters,
                             the accumulator held on chip throughout;
@@ -34,12 +36,13 @@ here `blind_rotate_fused(..., mode=...)` takes it as an argument, one of
                             accumulator held on chip.
 
 The kernels are CUDA C++ for sm_90a (`csrc/pbs_kernels.cuh` for K1 and
-K6, `csrc/step_kernels.cuh` for K3 and K5, `csrc/single_cta_kernels.cuh`
-for K4, `csrc/ntt_core_kernels.cuh` for K2 and K7), built by nvcc at first
-use into the package's `_build/` directory and called through ctypes.  K2
-and K7 run on the register-resident NTT core of `csrc/ntt_core.cuh`, with
-the per-pass twiddle tables of `ntt.pass_tables_for`; the others on the
-shared-memory core of `csrc/pbs_kernels.cuh`.  Each wrapper takes its plain PyTorch
+K6's `crt_accumulate`, `csrc/step_kernels.cuh` for K3 and K5,
+`csrc/ntt_core_kernels.cuh` for K2, K4, K6's `ntt_mac_prime` and K7),
+built by nvcc at first use into the package's `_build/` directory and
+called through ctypes.  K2, K4, `ntt_mac_prime` and K7 run on the
+register-resident NTT core of `csrc/ntt_core.cuh`, with the per-pass
+twiddle tables of `ntt.pass_tables_for`; K3 and K5 on the shared-memory
+core of `csrc/pbs_kernels.cuh`.  Each wrapper takes its plain PyTorch
 version (`*_plain`) for CPU tensors, launches its kernel for CUDA tensors,
 and raises for anything else: nothing falls back.  Each wrapper counts its
 launches in its `launches` attribute.
@@ -80,9 +83,10 @@ def _nvcc() -> str:
                         "nvcc")
 
 
-# the register-resident core and the kernels on it (K2, K7), which
-# pbs_kernels.cu and single_cta_kernels.cu both include
-_CORE_HEADERS = ("ntt_core.cuh", "ntt_core_kernels.cuh")
+# the register-resident core, the kernels on it (K2, K4, K6's
+# ntt_mac_prime, K7) and their host launch code, which pbs_kernels.cu and
+# single_cta_kernels.cu both include
+_CORE_HEADERS = ("ntt_core.cuh", "ntt_core_kernels.cuh", "core_launch.cuh")
 
 
 def _headers(*names: str) -> tuple[str, ...]:
@@ -129,20 +133,24 @@ def step_library() -> ctypes.CDLL:
 
 @functools.cache
 def single_cta_library() -> ctypes.CDLL:
-    """Build (once per source hash) and load the single-CTA step kernel's
-    shared library (K4, K7).  Raises `tfhe_tpu_torch._native.BuildError`."""
+    """Build (once per source hash) and load the shared library of the
+    kernels that hold a step's accumulator on chip (K4, K7).  Raises
+    `tfhe_tpu_torch._native.BuildError`."""
     path = build_shared_library(
         "single_cta_kernels", [os.path.join(_CSRC, "single_cta_kernels.cu")],
         [_nvcc(), *NVCC_FLAGS], timeout=BUILD_TIMEOUT_S,
-        headers=_headers("single_cta_kernels.cuh", "pbs_kernels.cuh",
-                         *_CORE_HEADERS))
+        headers=_headers("pbs_kernels.cuh", *_CORE_HEADERS))
     lib = ctypes.CDLL(path)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.tfhe_blind_rotate_single_cta.argtypes = ([ptr] * 7 + [i32] * 10
+    lib.tfhe_blind_rotate_single_cta.argtypes = ([ptr] * 7 + [i32] * 9
                                                  + [ptr])
-    lib.tfhe_blind_rotate_single_cta.restype = i32
+    lib.tfhe_pbs_step_single_cta.argtypes = [ptr] * 7 + [i32] * 8 + [ptr]
     lib.tfhe_blind_rotate_single_cta_form.argtypes = [i32] * 6 + [ptr]
-    lib.tfhe_blind_rotate_single_cta_form.restype = i32
+    lib.tfhe_pbs_step_single_cta_form.argtypes = [i32] * 6 + [ptr]
+    for fn in (lib.tfhe_blind_rotate_single_cta, lib.tfhe_pbs_step_single_cta,
+               lib.tfhe_blind_rotate_single_cta_form,
+               lib.tfhe_pbs_step_single_cta_form):
+        fn.restype = i32
     return lib
 
 
@@ -328,8 +336,13 @@ def ntt_mac_prime(digits: torch.Tensor, kspec_p: torch.Tensor,
                   kshoup_p: torch.Tensor, prime_index: int,
                   residues: torch.Tensor) -> torch.Tensor:
     """K6's per-prime stage (replaces prime_kernel -> _prime_block,
-    tfhe_tpu/ops/fused_pbs.py:1503, :672): `ntt_mac_kernel` for one prime.
-    Writes that prime's rows of residues in place and returns it."""
+    tfhe_tpu/ops/fused_pbs.py:1503, :672): one launch of
+    `ntt_mac_prime_kernel` on the register-resident NTT core, a cluster of
+    two CTAs per ciphertext when the batch's pairs fit on the card at once,
+    else one CTA per ciphertext.  Writes that prime's rows of residues in
+    place (canonical) and returns it.  256 <= N <= 2048
+    (`ntt.pass_tables_for` raises otherwise) and L*G <= 9, or the launch is
+    refused."""
     if digits.device.type == "cpu":
         return ntt_mac_prime_plain(digits, kspec_p, prime_index, residues)
     if digits.device.type != "cuda":
@@ -348,7 +361,7 @@ def ntt_mac_prime(digits: torch.Tensor, kspec_p: torch.Tensor,
         return residues
     err = cuda_library().tfhe_ntt_mac_prime(
         digits.data_ptr(), kspec_p.data_ptr(), kshoup_p.data_ptr(),
-        ntt.tables_for(N, dev).kernel.data_ptr(), residues.data_ptr(), B, LJ,
+        ntt.pass_tables_for(N, dev).data_ptr(), residues.data_ptr(), B, LJ,
         O, M, P, N, prime_index, _stream(dev))
     _check_launch(err, "ntt_mac_prime")
     ntt_mac_prime.launches += 1
@@ -503,30 +516,30 @@ def blind_rotate_persistent(acc: torch.Tensor, ahat: torch.Tensor,
 blind_rotate_persistent.launches = 0
 
 # ---------------------------------------------------------------------------
-# K4 and K7: whole steps in one launch, the accumulator held on chip
+# K4: a whole step in one launch, on the register-resident core
 # ---------------------------------------------------------------------------
 
 
-def _launch_single_cta(name: str, acc: torch.Tensor, ahat: torch.Tensor,
-                       kspec: torch.Tensor, kshoup: torch.Tensor,
-                       base_log: int, levels: int, bits: int,
-                       wide: bool) -> torch.Tensor:
-    """Checks, then over ahat.shape[0] steps `blind_rotate_single_cta_
-    kernel` (wide, K4) or K7 on the register-resident core (one CTA or a
-    cluster of P CTAs per ciphertext, chosen by the C entry point); ahat
-    [n, B], kspec / kshoup [n, P, LJ, O, M, N]."""
+def _launch_on_core(name: str, acc: torch.Tensor, ahat: torch.Tensor,
+                    kspec: torch.Tensor, kshoup: torch.Tensor, base_log: int,
+                    levels: int, bits: int,
+                    whole_rotation: bool) -> torch.Tensor:
+    """Checks, then one launch through the C entry point tfhe_<name> of
+    single_cta_kernels.cu over ahat.shape[0] steps (one step unless
+    whole_rotation); ahat [n, B], kspec / kshoup [n, P, LJ, O, M, N].
+    256 <= N <= 2048 (`ntt.pass_tables_for` raises otherwise)."""
     B, n, G, M, P, N = _check_rotation(acc, ahat, kspec, kshoup, base_log,
                                        levels, bits)
     out = torch.empty_like(acc)
     if B == 0:  # a grid of zero blocks is an invalid launch
         return out
-    tab = ntt.tables_for(N, acc.device)
-    # K7's core refuses an N outside 256 ... 2048 here, other layouts in C
-    twiddles = tab.kernel if wide else ntt.pass_tables_for(N, acc.device)
-    err = single_cta_library().tfhe_blind_rotate_single_cta(
+    steps = (n,) if whole_rotation else ()
+    tables = ntt.pass_tables_for(N, acc.device)
+    err = getattr(single_cta_library(), f"tfhe_{name}")(
         acc.data_ptr(), ahat.data_ptr(), kspec.data_ptr(), kshoup.data_ptr(),
-        twiddles.data_ptr(), tab.xcrt.data_ptr(), out.data_ptr(), B, n, G,
-        M, P, N, base_log, levels, bits, int(wide), _stream(acc.device))
+        tables.data_ptr(), ntt.tables_for(N, acc.device).xcrt.data_ptr(),
+        out.data_ptr(), B, *steps, G, M, P, N, base_log, levels, bits,
+        _stream(acc.device))
     _check_launch(err, name)
     return out
 
@@ -536,24 +549,35 @@ def pbs_step_single_cta(acc: torch.Tensor, ahat: torch.Tensor,
                         base_log: int, levels: int,
                         bits: int = 64) -> torch.Tensor:
     """K4 (replaces step_kernel, tfhe_tpu/ops/fused_pbs.py:983): one whole
-    step in one launch of `blind_rotate_single_cta_kernel`, each
-    prime's outputs through one inverse-NTT pass.  acc [B, G, N], ahat [B],
-    kspec / kshoup [P, LJ, O, M, N]; returns a new accumulator.  Its plain
-    version is `pbs_step_plain`."""
+    step in one launch on the register-resident NTT core:
+    `pbs_step_cluster_kernel` (a cluster of one CTA per prime and
+    ciphertext, the digits made inside and shared over the cluster, the
+    explicit CRT in the same launch) or, when the batch fills the card in
+    fewer waves that way, K7's `blind_rotate_core_kernel` over one step
+    (one CTA per ciphertext); the C entry point picks one from B and the
+    device's occupancy (`pbs_step_single_cta_form` says which).  acc
+    [B, G, N], ahat [B], kspec / kshoup [P, LJ, O, M, N]; returns a new
+    accumulator.  256 <= N <= 2048 (`ntt.pass_tables_for` raises otherwise)
+    and L*G <= 9, or the launch is refused.  Its plain version is
+    `pbs_step_plain`."""
     if acc.device.type == "cpu":
         return pbs_step_plain(acc, ahat, kspec, base_log, levels, bits)
     if acc.device.type != "cuda":
         raise ValueError(f"pbs_step_single_cta: unsupported device "
                          f"{acc.device}")
-    out = _launch_single_cta("pbs_step_single_cta", acc, ahat[None],
-                             kspec[None], kshoup[None], base_log, levels,
-                             bits, wide=True)
+    out = _launch_on_core("pbs_step_single_cta", acc, ahat[None],
+                          kspec[None], kshoup[None], base_log, levels, bits,
+                          whole_rotation=False)
     if acc.shape[0]:
         pbs_step_single_cta.launches += 1
     return out
 
 
 pbs_step_single_cta.launches = 0
+
+# ---------------------------------------------------------------------------
+# K7: all steps in one launch, the accumulator held on chip
+# ---------------------------------------------------------------------------
 
 
 def blind_rotate_single_cta(acc: torch.Tensor, ahat: torch.Tensor,
@@ -577,8 +601,9 @@ def blind_rotate_single_cta(acc: torch.Tensor, ahat: torch.Tensor,
     if acc.device.type != "cuda":
         raise ValueError(f"blind_rotate_single_cta: unsupported device "
                          f"{acc.device}")
-    out = _launch_single_cta("blind_rotate_single_cta", acc, ahat, kspec,
-                             kshoup, base_log, levels, bits, wide=False)
+    out = _launch_on_core("blind_rotate_single_cta", acc, ahat, kspec,
+                          kshoup, base_log, levels, bits,
+                          whole_rotation=True)
     if acc.shape[0]:
         blind_rotate_single_cta.launches += 1
     return out
@@ -587,18 +612,36 @@ def blind_rotate_single_cta(acc: torch.Tensor, ahat: torch.Tensor,
 blind_rotate_single_cta.launches = 0
 
 
+def _form(entry, name: str, B: int, N: int, G: int, levels: int, bits: int,
+          kernels: tuple[str, str]) -> str:
+    """kernels[1] if the C entry point `entry` says a batch of B runs as
+    clusters, else kernels[0].  Launches nothing."""
+    cluster = ctypes.c_int(0)
+    err = entry(B, G, 2 if bits == 64 else 1, len(ntt.PRIMES), N, levels,
+                ctypes.byref(cluster))
+    _check_launch(err, name)
+    return kernels[cluster.value]
+
+
 def blind_rotate_single_cta_form(B: int, N: int, G: int, levels: int,
                                  bits: int = 64) -> str:
     """The kernel that `blind_rotate_single_cta` launches for a batch of B
     on the current card: "blind_rotate_core_kernel" or
     "blind_rotate_cluster_core_kernel".  Launches nothing."""
-    cluster = ctypes.c_int(0)
-    err = single_cta_library().tfhe_blind_rotate_single_cta_form(
-        B, G, 2 if bits == 64 else 1, len(ntt.PRIMES), N, levels,
-        ctypes.byref(cluster))
-    _check_launch(err, "blind_rotate_single_cta_form")
-    return ("blind_rotate_cluster_core_kernel" if cluster.value
-            else "blind_rotate_core_kernel")
+    return _form(single_cta_library().tfhe_blind_rotate_single_cta_form,
+                 "blind_rotate_single_cta_form", B, N, G, levels, bits,
+                 ("blind_rotate_core_kernel",
+                  "blind_rotate_cluster_core_kernel"))
+
+
+def pbs_step_single_cta_form(B: int, N: int, G: int, levels: int,
+                             bits: int = 64) -> str:
+    """The kernel that `pbs_step_single_cta` launches for a batch of B on
+    the current card: "pbs_step_cluster_kernel" or
+    "blind_rotate_core_kernel" (over one step).  Launches nothing."""
+    return _form(single_cta_library().tfhe_pbs_step_single_cta_form,
+                 "pbs_step_single_cta_form", B, N, G, levels, bits,
+                 ("blind_rotate_core_kernel", "pbs_step_cluster_kernel"))
 
 KERNELS = (rotate_decompose, external_product_crt, pbs_step,
            blind_rotate_persistent, ntt_mac_prime, crt_accumulate,

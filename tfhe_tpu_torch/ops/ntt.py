@@ -186,7 +186,8 @@ def _explicit_crt_host(N: int) -> np.ndarray:
 PASS_LOG_RADIX = 3
 PASS_RADIX = 1 << PASS_LOG_RADIX
 PASS_RECORD = 2 * PASS_RADIX  # twiddles, then their Shoup companions
-PASS_HEADER = 8  # p, 2p, floor(2^32 / p), p - 2^31 mod p, then zeros
+PASS_HEADER = 8  # p, 2p, floor(2^32 / p), p - 2^31 mod p, N^-1, its companion,
+#                 then zeros
 
 
 def pass_plan(N: int) -> tuple[int, list[int]]:
@@ -243,15 +244,17 @@ def _pass_records(N: int, psi: np.ndarray, p: int, inverse: bool
 @functools.cache
 def _host_pass_tables(N: int) -> np.ndarray:
     """[P, PASS_HEADER + 2 W] int64 (uint32 values): per prime the header
-    (p, 2p, floor(2^32 / p), p - 2^31 mod p, 0, 0, 0, 0), then the forward
-    records, then the inverse records (W words each)."""
+    (p, 2p, floor(2^32 / p), p - 2^31 mod p, N^-1 mod p, its Shoup
+    companion, 0, 0), then the forward records, then the inverse records
+    (W words each)."""
     if not 256 <= N <= 2048 or N & (N - 1):
         raise ValueError(f"the NTT core takes N in 256 ... 2048, not {N}")
-    fwd, inv, _ = _host_tables(N)
+    fwd, inv, ninv = _host_tables(N)
     rows = []
     for i, p in enumerate(PRIMES):
-        head = np.array([p, 2 * p, (1 << 32) // p, p - (1 << 31) % p, 0, 0,
-                         0, 0], np.int64)
+        n_inv = int(ninv[i])
+        head = np.array([p, 2 * p, (1 << 32) // p, p - (1 << 31) % p, n_inv,
+                         (n_inv << 32) // p, 0, 0], np.int64)
         rows.append(np.concatenate([head, _pass_records(N, fwd[i], p, False),
                                     _pass_records(N, inv[i], p, True)]))
     return np.stack(rows)
