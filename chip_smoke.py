@@ -15,8 +15,9 @@ Phases, each printing one flushed line with its wall time:
      G=3, L=3, base_log 6, u32), 5 primes, B=64, one step each, the
      persistent and single-CTA rotations at their main path's depth (742 and
      722 steps), the single-CTA one at B=256 too (each batch naming the K7
-     kernel that ran it, one CTA or a cluster per ciphertext), K4 and
-     ntt_mac_prime at B=256 too (K4 naming its kernel per batch), and a
+     kernel that ran it, one CTA or a cluster per ciphertext), K3, K4 and
+     ntt_mac_prime at B=256 too (K4 naming the kernel that K3 and K4 run
+     for each batch), and a
      4-step rotation in every mode, bit-exact (tolerance 0), with device,
      eager and plain times per launch and bounds;
   4. main path: PARAM_MESSAGE_2_CARRY_2_KS_PBS keys generated on the card,
@@ -45,14 +46,14 @@ Phases, each printing one flushed line with its wall time:
      kernels against their plain versions at
      PARAM_MULTI_BIT_MESSAGE_2_CARRY_2_GROUP_3_KS_PBS's width (N=2048, G=2,
      L=1, base_log 21, gf=3 so 8 subset keys per group, B=64), one step each
-     and a 2-group blind rotation in both schedules, bit-exact, with times
-     per launch;
+     (K9's one-launch group step at B=256 too) and a 2-group blind rotation
+     in both schedules, bit-exact, with times per launch;
   7. main_path_multibit: GROUP_3 keys generated on the card, the same 64
      messages through three univariate LUTs and one bivariate LUT with the
      ServerKey entry points (the default schedule, scan3, 296 group steps),
      then the same four evaluations through core.keyswitch_then_multi_bit_pbs
-     in the scan1 schedule, equal bit for bit, every result decrypted and
-     checked, launches counted per schedule;
+     in the scan1 schedule (one K9 launch a group step), equal bit for bit,
+     every result decrypted and checked, launches counted per schedule;
   8. card_vs_cpu_multibit: the multi-bit pipeline on the small insecure
      multi-bit set, on the card and on the CPU, bit-identical;
   9. timing_multibit: keyswitch_then_multi_bit_pbs throughput at B=64 and
@@ -62,8 +63,8 @@ Phases, each printing one flushed line with its wall time:
      on 64 seeded bit pairs and triples through boolean.ServerKey in each of
      the six modes, every decryption equal to the clear gate, identical
      ciphertexts across modes, exact launch counts per blind rotation
-     (scan2: n of K1 and of K2; scan1, scan1w: n; scan3: n(P+2); grid,
-     mega: 1);
+     (scan2: n of K1 and of K2; scan1, scan1w: n (K3 and K4 run one kernel
+     on the card, each counted as its own); scan3: n(P+2); grid, mega: 1);
  11. card_vs_cpu_boolean: BOOLEAN_TEST_PARAMETERS gates on the card in
      every mode, bit-identical to the CPU's plain versions;
  12. timing_boolean: gates/s and batch ms per mode at B=64 and B=256, split
@@ -95,9 +96,9 @@ between CUDA events (a whole rotation, persistent or single-CTA: CUDA events
 around a few eager launches); the eager per-launch times beside them include
 the host's launch cost.
 Then a `kernels` JSON line (each kernel's `redesigned` names the source
-it was rebuilt on after its first port: K2, K4, ntt_mac_prime and K7, on
-the register-resident NTT core; null for the others), the nvidia-smi line,
-and as the last line {"ok": true, "device": {...}}.  Any failed phase
+it was rebuilt on after its first port: K2, K3, K4, ntt_mac_prime, K7 and
+K9, on the register-resident NTT core; null for the others), the nvidia-smi
+line, and as the last line {"ok": true, "device": {...}}.  Any failed phase
 raises, so the script exits non-zero and prints no result; it needs a card
 and refuses to run without one.  A watchdog ends a hung run with a
 traceback.
@@ -122,10 +123,11 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
 
 # kernels rebuilt for Hopper after their first port, and the source they
-# were rebuilt on: K2, K4, K6's ntt_mac_prime and K7 on the
-# register-resident NTT core
-REDESIGNED = dict.fromkeys(("external_product_crt", "pbs_step_single_cta",
-                            "ntt_mac_prime", "blind_rotate_single_cta"),
+# were rebuilt on: K2, K3 (on K4's kernel), K4, K6's ntt_mac_prime, K7 and
+# K9 on the register-resident NTT core
+REDESIGNED = dict.fromkeys(("external_product_crt", "pbs_step",
+                            "pbs_step_single_cta", "ntt_mac_prime",
+                            "blind_rotate_single_cta", "multibit_step"),
                            "tfhe_tpu_torch/ops/csrc/ntt_core.cuh")
 
 
@@ -267,14 +269,19 @@ def gathered_powers(d, N):
 
 def multibit_bounds_ms(B, G, L, N, P, gf, powers):
     """Least time for one launch of each multi-bit kernel, as bounds_ms,
-    with each kernel charged only what the function needs: the inputs it
-    reads (of the subset degrees only d_1.., of the powers of psi only the
-    `powers` positions this run's degrees gather, each with its companion;
-    of the twiddles the N-1 used of each of the four rows), the output it
-    writes, and its operations.  A Shoup product counts 6 operations, a
-    Barrett product 8, a modular add 3, a butterfly 9 (as K2), a monomial
-    index 2 (once per ciphertext, subset and coefficient: it does not
-    depend on the prime or the output); a sum of k terms counts k-1 adds."""
+    with each kernel charged only what the function needs (K9's
+    `multibit_step`: a whole group step, from the accumulator to the new
+    one): the inputs it reads (of the subset degrees only d_1.., of the
+    powers of psi only the `powers` positions this run's degrees gather,
+    each with its companion; of the twiddles the N-1 used of each of the
+    four rows), the output it writes, and its operations.  A Shoup product
+    counts 6 operations, a Barrett product 8, a modular add 3, a butterfly
+    9 (as K2), a monomial index 2 (once per ciphertext, subset and
+    coefficient: it does not depend on the prime or the output); a sum of
+    k terms counts k-1 adds, or, for K9's products summed lazily into 64
+    bits, 2 a product (the multiply-adds of its low and high words) and 14
+    a sum (brought into [0, 2p) by two Shoup products and a
+    multiply-add)."""
     M, LJ, per = 2, L * G, 1 << gf
     OM = G * M
     W = LJ * OM * N  # one subset key, one prime
@@ -288,9 +295,10 @@ def multibit_bounds_ms(B, G, L, N, P, gf, powers):
     twiddles = P * (4 * (N - 1) + 3) * 4  # and N^-1, its companion, p
     garner_consts = (P * (P - 1) + 4 * P) * 8  # crt rows, words read
     index = B * N * (per - 1) * 2
+    acc = B * G * N * 8
+    decompose_ops = B * G * N * (4 + 8 * L)
     work = {
-        "decompose": (B * G * N * 8 + B * L * G * N * 4,
-                      B * G * N * (4 + 8 * L)),
+        "decompose": (acc + B * L * G * N * 4, decompose_ops),
         "multibit_combine": (spectra + degrees + gathers + P * 4
                              + B * P * W * 4,
                              B * P * W * (per - 1) * (6 + 3) + index),
@@ -299,11 +307,17 @@ def multibit_bounds_ms(B, G, L, N, P, gf, powers):
             + B * G * N * 8,
             butterflies * 9 + B * P * OM * N * (LJ * 8 + (LJ - 1) * 3)
             + digits_mod_p + garner),
+        # the whole group step: the accumulator in and out, the subset key
+        # spectra (the MAC needs no companions), the decomposition too; the
+        # monomial multiplies the LJ digit spectra or the OM outputs,
+        # whichever are fewer, and the per * LJ products of an output sum
+        # lazily into 64 bits, reduced once
         "multibit_step": (
-            B * LJ * N * 4 + degrees + 2 * spectra + gathers + twiddles
-            + garner_consts + B * G * N * 8,
-            butterflies * 9 + B * P * OM * N * (per * (LJ * 6 + (LJ - 1) * 3)
-                                                 + (per - 1) * (6 + 3))
+            acc + degrees + spectra + gathers + twiddles + garner_consts
+            + acc,
+            decompose_ops + butterflies * 9
+            + B * P * N * (OM * (per * LJ * 2 + 14)
+                           + (per - 1) * min(LJ, OM) * 6)
             + index + digits_mod_p + garner),
     }
     out = {}
@@ -343,7 +357,7 @@ def multibit_kernels_phase(dev):
     d = torch.from_numpy(rng.integers(0, 2 * N, (groups, B_MAIN, per))
                          .astype(np.int32)).to(dev)
     d[:, :, 0] = 0  # the empty subset's sum switches to 0
-    ks, ksh = key.kspec[0], key.kshoup[0]
+    ks = key.kspec[0]
 
     dig = fm.decompose(acc, bl, L)
     dig_p = fm.decompose_plain(acc, bl, L)
@@ -351,8 +365,17 @@ def multibit_kernels_phase(dev):
     comb_p = fm.multibit_combine_plain(d[0], ks)
     ext = fm.multibit_external_product(dig_p, comb_p)
     ext_p = fm.multibit_external_product_plain(dig_p, comb_p)
-    step = fm.multibit_step(dig_p, d[0], ks, ksh)
-    step_p = fm.multibit_step_plain(dig_p, d[0], ks)
+    step = fm.multibit_step(acc, d[0], ks, bl, L)
+    step_p = fm.multibit_step_plain(acc, d[0], ks, bl, L)
+    # K9 at B = 256 too, from a generator of its own
+    rng_l = np.random.default_rng([SEED, B_LARGE])
+    acc_l = torch.from_numpy(rng_l.integers(
+        0, 2**64 - 1, (B_LARGE, G, N), dtype=np.uint64, endpoint=True)
+        .view(np.int64)).to(dev)
+    d_l = torch.from_numpy(rng_l.integers(0, 2 * N, (B_LARGE, per))
+                           .astype(np.int32)).to(dev)
+    err_l = max_abs_err(fm.multibit_step(acc_l, d_l, ks, bl, L),
+                        fm.multibit_step_plain(acc_l, d_l, ks, bl, L))
     rot_p = acc
     for g in range(groups):
         rot_p = fm.multibit_external_product_plain(
@@ -366,9 +389,10 @@ def multibit_kernels_phase(dev):
            "multibit_external_product": max_abs_err(ext, ext_p),
            "multibit_step": max_abs_err(step, step_p)}
     err_rot = {m: max_abs_err(r, rot_p) for m, r in rot.items()}
-    if any(err.values()) or any(err_rot.values()):
+    if any(err.values()) or any(err_rot.values()) or err_l:
         raise AssertionError(f"multi-bit kernels disagree with their plain "
-                             f"versions: {err}, 2-group rotation {err_rot}")
+                             f"versions: {err}, 2-group rotation {err_rot}, "
+                             f"multibit_step at B = {B_LARGE} {err_l}")
 
     calls = {
         "decompose": (lambda: fm.decompose(acc, bl, L),
@@ -379,8 +403,8 @@ def multibit_kernels_phase(dev):
             lambda: fm.multibit_external_product(dig_p, comb_p),
             lambda: fm.multibit_external_product_plain(dig_p, comb_p)),
         "multibit_step": (
-            lambda: fm.multibit_step(dig_p, d[0], ks, ksh),
-            lambda: fm.multibit_step_plain(dig_p, d[0], ks)),
+            lambda: fm.multibit_step(acc, d[0], ks, bl, L),
+            lambda: fm.multibit_step_plain(acc, d[0], ks, bl, L)),
     }
     ms = {k: graph_ms(kern, 100) for k, (kern, _) in calls.items()}
     plain_ms = {k: graph_ms(plain, 3) for k, (_, plain) in calls.items()}
@@ -390,6 +414,7 @@ def multibit_kernels_phase(dev):
     say("kernels_multibit", t0,
         shape=dict(B=B_MAIN, G=G, L=L, N=N, P=5, base_log=bl, gf=gf),
         max_abs_err=err, blind_rotation_2_groups_max_abs_err=err_rot,
+        multibit_step_max_abs_err_b256=err_l,
         device_ms_per_launch=ms, eager_ms_per_launch=eager,
         plain_device_ms=plain_ms,
         gathered_powers=powers, bound_ms={k: v[0] for k, v in bounds.items()})
@@ -471,7 +496,7 @@ def multibit_main_path(dev):
     expected = {
         "scan3": dict(decompose=4 * steps, multibit_combine=4 * steps,
                       multibit_external_product=4 * steps, multibit_step=0),
-        "scan1": dict(decompose=4 * steps, multibit_combine=0,
+        "scan1": dict(decompose=0, multibit_combine=0,
                       multibit_external_product=0, multibit_step=4 * steps)}
     if launches != expected or any(classic_launches.values()):
         raise AssertionError(f"multi-bit main path launched {launches} and "
@@ -546,7 +571,7 @@ def multibit_timing(card, dev, cks, sks, rng):
     per = 1 << p.grouping_factor
     d = torch.from_numpy(rng.integers(0, 2 * N, (B_LARGE, per))
                          .astype(np.int32)).to(dev)
-    ks, ksh = sks.bsk.kspec[0], sks.bsk.kshoup[0]
+    ks = sks.bsk.kspec[0]
     dig = fm.decompose(acc, bl, L)
     comb = fm.multibit_combine(d, ks)
     ms256 = dict(
@@ -555,7 +580,8 @@ def multibit_timing(card, dev, cks, sks, rng):
                                   50),
         multibit_external_product=graph_ms(
             lambda: fm.multibit_external_product(dig, comb), 50),
-        multibit_step=graph_ms(lambda: fm.multibit_step(dig, d, ks, ksh), 50))
+        multibit_step=graph_ms(lambda: fm.multibit_step(acc, d, ks, bl, L),
+                               50))
     say("timing_multibit", t0, card=card, params=p.name, pbs_per_s=rates,
         batch_ms=batch_ms, batch_split_ms=split_ms,
         device_ms_per_launch_b256=ms256,
@@ -704,12 +730,12 @@ def modes_kernels_phase(dev):
         for pi in range(P):
             fp.ntt_mac_prime(dig_l, ks[pi], ksh[pi], pi, res_l)
             fp.ntt_mac_prime_plain(dig_l, ks[pi], pi, res_lp)
-        err_l = {
-            "pbs_step_single_cta": max_abs_err(
-                fp.pbs_step_single_cta(acc_l, ahat_l[0], ks, ksh, bl, L,
-                                       bits),
-                fp.pbs_step_plain(acc_l, ahat_l[0], ks, bl, L, bits)),
-            "ntt_mac_prime": max_abs_err(res_l, res_lp)}
+        step_l = fp.pbs_step_plain(acc_l, ahat_l[0], ks, bl, L, bits)
+        err_l = {k: max_abs_err(getattr(fp, k)(acc_l, ahat_l[0], ks, ksh, bl,
+                                               L, bits), step_l)
+                 for k in ("pbs_step", "pbs_step_single_cta")}
+        err_l["ntt_mac_prime"] = max_abs_err(res_l, res_lp)
+        # K3 and K4 run the same kernel, which this names for each batch
         k4_form = {f"B{B}": fp.pbs_step_single_cta_form(B, N, G, L, bits)
                    for B in (B_MAIN, B_LARGE)}
         if (any(err.values()) or any(err_rot.values())
@@ -746,7 +772,7 @@ def modes_kernels_phase(dev):
         out[p.name] = ({k: max(v, err_l.get(k, 0)) for k, v in err.items()},
                        ms, plain_ms, bounds)
         del key, key_n, acc, ahat, ahat_n, dig, res_p, res_k, res_t, calls
-        del want, plain_n, acc_l, ahat_l, dig_l, res_l, res_lp
+        del want, plain_n, acc_l, ahat_l, dig_l, res_l, res_lp, step_l
         torch.cuda.empty_cache()
     return out
 
@@ -1763,7 +1789,7 @@ def main():
     for name, line, src, width in (
             ("rotate_decompose", 1229, "pbs_kernels.cuh", p.name),
             ("external_product_crt", 1244, "ntt_core_kernels.cuh", p.name),
-            ("pbs_step", 1304, "step_kernels.cuh", "DEFAULT_PARAMETERS"),
+            ("pbs_step", 1304, "ntt_core_kernels.cuh", "DEFAULT_PARAMETERS"),
             ("blind_rotate_persistent", 1020, "step_kernels.cuh",
              "DEFAULT_PARAMETERS"),
             ("ntt_mac_prime", 1503, "ntt_core_kernels.cuh",
@@ -1786,7 +1812,7 @@ def main():
             ("decompose", 264, "pbs_kernels.cuh"),
             ("multibit_combine", 747, "multibit_kernels.cuh"),
             ("multibit_external_product", 823, "pbs_kernels.cuh"),
-            ("multibit_step", 539, "multibit_kernels.cuh")):
+            ("multibit_step", 539, "multibit_core.cuh")):
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"tfhe_tpu_torch/ops/csrc/{src}",

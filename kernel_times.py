@@ -14,10 +14,14 @@ three times between CUDA events: K1 `rotate_decompose` and K2
 `external_product_crt` (N=2048, G=2, L=1, base_log 23, u64), and K8
 (`decompose`, `multibit_combine`, `multibit_external_product`) and K9
 `multibit_step` at PARAM_MULTI_BIT_MESSAGE_2_CARRY_2_GROUP_3_KS_PBS's
-width (gf=3).  Then, from a generator of their own per seed and width
-(default_rng([seed, n])), K2 at boolean DEFAULT_PARAMETERS' width (N=512,
-G=3, L=3, base_log 6, u32) and both widths at B = 256, and at both
-widths and B = 64 and 256 K4 `pbs_step_single_cta` (one step), K7
+width (gf=3).  K9 is timed as a whole group step, `multibit_group_step`:
+`multi_bit_blind_rotate_cuda` in mode "scan1" over one group, whatever
+launches the tree makes for it; `multibit_group_step_B256` the same at
+B = 256 (inputs from default_rng([seed, 256])).  Then, from a generator
+of their own per seed and width (default_rng([seed, n])), K2 at boolean
+DEFAULT_PARAMETERS' width (N=512, G=3, L=3, base_log 6, u32) and both
+widths at B = 256, and at both widths and B = 64 and 256 K3 `pbs_step`
+and K4 `pbs_step_single_cta` (one step each), K7
 `blind_rotate_single_cta` over one step (the kernel K7's launcher picks
 for that batch; CUDA events around 100 eager launches, as its launcher
 queries the device) and K6's `ntt_mac_prime` for prime 0 (graphs of
@@ -28,6 +32,7 @@ the card's name and power limit.
 """
 
 import argparse
+import dataclasses
 import json
 import os
 import sys
@@ -55,6 +60,7 @@ def times(seed):
     rng = np.random.default_rng(seed)
     N, G, L, bl, gf = (mp.polynomial_size, mp.glwe_size, mp.pbs_level,
                        mp.pbs_base_log, mp.grouping_factor)
+    N_MB, G_MB = N, G
     per = 1 << gf
     mkey = fm.prepare_multi_bit_bsk_cuda(rand_u64(rng, 2, per, L, G, G, N),
                                          bl, gf)
@@ -62,10 +68,11 @@ def times(seed):
     d = torch.from_numpy(rng.integers(0, 2 * N, (2, B_MAIN, per))
                          .astype(np.int32)).to(dev)
     d[:, :, 0] = 0
-    ks, ksh = mkey.kspec[0], mkey.kshoup[0]
+    ks = mkey.kspec[0]
     mdig = fm.decompose_plain(macc, bl, L)
     comb = fm.multibit_combine_plain(d[0], ks)
     mbl, mL = bl, L
+    one_group = dataclasses.replace(mkey, input_dim=gf)
 
     rng = np.random.default_rng(seed)
     N, G, L, bl = (cp.polynomial_size, cp.glwe_size, cp.pbs_level,
@@ -84,18 +91,27 @@ def times(seed):
         "multibit_combine": lambda: fm.multibit_combine(d[0], ks),
         "multibit_external_product": lambda: fm.multibit_external_product(
             mdig, comb),
-        "multibit_step": lambda: fm.multibit_step(mdig, d[0], ks, ksh),
+        "multibit_group_step": lambda: fm.multi_bit_blind_rotate_cuda(
+            one_group, macc, d[:1], mode="scan1"),
     }
     out = {k: graph_ms(fn, 100) for k, fn in calls.items()}
+    rng = np.random.default_rng([seed, B_LARGE])
+    macc = rand_u64(rng, B_LARGE, G_MB, N_MB)
+    d = torch.from_numpy(rng.integers(0, 2 * N_MB, (1, B_LARGE, per))
+                         .astype(np.int32)).to(dev)
+    d[:, :, 0] = 0
+    out["multibit_group_step_B256"] = graph_ms(
+        lambda: fm.multi_bit_blind_rotate_cuda(one_group, macc, d,
+                                               mode="scan1"), 100)
     out.update(redesigned(seed))
     return out
 
 
 def redesigned(seed):
     """K2 at both widths and B = 64 / 256 (the shortint width at B = 64 is
-    timed above); K4 (one step), K7 over one step and K6's `ntt_mac_prime`
-    (prime 0) at both widths and batch sizes; and K7 at both widths, depths
-    and batch sizes."""
+    timed above); K3 and K4 (one step each), K7 over one step and K6's
+    `ntt_mac_prime` (prime 0) at both widths and batch sizes; and K7 at both
+    widths, depths and batch sizes."""
     import numpy as np
     import torch
 
@@ -128,11 +144,15 @@ def redesigned(seed):
                 out[f"external_product_crt_{tag}_B{B}"] = graph_ms(
                     lambda: fp.external_product_crt(  # noqa: B023
                         dig, key.kspec[0], key.kshoup[0], acc, bits), 100)
-            # K4 (one step), K7's form of one step (one CTA or a cluster
-            # per ciphertext, as blind_rotate_single_cta_form picks), and
-            # K6's ntt_mac_prime for prime 0
+            # K3 and K4 (one step each), K7's form of one step (one CTA or
+            # a cluster per ciphertext, as blind_rotate_single_cta_form
+            # picks), and K6's ntt_mac_prime for prime 0
             res = torch.empty((B, G, 2 if bits == 64 else 1, 5, N),
                               dtype=torch.int32, device=dev)
+            out[f"pbs_step_{tag}_B{B}"] = graph_ms(
+                lambda: fp.pbs_step(  # noqa: B023
+                    acc, ahat[0], key.kspec[0], key.kshoup[0], bl, L, bits),
+                100)
             out[f"pbs_step_single_cta_{tag}_B{B}"] = graph_ms(
                 lambda: fp.pbs_step_single_cta(  # noqa: B023
                     acc, ahat[0], key.kspec[0], key.kshoup[0], bl, L, bits),

@@ -1,12 +1,13 @@
-"""The kernels of the classic schedules "scan1" (K3 `pbs_step`), "scan1w"
-(K4 `pbs_step_single_cta`), "grid" (K5 `blind_rotate_persistent`), "mega"
+"""The kernels of the classic schedules "scan1" (K3 `pbs_step`, on the card
+K4's kernel), "scan1w" (K4 `pbs_step_single_cta`), "grid" (K5
+`blind_rotate_persistent`), "mega"
 (K7 `blind_rotate_single_cta`) and "scan3" (K6 `ntt_mac_prime`,
 `crt_accumulate`) against their plain versions, bit for bit, on a card
 (tolerance 0): at the tests/test_fused_pbs.py cases and at the widths of
 PARAM_MESSAGE_2_CARRY_2_KS_PBS and of boolean DEFAULT_PARAMETERS; a blind
 rotation in every mode, equal across modes, with its launch counts; the
 empty batch; a batch past 65535 ciphertexts in one persistent launch and in
-one single-CTA launch; K4, K6's `ntt_mac_prime` and K7 on the
+one single-CTA launch; K3 and K4, K6's `ntt_mac_prime` and K7 on the
 register-resident NTT core at every width the port runs (the sets at
 N = 1024 among them), at batch sizes around one and two waves of the
 card's 132 SMs, and K7 at the main paths' depth (742 and 722 steps); and
@@ -50,6 +51,11 @@ CORE_WIDTH_IDS = ["shortint", "boolean", "pbs_ks", "shortint_test",
                   "boolean_test", "shortint_n1024", "boolean_165",
                   "boolean_165_ks_pbs", "boolean_tfhe_lib"] + IDS
 BATCHES = [1, 63, 64, 65, 132, 133, 256]
+
+
+def launched():
+    return {fn.__name__: fn.launches for fn in fused_pbs.KERNELS
+            if fn.launches}
 
 
 @pytest.fixture
@@ -179,18 +185,18 @@ def test_single_cta_rotation_on_the_core_at_the_main_paths_depth(width, n, B,
 @pytest.mark.parametrize("width", CORE_WIDTHS, ids=CORE_WIDTH_IDS)
 def test_step_on_the_core_matches_plain(width, B, card):
     # K4: one launch a step, the digits made inside (a cluster per
-    # ciphertext, or one CTA where that fills the card in fewer waves)
+    # ciphertext, or one CTA where that fills the card in fewer waves); K3
+    # runs the same kernel and counts its launch as its own
     rng = np.random.default_rng([41, B])
     key, acc, ahat = _inputs(rng, dict(width, n=1, B=B), card)
     bl, L, bits = key.base_log, key.levels, key.bits
-    fused_pbs.reset_launch_counts()
-    got = fused_pbs.pbs_step_single_cta(acc, ahat[0], key.kspec[0],
-                                        key.kshoup[0], bl, L, bits)
-    torch.cuda.synchronize()
-    assert fused_pbs.pbs_step_single_cta.launches == 1
-    assert torch.equal(got, fused_pbs.pbs_step_plain(acc, ahat[0],
-                                                     key.kspec[0], bl, L,
-                                                     bits))
+    want = fused_pbs.pbs_step_plain(acc, ahat[0], key.kspec[0], bl, L, bits)
+    for wrapper in (fused_pbs.pbs_step_single_cta, fused_pbs.pbs_step):
+        fused_pbs.reset_launch_counts()
+        got = wrapper(acc, ahat[0], key.kspec[0], key.kshoup[0], bl, L, bits)
+        torch.cuda.synchronize()
+        assert launched() == {wrapper.__name__: 1}
+        assert torch.equal(got, want), wrapper.__name__
 
 
 @pytest.mark.parametrize("B", BATCHES)
@@ -289,13 +295,18 @@ def test_layouts_beyond_the_kernels_limits_are_refused(card):
         fused_pbs.blind_rotate_persistent(
             acc, torch.zeros((1, 1), dtype=torch.int32, device=card),
             big.kspec, big.kshoup, 8, L)
-    # and so are a whole step (K4) and one prime's stage (K6) on the
-    # register-resident core at that layout: L*G = 16 digit polynomials,
-    # beyond the core's 9
+    # and so are a whole step (K4, and K3, on K4's kernel) and one prime's
+    # stage (K6) on the register-resident core at that layout: L*G = 16
+    # digit polynomials, beyond the core's 9
     ahat1 = torch.zeros((1, 1), dtype=torch.int32, device=card)
-    with pytest.raises(RuntimeError, match="cudaErrorInvalidValue"):
+    # (each refusal under its own wrapper's name)
+    with pytest.raises(RuntimeError,
+                       match="^pbs_step_single_cta: .*cudaErrorInvalidValue"):
         fused_pbs.pbs_step_single_cta(acc, ahat1[0], big.kspec[0],
                                       big.kshoup[0], 8, L)
+    with pytest.raises(RuntimeError,
+                       match="^pbs_step: .*cudaErrorInvalidValue"):
+        fused_pbs.pbs_step(acc, ahat1[0], big.kspec[0], big.kshoup[0], 8, L)
     with pytest.raises(RuntimeError, match="cudaErrorInvalidValue"):
         fused_pbs.blind_rotate_single_cta(acc, ahat1, big.kspec, big.kshoup,
                                           8, L)
@@ -307,10 +318,10 @@ def test_layouts_beyond_the_kernels_limits_are_refused(card):
     # and an N outside 256 ... 2048, by the core's tables
     small = fused_pbs.prepare_bsk_cuda(
         torch.zeros((1, 1, 2, 2, 128), dtype=torch.int64, device=card), 23)
-    with pytest.raises(ValueError):
-        fused_pbs.pbs_step_single_cta(
-            torch.zeros((1, 2, 128), dtype=torch.int64, device=card),
-            ahat1[0], small.kspec[0], small.kshoup[0], 23, 1)
+    for step in (fused_pbs.pbs_step_single_cta, fused_pbs.pbs_step):
+        with pytest.raises(ValueError):
+            step(torch.zeros((1, 2, 128), dtype=torch.int64, device=card),
+                 ahat1[0], small.kspec[0], small.kshoup[0], 23, 1)
     with pytest.raises(ValueError):
         fused_pbs.ntt_mac_prime(
             torch.zeros((1, 1, 2, 128), dtype=torch.int32, device=card),

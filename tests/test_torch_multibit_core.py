@@ -1,0 +1,156 @@
+"""A plain PyTorch model of K9 `multibit_step` as it runs on the
+register-resident NTT core (tfhe_tpu_torch/ops/csrc/multibit_core.cuh),
+checked word for word on the CPU.
+
+The model does what the kernel's threads do: the signed digits of the
+accumulator itself, each made at its own word (`decompose_word` of
+tests/test_torch_ntt_core_steps.py); each prime's forward transforms as the
+core runs them (the `Core` model of tests/test_torch_ntt_core.py), left at
+the words of shift 0, where thread tid holds the spectral words
+n = tid * 8 + k, then reduced into [0, 2p); the subset MAC: for subset
+j >= 1 the digit spectra times the monomial psi^(d_j e(n)), taken as the
+gather psi^(d_j e(tid * 8)) (with its Shoup companion) and, for k > 0, the
+8th root of unity w^m, w = psi^(N/4), m = d_j bitrev3(k) mod 8, as a
+product by w^(m mod 4) unless that is 1 and a negation 2p - y for m >= 4,
+each product a lazy Shoup product on uint32 words; the products with the
+canonical key words summed exactly (in 64 bits on the card); one
+reduction of each sum into [0, 2p); the inverse transforms; and the
+explicit CRT from zero.  Checked: the split of e(n)
+the kernel relies on, for every N the core takes; the model against
+`multibit_step_plain` (and the other schedule's plain kernels) at N = 256
+and 512, gf = 2 and 3; and, through a whole multi-bit blind rotation whose
+every group step is the model, against the reference's
+`fused_multibit_rotate_scan1` (tfhe_tpu/ops/fused_multibit.py:508),
+interpreted on the CPU as tests/test_fused_multibit.py runs it."""
+
+import numpy as np
+import pytest
+import torch
+
+from tfhe_tpu.ops.fused_multibit import (multi_bit_blind_rotate_fused,
+                                         prepare_multi_bit_bsk_fused)
+
+from tfhe_tpu_torch import core
+from tfhe_tpu_torch.ops import fused_multibit, ntt
+from tfhe_tpu_torch.ops.torus import to_numpy, to_tensor
+from test_torch_ntt_core import M32, Core, elem, explicit_crt, shoup_lazy
+from test_torch_ntt_core_steps import decompose_word
+
+BITREV3 = [0, 4, 2, 6, 1, 5, 3, 7]
+
+
+def model_multibit_step(acc, d, kspec, base_log, levels):
+    """K9 as the kernel computes it: acc [B, G, N] int64, d [B, 2^gf] int32,
+    kspec [2^gf, P, LJ, G, 2, N] -> the new accumulator [B, G, N] int64."""
+    B, G, N = acc.shape
+    per, P, LJ, O, M, _ = kspec.shape
+    T = N // ntt.PASS_RADIX
+    dig = decompose_word(to_numpy(acc).astype(np.uint64), base_log, levels,
+                         64)  # [L, B, G, N], level-major
+    digits = torch.from_numpy(np.ascontiguousarray(
+        dig.transpose(1, 0, 2, 3))).reshape(B, LJ, N)
+    mono = ntt.monomial_tables_for(N, "cpu")
+    e0 = mono.exponents.to(torch.int64)[torch.arange(T) * ntt.PASS_RADIX]
+    dj = d.to(torch.int64)
+    pos = elem(T, 0)
+    xcrt = ntt.tables_for(N, "cpu").xcrt
+    res = torch.empty((B, O, M, P, N), dtype=torch.int64)
+    for pi in range(P):
+        c = Core(N, pi)
+        pw = mono.powers[pi, 0].to(torch.int64) & M32
+        pwsh = mono.powers[pi, 1].to(torch.int64) & M32
+        spec = shoup_lazy(c.forward(c.digit_mod(digits)), 1, c.one_sh,
+                          c.p)  # [B, LJ, T, r] in [0, 2p)
+        o = torch.zeros((B, O * M, T, ntt.PASS_RADIX), dtype=torch.int64)
+        for j in range(per):
+            dm = spec
+            if j > 0:
+                t = (dj[:, j, None] * e0) & (2 * N - 1)  # [B, T]
+                dm = shoup_lazy(spec, pw[t][:, None, :, None],
+                                pwsh[t][:, None, :, None], c.p).clone()
+                for k in range(1, ntt.PASS_RADIX):
+                    # w^m, m = d_j bitrev3(k) mod 8: a product by
+                    # w^(m mod 4) unless that is 1, then 2p - y for m >= 4
+                    m = ((dj[:, j] * BITREV3[k]) & 7)[:, None, None]  # [B]
+                    r = (m & 3) * (N // 4)
+                    y = dm[..., k]
+                    y = torch.where((m & 3) > 0,
+                                    shoup_lazy(y, pw[r], pwsh[r], c.p), y)
+                    dm[..., k] = torch.where(m >= 4, 2 * c.p - y, y)
+            key = kspec[j, pi].to(torch.int64).reshape(LJ, O * M, N)[..., pos]
+            o = o + (dm[:, :, None] * key[None]).sum(dim=1)
+        assert int(o.max()) < 1 << 43  # the kernel's 64-bit sums' bound
+        c32 = (1 << 32) % c.p
+        low = shoup_lazy(o & M32, 1, c.one_sh, c.p) + (o >> 32) * c32
+        x = shoup_lazy(low, 1, c.one_sh, c.p)  # [0, 2p)
+        out = c.canonical(c.inverse(x), int(xcrt[pi, 1]), int(xcrt[pi, 2]))
+        res[:, :, :, pi] = out.reshape(B, O, M, N)
+    return explicit_crt(res, torch.zeros_like(acc), 64)
+
+
+@pytest.mark.parametrize("N", [256, 512, 1024, 2048])
+def test_exponents_split_at_a_threads_first_word(N):
+    # e(tid * 8 + k) = e(tid * 8) + bitrev3(k) N/4 mod 2N, and psi^(N/4)
+    # is an 8th root of unity, for every prime
+    mono = ntt.monomial_tables_for(N, "cpu")
+    e = mono.exponents.to(torch.int64).reshape(-1, ntt.PASS_RADIX)
+    want = torch.tensor(BITREV3) * (N // 4)
+    assert torch.equal((e - e[:, :1]) % (2 * N), want.expand_as(e))
+    for pi, p in enumerate(ntt.PRIMES):
+        w = int(mono.powers[pi, 0, N // 4]) & M32
+        assert pow(w, 4, int(p)) == int(p) - 1
+
+
+# (gf, N, L, base_log, G): the tests/test_fused_multibit.py cases at
+# N = 256 and the GROUP_2 / GROUP_3 sets' N = 512 width (G = 4)
+STEP_CASES = [(2, 256, 2, 8, 2), (3, 256, 1, 15, 2), (2, 512, 1, 18, 4),
+              (3, 512, 1, 18, 4)]
+STEP_IDS = ["gf2N256L2", "gf3N256L1", "gf2N512G4", "gf3N512G4"]
+
+
+@pytest.mark.parametrize("case", STEP_CASES, ids=STEP_IDS)
+def test_step_model_equals_plain(case):
+    gf, N, L, bl, G = case
+    rng = np.random.default_rng(list(case))
+    key = core.prepare_multi_bit_bsk_cuda(to_tensor(rng.integers(
+        0, 1 << 64, (1, 1 << gf, L, G, G, N), dtype=np.uint64), "cpu"), bl, gf)
+    acc = to_tensor(rng.integers(0, 1 << 64, (3, G, N), dtype=np.uint64),
+                    "cpu")
+    d = torch.from_numpy(rng.integers(0, 2 * N, (3, 1 << gf))
+                         .astype(np.int32))
+    got = model_multibit_step(acc, d, key.kspec[0], bl, L)
+    assert torch.equal(got, fused_multibit.multibit_step_plain(
+        acc, d, key.kspec[0], bl, L))
+    assert torch.equal(got, fused_multibit.multibit_external_product_plain(
+        fused_multibit.decompose_plain(acc, bl, L),
+        fused_multibit.multibit_combine_plain(d, key.kspec[0])))
+
+
+# (gf, N, L, base_log, groups, B): tests/test_fused_multibit.py's cases
+ROTATION_CASES = [(3, 256, 1, 15, 4, 4), (2, 256, 2, 8, 3, 3)]
+
+
+@pytest.mark.parametrize("case", ROTATION_CASES, ids=["gf3L1", "gf2L2"])
+def test_rotation_with_the_model_equals_the_reference(case, monkeypatch):
+    gf, N, L, bl, groups, B = case
+    G = 2
+    rng = np.random.default_rng(11)
+    mbsk = rng.integers(0, 1 << 64, (groups, 1 << gf, L, G, G, N),
+                        dtype=np.uint64)
+    lwe = rng.integers(0, 1 << 64, (B, groups * gf + 1), dtype=np.uint64)
+    lut = rng.integers(0, 1 << 64, (B, G, N), dtype=np.uint64)
+    key = core.prepare_multi_bit_bsk_cuda(to_tensor(mbsk, "cpu"), bl, gf)
+    steps = []
+
+    def model(acc, d, kspec, base_log, levels):
+        steps.append(d.shape)
+        return model_multibit_step(acc, d, kspec, base_log, levels)
+
+    monkeypatch.setattr(fused_multibit, "multibit_step", model)
+    got = core.multi_bit_blind_rotate(key, to_tensor(lut, "cpu"),
+                                      to_tensor(lwe, "cpu"), mode="scan1")
+    assert len(steps) == groups
+    monkeypatch.setenv("TFHE_TPU_MULTIBIT_MODE", "scan1")
+    want = np.asarray(multi_bit_blind_rotate_fused(
+        prepare_multi_bit_bsk_fused(mbsk, bl, gf), lut, lwe))
+    assert np.array_equal(to_numpy(got), want)

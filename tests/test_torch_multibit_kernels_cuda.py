@@ -2,8 +2,10 @@
 bit, on a card (tolerance 0): one group step of each at the two
 tests/test_fused_multibit.py shapes and at the width of
 PARAM_MULTI_BIT_MESSAGE_2_CARRY_2_GROUP_3_KS_PBS, a short blind rotation in
-both schedules, and the two schedules against each other.  Marked `cuda`:
-they skip where there is no card; on one, run
+both schedules, and the two schedules against each other; K9's one-launch
+step on the register-resident core at gf = 2, 3 and 4, N = 256 ... 2048
+and B = 1, 3 and 64; the layouts beyond the kernels' limits, refused.
+Marked `cuda`: they skip where there is no card; on one, run
 `python -m pytest -m cuda --noconftest tests/test_torch_multibit_kernels_cuda.py`
 (tests/conftest.py imports JAX, which is not needed here)."""
 
@@ -56,8 +58,9 @@ def test_kernels_match_plain(case, card):
     assert torch.equal(comb, fm.multibit_combine_plain(d[0], key.kspec[0]))
     want = fm.multibit_external_product_plain(dig, comb)
     assert torch.equal(fm.multibit_external_product(dig, comb), want)
-    assert torch.equal(fm.multibit_step(dig, d[0], key.kspec[0],
-                                        key.kshoup[0]), want)
+    assert torch.equal(fm.multibit_step_plain(acc, d[0], key.kspec[0], bl, L),
+                       want)
+    assert torch.equal(fm.multibit_step(acc, d[0], key.kspec[0], bl, L), want)
     plain = acc
     for g in range(groups):
         plain = fm.multibit_external_product_plain(
@@ -70,21 +73,51 @@ def test_kernels_match_plain(case, card):
 
 
 def test_schedules_agree_and_count_their_launches(card):
+    # scan3: decompose, combine, external product a group step; scan1: one
+    # launch a group step
     key, acc, d = _inputs(CASES[1], card, seed=3)
     fm.reset_launch_counts()
     scan3 = fm.multi_bit_blind_rotate_cuda(key, acc, d, mode="scan3")
+    assert [k.launches for k in fm.KERNELS] == [3, 3, 3, 0]
     scan1 = fm.multi_bit_blind_rotate_cuda(key, acc, d, mode="scan1")
     torch.cuda.synchronize()
     assert torch.equal(scan3, scan1)
-    assert [k.launches for k in fm.KERNELS] == [6, 3, 3, 3]
+    assert [k.launches for k in fm.KERNELS] == [3, 3, 3, 3]
+
+
+# K9 on the core: (gf, N, L, base_log, G) at every N the core takes, and the
+# sets' G = 4 width (O*M = 8 outputs)
+STEP_WIDTHS = [(2, 256, 2, 8, 2), (3, 512, 1, 18, 4), (4, 1024, 1, 21, 2),
+               (3, 2048, 1, 21, 2), (2, 2048, 1, 22, 2), (4, 2048, 1, 21, 2)]
+STEP_IDS = ["gf2N256L2", "gf3N512G4", "gf4N1024", "gf3N2048", "gf2N2048",
+            "gf4N2048"]
+
+
+@pytest.mark.parametrize("B", [1, 3, 64])
+@pytest.mark.parametrize("width", STEP_WIDTHS, ids=STEP_IDS)
+def test_step_on_the_core_matches_plain(width, B, card):
+    gf, N, L, bl, G = width
+    rng = np.random.default_rng([29, B])
+    key = fm.prepare_multi_bit_bsk_cuda(
+        _words(rng, (1, 1 << gf, L, G, G, N), card), bl, gf)
+    acc = _words(rng, (B, G, N), card)
+    d = torch.from_numpy(rng.integers(0, 2 * N, (B, 1 << gf))
+                         .astype(np.int32)).to(card)
+    fm.reset_launch_counts()
+    got = fm.multibit_step(acc, d, key.kspec[0], bl, L)
+    torch.cuda.synchronize()
+    assert [k.launches for k in fm.KERNELS] == [0, 0, 0, 1]
+    assert torch.equal(got, fm.multibit_step_plain(acc, d, key.kspec[0], bl,
+                                                   L))
 
 
 def test_empty_batch_launches_nothing(card):
     key, acc, d = _inputs(CASES[1], card)
     fm.reset_launch_counts()
-    out = fm.multi_bit_blind_rotate_cuda(key, acc[:0], d[:, :0])
+    for mode in fm.MODES:
+        out = fm.multi_bit_blind_rotate_cuda(key, acc[:0], d[:, :0], mode)
+        assert out.shape == (0, G, 256)
     torch.cuda.synchronize()
-    assert out.shape == (0, G, 256)
     assert [k.launches for k in fm.KERNELS] == [0, 0, 0, 0]
 
 
@@ -96,32 +129,45 @@ def test_wrappers_reject_bad_inputs(card):
         fm.multibit_combine(d[0], key.kspec[0][:, :3])
     with pytest.raises(ValueError):
         fm.decompose(acc[:, :, ::2], 15, 1)
-    dig = fm.decompose(acc, 15, 1)
     with pytest.raises(ValueError):
-        fm.multibit_step(dig, d[0][:, :4], key.kspec[0], key.kshoup[0])
+        fm.multibit_step(acc, d[0][:, :4], key.kspec[0], 15, 1)
+    with pytest.raises(ValueError):
+        fm.multibit_step(acc[:, :, :128], d[0], key.kspec[0], 15, 1)
 
 
 def test_kernels_reject_layouts_beyond_their_limits(card):
     """The C entry points, not the wrappers, hold the kernels' limits:
-    2^gf <= 16 subsets, O*M <= 8 outputs, the device's shared memory."""
+    2^gf <= 16 subsets, O*M <= 8 outputs, the device's shared memory; and
+    K9's on the core: L*G <= 9 digit polynomials and 256 <= N <= 2048 (N by
+    the core's tables, in Python)."""
     gen = torch.Generator(device=card).manual_seed(1)
 
     def words(*shape):
         return torch.randint(-2**31, 2**31 - 1, shape, generator=gen,
                              dtype=torch.int32, device=card)
 
-    def digits(L, G, N):
-        return torch.zeros((1, L, G, N), dtype=torch.int32, device=card)
+    def acc(G, N):
+        return torch.zeros((1, G, N), dtype=torch.int64, device=card)
 
     fm.reset_launch_counts()
     d32 = torch.zeros((1, 32), dtype=torch.int32, device=card)
     with pytest.raises(RuntimeError, match="InvalidValue"):  # 32 subsets
         fm.multibit_combine(d32, words(32, 5, 2, 2, 2, 256))
+    # K9: gf = 5, 32 subsets
+    with pytest.raises(RuntimeError, match="InvalidValue"):
+        fm.multibit_step(acc(2, 256), d32, words(32, 5, 2, 2, 2, 256), 15, 1)
     wide = words(2, 5, 5, 5, 2, 256)  # G = 5: O*M = 10 outputs
     with pytest.raises(RuntimeError, match="InvalidValue"):
-        fm.multibit_step(digits(1, 5, 256), words(1, 2), wide, wide)
-    deep = words(2, 5, 40, 2, 2, 2048)  # L = 20: 44 spectra > 227 KiB
+        fm.multibit_step(acc(5, 256), words(1, 2) & 1, wide, 15, 1)
+    # L*G = 10 digit polynomials, one past the core's 9
     with pytest.raises(RuntimeError, match="InvalidValue"):
-        fm.multibit_step(digits(20, 2, 2048), words(1, 2) & 1, deep, deep)
+        fm.multibit_step(acc(2, 256), words(1, 2) & 1,
+                         words(2, 5, 10, 2, 2, 256), 8, 5)
+    deep = words(2, 5, 40, 2, 2, 2048)  # L = 20: 40 digit polynomials
+    with pytest.raises(RuntimeError, match="InvalidValue"):
+        fm.multibit_step(acc(2, 2048), words(1, 2) & 1, deep, 3, 20)
+    with pytest.raises(ValueError):  # N = 4096, past the core's 2048
+        fm.multibit_step(acc(2, 4096), words(1, 2) & 1,
+                         words(2, 5, 2, 2, 2, 4096), 21, 1)
     torch.cuda.synchronize()
     assert [k.launches for k in fm.KERNELS] == [0, 0, 0, 0]

@@ -140,7 +140,7 @@ def test_one_step_schedules_agree():
     dig = fused_multibit.decompose(acc, bl, L)
     comb = fused_multibit.multibit_combine(d, key.kspec[0])
     scan3 = fused_multibit.multibit_external_product(dig, comb)
-    scan1 = fused_multibit.multibit_step(dig, d, key.kspec[0], key.kshoup[0])
+    scan1 = fused_multibit.multibit_step(acc, d, key.kspec[0], bl, L)
     assert torch.equal(scan3, scan1)
     whole = fused_multibit.multi_bit_blind_rotate_cuda(key, acc, d[None])
     assert torch.equal(whole, scan3)

@@ -1,5 +1,6 @@
 """The plain PyTorch model of the register-resident NTT core
-(tests/test_torch_ntt_core.py) run as K4 `pbs_step_single_cta` and K6's
+(tests/test_torch_ntt_core.py) run as K4 `pbs_step_single_cta` (and K3
+`pbs_step`, the same kernel on the card) and K6's
 `ntt_mac_prime` run on it (tfhe_tpu_torch/ops/csrc/ntt_core_kernels.cuh),
 checked word for word on the CPU.
 
@@ -11,9 +12,10 @@ inverse, the explicit CRT).  K6's model runs one prime's transforms and
 scales the outputs by N^-1 read from the header of that prime's pass table,
 canonical.  Checked: K4's model equals `pbs_step_plain` and K6's equals
 `ntt_mac_prime_plain` for every prime at the four tests/test_fused_pbs.py
-cases; and through a blind rotation whose every step (scan1w) or every
-per-prime stage (scan3) is the model, the reference's own Pallas
-`fused_blind_rotate_scan1w` and `fused_blind_rotate_scan`, interpreted on
+cases; and through a blind rotation whose every step (scan1w, and scan1,
+whose K3 runs K4's kernel on the card) or every per-prime stage (scan3) is
+the model, the reference's own Pallas `fused_blind_rotate_scan1w`,
+`fused_blind_rotate_scan1` and `fused_blind_rotate_scan`, interpreted on
 the CPU."""
 
 import numpy as np
@@ -123,8 +125,15 @@ def test_pass_table_header_holds_n_inverse(case):
     assert torch.equal(head[:, 5], (head[:, 4] << 32) // p)
 
 
+# the schedules whose every step is K4's kernel on the card: scan1w (K4)
+# and scan1 (K3, the reference's `fused_blind_rotate_scan1`, whose step
+# differs from K4's only in Mosaic's op granularity)
+STEP_WRAPPERS = {"scan1w": "pbs_step_single_cta", "scan1": "pbs_step"}
+
+
+@pytest.mark.parametrize("mode", list(STEP_WRAPPERS))
 @pytest.mark.parametrize("case", CASES, ids=IDS)
-def test_step_model_equals_plain_and_the_reference(case, monkeypatch):
+def test_step_model_equals_plain_and_the_reference(case, mode, monkeypatch):
     key, acc, ahat, (bsk_std, lut, lwe) = _step_inputs(case)
     bl, L, bits = case["bl"], case["L"], case["bits"]
     assert torch.equal(
@@ -134,12 +143,12 @@ def test_step_model_equals_plain_and_the_reference(case, monkeypatch):
         model_step(acc, ahat, key.kspec[0], key.kshoup[0], bl, L, bits),
         fused_pbs.pbs_step_plain(acc, ahat, key.kspec[0], bl, L, bits))
 
-    # a blind rotation in scan1w whose every K4 step is the model, against
-    # the reference's scan1w Pallas kernel in interpret mode
-    monkeypatch.setattr(fused_pbs, "pbs_step_single_cta", model_step)
+    # a blind rotation in the mode whose every step is the model, against
+    # the reference's Pallas kernel of that mode in interpret mode
+    monkeypatch.setattr(fused_pbs, STEP_WRAPPERS[mode], model_step)
     got = core.blind_rotate(key, to_tensor(lut, "cpu"), to_tensor(lwe, "cpu"),
-                            mode="scan1w")
-    monkeypatch.setenv("TFHE_TPU_FUSED_MODE", "scan1w")
+                            mode=mode)
+    monkeypatch.setenv("TFHE_TPU_FUSED_MODE", mode)
     want = np.asarray(ref_fused.blind_rotate_fused(
         ref_fused.prepare_bsk_fused(bsk_std, bl, bits=bits), lut, lwe))
     assert np.array_equal(to_numpy(got, bits), want)

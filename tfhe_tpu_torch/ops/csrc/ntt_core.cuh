@@ -1,7 +1,9 @@
 // A register-resident negacyclic NTT core for Hopper (sm_90a), and the
-// per-prime external product built on it.  K2, K4, K6's per-prime stage
-// and K7 (ntt_core_kernels.cuh) run on it; K3, K5, K8 and K9 keep the
-// shared-memory core of pbs_kernels.cuh.
+// per-prime external product built on it.  K2, K3 and K4 (one kernel on
+// the card), K6's per-prime stage and K7 (ntt_core_kernels.cuh) run
+// external_product_prime; K9 (multibit_core.cuh) runs its two halves,
+// forward_transforms and inverse_transforms, around a MAC of its own.  K5
+// and K8 keep the shared-memory core of pbs_kernels.cuh.
 //
 // What bounded the old core (`ntt_forward_smem` / `ntt_inverse_smem`,
 // pbs_kernels.cuh): a radix-2 loop that puts each of the log2 N stages
@@ -215,6 +217,87 @@ __device__ __forceinline__ void inverse_stages(uint32_t (&x)[kRadix],
   }
 }
 
+// The forward half of a prime's external product, by the CTA's N/8
+// threads: the transforms of the digit polynomials i < NP for which
+// slot(i) >= 0, each kept at buf polynomial slot(i) between passes, ending
+// with the last pass (shift 0) in d[i]: thread tid holds spectral words
+// tid * 8 ... tid * 8 + 7.  digit(i, k) gives the signed digit at word
+// elem(tid, a0, k) = tid + k N/8 of polynomial i.  kLastInBuf also stores
+// the last pass to buf (for another CTA to read).  On return offs holds the
+// thread's offsets of shift 0.
+template <int NP, bool kLastInBuf, typename Slot, typename Digit>
+__device__ __forceinline__ void forward_transforms(
+    uint32_t* buf, int N, const Plan& pl, const uint32_t* __restrict__ fwd,
+    const PrimeConsts& c, Slot slot, Digit digit, uint32_t (&d)[NP][kRadix],
+    int (&offs)[kRadix]) {
+  const int tid = threadIdx.x;
+  uint32_t w[kRadix], wsh[kRadix];
+  // forward pass 0: the digits, mod p, at the words of shift a0
+  int a = pl.fwd_shift(0);
+  pass_offsets(tid, a, offs);
+  load_record(fwd, w, wsh);
+  int off = kRecord;
+#pragma unroll
+  for (int i = 0; i < NP; ++i) {
+    if (slot(i) >= 0) {
+#pragma unroll
+      for (int k = 0; k < kRadix; ++k) d[i][k] = digit_mod(digit(i, k), c);
+      forward_stages(d[i], w, wsh, pl.s0, c.p, c.p2);
+      store_words(buf + slot(i) * N, a, offs, d[i]);
+    }
+  }
+  // forward passes 1 .. passes-1; the last (shift 0) stays in registers
+  for (int q = 1; q < pl.passes; ++q) {
+    a = pl.fwd_shift(q);
+    const bool last = q == pl.passes - 1;
+    pass_offsets(tid, a, offs);
+    __syncthreads();
+    load_record(fwd + off + (tid >> a) * kRecord, w, wsh);
+    off += (N >> (a + kLogRadix)) * kRecord;
+#pragma unroll
+    for (int i = 0; i < NP; ++i) {
+      if (slot(i) >= 0) {
+        load_words(buf + slot(i) * N, a, offs, d[i]);
+        forward_stages(d[i], w, wsh, kLogRadix, c.p, c.p2);
+        if (!last || kLastInBuf) store_words(buf + slot(i) * N, a, offs, d[i]);
+      }
+    }
+  }
+}
+
+// The inverse half after inverse pass 0: output polynomials om = first,
+// first + step, ... < count, each at buf polynomial om / step (written at
+// shift 0 by the caller), through inverse passes 1 .. passes-1; the last
+// (shift a0) calls emit(om, k, x) with the word at tid + k N/8, in [0, 2p).
+template <typename Emit>
+__device__ __forceinline__ void inverse_transforms(
+    uint32_t* buf, int count, int first, int step, int N, const Plan& pl,
+    const uint32_t* __restrict__ inv, const PrimeConsts& c, Emit emit) {
+  const int tid = threadIdx.x;
+  uint32_t w[kRadix], wsh[kRadix];
+  int offs[kRadix];
+  int off = (N >> kLogRadix) * kRecord;
+  for (int iq = 1; iq < pl.passes; ++iq) {
+    const int a = pl.fwd_shift(pl.passes - 1 - iq);
+    const bool last = iq == pl.passes - 1;
+    pass_offsets(tid, a, offs);
+    __syncthreads();
+    load_record(inv + off + (tid >> a) * kRecord, w, wsh);
+    off += (N >> (a + kLogRadix)) * kRecord;
+    for (int om = first; om < count; om += step) {
+      uint32_t o[kRadix];
+      load_words(buf + om / step * N, a, offs, o);
+      inverse_stages(o, w, wsh, last ? kLogRadix - pl.s0 : 0, c.p, c.p2);
+      if (last) {
+#pragma unroll
+        for (int k = 0; k < kRadix; ++k) emit(om, k, o[k]);
+      } else {
+        store_words(buf + om / step * N, a, offs, o);
+      }
+    }
+  }
+}
+
 // One prime's external product of one ciphertext by the CTA's N/8 threads:
 // the LJ digit polynomials' forward transforms, the MAC against the key
 // block ks / ksh [LJ, OM, N] of this prime, and the OM inverse transforms,
@@ -247,39 +330,10 @@ __device__ __forceinline__ void external_product_prime(
   uint32_t d[LJ_MAX][kRadix];
   uint32_t w[kRadix], wsh[kRadix];
   int offs[kRadix];
-
-  // forward pass 0: the digits, mod p, at the words of shift a0
-  int a = pl.fwd_shift(0);
-  pass_offsets(tid, a, offs);
-  load_record(fwd, w, wsh);
-  int off = kRecord;
-#pragma unroll
-  for (int lj = 0; lj < LJ_MAX; ++lj) {
-    if (lj < LJ && lj % kParts == part) {
-#pragma unroll
-      for (int k = 0; k < kRadix; ++k) d[lj][k] = digit_mod(digit(lj, k), c);
-      forward_stages(d[lj], w, wsh, pl.s0, c.p, c.p2);
-      store_words(buf + lj * N, a, offs, d[lj]);
-    }
-  }
-  // forward passes 1 .. passes-1; the last (shift 0) stays in registers
-  // (and, split, goes to buf for the other CTA)
-  for (int q = 1; q < pl.passes; ++q) {
-    a = pl.fwd_shift(q);
-    const bool last = q == pl.passes - 1;
-    pass_offsets(tid, a, offs);
-    __syncthreads();
-    load_record(fwd + off + (tid >> a) * kRecord, w, wsh);
-    off += (N >> (a + kLogRadix)) * kRecord;
-#pragma unroll
-    for (int lj = 0; lj < LJ_MAX; ++lj) {
-      if (lj < LJ && lj % kParts == part) {
-        load_words(buf + lj * N, a, offs, d[lj]);
-        forward_stages(d[lj], w, wsh, kLogRadix, c.p, c.p2);
-        if (!last || kParts > 1) store_words(buf + lj * N, a, offs, d[lj]);
-      }
-    }
-  }
+  forward_transforms<LJ_MAX, (kParts > 1)>(
+      buf, N, pl, fwd, c,
+      [&](int lj) { return lj < LJ && lj % kParts == part ? lj : -1; },
+      digit, d, offs);
   if constexpr (kParts > 1) {
     const cooperative_groups::cluster_group cluster =
         cooperative_groups::this_cluster();
@@ -294,7 +348,6 @@ __device__ __forceinline__ void external_product_prime(
 
   // the MAC and inverse pass 0 (shift 0, the same words): no barrier
   load_record(inv + tid * kRecord, w, wsh);
-  off = (N >> kLogRadix) * kRecord;
   for (int om = part; om < OM; om += kParts) {
     uint32_t o[kRadix];
 #pragma unroll
@@ -322,26 +375,7 @@ __device__ __forceinline__ void external_product_prime(
     inverse_stages(o, w, wsh, 0, c.p, c.p2);
     store_words(buf + om / kParts * N, 0, offs, o);
   }
-  // inverse passes 1 .. passes-1; the last (shift a0) emits
-  for (int iq = 1; iq < pl.passes; ++iq) {
-    a = pl.fwd_shift(pl.passes - 1 - iq);
-    const bool last = iq == pl.passes - 1;
-    pass_offsets(tid, a, offs);
-    __syncthreads();
-    load_record(inv + off + (tid >> a) * kRecord, w, wsh);
-    off += (N >> (a + kLogRadix)) * kRecord;
-    for (int om = part; om < OM; om += kParts) {
-      uint32_t o[kRadix];
-      load_words(buf + om / kParts * N, a, offs, o);
-      inverse_stages(o, w, wsh, last ? kLogRadix - pl.s0 : 0, c.p, c.p2);
-      if (last) {
-#pragma unroll
-        for (int k = 0; k < kRadix; ++k) emit(om, k, o[k]);
-      } else {
-        store_words(buf + om / kParts * N, a, offs, o);
-      }
-    }
-  }
+  inverse_transforms(buf, OM, part, kParts, N, pl, inv, c, emit);
 }
 
 }  // namespace tfhe_core

@@ -8,6 +8,10 @@
 //                                        -> step_kernel (:983)
 //                                        -> _primes_crt_math_wide (:826)
 //                                                                     (K4)
+//                                     <- fused_blind_rotate_scan1 (:1281)
+//                                        -> step_kernel (:1304)
+//                                        -> _step_math_onekernel (:809)
+//                                                                     (K3)
 //   ntt_mac_prime_kernel              <- fused_blind_rotate_scan (:1470)
 //                                        -> prime_kernel (:1503)
 //                                        -> _prime_block (:672)       (K6)
@@ -78,6 +82,15 @@
 // K7's rule).  On an H100: 0.030 ms (shortint, B = 64, the cluster), 0.095
 // (B = 256, one CTA per ciphertext: the clusters would take 4 waves, 0.114
 // ms), 0.025 and 0.058 at boolean width (clusters).
+//
+// K3, first design: step_kernels.cuh's blind_rotate_cluster_kernel with
+// one step, a cluster of 5 CTAs of 512 threads on the shared-memory core
+// (Garner's CRT over distributed shared memory); 0.0454 ms at boolean
+// width and 0.1370 at shortint width, B = 64, 23x and 30x its bound.  The
+// TPU's K3 and K4 compute the same exact step; they differ only in how
+// Mosaic splits it into ops (fused_pbs.py:826-835), a TPU scheduling
+// artefact.  So on Hopper K3 is K4's kernel, through K4's C entry point
+// (single_cta_kernels.cu), its launches counted as K3's.
 //
 // K6's per-prime stage, first design: ntt_mac_kernel<false> of
 // pbs_kernels.cuh, one CTA of 512 threads per ciphertext, 22 stage

@@ -37,12 +37,12 @@
 // (LJ + O*M) NTTs of N points per (ciphertext, prime), 32-bit Shoup
 // products throughout; it runs far above its integer-issue bound, its time
 // going to barrier and load latency (a shared round trip and two twiddle
-// loads a butterfly, a barrier a stage: PERF.md section 6); K2, K4 and K6
-// moved to the register-resident core of ntt_core.cuh.  It keeps every
-// transform in shared memory, so device memory sees only the digits, the
-// step's key spectra (shared by all ciphertexts, so mostly from L2) and the
-// residues.  crt_accumulate reads the residues and the accumulator once and
-// writes the accumulator once.
+// loads a butterfly, a barrier a stage: PERF.md section 6); K2, K3, K4,
+// K6 and K9 moved to the register-resident core of ntt_core.cuh.  It keeps
+// every transform in shared memory, so device memory sees only the digits,
+// the step's key spectra (shared by all ciphertexts, so mostly from L2) and
+// the residues.  crt_accumulate reads the residues and the accumulator once
+// and writes the accumulator once.
 #pragma once
 
 #include <stdint.h>

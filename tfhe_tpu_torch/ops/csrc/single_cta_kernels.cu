@@ -6,8 +6,8 @@
 //   tfhe_blind_rotate_single_cta    K7 (mega), all n steps in one launch:
 //                                   blind_rotate_core_kernel or
 //                                   blind_rotate_cluster_core_kernel
-//   tfhe_pbs_step_single_cta        K4 (scan1w), one step:
-//                                   pbs_step_cluster_kernel or
+//   tfhe_pbs_step_single_cta        K4 (scan1w) and K3 (scan1), one
+//                                   step: pbs_step_cluster_kernel or
 //                                   blind_rotate_core_kernel over one step
 //
 // and *_form, which say which kernel a batch gets.  As in pbs_kernels.cu

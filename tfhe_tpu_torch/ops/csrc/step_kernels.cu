@@ -1,6 +1,6 @@
 // Plain C entry point for the cluster blind-rotation kernel, loaded by
-// tfhe_tpu_torch/ops/fused_pbs.py with ctypes: `pbs_step` (K3, scan1) calls
-// it with one step, `blind_rotate_persistent` (K5, grid) with all of them.
+// tfhe_tpu_torch/ops/fused_pbs.py with ctypes: `blind_rotate_persistent`
+// (K5, grid) calls it with all n steps.
 // As in pbs_kernels.cu it launches on the caller's stream, does not
 // synchronise, allocates nothing, and returns cudaGetLastError() (0 on
 // success).  A layout beyond the kernel's limits (more than kMaxPrimes

@@ -1,15 +1,18 @@
-// Whole blind-rotation steps on one thread-block cluster per ciphertext, for
-// Hopper (sm_90a): the port's counterpart of two TPU schedules of
+// Whole blind rotations on one thread-block cluster per ciphertext, for
+// Hopper (sm_90a): the port's counterpart of one TPU schedule of
 // `tfhe_tpu/ops/fused_pbs.py`.
 //
-//   blind_rotate_cluster_kernel, one step per launch
-//       <- fused_blind_rotate_scan1 (:1281) -> step_kernel (:1304)   (K3)
 //   blind_rotate_cluster_kernel, all n steps in one launch
 //       <- fused_blind_rotate_grid (:1341) -> _make_grid_kernel (:1020) (K5)
 //
+// K3 (fused_blind_rotate_scan1 :1281 -> step_kernel :1304) ran this
+// kernel with one step a launch until it moved onto K4's kernel on the
+// register-resident core (ntt_core_kernels.cuh).  K5 is this kernel's last
+// user, and with K8's external product the last of ntt_mac_smem.
+//
 // A cluster of P CTAs owns one ciphertext, one CTA per prime.  Each CTA
 // holds its own copy of the accumulator [G, N] in shared memory.  A step
-// (cluster_pbs_step, the body both schedules share):
+// (cluster_pbs_step):
 //   1. every CTA rotates its copy by X^{a_i}, subtracts, decomposes, and
 //      reduces the digits mod its own prime (rotate_decompose's math);
 //   2. every CTA runs its prime's forward NTTs, the MAC against the step's
@@ -32,9 +35,9 @@
 // What bounds it on the card: latency in the shared-memory NTTs, as K2's
 // first port (PERF.md section 6), not integer issue; the
 // schedule removes K2's residue round trip, the digits' and accumulator's
-// trips through device memory and, in the persistent form, every launch
-// but one.  The clusters are independent (no grid-wide barrier), so a batch
-// larger than the card holds at once runs in waves.
+// trips through device memory and every launch but one.  The clusters are
+// independent (no grid-wide barrier), so a batch larger than the card holds
+// at once runs in waves.
 #pragma once
 
 #include <cooperative_groups.h>

@@ -18,20 +18,23 @@ explicit `mode` argument of `multi_bit_blind_rotate_cuda`:
                                  combined key, inverse NTT, CRT into a fresh
                                  accumulator (K8 mac_kernel :823);
   "scan1" (K9, `fused_multibit_rotate_scan1` :508 -> step_kernel :539)
-      decompose, then
-      multibit_step              the same external product with the key
-                                 combination inside the MAC; the combined
-                                 key never reaches device memory.
+      multibit_step              the whole group step in one launch: the
+                                 digits, the same external product with the
+                                 key combination inside the MAC, and the
+                                 CRT; the combined key and the digits never
+                                 reach device memory.
 
-The kernels are CUDA C++ for sm_90a (`csrc/multibit_kernels.cuh`, with the
-decomposition, per-ciphertext MAC and zero-based CRT as template variants of
-K1/K2 in `csrc/pbs_kernels.cuh`), built by nvcc at first use and called
-through ctypes.  Each wrapper takes its plain PyTorch version (`*_plain`)
-for CPU tensors, launches its kernel for CUDA tensors, and raises for
-anything else; each counts its launches in its `launches` attribute.
-The wrappers check dtypes and shapes; the C entry points reject a layout
-beyond the kernels' limits (subsets, outputs, shared memory), which
-`_check_launch` raises.
+The kernels are CUDA C++ for sm_90a, built by nvcc at first use and called
+through ctypes: K8 in `csrc/multibit_kernels.cuh`, with the decomposition,
+per-ciphertext MAC and zero-based CRT as template variants of K1/K2 in
+`csrc/pbs_kernels.cuh`; K9 on the register-resident NTT core
+(`csrc/multibit_core.cuh` on `csrc/ntt_core.cuh`), one cluster of a CTA
+per prime per ciphertext.  Each wrapper takes its plain PyTorch version
+(`*_plain`) for CPU tensors, launches its kernel for CUDA tensors, and
+raises for anything else; each counts its launches in its `launches`
+attribute.  The wrappers check dtypes and shapes; the C entry points
+reject a layout beyond the kernels' limits (subsets, outputs, the core's
+digit polynomials, shared memory), which `_check_launch` raises.
 
 The subset keys are transformed once by `prepare_multi_bit_bsk_cuda`; the
 monomial spectra come from the table of powers of psi in `ops/ntt.py`.  The
@@ -52,9 +55,9 @@ import torch
 from .._native import build_shared_library
 from . import ntt
 from .decomposition import signed_decompose
-from .fused_pbs import (BUILD_TIMEOUT_S, NVCC_FLAGS, PreparedBskCuda,
-                        _check, _check_launch, _nvcc, _stream, digit_spectra,
-                        prepare_bsk_cuda, spectra_to_u64, spectral_mac)
+from .fused_pbs import (_CORE_HEADERS, BUILD_TIMEOUT_S, NVCC_FLAGS, _check,
+                        _check_launch, _headers, _nvcc, _stream, bsk_spectra,
+                        digit_spectra, spectra_to_u64, spectral_mac)
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 MODES = ("scan3", "scan1")
@@ -78,15 +81,15 @@ def cuda_library() -> ctypes.CDLL:
     path = build_shared_library(
         "multibit_kernels", [os.path.join(_CSRC, "multibit_kernels.cu")],
         [_nvcc(), *NVCC_FLAGS], timeout=BUILD_TIMEOUT_S,
-        headers=(os.path.join(_CSRC, "multibit_kernels.cuh"),
-                 os.path.join(_CSRC, "pbs_kernels.cuh")))
+        headers=_headers("multibit_kernels.cuh", "multibit_core.cuh",
+                         "pbs_kernels.cuh", *_CORE_HEADERS))
     lib = ctypes.CDLL(path)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.tfhe_decompose.argtypes = [ptr, ptr] + [i32] * 6 + [ptr]
     lib.tfhe_multibit_combine.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
     lib.tfhe_multibit_external_product.argtypes = ([ptr] * 6 + [i32] * 7
                                                    + [ptr])
-    lib.tfhe_multibit_step.argtypes = [ptr] * 10 + [i32] * 8 + [ptr]
+    lib.tfhe_multibit_step.argtypes = [ptr] * 8 + [i32] * 7 + [ptr]
     for fn in (lib.tfhe_decompose, lib.tfhe_multibit_combine,
                lib.tfhe_multibit_external_product, lib.tfhe_multibit_step):
         fn.restype = i32
@@ -234,13 +237,18 @@ multibit_external_product.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def multibit_step_plain(digits: torch.Tensor, d: torch.Tensor,
-                        kspec: torch.Tensor) -> torch.Tensor:
-    """The kernel's order of the MAC, sum_j spec(X^{d_j}) *
-    (sum_lj D_lj * K_j): the same residues as combine + external product."""
+def multibit_step_plain(acc: torch.Tensor, d: torch.Tensor,
+                        kspec: torch.Tensor, base_log: int,
+                        levels: int) -> torch.Tensor:
+    """acc [B, G, N] int64, d [B, 2^gf] int32 in [0, 2N), kspec [2^gf, P,
+    LJ, G, M, N] (canonical residues) -> the new accumulator [B, G, N]
+    int64: the digits of acc, then the kernel's order of the MAC, sum_j
+    spec(X^{d_j}) * (sum_lj D_lj * K_j) with spec(X^{d_0}) = 1, then the
+    CRT into a fresh accumulator; the same words as combine + external
+    product."""
     per, P, LJ, O, _, N = kspec.shape
     p = ntt.tables_for(N, kspec.device).primes.view(1, P, 1, 1, 1)
-    dspec = digit_spectra(digits)  # [B, P, LJ, N]
+    dspec = digit_spectra(decompose_plain(acc, base_log, levels))
     mon = ntt.monomial_spectra(d, N)  # [B, per, P, N]
     spec = spectral_mac(dspec, kspec[0][None])
     for j in range(1, per):
@@ -249,33 +257,37 @@ def multibit_step_plain(digits: torch.Tensor, d: torch.Tensor,
     return spectra_to_u64(spec, BITS)
 
 
-def multibit_step(digits: torch.Tensor, d: torch.Tensor, kspec: torch.Tensor,
-                  kshoup: torch.Tensor) -> torch.Tensor:
-    """One group step with the key combined inside the MAC (replaces K9's
-    step_kernel, tfhe_tpu/ops/fused_multibit.py:539).  The step kernel and
-    crt_accumulate<false> count as one launch."""
-    if _device_of("multibit_step", digits) == "cpu":
-        return multibit_step_plain(digits, d, kspec)
-    dev = digits.device
+def multibit_step(acc: torch.Tensor, d: torch.Tensor, kspec: torch.Tensor,
+                  base_log: int, levels: int) -> torch.Tensor:
+    """One whole group step in one launch (replaces K9's step_kernel,
+    tfhe_tpu/ops/fused_multibit.py:539): `multibit_step_cluster_kernel`, a
+    cluster of one CTA per prime and ciphertext on the register-resident
+    NTT core, the digits made inside, the subset keys combined inside the
+    MAC (which reads no key companions), the explicit CRT in the same
+    launch.  Returns a new accumulator.  The core takes 256 <= N <= 2048
+    (`ntt.pass_tables_for` raises otherwise) and L*G <= 9; the kernel
+    2^gf <= 16 subsets and G <= 4: the launch is refused otherwise."""
+    if _device_of("multibit_step", acc) == "cpu":
+        return multibit_step_plain(acc, d, kspec, base_log, levels)
+    dev = acc.device
     per, P, LJ, O, N = _check_group_key(kspec, dev)
-    _check("kshoup", kshoup, torch.int32, tuple(kspec.shape), dev)
-    B, L, G, _ = digits.shape
-    _check("digits", digits, torch.int32, (B, L, G, N), dev)
+    B, G, _ = acc.shape
+    _check("acc", acc, torch.int64, (B, G, N), dev)
     _check("d", d, torch.int32, (B, per), dev)
-    if LJ != L * G or O != G:
-        raise ValueError(f"key layout LJ={LJ}, O={O} does not match digits "
-                         f"{tuple(digits.shape)}")
-    tab = ntt.tables_for(N, dev)
+    if LJ != levels * G or O != G or BITS - base_log * levels < 1:
+        raise ValueError(f"key layout LJ={LJ}, O={O} does not match acc "
+                         f"{tuple(acc.shape)} at {levels} levels of "
+                         f"{base_log} bits")
+    tables = ntt.pass_tables_for(N, dev)
     mono = ntt.monomial_tables_for(N, dev)
-    residues = torch.empty((B, O, M, P, N), dtype=torch.int32, device=dev)
-    out = torch.empty((B, O, N), dtype=torch.int64, device=dev)
-    if B == 0:
+    out = torch.empty_like(acc)
+    if B == 0:  # a grid of zero blocks is an invalid launch
         return out
     err = cuda_library().tfhe_multibit_step(
-        digits.data_ptr(), d.data_ptr(), kspec.data_ptr(), kshoup.data_ptr(),
-        mono.powers.data_ptr(), mono.exponents.data_ptr(),
-        tab.kernel.data_ptr(), tab.crt.data_ptr(), residues.data_ptr(),
-        out.data_ptr(), B, per, LJ, O, M, P, N, BITS, _stream(dev))
+        acc.data_ptr(), d.data_ptr(), kspec.data_ptr(),
+        mono.powers.data_ptr(), mono.exponents.data_ptr(), tables.data_ptr(),
+        ntt.tables_for(N, dev).xcrt.data_ptr(), out.data_ptr(), B, per, G, P,
+        N, base_log, levels, _stream(dev))
     _check_launch(err, "multibit_step")
     multibit_step.launches += 1
     return out
@@ -299,12 +311,13 @@ def reset_launch_counts() -> None:
 
 @dataclass
 class PreparedMultiBitBskCuda:
-    """Multi-bit BSK as NTT spectra in the kernels' layout: kspec / kshoup
-    [n/gf, 2^gf, P, L*G, G, M, N] int32 (bit patterns of uint32 residues
-    and their Shoup companions), one [2^gf, P, ...] block per group step."""
+    """Multi-bit BSK as NTT spectra in the kernels' layout: kspec
+    [n/gf, 2^gf, P, L*G, G, M, N] int32 (bit patterns of canonical uint32
+    residues), one [2^gf, P, ...] block per group step.  No kernel of
+    either schedule reads Shoup companions of these keys, so none are
+    kept."""
 
     kspec: torch.Tensor
-    kshoup: torch.Tensor
     base_log: int
     levels: int
     glwe_size: int
@@ -316,19 +329,17 @@ class PreparedMultiBitBskCuda:
 def prepare_multi_bit_bsk_cuda(raw_bsk: torch.Tensor, base_log: int,
                                grouping_factor: int) -> PreparedMultiBitBskCuda:
     """Standard-domain multi-bit BSK [n/gf, 2^gf, L, G (row), G (poly), N]
-    int64 on the 64-bit torus -> its subset spectra, computed on the key's device in chunks
-    (counterpart of prepare_multi_bit_bsk_ntt, tfhe_tpu/core/
-    multibit.py:163, and prepare_multi_bit_bsk_fused,
+    int64 on the 64-bit torus -> its subset spectra, computed on the key's
+    device in chunks (counterpart of prepare_multi_bit_bsk_ntt,
+    tfhe_tpu/core/multibit.py:163, and prepare_multi_bit_bsk_fused,
     tfhe_tpu/ops/fused_multibit.py:233)."""
     n_groups, per, L, J, O, N = raw_bsk.shape
     if per != 1 << grouping_factor:
         raise ValueError(f"{per} GGSWs per group, expected "
                          f"2^{grouping_factor}")
-    flat: PreparedBskCuda = prepare_bsk_cuda(
-        raw_bsk.reshape(n_groups * per, L, J, O, N), base_log, BITS)
-    shape = (n_groups, per) + tuple(flat.kspec.shape[1:])
+    kspec = bsk_spectra(raw_bsk.reshape(n_groups * per, L, J, O, N), BITS)
     return PreparedMultiBitBskCuda(
-        kspec=flat.kspec.view(shape), kshoup=flat.kshoup.view(shape),
+        kspec=kspec.view((n_groups, per) + tuple(kspec.shape[1:])),
         base_log=base_log, levels=L, glwe_size=J, polynomial_size=N,
         input_dim=n_groups * grouping_factor,
         grouping_factor=grouping_factor)
@@ -339,15 +350,16 @@ def multi_bit_blind_rotate_cuda(bsk: PreparedMultiBitBskCuda,
                                 mode: str = "scan3") -> torch.Tensor:
     """The group-step loop: acc [B, G, N] int64 (already rotated by X^-b),
     d_all [n/gf, B, 2^gf] int32 switched subset sums mod 2N -> rotated
-    accumulator.  `mode` picks the schedule: "scan3" (K8) or "scan1" (K9)."""
+    accumulator.  `mode` picks the schedule: "scan3" (K8, three launches a
+    group step) or "scan1" (K9, one)."""
     check_mode(mode)
     acc = acc.contiguous()
     for g in range(bsk.input_dim // bsk.grouping_factor):
+        if mode == "scan1":
+            acc = multibit_step(acc, d_all[g], bsk.kspec[g], bsk.base_log,
+                                bsk.levels)
+            continue
         digits = decompose(acc, bsk.base_log, bsk.levels)
-        if mode == "scan3":
-            combined = multibit_combine(d_all[g], bsk.kspec[g])
-            acc = multibit_external_product(digits, combined)
-        else:
-            acc = multibit_step(digits, d_all[g], bsk.kspec[g],
-                                bsk.kshoup[g])
+        combined = multibit_combine(d_all[g], bsk.kspec[g])
+        acc = multibit_external_product(digits, combined)
     return acc

@@ -15,8 +15,10 @@ here `blind_rotate_fused(..., mode=...)` takes it as an argument, one of
                             spectra, inverse NTT; then CRT back to the torus
                             and the add into the accumulator;
   "scan1" (K3, `fused_blind_rotate_scan1` :1281)
-      pbs_step              a whole step in one launch, on a cluster of one
-                            CTA per prime;
+      pbs_step              a whole step in one launch: on Hopper the same
+                            kernel as K4 (scan1w), whose step differs from
+                            K3's on the TPU only in Mosaic's op
+                            granularity;
   "scan1w" (K4, `fused_blind_rotate_scan1w` :965)
       pbs_step_single_cta   a whole step in one launch: K1's rotation and
                             decomposition inside K2's cluster of one CTA
@@ -36,13 +38,13 @@ here `blind_rotate_fused(..., mode=...)` takes it as an argument, one of
                             accumulator held on chip.
 
 The kernels are CUDA C++ for sm_90a (`csrc/pbs_kernels.cuh` for K1 and
-K6's `crt_accumulate`, `csrc/step_kernels.cuh` for K3 and K5,
-`csrc/ntt_core_kernels.cuh` for K2, K4, K6's `ntt_mac_prime` and K7),
-built by nvcc at first use into the package's `_build/` directory and
-called through ctypes.  K2, K4, `ntt_mac_prime` and K7 run on the
+K6's `crt_accumulate`, `csrc/step_kernels.cuh` for K5,
+`csrc/ntt_core_kernels.cuh` for K2, K3 and K4, K6's `ntt_mac_prime` and
+K7), built by nvcc at first use into the package's `_build/` directory and
+called through ctypes.  K2, K3, K4, `ntt_mac_prime` and K7 run on the
 register-resident NTT core of `csrc/ntt_core.cuh`, with the per-pass
-twiddle tables of `ntt.pass_tables_for`; K3 and K5 on the shared-memory
-core of `csrc/pbs_kernels.cuh`.  Each wrapper takes its plain PyTorch
+twiddle tables of `ntt.pass_tables_for`; K5 on the shared-memory core of
+`csrc/pbs_kernels.cuh`.  Each wrapper takes its plain PyTorch
 version (`*_plain`) for CPU tensors, launches its kernel for CUDA tensors,
 and raises for anything else: nothing falls back.  Each wrapper counts its
 launches in its `launches` attribute.
@@ -117,8 +119,9 @@ def cuda_library() -> ctypes.CDLL:
 
 @functools.cache
 def step_library() -> ctypes.CDLL:
-    """Build (once per source hash) and load the cluster step kernel's
-    shared library (K3, K5).  Raises `tfhe_tpu_torch._native.BuildError`."""
+    """Build (once per source hash) and load the persistent cluster
+    kernel's shared library (K5).  Raises
+    `tfhe_tpu_torch._native.BuildError`."""
     path = build_shared_library(
         "step_kernels", [os.path.join(_CSRC, "step_kernels.cu")],
         [_nvcc(), *NVCC_FLAGS], timeout=BUILD_TIMEOUT_S,
@@ -134,7 +137,7 @@ def step_library() -> ctypes.CDLL:
 @functools.cache
 def single_cta_library() -> ctypes.CDLL:
     """Build (once per source hash) and load the shared library of the
-    kernels that hold a step's accumulator on chip (K4, K7).  Raises
+    kernels that hold a step's accumulator on chip (K3 and K4, K7).  Raises
     `tfhe_tpu_torch._native.BuildError`."""
     path = build_shared_library(
         "single_cta_kernels", [os.path.join(_CSRC, "single_cta_kernels.cu")],
@@ -410,7 +413,7 @@ crt_accumulate.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# K3 and K5: whole steps on one thread-block cluster per ciphertext
+# K3 (a whole step) and K5 (a whole rotation)
 # ---------------------------------------------------------------------------
 
 
@@ -453,40 +456,23 @@ def _check_rotation(acc: torch.Tensor, ahat: torch.Tensor,
     return B, n, G, M, P, N
 
 
-def _launch_cluster(name: str, acc: torch.Tensor, ahat: torch.Tensor,
-                    kspec: torch.Tensor, kshoup: torch.Tensor, base_log: int,
-                    levels: int, bits: int) -> torch.Tensor:
-    """Checks, then `blind_rotate_cluster_kernel` over ahat.shape[0] steps;
-    ahat [n, B], kspec / kshoup [n, P, LJ, O, M, N]."""
-    B, n, G, M, P, N = _check_rotation(acc, ahat, kspec, kshoup, base_log,
-                                       levels, bits)
-    out = torch.empty_like(acc)
-    if B == 0:  # a grid of zero blocks is an invalid launch
-        return out
-    tab = ntt.tables_for(N, acc.device)
-    err = step_library().tfhe_blind_rotate_cluster(
-        acc.data_ptr(), ahat.data_ptr(), kspec.data_ptr(), kshoup.data_ptr(),
-        tab.kernel.data_ptr(), tab.crt.data_ptr(), out.data_ptr(), B, n, G, M,
-        P, N, base_log, levels, bits, _stream(acc.device))
-    _check_launch(err, name)
-    return out
-
-
 def pbs_step(acc: torch.Tensor, ahat: torch.Tensor, kspec: torch.Tensor,
              kshoup: torch.Tensor, base_log: int, levels: int,
              bits: int = 64) -> torch.Tensor:
-    """K3 (replaces step_kernel, tfhe_tpu/ops/fused_pbs.py:1304): one whole
-    step in one launch of `blind_rotate_cluster_kernel`.  acc [B, G, N],
-    ahat [B], kspec / kshoup [P, LJ, O, M, N]; returns a new accumulator."""
-    if acc.device.type == "cpu":
-        return pbs_step_plain(acc, ahat, kspec, base_log, levels, bits)
-    if acc.device.type != "cuda":
-        raise ValueError(f"pbs_step: unsupported device {acc.device}")
-    out = _launch_cluster("pbs_step", acc, ahat[None], kspec[None],
-                          kshoup[None], base_log, levels, bits)
-    if acc.shape[0]:
-        pbs_step.launches += 1
-    return out
+    """K3 (replaces step_kernel, tfhe_tpu/ops/fused_pbs.py:1304 ->
+    `_step_math_onekernel` :809): one whole step in one launch, through K4's
+    C entry point (`pbs_step_cluster_kernel`, or K7's
+    `blind_rotate_core_kernel` over one step where the batch fills the card
+    in fewer waves; `pbs_step_single_cta_form` says which).  On the TPU, K3
+    and K4 (`_primes_crt_math_wide` :826) compute the same exact step and
+    differ only in how Mosaic splits it into ops (:826-835), a TPU
+    scheduling artefact; on Hopper they are one kernel.  Counted here, not
+    in `pbs_step_single_cta.launches`.  acc [B, G, N], ahat [B], kspec /
+    kshoup [P, LJ, O, M, N]; returns a new accumulator.  256 <= N <= 2048
+    (`ntt.pass_tables_for` raises otherwise) and L*G <= 9, or the launch is
+    refused."""
+    return _step_on_core(pbs_step, acc, ahat, kspec, kshoup, base_log, levels,
+                         bits)
 
 
 pbs_step.launches = 0
@@ -506,28 +492,33 @@ def blind_rotate_persistent(acc: torch.Tensor, ahat: torch.Tensor,
     if acc.device.type != "cuda":
         raise ValueError(
             f"blind_rotate_persistent: unsupported device {acc.device}")
-    out = _launch_cluster("blind_rotate_persistent", acc, ahat, kspec, kshoup,
-                          base_log, levels, bits)
-    if acc.shape[0]:
-        blind_rotate_persistent.launches += 1
+    B, n, G, M, P, N = _check_rotation(acc, ahat, kspec, kshoup, base_log,
+                                       levels, bits)
+    out = torch.empty_like(acc)
+    if B == 0:  # a grid of zero blocks is an invalid launch
+        return out
+    tab = ntt.tables_for(N, acc.device)
+    err = step_library().tfhe_blind_rotate_cluster(
+        acc.data_ptr(), ahat.data_ptr(), kspec.data_ptr(), kshoup.data_ptr(),
+        tab.kernel.data_ptr(), tab.crt.data_ptr(), out.data_ptr(), B, n, G, M,
+        P, N, base_log, levels, bits, _stream(acc.device))
+    _check_launch(err, "blind_rotate_persistent")
+    blind_rotate_persistent.launches += 1
     return out
 
 
 blind_rotate_persistent.launches = 0
 
-# ---------------------------------------------------------------------------
-# K4: a whole step in one launch, on the register-resident core
-# ---------------------------------------------------------------------------
-
 
 def _launch_on_core(name: str, acc: torch.Tensor, ahat: torch.Tensor,
                     kspec: torch.Tensor, kshoup: torch.Tensor, base_log: int,
-                    levels: int, bits: int,
-                    whole_rotation: bool) -> torch.Tensor:
+                    levels: int, bits: int, whole_rotation: bool,
+                    caller: str | None = None) -> torch.Tensor:
     """Checks, then one launch through the C entry point tfhe_<name> of
     single_cta_kernels.cu over ahat.shape[0] steps (one step unless
     whole_rotation); ahat [n, B], kspec / kshoup [n, P, LJ, O, M, N].
-    256 <= N <= 2048 (`ntt.pass_tables_for` raises otherwise)."""
+    256 <= N <= 2048 (`ntt.pass_tables_for` raises otherwise).  A refused
+    launch is reported under `caller` (default: name)."""
     B, n, G, M, P, N = _check_rotation(acc, ahat, kspec, kshoup, base_log,
                                        levels, bits)
     out = torch.empty_like(acc)
@@ -540,8 +531,33 @@ def _launch_on_core(name: str, acc: torch.Tensor, ahat: torch.Tensor,
         tables.data_ptr(), ntt.tables_for(N, acc.device).xcrt.data_ptr(),
         out.data_ptr(), B, *steps, G, M, P, N, base_log, levels, bits,
         _stream(acc.device))
-    _check_launch(err, name)
+    _check_launch(err, caller or name)
     return out
+
+
+def _step_on_core(wrapper, acc: torch.Tensor, ahat: torch.Tensor,
+                  kspec: torch.Tensor, kshoup: torch.Tensor, base_log: int,
+                  levels: int, bits: int) -> torch.Tensor:
+    """The body of K3 and K4, one kernel on Hopper: one whole step through
+    the C entry point tfhe_pbs_step_single_cta, counted in
+    `wrapper.launches` and reported under the wrapper's name; the plain
+    version on a CPU tensor."""
+    name = wrapper.__name__
+    if acc.device.type == "cpu":
+        return pbs_step_plain(acc, ahat, kspec, base_log, levels, bits)
+    if acc.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {acc.device}")
+    out = _launch_on_core("pbs_step_single_cta", acc, ahat[None],
+                          kspec[None], kshoup[None], base_log, levels, bits,
+                          whole_rotation=False, caller=name)
+    if acc.shape[0]:
+        wrapper.launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K4: a whole step in one launch, on the register-resident core
+# ---------------------------------------------------------------------------
 
 
 def pbs_step_single_cta(acc: torch.Tensor, ahat: torch.Tensor,
@@ -560,17 +576,8 @@ def pbs_step_single_cta(acc: torch.Tensor, ahat: torch.Tensor,
     accumulator.  256 <= N <= 2048 (`ntt.pass_tables_for` raises otherwise)
     and L*G <= 9, or the launch is refused.  Its plain version is
     `pbs_step_plain`."""
-    if acc.device.type == "cpu":
-        return pbs_step_plain(acc, ahat, kspec, base_log, levels, bits)
-    if acc.device.type != "cuda":
-        raise ValueError(f"pbs_step_single_cta: unsupported device "
-                         f"{acc.device}")
-    out = _launch_on_core("pbs_step_single_cta", acc, ahat[None],
-                          kspec[None], kshoup[None], base_log, levels, bits,
-                          whole_rotation=False)
-    if acc.shape[0]:
-        pbs_step_single_cta.launches += 1
-    return out
+    return _step_on_core(pbs_step_single_cta, acc, ahat, kspec, kshoup,
+                         base_log, levels, bits)
 
 
 pbs_step_single_cta.launches = 0
@@ -678,23 +685,20 @@ def _u32_bits(v: torch.Tensor) -> torch.Tensor:
     return torch.where(v >= 1 << 31, v - (1 << 32), v).to(torch.int32)
 
 
-# steps transformed at once by prepare_bsk_cuda: bounds its int64 temporaries
-# (about 40 MB per 64 steps at N = 2048)
+# steps transformed at once by bsk_spectra and prepare_bsk_cuda: bounds their
+# int64 temporaries (about 40 MB per 64 steps at N = 2048)
 _PREPARE_CHUNK = 64
 
 
-def prepare_bsk_cuda(raw_bsk: torch.Tensor, base_log: int,
-                     bits: int = 64) -> PreparedBskCuda:
-    """Standard-domain BSK [n, L, G (row), G (poly), N] int64 -> spectra of
-    its 32-bit planes, computed on the key's device (counterpart of
-    prepare_bsk_fused, tfhe_tpu/ops/fused_pbs.py:1717)."""
+def bsk_spectra(raw_bsk: torch.Tensor, bits: int = 64) -> torch.Tensor:
+    """Standard-domain BSK [n, L, G (row), G (poly), N] int64 -> the
+    spectra of its 32-bit planes, [n, P, L*G, G, M, N] int32 canonical
+    residues, computed on the key's device in chunks of steps."""
     n, L, J, O, N = raw_bsk.shape
     P = len(ntt.PRIMES)
-    p = ntt.tables_for(N, raw_bsk.device).primes.view(1, P, 1, 1, 1, 1)
     M = 2 if bits == 64 else 1
     kspec = torch.empty((n, P, L * J, O, M, N), dtype=torch.int32,
                         device=raw_bsk.device)
-    kshoup = torch.empty_like(kspec)
     for s in range(0, n, _PREPARE_CHUNK):
         x = raw_bsk[s:s + _PREPARE_CHUNK]
         if bits == 64:
@@ -704,6 +708,22 @@ def prepare_bsk_cuda(raw_bsk: torch.Tensor, base_log: int,
         spec = ntt.forward_ntt(planes)  # [c, L, J, O, M, P, N]
         spec = spec.permute(0, 5, 1, 2, 3, 4, 6).reshape(-1, P, L * J, O, M, N)
         kspec[s:s + _PREPARE_CHUNK] = spec.to(torch.int32)
+    return kspec
+
+
+def prepare_bsk_cuda(raw_bsk: torch.Tensor, base_log: int,
+                     bits: int = 64) -> PreparedBskCuda:
+    """Standard-domain BSK [n, L, G (row), G (poly), N] int64 -> spectra of
+    its 32-bit planes and their Shoup companions, computed on the key's
+    device (counterpart of prepare_bsk_fused,
+    tfhe_tpu/ops/fused_pbs.py:1717)."""
+    n, L, J, O, N = raw_bsk.shape
+    P = len(ntt.PRIMES)
+    p = ntt.tables_for(N, raw_bsk.device).primes.view(1, P, 1, 1, 1, 1)
+    kspec = bsk_spectra(raw_bsk, bits)
+    kshoup = torch.empty_like(kspec)
+    for s in range(0, n, _PREPARE_CHUNK):
+        spec = kspec[s:s + _PREPARE_CHUNK].to(torch.int64)  # below 2^17
         kshoup[s:s + _PREPARE_CHUNK] = _u32_bits((spec << 32) // p)
     return PreparedBskCuda(kspec=kspec, kshoup=kshoup, base_log=base_log,
                            levels=L, glwe_size=J, polynomial_size=N,
