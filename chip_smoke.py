@@ -4,18 +4,19 @@
 
 Phases, each printing one flushed line with its wall time:
   1. card: the card's name and power limit (nvidia-smi) and torch's name;
-  2. build: nvcc builds the classic, the cluster-step, the single-CTA, the
+  2. build: nvcc builds the classic, the single-CTA (K3, K4, K5, K7), the
      multi-bit and the Shoup MAC kernels' libraries and g++ the native AES
-     generator, from the sources in this checkout, all six at once;
+     generator, from the sources in this checkout, all five at once;
   3. kernels_modes: every classic-schedule wrapper (K1, K2, pbs_step,
      blind_rotate_persistent, ntt_mac_prime, crt_accumulate, and
      pbs_step_single_cta, blind_rotate_single_cta) against its plain
      PyTorch version at the widths of PARAM_MESSAGE_2_CARRY_2_KS_PBS (N=2048,
      G=2, L=1, base_log 23, u64) and of boolean DEFAULT_PARAMETERS (N=512,
      G=3, L=3, base_log 6, u32), 5 primes, B=64, one step each, the
-     persistent and single-CTA rotations at their main path's depth (742 and
-     722 steps), the single-CTA one at B=256 too (each batch naming the K7
-     kernel that ran it, one CTA or a cluster per ciphertext), K3, K4 and
+     persistent (K5) and single-CTA (K7) rotations at their main path's
+     depth (742 and 722 steps) at B=64 and B=256 (each batch naming the K7
+     kernel that ran it, one CTA or a cluster per ciphertext, and the
+     clusters K5's kernel holds on the card at once and its waves), K3, K4 and
      ntt_mac_prime at B=256 too (K4 naming the kernel that K3 and K4 run
      for each batch), and a
      4-step rotation in every mode, bit-exact (tolerance 0), with device,
@@ -69,35 +70,38 @@ Phases, each printing one flushed line with its wall time:
      every mode, bit-identical to the CPU's plain versions;
  12. timing_boolean: gates/s and batch ms per mode at B=64 and B=256, split
      into blind rotation, sample extract and keyswitch;
- 13. kernels_ntt (run after phase 3): K10 `shoup_mac` against its plain
-     version at the widths of the CRT-NTT key layout's three paths
-     (shortint LJ=2, GM=4, N=2048; boolean 9, 3, 512; u128 2, 8, 2048),
-     every prime, B=64, bit-exact, with device, eager and plain times and
-     bounds;
- 14. main_path_ntt: mode="ntt" (the CRT-NTT layout, K10 once per prime and
-     step) at full width: PARAM_MESSAGE_2_CARRY_2_KS_PBS keys on the card,
-     two LUTs on 64 messages, and boolean DEFAULT_PARAMETERS, every gate and
-     mux on 64 seeded bits; decrypted right, word for word equal to scan2
-     keys rebuilt from the same raw keys, K10 launched exactly 5 n times per
-     PBS batch and nothing else launched;
+ 13. kernels_ntt (run after phase 3): K10 against its plain versions at
+     the widths of the CRT-NTT key layout's three paths (shortint LJ=2,
+     GM=4, N=2048; boolean 9, 3, 512; u128 2, 8, 2048), B=64, bit-exact,
+     through both wrappers: `shoup_mac` for every prime (one launch each)
+     and `shoup_mac_primes` (every prime of a step in one launch, the
+     main paths' call), with device, eager and plain times and bounds of a
+     step;
+ 14. main_path_ntt: mode="ntt" (the CRT-NTT layout, one K10 launch a step)
+     at full width: PARAM_MESSAGE_2_CARRY_2_KS_PBS keys on the card, two
+     LUTs on 64 messages, and boolean DEFAULT_PARAMETERS, every gate and mux
+     on 64 seeded bits; decrypted right, word for word equal to scan2 keys
+     rebuilt from the same raw keys, K10 launched exactly n times per PBS
+     batch and nothing else launched;
  15. main_path_u128: the u128 PBS at the PBS widths and noise of
      PARAM_MESSAGE_2_CARRY_2_KS_PBS (n=742, N=2048, k=1, base_log 23, one
      level): keygen on the card, the identity and (3x+1) mod 4 LUTs on 64
-     encryptions, all decrypted right, 5 n K10 launches per rotation;
+     encryptions, all decrypted right, n K10 launches per rotation;
  16. card_vs_cpu_ntt: mode="ntt" shortint and boolean at the TEST sets and
      the u128 PBS at tests/test_u128.py's toy size, card == CPU word for
      word (keys, ciphertexts, outputs);
  17. timing_ntt: PBS/s (gates/s) and batch ms at B=64 and B=256 for
      shortint mode="ntt", the u128 PBS and boolean mode="ntt", and a
-     CUDA-event split of one step into decomposition, forward NTT, K10 (five
-     launches), inverse NTT and CRT.
+     CUDA-event split of one step into decomposition, forward NTT, K10 (one
+     launch), inverse NTT and CRT.
 Kernel times are device times: a CUDA graph of many launches replayed
 between CUDA events (a whole rotation, persistent or single-CTA: CUDA events
 around a few eager launches); the eager per-launch times beside them include
 the host's launch cost.
 Then a `kernels` JSON line (each kernel's `redesigned` names the source
-it was rebuilt on after its first port: K2, K3, K4, ntt_mac_prime, K7 and
-K9, on the register-resident NTT core; null for the others), the nvidia-smi
+it was rebuilt on after its first port: K2, K3, K4, K5, ntt_mac_prime, K7
+and K9 on the register-resident NTT core, K10 in its own file; null for
+the others), the nvidia-smi
 line, and as the last line {"ok": true, "device": {...}}.  Any failed phase
 raises, so the script exits non-zero and prints no result; it needs a card
 and refuses to run without one.  A watchdog ends a hung run with a
@@ -123,12 +127,15 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
 
 # kernels rebuilt for Hopper after their first port, and the source they
-# were rebuilt on: K2, K3 (on K4's kernel), K4, K6's ntt_mac_prime, K7 and
-# K9 on the register-resident NTT core
+# were rebuilt on: K2, K3 (on K4's kernel), K4, K5 (K4's step looped), K6's
+# ntt_mac_prime, K7 and K9 on the register-resident NTT core; K10 (one
+# launch a step for every prime) in its own file
 REDESIGNED = dict.fromkeys(("external_product_crt", "pbs_step",
-                            "pbs_step_single_cta", "ntt_mac_prime",
-                            "blind_rotate_single_cta", "multibit_step"),
+                            "pbs_step_single_cta", "blind_rotate_persistent",
+                            "ntt_mac_prime", "blind_rotate_single_cta",
+                            "multibit_step"),
                            "tfhe_tpu_torch/ops/csrc/ntt_core.cuh")
+REDESIGNED["shoup_mac"] = "tfhe_tpu_torch/ops/csrc/shoup_mac_kernels.cuh"
 
 
 def say(phase, t0, **fields):
@@ -609,11 +616,12 @@ def launched(kernels):
 def modes_kernels_phase(dev):
     """Every classic-schedule wrapper against its plain version at the
     widths of PARAM_MESSAGE_2_CARRY_2_KS_PBS and boolean DEFAULT_PARAMETERS
-    (B = 64), bit-exact: one step each, the persistent and the single-CTA
-    rotations at their main path's depth (n = 742, 722 steps), the
-    single-CTA one (K7) at B = 256 too, naming the kernel that ran each
-    batch, and besides a 4-step rotation in every mode; with device, eager and plain times and
-    bounds per launch.  Returns, per width, errors, times and bounds."""
+    (B = 64), bit-exact: one step each, the persistent (K5) and the
+    single-CTA (K7) rotations at their main path's depth (n = 742, 722
+    steps) and at B = 256 too, naming the K7 kernel that ran each batch and
+    K5's clusters on the card and waves, and besides a 4-step rotation in
+    every mode; with device, eager and plain times and bounds per launch.
+    Returns, per width, errors, times and bounds."""
     import numpy as np
     import torch
 
@@ -700,9 +708,11 @@ def modes_kernels_phase(dev):
                                                 bits)
         err_rot = {m: max_abs_err(fp.blind_rotate_fused(key, acc, ahat, m),
                                   want) for m in fp.MODES}
-        # K7 at the main path's depth at both batch sizes of the main paths:
-        # each batch gets the kernel blind_rotate_single_cta_form names
-        # (one CTA or a cluster of P per ciphertext)
+        # K5 and K7 at the main path's depth at both batch sizes of the
+        # main paths: each K7 batch gets the kernel
+        # blind_rotate_single_cta_form names (one CTA or a cluster of P per
+        # ciphertext); K5 runs a cluster per ciphertext, in as many waves as
+        # blind_rotate_persistent_waves says
         rng_l = np.random.default_rng([SEED, n, B_LARGE])
         acc_l = torch.from_numpy(rng_l.integers(
             0, 2**bits - 1, (B_LARGE, G, N), dtype=np.uint64, endpoint=True)
@@ -712,14 +722,24 @@ def modes_kernels_phase(dev):
                                   .astype(np.int32)).to(dev)
         k7_form = {B: fp.blind_rotate_single_cta_form(B, N, G, L, bits)
                    for B in (B_MAIN, B_LARGE)}
+        plain_l = fp.blind_rotate_persistent_plain(acc_l, ahat_l, key_n.kspec,
+                                                   bl, L, bits)
         k7_err = {B_MAIN: err["blind_rotate_single_cta"],
                   B_LARGE: max_abs_err(
                       fp.blind_rotate_single_cta(acc_l, ahat_l, key_n.kspec,
                                                  key_n.kshoup, bl, L, bits),
-                      fp.blind_rotate_persistent_plain(
-                          acc_l, ahat_l, key_n.kspec, bl, L, bits))}
+                      plain_l)}
         k7_checked = {f"B{B}": dict(kernel=k7_form[B], max_abs_err=k7_err[B])
                       for B in (B_MAIN, B_LARGE)}
+        k5_err = {B_MAIN: err["blind_rotate_persistent"],
+                  B_LARGE: max_abs_err(
+                      fp.blind_rotate_persistent(acc_l, ahat_l, key_n.kspec,
+                                                 key_n.kshoup, bl, L, bits),
+                      plain_l)}
+        k5_checked = {f"B{B}": dict(
+            fp.blind_rotate_persistent_waves(B, N, G, L, bits),
+            kernel="blind_rotate_stream_cluster_kernel",
+            max_abs_err=k5_err[B]) for B in (B_MAIN, B_LARGE)}
         # K4 and K6's ntt_mac_prime at B = 256 too, on the same batch; K4
         # names its kernel for each batch (a cluster or one CTA per
         # ciphertext)
@@ -739,11 +759,13 @@ def modes_kernels_phase(dev):
         k4_form = {f"B{B}": fp.pbs_step_single_cta_form(B, N, G, L, bits)
                    for B in (B_MAIN, B_LARGE)}
         if (any(err.values()) or any(err_rot.values())
-                or any(k7_err.values()) or any(err_l.values())):
+                or any(k7_err.values()) or any(k5_err.values())
+                or any(err_l.values())):
             raise AssertionError(
                 f"{p.name}: classic kernels disagree with their plain "
                 f"versions: {err}, {steps}-step rotation per mode {err_rot}, "
-                f"K7 at depth {n} {k7_checked}, B = {B_LARGE} {err_l}")
+                f"K7 at depth {n} {k7_checked}, K5 {k5_checked}, "
+                f"B = {B_LARGE} {err_l}")
         # a persistent or single-CTA launch runs a whole rotation: CUDA
         # events around eager launches, not a graph of 100; their plain
         # version, n steps of plain ops, as one graph replayed once
@@ -764,15 +786,19 @@ def modes_kernels_phase(dev):
                        persistent_steps=n, rotation_steps=steps),
             max_abs_err=err, rotation_max_abs_err=err_rot,
             blind_rotate_single_cta_at_depth=k7_checked,
+            blind_rotate_persistent_at_depth=k5_checked,
             max_abs_err_b256=err_l, pbs_step_single_cta_kernel=k4_form,
             device_ms_per_launch=ms, eager_ms_per_launch=eager,
             plain_device_ms=plain_ms, rotation_ms_per_mode=rot_ms,
             bound_ms={k: v[0] for k, v in bounds.items()},
             bound_by={k: v[1] for k, v in bounds.items()})
+        err_l["blind_rotate_persistent"] = k5_err[B_LARGE]
+        err_l["blind_rotate_single_cta"] = k7_err[B_LARGE]
         out[p.name] = ({k: max(v, err_l.get(k, 0)) for k, v in err.items()},
                        ms, plain_ms, bounds)
         del key, key_n, acc, ahat, ahat_n, dig, res_p, res_k, res_t, calls
         del want, plain_n, acc_l, ahat_l, dig_l, res_l, res_lp, step_l
+        del plain_l
         torch.cuda.empty_cache()
     return out
 
@@ -1160,22 +1186,27 @@ U128_LUTS = (("identity", lambda x: x),
              ("3x_plus_1", lambda x: (3 * x + 1) % 4))
 
 
-def shoup_mac_bound_ms(B, LJ, GM, N):
-    """Least time for one K10 launch: its bytes (digit spectra, key spectra
-    and companions read once, the sums written once) over the bandwidth,
-    against its operations (per term a Shoup product 6, four corrections 2
-    each and the add; per output the centring 5) over the peak."""
-    nbytes = (B * LJ * N + 2 * LJ * GM * N + B * GM * N) * 4
-    ops = B * GM * N * (LJ * 15 + 5)
+def shoup_mac_bound_ms(B, LJ, GM, N, P=1):
+    """Least time for K10's work over P primes (one step of the main paths
+    with P = 5, whatever launches it takes): its bytes (digit spectra, key
+    spectra and companions read once, the sums written once) over the
+    bandwidth, against its operations (per term a Shoup product 6, four
+    corrections 2 each and the add; per output the centring 5) over the
+    peak."""
+    nbytes = P * (B * LJ * N + 2 * LJ * GM * N + B * GM * N) * 4
+    ops = P * B * GM * N * (LJ * 15 + 5)
     tb = nbytes / PEAK_BYTES_PER_S * 1e3
     to = ops / PEAK_OPS_PER_S * 1e3
     return max(tb, to), "bytes" if tb >= to else "operations"
 
 
 def ntt_kernels_phase(dev):
-    """K10 against its plain version at the three widths, every prime,
-    B = 64, bit-exact; device (a CUDA graph of 100 launches), eager and
-    plain times per launch, prime 0's inputs, and bounds."""
+    """K10 against its plain versions at the three widths, B = 64,
+    bit-exact: `shoup_mac` for every prime, and `shoup_mac_primes` over all
+    five (the main paths' one launch a step); device (a CUDA graph of 100
+    launches), eager and plain times of a step (all primes: one
+    `shoup_mac_primes` launch, and five of `shoup_mac` beside it), and its
+    bounds."""
     import numpy as np
     import torch
 
@@ -1184,35 +1215,46 @@ def ntt_kernels_phase(dev):
 
     t0 = time.time()
     rng = np.random.default_rng([SEED, 10])
-    err, ms, eager, plain_ms, bounds = {}, {}, {}, {}, {}
+    P = len(ntt.PRIMES)
+    err, ms, eager, plain_ms, per_prime_ms, bounds = {}, {}, {}, {}, {}, {}
     for name, LJ, GM, N in NTT_WIDTHS:
         worst = 0
-        for i, p in enumerate(ntt.PRIMES):
+        a, ks, ksh = [], [], []
+        for p in ntt.PRIMES:
             h = p // 2
-            a = torch.from_numpy(rng.integers(-h, h + 1, (B_MAIN, LJ, N))
-                                 .astype(np.int32)).to(dev)
-            ks = torch.from_numpy(rng.integers(-h, h + 1, (LJ, GM, N))
-                                  .astype(np.int32)).to(dev)
-            ksh = ntt.shoup16(ks, p)
-            worst = max(worst, max_abs_err(sm.shoup_mac(a, ks, ksh, p),
-                                           sm.shoup_mac_plain(a, ks, ksh, p)))
-            if i == 0:
-                def kern(a=a, ks=ks, ksh=ksh, p=p):
-                    return sm.shoup_mac(a, ks, ksh, p)
+            a.append(torch.from_numpy(rng.integers(-h, h + 1, (B_MAIN, LJ, N))
+                                      .astype(np.int32)).to(dev))
+            ks.append(torch.from_numpy(rng.integers(-h, h + 1, (LJ, GM, N))
+                                       .astype(np.int32)).to(dev))
+            ksh.append(ntt.shoup16(ks[-1], p))
+            worst = max(worst, max_abs_err(
+                sm.shoup_mac(a[-1], ks[-1], ksh[-1], p),
+                sm.shoup_mac_plain(a[-1], ks[-1], ksh[-1], p)))
+        a, ks, ksh = (torch.stack(x) for x in (a, ks, ksh))
 
-                def plain(a=a, ks=ks, ksh=ksh, p=p):
-                    return sm.shoup_mac_plain(a, ks, ksh, p)
+        def kern(a=a, ks=ks, ksh=ksh):
+            return sm.shoup_mac_primes(a, ks, ksh, ntt.PRIMES)
 
-                ms[name] = graph_ms(kern, 100)
-                eager[name] = cuda_ms(kern, 100)
-                plain_ms[name] = graph_ms(plain, 3)
-        err[name] = worst
-        bounds[name] = shoup_mac_bound_ms(B_MAIN, LJ, GM, N)
+        def plain(a=a, ks=ks, ksh=ksh):
+            return sm.shoup_mac_primes_plain(a, ks, ksh, ntt.PRIMES)
+
+        def per_prime(a=a, ks=ks, ksh=ksh):
+            for i, p in enumerate(ntt.PRIMES):
+                sm.shoup_mac(a[i], ks[i], ksh[i], p)
+
+        err[name] = max(worst, max_abs_err(kern(), plain()))
+        ms[name] = graph_ms(kern, 100)
+        eager[name] = cuda_ms(kern, 100)
+        plain_ms[name] = graph_ms(plain, 3)
+        per_prime_ms[name] = graph_ms(per_prime, 100)
+        bounds[name] = shoup_mac_bound_ms(B_MAIN, LJ, GM, N, P)
     say("kernels_ntt", t0, batch=B_MAIN,
-        shapes={n: dict(LJ=lj, GM=gm, N=nn) for n, lj, gm, nn in NTT_WIDTHS},
-        max_abs_err=err, device_ms_per_launch=ms, eager_ms_per_launch=eager,
-        plain_device_ms=plain_ms,
-        bound_ms={k: v[0] for k, v in bounds.items()},
+        shapes={n: dict(LJ=lj, GM=gm, N=nn, P=P)
+                for n, lj, gm, nn in NTT_WIDTHS},
+        max_abs_err=err, device_ms_per_step=ms, eager_ms_per_step=eager,
+        plain_device_ms_per_step=plain_ms,
+        device_ms_per_step_one_prime_a_launch=per_prime_ms,
+        bound_ms_per_step={k: v[0] for k, v in bounds.items()},
         bound_by={k: v[1] for k, v in bounds.items()})
     if any(err.values()):
         raise AssertionError(f"shoup_mac disagrees with its plain version: "
@@ -1239,8 +1281,9 @@ def ntt_main_path(dev):
     """mode="ntt" at full width: PARAM_MESSAGE_2_CARRY_2_KS_PBS keys on the
     card, two LUTs on 64 messages, decrypted right and equal word for word
     to a scan2 key rebuilt from the same raw keys; boolean DEFAULT_PARAMETERS
-    gates and mux the same way.  K10 launches are exact: 5 n per PBS batch,
-    nothing else launches.  Returns K10's launches."""
+    gates and mux the same way.  K10 launches are exact: n per PBS batch
+    (one `shoup_mac_primes` launch a step), nothing else launches.  Returns
+    K10's launches."""
     import numpy as np
     import torch
 
@@ -1302,8 +1345,9 @@ def ntt_main_path(dev):
             getattr(bscan2, f"{g}_batch")(a, b), gates[g]))
     same["boolean_mux"] = bool(torch.equal(bscan2.mux_batch(c, a, b),
                                            gates["mux"]))
-    expected = {"shortint": {"shoup_mac": 5 * p.lwe_dimension * len(funcs)},
-                "boolean": {"shoup_mac": 5 * bp.lwe_dimension
+    expected = {"shortint": {"shoup_mac_primes": p.lwe_dimension
+                             * len(funcs)},
+                "boolean": {"shoup_mac_primes": bp.lwe_dimension
                             * (len(BOOLEAN_GATES) + 1)}}
     say("main_path_ntt", t0, params=[p.name, bp.name], batch=B_MAIN,
         keygen_s=dict(shortint=t_keygen, boolean=t_keygen_bool),
@@ -1318,7 +1362,7 @@ def ntt_main_path(dev):
     if launches != expected:
         raise AssertionError(f"mode='ntt' launched {launches}, expected "
                              f"{expected}")
-    return sum(v["shoup_mac"] for v in launches.values())
+    return sum(v["shoup_mac_primes"] for v in launches.values())
 
 
 def u128_keys(dev, n, k, N, base_log, levels, lwe_std, glwe_std, seed):
@@ -1370,7 +1414,7 @@ def u128_main_path(dev):
     """The u128 PBS at the PBS widths and noise of
     PARAM_MESSAGE_2_CARRY_2_KS_PBS (n = 742, N = 2048, k = 1, base_log 23,
     one level): keygen on the card, the CRT-NTT layout, the identity and
-    (3x+1) mod 4 LUTs on 64 encryptions, all decrypted right; 5 n K10
+    (3x+1) mod 4 LUTs on 64 encryptions, all decrypted right; n K10
     launches per rotation.  Returns K10's launches and the keys."""
     import torch
 
@@ -1391,7 +1435,7 @@ def u128_main_path(dev):
     torch.cuda.synchronize()
     t_luts = time.time() - t1
     launches = all_launches()
-    expected = {"shoup_mac": 5 * p.lwe_dimension * len(U128_LUTS)}
+    expected = {"shoup_mac_primes": p.lwe_dimension * len(U128_LUTS)}
     say("main_path_u128", t0, widths_of=p.name, n=p.lwe_dimension,
         N=p.polynomial_size, k=p.glwe_dimension, base_log=p.pbs_base_log,
         levels=p.pbs_level, batch=B_MAIN, keygen_s=t_keygen,
@@ -1403,7 +1447,7 @@ def u128_main_path(dev):
         raise AssertionError(f"u128 path launched {launches}, expected "
                              f"{expected}")
     del raw
-    return launches["shoup_mac"], (lwe, glwe, bsk, enc)
+    return launches["shoup_mac_primes"], (lwe, glwe, bsk, enc)
 
 
 def ntt_card_vs_cpu(dev):
@@ -1456,7 +1500,7 @@ def ntt_timing(card, dev, u128_state, rng):
     """PBS/s and batch ms (host clock after a warm-up, launch cost
     included) at B = 64 and 256: shortint mode="ntt", the u128 PBS, boolean
     gates; and a CUDA-event split of one shortint and one u128 step into
-    decomposition, forward NTT, K10 (five launches), inverse NTT and CRT."""
+    decomposition, forward NTT, K10 (one launch), inverse NTT and CRT."""
     import numpy as np
     import torch
 
@@ -1492,7 +1536,7 @@ def ntt_timing(card, dev, u128_state, rng):
             decompose=cuda_ms(lambda: pn.decompose_digits(
                 diff, bsk.base_log, bsk.levels, bits), 20),
             forward_ntt=cuda_ms(lambda: pn.digit_spectra(digits), 20),
-            shoup_mac_5_primes=cuda_ms(lambda: pn.spectral_mac(
+            shoup_mac_all_primes=cuda_ms(lambda: pn.spectral_mac(
                 dspec, bsk.spectra[0], bsk.shoup[0]), 20),
             inverse_ntt=cuda_ms(lambda: pn.inverse_residues(
                 prods, G, bits // 32), 20),
@@ -1573,18 +1617,17 @@ def main():
         build()
         return round(time.time() - t, 3)
 
-    builds = (fused_pbs.cuda_library, fused_pbs.step_library,
-              fused_pbs.single_cta_library, fused_multibit.cuda_library,
-              shoup_mac.cuda_library, prng.native_library)
+    builds = (fused_pbs.cuda_library, fused_pbs.single_cta_library,
+              fused_multibit.cuda_library, shoup_mac.cuda_library,
+              prng.native_library)
     with ThreadPoolExecutor(len(builds)) as pool:
-        (t_nvcc, t_nvcc_step, t_nvcc_single, t_nvcc_mb, t_nvcc_shoup,
-         t_gxx) = pool.map(timed, builds)
+        t_nvcc, t_nvcc_single, t_nvcc_mb, t_nvcc_shoup, t_gxx = pool.map(
+            timed, builds)
     aes = prng.Aes128(0x0123456789ABCDEF, backend="native")
     ref = prng.Aes128(0x0123456789ABCDEF, backend="numpy")
     if not np.array_equal(aes.ctr_blocks(7, 64), ref.ctr_blocks(7, 64)):
         raise AssertionError("native AES disagrees with the numpy AES")
-    say("build", t0, nvcc_s=t_nvcc, nvcc_step_s=t_nvcc_step,
-        nvcc_single_cta_s=t_nvcc_single, nvcc_multibit_s=t_nvcc_mb,
+    say("build", t0, nvcc_s=t_nvcc, nvcc_single_cta_s=t_nvcc_single, nvcc_multibit_s=t_nvcc_mb,
         nvcc_shoup_mac_s=t_nvcc_shoup, gxx_s=t_gxx, aes_backend=aes.backend)
 
     # -- 3. kernels against their plain versions ----------------------------
@@ -1790,7 +1833,7 @@ def main():
             ("rotate_decompose", 1229, "pbs_kernels.cuh", p.name),
             ("external_product_crt", 1244, "ntt_core_kernels.cuh", p.name),
             ("pbs_step", 1304, "ntt_core_kernels.cuh", "DEFAULT_PARAMETERS"),
-            ("blind_rotate_persistent", 1020, "step_kernels.cuh",
+            ("blind_rotate_persistent", 1020, "ntt_core_kernels.cuh",
              "DEFAULT_PARAMETERS"),
             ("ntt_mac_prime", 1503, "ntt_core_kernels.cuh",
              "DEFAULT_PARAMETERS"),
@@ -1821,9 +1864,11 @@ def main():
             "ms": mb_ms[name], "plain_ms": mb_plain_ms[name],
             "bound_ms": mb_bounds[name][0], "bound_by": mb_bounds[name][1],
             "library_ms": None, "redesigned": REDESIGNED.get(name)})
+    # K10 as the main paths launch it: every prime of a step at once
+    # (shoup_mac_primes), timed and bounded per step
     ntt_err, ntt_ms, ntt_plain_ms, ntt_bounds = ntt_k
     kernels.append({
-        "name": "shoup_mac", "route": "cuda",
+        "name": "shoup_mac", "route": "cuda", "wrapper": "shoup_mac_primes",
         "source": "tfhe_tpu_torch/ops/csrc/shoup_mac_kernels.cuh",
         "replaces": "tfhe_tpu/ops/pallas_kernels.py:64",
         "launches": ntt_launches + u128_launches,

@@ -25,10 +25,14 @@ and K4 `pbs_step_single_cta` (one step each), K7
 `blind_rotate_single_cta` over one step (the kernel K7's launcher picks
 for that batch; CUDA events around 100 eager launches, as its launcher
 queries the device) and K6's `ntt_mac_prime` for prime 0 (graphs of
-100), and K7 a whole rotation at the main path's depth (742 and 722
-steps; CUDA events around 3 launches after 2 warm-ups).  Only functions
-that both trees of the port have are called.  Prints one JSON line, with
-the card's name and power limit.
+100), and K5 `blind_rotate_persistent` and K7 a whole rotation at the
+main path's depth (742 and 722 steps; CUDA events around 3 launches after
+2 warm-ups).  Then K10's whole step, `polymul_ntt.spectral_mac` over the
+five primes (whatever launches the tree makes for it), at the widths of
+the CRT-NTT layout's three paths (shortint, boolean, u128) and B = 64 and
+256, from default_rng([seed, 10, B]) (graphs of 100).  Only functions that
+both trees of the port have are called.  Prints one JSON line, with the
+card's name and power limit.
 """
 
 import argparse
@@ -104,14 +108,15 @@ def times(seed):
         lambda: fm.multi_bit_blind_rotate_cuda(one_group, macc, d,
                                                mode="scan1"), 100)
     out.update(redesigned(seed))
+    out.update(ntt_step(seed))
     return out
 
 
 def redesigned(seed):
     """K2 at both widths and B = 64 / 256 (the shortint width at B = 64 is
     timed above); K3 and K4 (one step each), K7 over one step and K6's
-    `ntt_mac_prime` (prime 0) at both widths and batch sizes; and K7 at both
-    widths, depths and batch sizes."""
+    `ntt_mac_prime` (prime 0) at both widths and batch sizes; and K5 and K7
+    at both widths, depths and batch sizes."""
     import numpy as np
     import torch
 
@@ -167,8 +172,45 @@ def redesigned(seed):
             out[f"blind_rotate_single_cta_{tag}_B{B}"] = cuda_ms(
                 lambda: fp.blind_rotate_single_cta(  # noqa: B023
                     acc, ahat, key.kspec, key.kshoup, bl, L, bits), 3)
+            out[f"blind_rotate_persistent_{tag}_B{B}"] = cuda_ms(
+                lambda: fp.blind_rotate_persistent(  # noqa: B023
+                    acc, ahat, key.kspec, key.kshoup, bl, L, bits), 3)
         del key
         torch.cuda.empty_cache()
+    return out
+
+
+# K10's three widths: (name, L, J = G, O = G, M planes, N)
+NTT_WIDTHS = (("shortint", 1, 2, 2, 2, 2048), ("boolean", 3, 3, 3, 1, 512),
+              ("u128", 1, 2, 2, 4, 2048))
+
+
+def ntt_step(seed):
+    """K10's whole step, `polymul_ntt.spectral_mac` over the five primes,
+    at the three widths and B = 64 / 256."""
+    import numpy as np
+    import torch
+
+    from tfhe_tpu_torch.ops import ntt
+    from tfhe_tpu_torch.ops import polymul_ntt as pn
+
+    dev = torch.device("cuda")
+    out = {}
+    for tag, L, J, O, M, N in NTT_WIDTHS:
+        for B in (B_MAIN, B_LARGE):
+            rng = np.random.default_rng([seed, 10, B])
+            h = np.array(ntt.PRIMES).reshape(-1, 1, 1, 1) // 2
+            dspec = torch.from_numpy(rng.integers(
+                -h, h + 1, (len(ntt.PRIMES), B, L * J, N)).astype(
+                    np.int32)).to(dev)
+            spec = torch.from_numpy(rng.integers(
+                -h[..., None, None, None], h[..., None, None, None] + 1,
+                (len(ntt.PRIMES), L, J, O, M, N)).astype(np.int32)).to(dev)
+            shoup = torch.stack([ntt.shoup16(spec[i], p)
+                                 for i, p in enumerate(ntt.PRIMES)])
+            out[f"spectral_mac_{tag}_B{B}"] = graph_ms(
+                lambda: pn.spectral_mac(  # noqa: B023
+                    dspec, spec, shoup), 100)
     return out
 
 
@@ -184,11 +226,12 @@ def main():
         print("kernel_times: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.abspath(args.root))
-    from tfhe_tpu_torch.ops import fused_multibit, fused_pbs
+    from tfhe_tpu_torch.ops import fused_multibit, fused_pbs, shoup_mac
 
     fused_pbs.cuda_library()
     fused_pbs.single_cta_library()
     fused_multibit.cuda_library()
+    shoup_mac.cuda_library()
     out = {str(s): times(s) for s in args.seeds}
     print(json.dumps({"card": card_line(), "root": args.root,
                       "device_ms_per_launch": out}), flush=True)

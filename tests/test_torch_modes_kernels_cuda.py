@@ -7,11 +7,11 @@ K4's kernel), "scan1w" (K4 `pbs_step_single_cta`), "grid" (K5
 PARAM_MESSAGE_2_CARRY_2_KS_PBS and of boolean DEFAULT_PARAMETERS; a blind
 rotation in every mode, equal across modes, with its launch counts; the
 empty batch; a batch past 65535 ciphertexts in one persistent launch and in
-one single-CTA launch; K3 and K4, K6's `ntt_mac_prime` and K7 on the
+one single-CTA launch; K3 and K4, K5, K6's `ntt_mac_prime` and K7 on the
 register-resident NTT core at every width the port runs (the sets at
 N = 1024 among them), at batch sizes around one and two waves of the
-card's 132 SMs, and K7 at the main paths' depth (742 and 722 steps); and
-the layouts beyond the kernels' limits, refused.
+card's 132 SMs, and K5 and K7 at the main paths' depth (742 and 722
+steps); and the layouts beyond the kernels' limits, refused.
 Marked `cuda`: they skip where there is no card; on one, run
 `python -m pytest -m cuda --noconftest tests/test_torch_modes_kernels_cuda.py`
 (tests/conftest.py imports JAX, which is not needed here)."""
@@ -183,6 +183,42 @@ def test_single_cta_rotation_on_the_core_at_the_main_paths_depth(width, n, B,
 
 @pytest.mark.parametrize("B", BATCHES)
 @pytest.mark.parametrize("width", CORE_WIDTHS, ids=CORE_WIDTH_IDS)
+def test_persistent_rotation_on_the_core_matches_plain(width, B, card):
+    # K5: K4's cluster step looped on chip, one launch a rotation
+    rng = np.random.default_rng([29, B])
+    key, acc, ahat = _inputs(rng, dict(width, n=3, B=B), card)
+    bl, L, bits = key.base_log, key.levels, key.bits
+    fused_pbs.reset_launch_counts()
+    got = fused_pbs.blind_rotate_persistent(acc, ahat, key.kspec, key.kshoup,
+                                            bl, L, bits)
+    torch.cuda.synchronize()
+    assert launched() == {"blind_rotate_persistent": 1}
+    assert torch.equal(got, fused_pbs.blind_rotate_persistent_plain(
+        acc, ahat, key.kspec, bl, L, bits))
+
+
+@pytest.mark.parametrize("B", [64, 256])
+@pytest.mark.parametrize("width,n", [(CORE_WIDTHS[0], 742),
+                                     (CORE_WIDTHS[1], 722)],
+                         ids=["shortint742", "boolean722"])
+def test_persistent_rotation_at_the_main_paths_depth(width, n, B, card):
+    # every step reads the words the last one wrote in place: a stale word
+    # anywhere would show here
+    rng = np.random.default_rng([53, B])
+    key, acc, ahat = _inputs(rng, dict(width, n=n, B=B), card)
+    bl, L, bits = key.base_log, key.levels, key.bits
+    waves = fused_pbs.blind_rotate_persistent_waves(B, width["N"],
+                                                    width["G"], L, bits)
+    assert waves["waves"] == -(-B // waves["clusters"]) >= 1
+    got = fused_pbs.blind_rotate_persistent(acc, ahat, key.kspec, key.kshoup,
+                                            bl, L, bits)
+    torch.cuda.synchronize()
+    assert torch.equal(got, fused_pbs.blind_rotate_persistent_plain(
+        acc, ahat, key.kspec, bl, L, bits)), waves
+
+
+@pytest.mark.parametrize("B", BATCHES)
+@pytest.mark.parametrize("width", CORE_WIDTHS, ids=CORE_WIDTH_IDS)
 def test_step_on_the_core_matches_plain(width, B, card):
     # K4: one launch a step, the digits made inside (a cluster per
     # ciphertext, or one CTA where that fills the card in fewer waves); K3
@@ -284,20 +320,20 @@ def test_layouts_beyond_the_kernels_limits_are_refused(card):
                                 res)
     with pytest.raises(ValueError):
         fused_pbs.crt_accumulate(res, acc, bits=32)
-    # a cluster step whose shared memory exceeds a block's (G = 4, L = 4 at
-    # N = 2048: 64 KB of accumulator and 192 KB of spectra) is refused by
-    # the C entry point
+    # a whole rotation (K5) on the register-resident core with L*G = 16
+    # digit polynomials (G = 4, L = 4 at N = 2048), beyond the core's 9, is
+    # refused by the C entry point, under K5's name
     G, L, N = 4, 4, 2048
     big = fused_pbs.prepare_bsk_cuda(
         torch.zeros((1, L, G, G, N), dtype=torch.int64, device=card), 8)
     acc = torch.zeros((1, G, N), dtype=torch.int64, device=card)
-    with pytest.raises(RuntimeError, match="cudaErrorInvalidValue"):
+    with pytest.raises(RuntimeError, match="^blind_rotate_persistent: "
+                       ".*cudaErrorInvalidValue"):
         fused_pbs.blind_rotate_persistent(
             acc, torch.zeros((1, 1), dtype=torch.int32, device=card),
             big.kspec, big.kshoup, 8, L)
     # and so are a whole step (K4, and K3, on K4's kernel) and one prime's
-    # stage (K6) on the register-resident core at that layout: L*G = 16
-    # digit polynomials, beyond the core's 9
+    # stage (K6) on the register-resident core at that layout
     ahat1 = torch.zeros((1, 1), dtype=torch.int32, device=card)
     # (each refusal under its own wrapper's name)
     with pytest.raises(RuntimeError,
@@ -322,6 +358,10 @@ def test_layouts_beyond_the_kernels_limits_are_refused(card):
         with pytest.raises(ValueError):
             step(torch.zeros((1, 2, 128), dtype=torch.int64, device=card),
                  ahat1[0], small.kspec[0], small.kshoup[0], 23, 1)
+    with pytest.raises(ValueError, match="^blind_rotate_persistent: N = 128 "):
+        fused_pbs.blind_rotate_persistent(
+            torch.zeros((1, 2, 128), dtype=torch.int64, device=card), ahat1,
+            small.kspec, small.kshoup, 23, 1)
     with pytest.raises(ValueError):
         fused_pbs.ntt_mac_prime(
             torch.zeros((1, 1, 2, 128), dtype=torch.int32, device=card),

@@ -1,10 +1,12 @@
 """K10's CUDA kernel (tfhe_tpu_torch.ops.shoup_mac) against its plain
-version, bit for bit, on a card (tolerance 0): every prime at the three
-paths' full widths (shortint PARAM_MESSAGE_2_CARRY_2_KS_PBS, boolean
-DEFAULT_PARAMETERS, the u128 PBS) with B = 64, an empty batch, a batch past
-65535 in one launch, and inputs it refuses; then the CRT-NTT layout's blind
-rotation at 32, 64 and 128 bits and shortint and boolean keys with
-mode="ntt", card against CPU at test size.  Marked `cuda`: they skip where
+versions, bit for bit, on a card (tolerance 0), through both wrappers (one
+prime a launch, `shoup_mac`; every prime of a step in one launch,
+`shoup_mac_primes`): every prime at the three paths' full widths (shortint
+PARAM_MESSAGE_2_CARRY_2_KS_PBS, boolean DEFAULT_PARAMETERS, the u128 PBS)
+with B = 64, an empty batch, a batch past 65535 in one launch, and inputs
+it refuses; then the CRT-NTT layout's blind rotation at 32, 64 and 128 bits
+(one K10 launch a step) and shortint and boolean keys with mode="ntt",
+card against CPU at test size.  Marked `cuda`: they skip where
 there is no card; on one, run `python -m pytest -m cuda --noconftest
 tests/test_torch_ntt_kernels_cuda.py` (tests/conftest.py imports JAX, which
 is not needed here)."""
@@ -58,12 +60,41 @@ def test_kernel_matches_plain_at_full_width(width, card):
         assert torch.equal(got, shoup_mac.shoup_mac_plain(a, ks, ksh, p))
 
 
+def _all_primes_inputs(rng, B, LJ, GM, N, dev):
+    ins = [_inputs(rng, p, B, LJ, GM, N, dev) for p in ntt.PRIMES]
+    return tuple(torch.stack(x) for x in zip(*ins))
+
+
+@pytest.mark.parametrize("width", sorted(WIDTHS))
+def test_all_primes_kernel_matches_plain_at_full_width(width, card):
+    rng = np.random.default_rng(9)
+    LJ, GM, N = WIDTHS[width]
+    a, ks, ksh = _all_primes_inputs(rng, 64, LJ, GM, N, card)
+    for i, p in enumerate(ntt.PRIMES):  # the extremes of every prime
+        a[i, 0, 0, :4] = torch.tensor([-(p // 2), p // 2, 0, 1])
+        ks[i, 0, 0, :4] = torch.tensor([p // 2, p // 2, -(p // 2),
+                                        -(p // 2)])
+        ksh[i] = ntt.shoup16(ks[i], p)
+    shoup_mac.reset_launch_counts()
+    got = shoup_mac.shoup_mac_primes(a, ks, ksh, ntt.PRIMES)
+    torch.cuda.synchronize()
+    assert [k.launches for k in shoup_mac.KERNELS] == [0, 1]
+    assert torch.equal(got, shoup_mac.shoup_mac_primes_plain(a, ks, ksh,
+                                                             ntt.PRIMES))
+
+
 def test_empty_batch_launches_nothing(card):
     a, ks, ksh = _inputs(np.random.default_rng(4), 12289, 0, 2, 4, 256, card)
     before = shoup_mac.shoup_mac.launches
     out = shoup_mac.shoup_mac(a, ks, ksh, 12289)
     assert out.shape == (0, 4, 256)
     assert shoup_mac.shoup_mac.launches == before
+    a, ks, ksh = _all_primes_inputs(np.random.default_rng(4), 0, 2, 4, 256,
+                                    card)
+    before = shoup_mac.shoup_mac_primes.launches
+    out = shoup_mac.shoup_mac_primes(a, ks, ksh, ntt.PRIMES)
+    assert out.shape == (0, 4, len(ntt.PRIMES), 256)
+    assert shoup_mac.shoup_mac_primes.launches == before
 
 
 def test_batch_beyond_a_grid_dimension_of_65535(card):
@@ -76,6 +107,17 @@ def test_batch_beyond_a_grid_dimension_of_65535(card):
                                                             p))
 
 
+def test_all_primes_batch_beyond_a_grid_dimension_of_65535(card):
+    B = 65536 + 8
+    a, ks, ksh = _all_primes_inputs(np.random.default_rng(7), B, 2, 4, 256,
+                                    card)
+    out = shoup_mac.shoup_mac_primes(a, ks, ksh, ntt.PRIMES)
+    rows = torch.cat([torch.arange(8), torch.arange(B - 16, B)]).to(card)
+    torch.cuda.synchronize()
+    assert torch.equal(out[rows], shoup_mac.shoup_mac_primes_plain(
+        a[:, rows].contiguous(), ks, ksh, ntt.PRIMES))
+
+
 def test_bad_inputs_are_refused(card):
     p = 40961
     a, ks, ksh = _inputs(np.random.default_rng(6), p, 4, 2, 4, 256, card)
@@ -86,6 +128,28 @@ def test_bad_inputs_are_refused(card):
             shoup_mac.shoup_mac(*args, p)
     with pytest.raises(ValueError):
         shoup_mac.shoup_mac(a, ks, ksh, 65536)
+
+
+def test_all_primes_bad_inputs_are_refused(card):
+    rng = np.random.default_rng(10)
+    a, ks, ksh = _all_primes_inputs(rng, 4, 2, 4, 256, card)
+    for args in ((a.to(torch.int64), ks, ksh), (a, ks.cpu(), ksh),
+                 (a[..., ::2], ks[..., ::2], ksh[..., ::2]),
+                 (a, ks, ksh[:, :1]), (a[:, :, :1], ks, ksh), (a[:2], ks,
+                                                               ksh)):
+        with pytest.raises(ValueError):
+            shoup_mac.shoup_mac_primes(*args, ntt.PRIMES)
+    with pytest.raises(ValueError):
+        shoup_mac.shoup_mac_primes(a, ks, ksh, ntt.PRIMES[:-1] + (65536,))
+    # the kernel reads 16-byte vectors: N a multiple of 4, aligned tensors
+    a6, ks6, ksh6 = _all_primes_inputs(rng, 4, 2, 4, 6, card)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        shoup_mac.shoup_mac_primes(a6, ks6, ksh6, ntt.PRIMES)
+    shifted = torch.empty(a.numel() + 1, dtype=torch.int32, device=card)
+    shifted[1:] = a.reshape(-1)
+    with pytest.raises(ValueError, match="aligned"):
+        shoup_mac.shoup_mac_primes(shifted[1:].view(a.shape), ks, ksh,
+                                   ntt.PRIMES)
 
 
 def _words(rng, shape, bits, dev):
@@ -110,11 +174,12 @@ def test_ntt_rotation_card_equals_cpu(case, card):
     lwe = _words(rng, (B, n + 1), bits, "cpu")
     want = core.blind_rotate(core.prepare_bsk_ntt(raw, bl, bits, "cpu"), lut,
                              lwe)
-    before = shoup_mac.shoup_mac.launches
+    shoup_mac.reset_launch_counts()
     got = core.blind_rotate(core.prepare_bsk_ntt(raw, bl, bits, card),
                             lut.to(card), lwe.to(card))
     torch.cuda.synchronize()
-    assert shoup_mac.shoup_mac.launches == before + 5 * n
+    # one launch a step for every prime
+    assert [k.launches for k in shoup_mac.KERNELS] == [0, n]
     assert torch.equal(got.cpu(), want)
 
 

@@ -3,8 +3,10 @@ CPU) == the reference's Pallas `shoup_mac` (tfhe_tpu/ops/pallas_kernels.py,
 interpret mode on the CPU, as tests/test_pallas.py runs it), word for word,
 for each of the five primes at tests/test_pallas.py's shape and at the three
 paths' shapes (shortint, boolean, u128) with N cut to 256 / 512; congruent
-to `shoup_mac_reference` and within 3p/2 as tests/test_pallas.py asks; and
-the wrapper's checks."""
+to `shoup_mac_reference` and within 3p/2 as tests/test_pallas.py asks; the
+all-primes call `shoup_mac_primes` (one launch a step on a card) == the
+reference's kernel run once per prime and laid out as [B, GM, P, N], at the
+three paths' shapes and N = 256 / 512; and the wrappers' checks."""
 
 import numpy as np
 import pytest
@@ -49,6 +51,24 @@ def test_plain_equals_the_pallas_kernel(p, shape):
     assert np.array_equal(got.numpy().astype(object), bal)
 
 
+@pytest.mark.parametrize("N", [256, 512])
+@pytest.mark.parametrize("shape", SHAPES[1:], ids=SHAPE_IDS[1:])
+def test_all_primes_plain_equals_the_pallas_kernel_per_prime(shape, N):
+    B, LJ, GM, _ = shape
+    ins = [_inputs(p, B, LJ, GM, N) for p in ref_ntt.PRIMES]
+    want = np.stack([np.asarray(pk.shoup_mac(a, ks, ksh, p))
+                     for (a, ks, ksh), p in zip(ins, ref_ntt.PRIMES)], axis=2)
+    a, ks, ksh = (torch.from_numpy(np.stack(x)) for x in zip(*ins))
+    assert a.shape == (len(ref_ntt.PRIMES), B, LJ, N)
+    shoup_mac.reset_launch_counts()
+    got = shoup_mac.shoup_mac_primes(a, ks, ksh, ref_ntt.PRIMES)
+    assert got.shape == (B, GM, len(ref_ntt.PRIMES), N)
+    assert np.array_equal(got.numpy(), want)
+    assert torch.equal(got, shoup_mac.shoup_mac_primes_plain(
+        a, ks, ksh, ref_ntt.PRIMES))
+    assert shoup_mac.shoup_mac_primes.launches == 0  # CPU: the plain version
+
+
 def test_shoup_companions_match_the_reference():
     rng = np.random.default_rng(5)
     for p in ref_ntt.PRIMES:
@@ -66,11 +86,17 @@ def test_wrapper_takes_the_plain_version_for_cpu_tensors_only():
     shoup_mac.reset_launch_counts()
     got = shoup_mac.shoup_mac(a, ks, ksh, p)
     assert torch.equal(got, shoup_mac.shoup_mac_plain(a, ks, ksh, p))
+    got = shoup_mac.shoup_mac_primes(a[None], ks[None], ksh[None], (p,))
+    assert torch.equal(got[:, :, 0], shoup_mac.shoup_mac_plain(a, ks, ksh, p))
     assert shoup_mac.shoup_mac.launches == 0  # the plain version counts none
-    assert shoup_mac.KERNELS == (shoup_mac.shoup_mac,)
+    assert shoup_mac.shoup_mac_primes.launches == 0
+    assert shoup_mac.KERNELS == (shoup_mac.shoup_mac,
+                                 shoup_mac.shoup_mac_primes)
     meta = [t.to("meta") for t in (a, ks, ksh)]
     with pytest.raises(ValueError, match="unsupported device"):
         shoup_mac.shoup_mac(*meta, p)
+    with pytest.raises(ValueError, match="unsupported device"):
+        shoup_mac.shoup_mac_primes(*(t[None] for t in meta), (p,))
 
 
 @pytest.mark.parametrize("bad", ["dtype", "key_shape", "shoup_shape", "rank",
@@ -96,3 +122,23 @@ def test_wrapper_refuses_bad_inputs(bad):
         ks = ksh = torch.zeros((16, 4, 256), dtype=torch.int32)
     with pytest.raises(ValueError):
         shoup_mac.shoup_mac(a, ks, ksh, p)
+    if bad != "rank":  # the all-primes call refuses the same inputs
+        with pytest.raises(ValueError):
+            shoup_mac.shoup_mac_primes(a[None], ks[None], ksh[None], (p,))
+
+
+@pytest.mark.parametrize("bad", ["primes", "too_many_primes", "rank"])
+def test_all_primes_wrapper_refuses_bad_inputs(bad):
+    p = ref_ntt.PRIMES[0]
+    a, ks, ksh = (torch.from_numpy(x)[None] for x in _inputs(p, 2, 2, 4, 256))
+    primes = (p,)
+    if bad == "primes":  # one prime for two digit blocks
+        a, ks, ksh = (torch.cat([t, t]) for t in (a, ks, ksh))
+    elif bad == "too_many_primes":  # nine: past the kernel's kMaxPrimes
+        a, ks, ksh = (t.expand(9, *t.shape[1:]).contiguous()
+                      for t in (a, ks, ksh))
+        primes = (p,) * 9
+    else:
+        a = a[0]
+    with pytest.raises(ValueError):
+        shoup_mac.shoup_mac_primes(a, ks, ksh, primes)

@@ -8,7 +8,7 @@ how the blind rotation runs, as in the reference (:69-88):
     default "scan2"; every schedule gives the same words);
   * `PreparedBskNtt` (`ops/polymul_ntt.py`): a Python loop over the n steps
     of monomial rotation, rotated - acc, `external_product_ntt` (K10's
-    counterpart once per prime) and add, at 32, 64 or 128 bits; its only
+    counterpart, one launch a step for every prime) and add, at 32, 64 or 128 bits; its only
     mode is "ntt", and naming a `fused_pbs` schedule with it raises.
 Kernels run on CUDA tensors, their plain versions on CPU tensors.  A zero
 mask element contributes an exactly-zero update (acc * X^0 - acc = 0), so

@@ -1,9 +1,9 @@
 // A register-resident negacyclic NTT core for Hopper (sm_90a), and the
 // per-prime external product built on it.  K2, K3 and K4 (one kernel on
-// the card), K6's per-prime stage and K7 (ntt_core_kernels.cuh) run
+// the card), K5, K6's per-prime stage and K7 (ntt_core_kernels.cuh) run
 // external_product_prime; K9 (multibit_core.cuh) runs its two halves,
-// forward_transforms and inverse_transforms, around a MAC of its own.  K5
-// and K8 keep the shared-memory core of pbs_kernels.cuh.
+// forward_transforms and inverse_transforms, around a MAC of its own.  K8
+// alone keeps the shared-memory core of pbs_kernels.cuh.
 //
 // What bounded the old core (`ntt_forward_smem` / `ntt_inverse_smem`,
 // pbs_kernels.cuh): a radix-2 loop that puts each of the log2 N stages

@@ -1,5 +1,5 @@
-// K2, K4, K6's per-prime stage and K7 on the register-resident NTT core
-// (ntt_core.cuh), for Hopper (sm_90a):
+// K2, K4, K5, K6's per-prime stage and K7 on the register-resident NTT
+// core (ntt_core.cuh), for Hopper (sm_90a):
 //
 //   external_product_cluster_kernel   <- fused_blind_rotate_scan2 (:1213)
 //                                        -> pc_kernel (:1244)
@@ -12,6 +12,8 @@
 //                                        -> step_kernel (:1304)
 //                                        -> _step_math_onekernel (:809)
 //                                                                     (K3)
+//   blind_rotate_stream_cluster_kernel <- fused_blind_rotate_grid (:1341)
+//                                        -> _make_grid_kernel (:1020) (K5)
 //   ntt_mac_prime_kernel              <- fused_blind_rotate_scan (:1470)
 //                                        -> prime_kernel (:1503)
 //                                        -> _prime_block (:672)       (K6)
@@ -23,11 +25,13 @@
 // `xcrt` the explicit CRT's constants [P, 6] (ntt._explicit_crt_host).
 // All take LJ = L*G <= 9 (every parameter set of the catalog) and
 // 256 <= N <= 2048; their launchers (core_launch.cuh) refuse anything
-// else.  Registers from `nvcc -Xptxas -v` (sm_90a, CUDA 12.8), none
-// spilled, for LJ <= 2 / 4 / 9: external_product_cluster 80 / 110 / 150,
-// pbs_step_cluster 79 / 110 / 154, ntt_mac_prime 80 / 96 / 148 (one CTA)
-// and 77 / 104 / 146 (a pair), blind_rotate_core 102 / 120 / 162,
-// blind_rotate_cluster_core 128 / 182 / 226.
+// else.  Registers from `nvcc -Xptxas -v` (sm_90a, the card's toolkit),
+// none spilled unless said, for LJ <= 2 / 4 / 9: external_product_cluster
+// 80 / 110 / 150, pbs_step_cluster 79 / 110 / 154,
+// blind_rotate_stream_cluster 80 / 128 (4 bytes spilled) / 168 (capped),
+// ntt_mac_prime 80 / 96 / 148 (one CTA) and 78 / 104 / 146 (a pair),
+// blind_rotate_core 102 / 120 / 162, blind_rotate_cluster_core 128 / 182 /
+// 226.
 //
 // K2, first design: one CTA of 512 threads per (ciphertext, prime)
 // on the shared-memory core, 22 stage barriers and 48 KB at
@@ -83,14 +87,30 @@
 // (B = 256, one CTA per ciphertext: the clusters would take 4 waves, 0.114
 // ms), 0.025 and 0.058 at boolean width (clusters).
 //
-// K3, first design: step_kernels.cuh's blind_rotate_cluster_kernel with
-// one step, a cluster of 5 CTAs of 512 threads on the shared-memory core
+// K3, first design: K5's first kernel (below) with one step, a cluster
+// of 5 CTAs of 512 threads on the shared-memory core
 // (Garner's CRT over distributed shared memory); 0.0454 ms at boolean
 // width and 0.1370 at shortint width, B = 64, 23x and 30x its bound.  The
 // TPU's K3 and K4 compute the same exact step; they differ only in how
 // Mosaic splits it into ops (fused_pbs.py:826-835), a TPU scheduling
 // artefact.  So on Hopper K3 is K4's kernel, through K4's C entry point
 // (single_cta_kernels.cu), its launches counted as K3's.
+//
+// K5, first design: a cluster of 5 CTAs of 512 threads per ciphertext on
+// the shared-memory core for all n steps, each CTA holding a whole copy of
+// the accumulator (80 KB of shared memory at
+// PARAM_MESSAGE_2_CARRY_2_KS_PBS, two CTAs an SM) and running K2's first
+// step (stage barriers, scalar key loads, `%` digits, Garner's CRT over
+// distributed shared memory); 110.3 ms a rotation at shortint width (742
+// steps) and 30.3 at boolean width (722), B = 64, 33x and 21x its bound.
+// New: blind_rotate_stream_cluster_kernel, K4's step (cluster_step) looped
+// over the n steps in one launch, the accumulator in place in the output
+// (L2), K4's 48 KB a CTA at shortint width, so one wave of 69 clusters at
+// B = 64.  On an H100: 23.8 ms (shortint, B = 64), 91.5 (B = 256, 4
+// waves), 19.1 and 42.7 at boolean width (1 and 2 waves of 146 clusters).
+// Holding each CTA's share of the accumulator in shared memory instead,
+// the rotated words read over distributed shared memory, was 0.3-2%
+// slower.
 //
 // K6's per-prime stage, first design: ntt_mac_kernel<false> of
 // pbs_kernels.cuh, one CTA of 512 threads per ciphertext, 22 stage
@@ -181,24 +201,28 @@ constexpr int min_ctas() {
 }
 
 // One prime of a cluster's external product of one ciphertext, then the
-// explicit CRT over the cluster, as K2 and K4 run it: CTA rank i runs prime
-// i (N/8 threads) and leaves its values c_i at its own words of buf; after
-// a cluster barrier each CTA takes 1/P of the G*N output words and reads
-// the P CTAs' values through distributed shared memory: out = acc + the
-// product, for the cluster's ciphertext b = blockIdx.x / P of acc and out
-// [B, G, N] (found again after the transforms, so that no pointer of its
-// row stays in a register through them); digit(lj, k) as in
-// external_product_prime.  kLeanCrt reads each prime's value window and
-// constants as the CRT needs them, where P window pointers and the P
-// primes' constants held in registers (some 40) would make K4 spill at
-// the 80 registers of its LJ <= 2 variant; held, they keep K2 faster.
-template <int LJ_MAX, bool kLeanCrt, typename Digit>
+// explicit CRT over the cluster, as K2, K4 and K5 run it: CTA rank i runs
+// prime i (N/8 threads) and leaves its values c_i at its own words of buf;
+// after a cluster barrier each CTA takes the words [i share, (i + 1)
+// share) of the G*N output words (share = ceil(G N / P)) and reads the P
+// CTAs' values through distributed shared memory: word idx of the new
+// accumulator is old(at, idx) + the product, handed to store(at, idx, v),
+// where at = (blockIdx.x / P) G N is the cluster's ciphertext's first word
+// in a [B, G, N] tensor (found after the transforms, so that no pointer of
+// its row stays in a register through them); digit(lj, k) as in
+// external_product_prime.  A CTA reads and stores only its own share's
+// words, each by the same thread, so old and store may name one buffer.
+// kLeanCrt reads each prime's value window and constants as the CRT needs
+// them, where P window pointers and the P primes' constants held in
+// registers (some 40) would make K4 spill at the 80 registers of its
+// LJ <= 2 variant; held, they keep K2 faster.
+template <int LJ_MAX, bool kLeanCrt, typename Digit, typename Old,
+          typename Store>
 __device__ __forceinline__ void cluster_external_product(
     uint32_t* buf, Digit digit, const uint32_t* __restrict__ kspec,
     const uint32_t* __restrict__ kshoup, const uint32_t* __restrict__ tables,
-    const int64_t* __restrict__ xcrt, const int64_t* __restrict__ acc,
-    int64_t* __restrict__ out, int LJ, int G, int M, int N, int log_n,
-    int bits) {
+    const int64_t* __restrict__ xcrt, Old old, Store store, int LJ, int G,
+    int M, int N, int log_n, int bits) {
   cg::cluster_group cluster = cg::this_cluster();
   const int P = (int)cluster.num_blocks();
   const int pi = (int)cluster.block_rank();
@@ -225,10 +249,9 @@ __device__ __forceinline__ void cluster_external_product(
   const int end = min(G * N, (pi + 1) * share);
   auto crt = [&](auto value, auto consts, uint64_t Q) {
     for (int idx = pi * share + tid; idx < end; idx += blockDim.x)
-      out[at + idx] = (int64_t)(crt_word(value, consts, Q, P, idx >> log_n,
-                                         M, N, idx & (N - 1),
-                                         (uint64_t)acc[at + idx]) &
-                                mask);
+      store(at, idx, crt_word(value, consts, Q, P, idx >> log_n, M, N,
+                              idx & (N - 1), old(at, idx)) &
+                         mask);
   };
   if constexpr (kLeanCrt) {
     crt([&](int i, int w) { return cluster.map_shared_rank(buf, i)[w]; },
@@ -254,6 +277,16 @@ __device__ __forceinline__ void cluster_external_product(
   cluster.sync();  // no CTA leaves while another reads its buf
 }
 
+// cluster_external_product's old and store on a [B, G, N] tensor in device
+// memory
+__device__ __forceinline__ auto old_from(const int64_t* acc) {
+  return [=](long long at, int idx) { return (uint64_t)acc[at + idx]; };
+}
+
+__device__ __forceinline__ auto store_to(int64_t* out) {
+  return [=](long long at, int idx, uint64_t v) { out[at + idx] = (int64_t)v; };
+}
+
 // K2 in one launch: a cluster of P CTAs per ciphertext (grid B * P), the
 // digits [B, L, G, N] read from device memory at each thread's own words.
 template <int LJ_MAX>
@@ -273,43 +306,34 @@ __global__ void __launch_bounds__(256, min_ctas<LJ_MAX>())
   const int32_t* dig = digits + b * LJ * N + threadIdx.x;
   cluster_external_product<LJ_MAX, false>(
       buf, [&](int lj, int k) { return dig[lj * N + k * stride]; }, kspec,
-      kshoup, tables, xcrt, acc, out, LJ, G, M, N, log_n, bits);
+      kshoup, tables, xcrt, old_from(acc), store_to(out), LJ, G, M, N, log_n,
+      bits);
 }
 
-// K4, a whole step in one launch: K2's cluster with K1's rotation and
-// decomposition inside (acc [B, G, N] and ahat [B] read from device
-// memory).  The P CTAs share the digits' making: CTA i makes the digits of
-// every word its share of the thread indices owns, tid in [floor(i T / P),
-// floor((i + 1) T / P)) (T = N/8 threads a CTA; thread tid owns the words
-// tid + k N/8 of each polynomial), into its `dig` [LJ, N]; after a cluster
-// barrier each thread reads its own words' digits from the one CTA that
-// made them, through distributed shared memory.  No digits in device
-// memory, and each CTA makes 1/P of them.  Shared memory: max(LJ, OM) + LJ
-// polynomials.
-template <int LJ_MAX>
-__global__ void __launch_bounds__(256, min_ctas<LJ_MAX>())
-    pbs_step_cluster_kernel(const int64_t* __restrict__ acc,
-                            const int32_t* __restrict__ ahat,
-                            const uint32_t* __restrict__ kspec,
-                            const uint32_t* __restrict__ kshoup,
-                            const uint32_t* __restrict__ tables,
-                            const int64_t* __restrict__ xcrt,
-                            int64_t* __restrict__ out, int LJ, int G, int M,
-                            int N, int log_n, int base_log, int levels,
-                            int bits) {
-  extern __shared__ uint4 core_smem[];
-  const int OM = G * M;
-  uint32_t* buf = reinterpret_cast<uint32_t*>(core_smem);
-  int32_t* dig = reinterpret_cast<int32_t*>(buf + (LJ > OM ? LJ : OM) * N);
+// K4's step on a cluster (its body, and K5's every step): CTA rank i makes
+// the digits of acc * X^a - acc (a in [0, 2N)) at the words of its share
+// of the thread indices, tid in [floor(i T / P), floor((i + 1) T / P)) (T
+// = N/8 threads a CTA; thread tid owns the words tid + k N/8 of each
+// polynomial), into its `dig` [LJ, N], reading the cluster's ciphertext's
+// accumulator [G, N] at row; after a cluster barrier each thread reads its
+// own words' digits from the one CTA that made them, through distributed
+// shared memory, and the cluster runs cluster_external_product with old
+// and store.  No digits in device memory, and each CTA makes 1/P of them.
+// On return every word of the new accumulator is stored and a cluster
+// barrier has passed.
+template <int LJ_MAX, typename Old, typename Store>
+__device__ __forceinline__ void cluster_step(
+    uint32_t* buf, int32_t* dig, const int64_t* row, int a_rot,
+    const uint32_t* __restrict__ kspec, const uint32_t* __restrict__ kshoup,
+    const uint32_t* __restrict__ tables, const int64_t* __restrict__ xcrt,
+    Old old, Store store, int LJ, int G, int M, int N, int log_n,
+    int base_log, int levels, int bits) {
   cg::cluster_group cluster = cg::this_cluster();
   const int P = (int)cluster.num_blocks();
   const int pi = (int)cluster.block_rank();
-  const long long b = blockIdx.x / P;
   const int tid = threadIdx.x;
   const int T = N >> kLogRadix;  // threads a CTA, and the stride of k
   const uint64_t mask = bits == 64 ? ~0ull : 0xFFFFFFFFull;
-  const int64_t* row = acc + b * G * N;
-  const int a_rot = ahat[b] & (2 * N - 1);  // 2N is 0
   // this CTA's share: threads v0 .. v0 + n - 1, all k and g, n G 8 words
   // over T threads, f = ((g 8 + k) n + v - v0); one word at a time, which
   // keeps the 64-bit words' registers within the transforms' budget
@@ -333,7 +357,91 @@ __global__ void __launch_bounds__(256, min_ctas<LJ_MAX>())
       cluster.map_shared_rank(dig, ((tid + 1) * P - 1) / T) + tid;
   cluster_external_product<LJ_MAX, (LJ_MAX <= 2)>(
       buf, [&](int lj, int k) { return mine[lj * N + k * T]; }, kspec, kshoup,
-      tables, xcrt, acc, out, LJ, G, M, N, log_n, bits);
+      tables, xcrt, old, store, LJ, G, M, N, log_n, bits);
+}
+
+// K4, a whole step in one launch: K2's cluster with K1's rotation and
+// decomposition inside (cluster_step), acc [B, G, N] and ahat [B] read
+// from device memory.  Shared memory: max(LJ, OM) + LJ polynomials.
+template <int LJ_MAX>
+__global__ void __launch_bounds__(256, min_ctas<LJ_MAX>())
+    pbs_step_cluster_kernel(const int64_t* __restrict__ acc,
+                            const int32_t* __restrict__ ahat,
+                            const uint32_t* __restrict__ kspec,
+                            const uint32_t* __restrict__ kshoup,
+                            const uint32_t* __restrict__ tables,
+                            const int64_t* __restrict__ xcrt,
+                            int64_t* __restrict__ out, int LJ, int G, int M,
+                            int N, int log_n, int base_log, int levels,
+                            int bits) {
+  extern __shared__ uint4 core_smem[];
+  const int OM = G * M;
+  uint32_t* buf = reinterpret_cast<uint32_t*>(core_smem);
+  int32_t* dig = reinterpret_cast<int32_t*>(buf + (LJ > OM ? LJ : OM) * N);
+  const long long b = blockIdx.x / cg::this_cluster().num_blocks();
+  cluster_step<LJ_MAX>(buf, dig, acc + b * G * N, ahat[b] & (2 * N - 1),
+                       kspec, kshoup, tables, xcrt, old_from(acc),
+                       store_to(out), LJ, G, M, N, log_n, base_log, levels,
+                       bits);
+}
+
+// K5, all n_steps steps of the blind rotation in one launch: K4's cluster
+// step looped on chip, a cluster of P CTAs per ciphertext (grid B * P, N/8
+// threads), the step's key slice streamed from device memory (mostly L2).
+// ahat [n_steps, B]; kspec, kshoup [n_steps, P, LJ, O, M, N]; acc_in,
+// acc_out [B, G, N], which may not alias.  The accumulator lives in
+// acc_out, updated in place (32 KB a ciphertext at
+// PARAM_MESSAGE_2_CARRY_2_KS_PBS, so 2 MB at B = 64, resident in L2).
+// Each CTA writes only its CRT share of a ciphertext's [G, N], words
+// [pi share, (pi + 1) share), each word always by the same thread: first
+// its copy of acc_in, then every step's new word.  A step reads arbitrary
+// words (the rotation) only before its first cluster barrier and writes
+// after it; its second cluster barrier (release / acquire at cluster
+// scope) orders those writes before the next step's reads.  acc_out is
+// neither const __restrict__ nor read through __ldg, so no load of it may
+// go through the non-coherent path (ld.global.nc), which could return a
+// previous step's word.  Shared memory: max(LJ, OM) + LJ polynomials.
+// Registers: at most kStreamRegs (K4's launch bounds, but 168 for LJ_MAX
+// = 9, where the step loop would take 206 and leave 4 CTAs of 64 threads
+// an SM at boolean DEFAULT_PARAMETERS width instead of the 6 its shared
+// memory allows).
+template <int LJ_MAX>
+constexpr int kStreamRegs = LJ_MAX <= 2 ? 80 : (LJ_MAX <= 4 ? 128 : 168);
+
+template <int LJ_MAX>
+__global__ void __maxnreg__(kStreamRegs<LJ_MAX>)
+    blind_rotate_stream_cluster_kernel(
+        const int64_t* __restrict__ acc_in, const int32_t* __restrict__ ahat,
+        const uint32_t* __restrict__ kspec,
+        const uint32_t* __restrict__ kshoup,
+        const uint32_t* __restrict__ tables,
+        const int64_t* __restrict__ xcrt, int64_t* acc_out, int B,
+        int n_steps, int G, int M, int N, int log_n, int base_log,
+        int levels, int bits) {
+  extern __shared__ uint4 core_smem[];
+  const int LJ = levels * G;
+  const int OM = G * M;
+  uint32_t* buf = reinterpret_cast<uint32_t*>(core_smem);
+  int32_t* dig = reinterpret_cast<int32_t*>(buf + (LJ > OM ? LJ : OM) * N);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int P = (int)cluster.num_blocks();
+  const int pi = (int)cluster.block_rank();
+  const long long b = blockIdx.x / P;
+  const int share = (G * N + P - 1) / P;
+  const int end = min(G * N, (pi + 1) * share);
+  int64_t* row = acc_out + b * G * N;
+  for (int idx = pi * share + threadIdx.x; idx < end; idx += blockDim.x)
+    row[idx] = acc_in[b * G * N + idx];
+  cluster.sync();  // the whole accumulator is in place
+
+  const long long kstep = (long long)P * LJ * OM * N;  // one step's keys
+  for (int s = 0; s < n_steps; ++s) {
+    const int a_rot = ahat[(long long)s * B + b] & (2 * N - 1);  // 2N is 0
+    cluster_step<LJ_MAX>(buf, dig, row, a_rot, kspec + s * kstep,
+                         kshoup + s * kstep, tables, xcrt, old_from(acc_out),
+                         store_to(acc_out), LJ, G, M, N, log_n, base_log,
+                         levels, bits);
+  }
 }
 
 // K6's per-prime stage: prime `prime`'s external product of ciphertext

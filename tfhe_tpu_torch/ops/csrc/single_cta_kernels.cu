@@ -9,8 +9,12 @@
 //   tfhe_pbs_step_single_cta        K4 (scan1w) and K3 (scan1), one
 //                                   step: pbs_step_cluster_kernel or
 //                                   blind_rotate_core_kernel over one step
+//   tfhe_blind_rotate_persistent    K5 (grid), all n steps in one launch:
+//                                   blind_rotate_stream_cluster_kernel
 //
-// and *_form, which say which kernel a batch gets.  As in pbs_kernels.cu
+// and *_form, which say which kernel a batch gets, and
+// tfhe_blind_rotate_persistent_clusters, how many of K5's clusters the
+// device holds at once.  As in pbs_kernels.cu
 // the launches go on the caller's stream, do not synchronise, allocate
 // nothing, and return cudaGetLastError() (0 on success).  A layout beyond
 // the kernels' limits (LJ beyond tfhe_core::kMaxDigitPolys, N outside
@@ -252,5 +256,50 @@ extern "C" int tfhe_pbs_step_single_cta_form(int B, int G, int M, int P,
   return by_digit_polys(levels * G, [&](auto lj_max) {
     return pick_step_form<decltype(lj_max)::value>(B, G, M, P, N, levels,
                                                    smem, cluster);
+  });
+}
+
+// K5: n_steps steps in one launch, acc_in, acc_out [B, G, N] (not
+// aliased), ahat [n_steps, B], kspec / kshoup [n_steps, P, LJ, G, M, N]:
+// blind_rotate_stream_cluster_kernel, always the cluster form (the grid
+// schedule: one cluster per ciphertext at every B; K7 is the one-CTA form),
+// with K4's cluster shared memory.
+extern "C" int tfhe_blind_rotate_persistent(
+    const void* acc_in, const void* ahat, const void* kspec,
+    const void* kshoup, const void* tables, const void* xcrt, void* acc_out,
+    int B, int n_steps, int G, int M, int P, int N, int base_log, int levels,
+    int bits, void* stream) {
+  const int err = tfhe_core::core_refuses(levels * G, N, P);
+  if (err) return err;
+  const size_t smem = step_cluster_smem(G, M, N, levels);
+  return by_digit_polys(levels * G, [&](auto lj_max) {
+    return launch_clusters(
+        tfhe_core::blind_rotate_stream_cluster_kernel<decltype(lj_max)::value>,
+        B, P, N, smem, (cudaStream_t)stream, (const int64_t*)acc_in,
+        (const int32_t*)ahat, (const uint32_t*)kspec,
+        (const uint32_t*)kshoup, (const uint32_t*)tables,
+        (const int64_t*)xcrt, (int64_t*)acc_out, B, n_steps, G, M, N,
+        log2_int(N), base_log, levels, bits);
+  });
+}
+
+// *clusters = how many of K5's clusters the current device holds at once
+// for a batch of B (cudaOccupancyMaxActiveClusters, as pick_form asks it):
+// the batch runs in ceil(B / *clusters) waves of whole rotations.
+extern "C" int tfhe_blind_rotate_persistent_clusters(int B, int G, int M,
+                                                     int P, int N,
+                                                     int levels,
+                                                     int* clusters) {
+  const int err = tfhe_core::core_refuses(levels * G, N, P);
+  if (err) return err;
+  const size_t smem = step_cluster_smem(G, M, N, levels);
+  return by_digit_polys(levels * G, [&](auto lj_max) {
+    const auto kernel =
+        tfhe_core::blind_rotate_stream_cluster_kernel<decltype(lj_max)::value>;
+    int e = allow_smem((const void*)kernel, smem);
+    if (e) return e;
+    cudaLaunchAttribute attr[1];
+    const cudaLaunchConfig_t config = cluster_config(B, P, N, smem, 0, attr);
+    return (int)cudaOccupancyMaxActiveClusters(clusters, kernel, &config);
   });
 }

@@ -29,8 +29,9 @@ here `blind_rotate_fused(..., mode=...)` takes it as an argument, one of
       or one CTA per ciphertext), then crt_accumulate: 1 + P + 1 launches
       per step, the TPU's three-unit split;
   "grid" (K5, `fused_blind_rotate_grid` :1341)
-      blind_rotate_persistent  all n steps in one launch on the clusters,
-                            the accumulator held on chip throughout;
+      blind_rotate_persistent  all n steps in one launch: K4's cluster step
+                            looped on chip, the accumulator resident (in
+                            L2) and only the key slice streamed per step;
   "mega" (K7, `fused_blind_rotate_planes` :1545)
       blind_rotate_single_cta  all n steps in one launch on one CTA per
                             ciphertext (or, for a batch that leaves SMs
@@ -38,13 +39,12 @@ here `blind_rotate_fused(..., mode=...)` takes it as an argument, one of
                             accumulator held on chip.
 
 The kernels are CUDA C++ for sm_90a (`csrc/pbs_kernels.cuh` for K1 and
-K6's `crt_accumulate`, `csrc/step_kernels.cuh` for K5,
-`csrc/ntt_core_kernels.cuh` for K2, K3 and K4, K6's `ntt_mac_prime` and
-K7), built by nvcc at first use into the package's `_build/` directory and
-called through ctypes.  K2, K3, K4, `ntt_mac_prime` and K7 run on the
-register-resident NTT core of `csrc/ntt_core.cuh`, with the per-pass
-twiddle tables of `ntt.pass_tables_for`; K5 on the shared-memory core of
-`csrc/pbs_kernels.cuh`.  Each wrapper takes its plain PyTorch
+K6's `crt_accumulate`, `csrc/ntt_core_kernels.cuh` for K2, K3, K4, K5,
+K6's `ntt_mac_prime` and K7), built by nvcc at first use into the
+package's `_build/` directory and called through ctypes.  K2-K5,
+`ntt_mac_prime` and K7 run on the register-resident NTT core of
+`csrc/ntt_core.cuh`, with the per-pass twiddle tables of
+`ntt.pass_tables_for`.  Each wrapper takes its plain PyTorch
 version (`*_plain`) for CPU tensors, launches its kernel for CUDA tensors,
 and raises for anything else: nothing falls back.  Each wrapper counts its
 launches in its `launches` attribute.
@@ -118,41 +118,28 @@ def cuda_library() -> ctypes.CDLL:
 
 
 @functools.cache
-def step_library() -> ctypes.CDLL:
-    """Build (once per source hash) and load the persistent cluster
-    kernel's shared library (K5).  Raises
-    `tfhe_tpu_torch._native.BuildError`."""
-    path = build_shared_library(
-        "step_kernels", [os.path.join(_CSRC, "step_kernels.cu")],
-        [_nvcc(), *NVCC_FLAGS], timeout=BUILD_TIMEOUT_S,
-        headers=(os.path.join(_CSRC, "step_kernels.cuh"),
-                 os.path.join(_CSRC, "pbs_kernels.cuh")))
-    lib = ctypes.CDLL(path)
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.tfhe_blind_rotate_cluster.argtypes = [ptr] * 7 + [i32] * 9 + [ptr]
-    lib.tfhe_blind_rotate_cluster.restype = i32
-    return lib
-
-
-@functools.cache
 def single_cta_library() -> ctypes.CDLL:
     """Build (once per source hash) and load the shared library of the
-    kernels that hold a step's accumulator on chip (K3 and K4, K7).  Raises
-    `tfhe_tpu_torch._native.BuildError`."""
+    kernels that hold a step's accumulator on chip (K3 and K4, K5, K7).
+    Raises `tfhe_tpu_torch._native.BuildError`."""
     path = build_shared_library(
         "single_cta_kernels", [os.path.join(_CSRC, "single_cta_kernels.cu")],
         [_nvcc(), *NVCC_FLAGS], timeout=BUILD_TIMEOUT_S,
         headers=_headers("pbs_kernels.cuh", *_CORE_HEADERS))
     lib = ctypes.CDLL(path)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.tfhe_blind_rotate_single_cta.argtypes = ([ptr] * 7 + [i32] * 9
-                                                 + [ptr])
+    for fn in (lib.tfhe_blind_rotate_single_cta,
+               lib.tfhe_blind_rotate_persistent):
+        fn.argtypes = [ptr] * 7 + [i32] * 9 + [ptr]
     lib.tfhe_pbs_step_single_cta.argtypes = [ptr] * 7 + [i32] * 8 + [ptr]
     lib.tfhe_blind_rotate_single_cta_form.argtypes = [i32] * 6 + [ptr]
     lib.tfhe_pbs_step_single_cta_form.argtypes = [i32] * 6 + [ptr]
+    lib.tfhe_blind_rotate_persistent_clusters.argtypes = [i32] * 6 + [ptr]
     for fn in (lib.tfhe_blind_rotate_single_cta, lib.tfhe_pbs_step_single_cta,
+               lib.tfhe_blind_rotate_persistent,
                lib.tfhe_blind_rotate_single_cta_form,
-               lib.tfhe_pbs_step_single_cta_form):
+               lib.tfhe_pbs_step_single_cta_form,
+               lib.tfhe_blind_rotate_persistent_clusters):
         fn.restype = i32
     return lib
 
@@ -483,27 +470,25 @@ def blind_rotate_persistent(acc: torch.Tensor, ahat: torch.Tensor,
                             base_log: int, levels: int,
                             bits: int = 64) -> torch.Tensor:
     """K5 (replaces _make_grid_kernel, tfhe_tpu/ops/fused_pbs.py:1020): all
-    n steps in one launch of `blind_rotate_cluster_kernel`, the accumulator
-    held in the clusters' shared memory throughout.  ahat [n, B],
-    kspec / kshoup [n, P, LJ, O, M, N]; returns a new accumulator."""
+    n steps in one launch of `blind_rotate_stream_cluster_kernel` on the
+    register-resident NTT core, K4's cluster step looped on chip: a cluster
+    of one CTA per prime and ciphertext at every B, the accumulator updated
+    in place in the output (resident in L2) and only the step's key slice
+    streamed (`blind_rotate_persistent_waves` says how many waves a batch
+    takes).  256 <= N <= 2048 (a ValueError otherwise) and L*G <= 9, or
+    the launch is refused.  ahat [n, B], kspec / kshoup [n, P, LJ, O, M, N];
+    returns a new accumulator."""
     if acc.device.type == "cpu":
         return blind_rotate_persistent_plain(acc, ahat, kspec, base_log,
                                              levels, bits)
     if acc.device.type != "cuda":
         raise ValueError(
             f"blind_rotate_persistent: unsupported device {acc.device}")
-    B, n, G, M, P, N = _check_rotation(acc, ahat, kspec, kshoup, base_log,
-                                       levels, bits)
-    out = torch.empty_like(acc)
-    if B == 0:  # a grid of zero blocks is an invalid launch
-        return out
-    tab = ntt.tables_for(N, acc.device)
-    err = step_library().tfhe_blind_rotate_cluster(
-        acc.data_ptr(), ahat.data_ptr(), kspec.data_ptr(), kshoup.data_ptr(),
-        tab.kernel.data_ptr(), tab.crt.data_ptr(), out.data_ptr(), B, n, G, M,
-        P, N, base_log, levels, bits, _stream(acc.device))
-    _check_launch(err, "blind_rotate_persistent")
-    blind_rotate_persistent.launches += 1
+    out = _launch_on_core("blind_rotate_persistent", acc, ahat, kspec,
+                          kshoup, base_log, levels, bits,
+                          whole_rotation=True)
+    if acc.shape[0]:
+        blind_rotate_persistent.launches += 1
     return out
 
 
@@ -516,11 +501,14 @@ def _launch_on_core(name: str, acc: torch.Tensor, ahat: torch.Tensor,
                     caller: str | None = None) -> torch.Tensor:
     """Checks, then one launch through the C entry point tfhe_<name> of
     single_cta_kernels.cu over ahat.shape[0] steps (one step unless
-    whole_rotation); ahat [n, B], kspec / kshoup [n, P, LJ, O, M, N].
-    256 <= N <= 2048 (`ntt.pass_tables_for` raises otherwise).  A refused
-    launch is reported under `caller` (default: name)."""
+    whole_rotation); ahat [n, B], kspec / kshoup [n, P, LJ, O, M, N].  An N
+    outside the core's 256 ... 2048 raises ValueError, a refused launch
+    RuntimeError, both under `caller` (default: name)."""
     B, n, G, M, P, N = _check_rotation(acc, ahat, kspec, kshoup, base_log,
                                        levels, bits)
+    if not 256 <= N <= 2048:
+        raise ValueError(f"{caller or name}: N = {N} is outside the NTT "
+                         f"core's 256 ... 2048")
     out = torch.empty_like(acc)
     if B == 0:  # a grid of zero blocks is an invalid launch
         return out
@@ -639,6 +627,24 @@ def blind_rotate_single_cta_form(B: int, N: int, G: int, levels: int,
                  "blind_rotate_single_cta_form", B, N, G, levels, bits,
                  ("blind_rotate_core_kernel",
                   "blind_rotate_cluster_core_kernel"))
+
+
+def blind_rotate_persistent_waves(B: int, N: int, G: int, levels: int,
+                                  bits: int = 64) -> dict:
+    """How `blind_rotate_persistent` runs a batch of B on the current card:
+    the clusters the card holds at once (cudaOccupancyMaxActiveClusters)
+    and the waves of whole rotations, ceil(B / clusters).  Launches
+    nothing."""
+    clusters = ctypes.c_int(0)
+    err = single_cta_library().tfhe_blind_rotate_persistent_clusters(
+        B, G, 2 if bits == 64 else 1, len(ntt.PRIMES), N, levels,
+        ctypes.byref(clusters))
+    _check_launch(err, "blind_rotate_persistent_waves")
+    if clusters.value < 1:
+        raise RuntimeError(f"blind_rotate_persistent_waves: the card holds "
+                           f"{clusters.value} clusters")
+    return {"clusters": clusters.value,
+            "waves": -(-B // clusters.value)}
 
 
 def pbs_step_single_cta_form(B: int, N: int, G: int, levels: int,

@@ -9,10 +9,11 @@ spectra of its 32-bit planes with 16-bit Shoup companions
     decompose -> forward NTT -> Shoup MAC over the L*G digits, per prime
     -> inverse NTT -> CRT -> recombine the planes into torus words
 
-The MAC runs K10's counterpart (`ops/shoup_mac.py`), once per prime and
-step; the decomposition, the transforms and the CRT stay torch ops on
-every device, as they are jnp ops (not Pallas) in the reference.  The
-transforms are this port's (`ops/ntt.py`, bit-reversed spectra): the MAC
+The MAC runs K10's counterpart (`ops/shoup_mac.py`), one launch a step
+for all primes, written in the layout the inverse NTT reads (the reference
+calls its kernel once per prime); the decomposition, the transforms and
+the CRT stay torch ops on every device, as they are jnp ops (not Pallas)
+in the reference.  The transforms are this port's (`ops/ntt.py`, bit-reversed spectra): the MAC
 is pointwise in N, so the spectrum order does not reach any result.
 
 The torus width picks the key planes: one of 32 bits for the u32 torus,
@@ -34,7 +35,7 @@ from ..device import resolve_device
 from . import ntt, u128
 from .decomposition import signed_decompose
 from .fused_pbs import residues_to_torus
-from .shoup_mac import shoup_mac
+from .shoup_mac import shoup_mac_primes
 from .torus import MASK32, lsr, to_tensor
 
 # blind-rotation steps transformed at once by prepare_bsk_ntt: bounds its
@@ -145,13 +146,11 @@ def digit_spectra(digits: torch.Tensor) -> torch.Tensor:
 def spectral_mac(dspec: torch.Tensor, spec_step: torch.Tensor,
                  shoup_step: torch.Tensor) -> torch.Tensor:
     """dspec [P, B, LJ, N]; one step's spec / shoup [P, L, J, O, M, N] ->
-    [B, O*M, P, N] balanced int32: K10 once per prime."""
+    [B, O*M, P, N] balanced int32: one K10 launch over every prime."""
     P, B, LJ, N = dspec.shape
     OM = spec_step.shape[3] * spec_step.shape[4]
-    prods = [shoup_mac(dspec[i], spec_step[i].reshape(LJ, OM, N),
-                       shoup_step[i].reshape(LJ, OM, N), int(p))
-             for i, p in enumerate(ntt.PRIMES)]
-    return torch.stack(prods, dim=2)
+    return shoup_mac_primes(dspec, spec_step.reshape(P, LJ, OM, N),
+                            shoup_step.reshape(P, LJ, OM, N), ntt.PRIMES)
 
 
 def inverse_residues(prods: torch.Tensor, O: int, M: int) -> torch.Tensor:
