@@ -43,22 +43,26 @@ Phases, each printing one flushed line with its wall time:
      (host clock, launch overhead included), its split into keyswitch and
      blind rotation, the PBS_KS set's pbs_then_keyswitch throughput in
      scan2, and K1/K2's device time per launch at B=256;
-  6. kernels_multibit (run first, before phase 3): the four multi-bit
-     kernels against their plain versions at
+  6. kernels_multibit (run first, before phase 3): the three multi-bit
+     kernels (K8's two stages, multibit_combine and
+     multibit_external_product from the accumulator, and K9's
+     multibit_step) against their plain versions at
      PARAM_MULTI_BIT_MESSAGE_2_CARRY_2_GROUP_3_KS_PBS's width (N=2048, G=2,
      L=1, base_log 21, gf=3 so 8 subset keys per group, B=64), one step each
-     (K9's one-launch group step at B=256 too) and a 2-group blind rotation
-     in both schedules, bit-exact, with times per launch;
+     (and at B=256) and a 2-group blind rotation in both schedules,
+     bit-exact, with times per launch;
   7. main_path_multibit: GROUP_3 keys generated on the card, the same 64
      messages through three univariate LUTs and one bivariate LUT with the
-     ServerKey entry points (the default schedule, scan3, 296 group steps),
+     ServerKey entry points (the default schedule, scan3, 296 group steps
+     of two launches: multibit_combine, multibit_external_product),
      then the same four evaluations through core.keyswitch_then_multi_bit_pbs
      in the scan1 schedule (one K9 launch a group step), equal bit for bit,
      every result decrypted and checked, launches counted per schedule;
   8. card_vs_cpu_multibit: the multi-bit pipeline on the small insecure
      multi-bit set, on the card and on the CPU, bit-identical;
   9. timing_multibit: keyswitch_then_multi_bit_pbs throughput at B=64 and
-     B=256 in both schedules, its split, and the kernels' times at B=256;
+     B=256 in both schedules, its split, and at B=256 the kernels' times
+     and a whole group step's in each schedule;
  10. main_path_boolean: boolean DEFAULT_PARAMETERS keys generated on the
      card (n=722, N=512, k=2, u32, PBS then keyswitch), every gate and mux
      on 64 seeded bit pairs and triples through boolean.ServerKey in each of
@@ -108,6 +112,7 @@ and refuses to run without one.  A watchdog ends a hung run with a
 traceback.
 """
 
+import dataclasses
 import faulthandler
 import json
 import subprocess
@@ -128,14 +133,19 @@ PEAK_OPS_PER_S = 67e12
 
 # kernels rebuilt for Hopper after their first port, and the source they
 # were rebuilt on: K2, K3 (on K4's kernel), K4, K5 (K4's step looped), K6's
-# ntt_mac_prime, K7 and K9 on the register-resident NTT core; K10 (one
-# launch a step for every prime) in its own file
+# ntt_mac_prime, K7, K8's external product (on K9's kernel) and K9 on the
+# register-resident NTT core; K10 (one launch a step for every prime), K8's
+# combine (a key tile in shared memory) and K1 (4 words a thread) in their
+# own files
 REDESIGNED = dict.fromkeys(("external_product_crt", "pbs_step",
                             "pbs_step_single_cta", "blind_rotate_persistent",
                             "ntt_mac_prime", "blind_rotate_single_cta",
-                            "multibit_step"),
+                            "multibit_external_product", "multibit_step"),
                            "tfhe_tpu_torch/ops/csrc/ntt_core.cuh")
 REDESIGNED["shoup_mac"] = "tfhe_tpu_torch/ops/csrc/shoup_mac_kernels.cuh"
+REDESIGNED["multibit_combine"] = (
+    "tfhe_tpu_torch/ops/csrc/multibit_kernels.cuh")
+REDESIGNED["rotate_decompose"] = "tfhe_tpu_torch/ops/csrc/pbs_kernels.cuh"
 
 
 def say(phase, t0, **fields):
@@ -277,18 +287,20 @@ def gathered_powers(d, N):
 def multibit_bounds_ms(B, G, L, N, P, gf, powers):
     """Least time for one launch of each multi-bit kernel, as bounds_ms,
     with each kernel charged only what the function needs (K9's
-    `multibit_step`: a whole group step, from the accumulator to the new
-    one): the inputs it reads (of the subset degrees only d_1.., of the
-    powers of psi only the `powers` positions this run's degrees gather,
-    each with its companion; of the twiddles the N-1 used of each of the
-    four rows), the output it writes, and its operations.  A Shoup product
-    counts 6 operations, a Barrett product 8, a modular add 3, a butterfly
-    9 (as K2), a monomial index 2 (once per ciphertext, subset and
-    coefficient: it does not depend on the prime or the output); a sum of
-    k terms counts k-1 adds, or, for K9's products summed lazily into 64
-    bits, 2 a product (the multiply-adds of its low and high words) and 14
-    a sum (brought into [0, 2p) by two Shoup products and a
-    multiply-add)."""
+    `multibit_step`, and `scan3_group_step`, K8's two launches: a whole
+    group step, from the accumulator to the new one; K8's
+    `multibit_external_product`: from the accumulator and the combined key
+    to the new accumulator): the inputs it reads (of the subset degrees
+    only d_1.., of the powers of psi only the `powers` positions this run's
+    degrees gather, each with its companion; of the twiddles the N-1 used
+    of each of the four rows), the output it writes, and its operations.  A
+    Shoup product counts 6 operations, a Barrett product 8, a modular add
+    3, a butterfly 9 (as K2), a monomial index 2 (once per ciphertext,
+    subset and coefficient: it does not depend on the prime or the
+    output); a sum of k terms counts k-1 adds, or, for the MACs' products
+    summed lazily into 64 bits, 2 a product (the multiply-adds of its low
+    and high words) and 14 a sum (brought into [0, 2p) by two Shoup
+    products and a multiply-add)."""
     M, LJ, per = 2, L * G, 1 << gf
     OM = G * M
     W = LJ * OM * N  # one subset key, one prime
@@ -305,15 +317,15 @@ def multibit_bounds_ms(B, G, L, N, P, gf, powers):
     acc = B * G * N * 8
     decompose_ops = B * G * N * (4 + 8 * L)
     work = {
-        "decompose": (acc + B * L * G * N * 4, decompose_ops),
         "multibit_combine": (spectra + degrees + gathers + P * 4
                              + B * P * W * 4,
                              B * P * W * (per - 1) * (6 + 3) + index),
+        # the accumulator and the combined key in, the new accumulator out;
+        # the digits made inside, no monomial, LJ products an output word
         "multibit_external_product": (
-            B * LJ * N * 4 + B * P * W * 4 + twiddles + P * 4 + garner_consts
-            + B * G * N * 8,
-            butterflies * 9 + B * P * OM * N * (LJ * 8 + (LJ - 1) * 3)
-            + digits_mod_p + garner),
+            acc + B * P * W * 4 + twiddles + garner_consts + acc,
+            decompose_ops + butterflies * 9
+            + B * P * N * OM * (LJ * 2 + 14) + digits_mod_p + garner),
         # the whole group step: the accumulator in and out, the subset key
         # spectra (the MAC needs no companions), the decomposition too; the
         # monomial multiplies the LJ digit spectra or the OM outputs,
@@ -327,6 +339,8 @@ def multibit_bounds_ms(B, G, L, N, P, gf, powers):
                            + (per - 1) * min(LJ, OM) * 6)
             + index + digits_mod_p + garner),
     }
+    # K8's whole group step computes K9's function
+    work["scan3_group_step"] = work["multibit_step"]
     out = {}
     for name, (nbytes, ops) in work.items():
         tb = nbytes / PEAK_BYTES_PER_S * 1e3
@@ -366,49 +380,48 @@ def multibit_kernels_phase(dev):
     d[:, :, 0] = 0  # the empty subset's sum switches to 0
     ks = key.kspec[0]
 
-    dig = fm.decompose(acc, bl, L)
-    dig_p = fm.decompose_plain(acc, bl, L)
-    comb = fm.multibit_combine(d[0], ks)
-    comb_p = fm.multibit_combine_plain(d[0], ks)
-    ext = fm.multibit_external_product(dig_p, comb_p)
-    ext_p = fm.multibit_external_product_plain(dig_p, comb_p)
-    step = fm.multibit_step(acc, d[0], ks, bl, L)
-    step_p = fm.multibit_step_plain(acc, d[0], ks, bl, L)
-    # K9 at B = 256 too, from a generator of its own
+    def stage_errors(acc, d):
+        """Each kernel against its plain twin on one group step's inputs."""
+        comb = fm.multibit_combine(d, ks)
+        comb_p = fm.multibit_combine_plain(d, ks)
+        return comb_p, {
+            "multibit_combine": max_abs_err(comb, comb_p),
+            "multibit_external_product": max_abs_err(
+                fm.multibit_external_product(acc, comb_p, bl, L),
+                fm.multibit_external_product_plain(acc, comb_p, bl, L)),
+            "multibit_step": max_abs_err(
+                fm.multibit_step(acc, d, ks, bl, L),
+                fm.multibit_step_plain(acc, d, ks, bl, L))}
+
+    comb_p, err = stage_errors(acc, d[0])
+    # at B = 256 too, from a generator of its own
     rng_l = np.random.default_rng([SEED, B_LARGE])
     acc_l = torch.from_numpy(rng_l.integers(
         0, 2**64 - 1, (B_LARGE, G, N), dtype=np.uint64, endpoint=True)
         .view(np.int64)).to(dev)
     d_l = torch.from_numpy(rng_l.integers(0, 2 * N, (B_LARGE, per))
                            .astype(np.int32)).to(dev)
-    err_l = max_abs_err(fm.multibit_step(acc_l, d_l, ks, bl, L),
-                        fm.multibit_step_plain(acc_l, d_l, ks, bl, L))
+    err_l = stage_errors(acc_l, d_l)[1]
+    del acc_l, d_l
     rot_p = acc
     for g in range(groups):
         rot_p = fm.multibit_external_product_plain(
-            fm.decompose_plain(rot_p, bl, L),
-            fm.multibit_combine_plain(d[g], key.kspec[g]))
+            rot_p, fm.multibit_combine_plain(d[g], key.kspec[g]), bl, L)
     rot = {m: fm.multi_bit_blind_rotate_cuda(key, acc, d, mode=m)
            for m in fm.MODES}
     torch.cuda.synchronize()
-    err = {"decompose": max_abs_err(dig, dig_p),
-           "multibit_combine": max_abs_err(comb, comb_p),
-           "multibit_external_product": max_abs_err(ext, ext_p),
-           "multibit_step": max_abs_err(step, step_p)}
     err_rot = {m: max_abs_err(r, rot_p) for m, r in rot.items()}
-    if any(err.values()) or any(err_rot.values()) or err_l:
+    if any(err.values()) or any(err_rot.values()) or any(err_l.values()):
         raise AssertionError(f"multi-bit kernels disagree with their plain "
                              f"versions: {err}, 2-group rotation {err_rot}, "
-                             f"multibit_step at B = {B_LARGE} {err_l}")
+                             f"at B = {B_LARGE} {err_l}")
 
     calls = {
-        "decompose": (lambda: fm.decompose(acc, bl, L),
-                      lambda: fm.decompose_plain(acc, bl, L)),
         "multibit_combine": (lambda: fm.multibit_combine(d[0], ks),
                              lambda: fm.multibit_combine_plain(d[0], ks)),
         "multibit_external_product": (
-            lambda: fm.multibit_external_product(dig_p, comb_p),
-            lambda: fm.multibit_external_product_plain(dig_p, comb_p)),
+            lambda: fm.multibit_external_product(acc, comb_p, bl, L),
+            lambda: fm.multibit_external_product_plain(acc, comb_p, bl, L)),
         "multibit_step": (
             lambda: fm.multibit_step(acc, d[0], ks, bl, L),
             lambda: fm.multibit_step_plain(acc, d[0], ks, bl, L)),
@@ -421,11 +434,11 @@ def multibit_kernels_phase(dev):
     say("kernels_multibit", t0,
         shape=dict(B=B_MAIN, G=G, L=L, N=N, P=5, base_log=bl, gf=gf),
         max_abs_err=err, blind_rotation_2_groups_max_abs_err=err_rot,
-        multibit_step_max_abs_err_b256=err_l,
+        max_abs_err_b256=err_l,
         device_ms_per_launch=ms, eager_ms_per_launch=eager,
         plain_device_ms=plain_ms,
         gathered_powers=powers, bound_ms={k: v[0] for k, v in bounds.items()})
-    return err, ms, plain_ms, bounds
+    return {k: max(v, err_l[k]) for k, v in err.items()}, ms, plain_ms, bounds
 
 
 def multibit_main_path(dev):
@@ -501,10 +514,10 @@ def multibit_main_path(dev):
     if not all(same.values()):
         raise AssertionError(f"scan1 and scan3 outputs differ: {same}")
     expected = {
-        "scan3": dict(decompose=4 * steps, multibit_combine=4 * steps,
+        "scan3": dict(multibit_combine=4 * steps,
                       multibit_external_product=4 * steps, multibit_step=0),
-        "scan1": dict(decompose=0, multibit_combine=0,
-                      multibit_external_product=0, multibit_step=4 * steps)}
+        "scan1": dict(multibit_combine=0, multibit_external_product=0,
+                      multibit_step=4 * steps)}
     if launches != expected or any(classic_launches.values()):
         raise AssertionError(f"multi-bit main path launched {launches} and "
                              f"classic {classic_launches}, expected "
@@ -579,16 +592,18 @@ def multibit_timing(card, dev, cks, sks, rng):
     d = torch.from_numpy(rng.integers(0, 2 * N, (B_LARGE, per))
                          .astype(np.int32)).to(dev)
     ks = sks.bsk.kspec[0]
-    dig = fm.decompose(acc, bl, L)
     comb = fm.multibit_combine(d, ks)
+    one_group = dataclasses.replace(sks.bsk, input_dim=p.grouping_factor)
     ms256 = dict(
-        decompose=graph_ms(lambda: fm.decompose(acc, bl, L), 100),
         multibit_combine=graph_ms(lambda: fm.multibit_combine(d, ks),
                                   50),
         multibit_external_product=graph_ms(
-            lambda: fm.multibit_external_product(dig, comb), 50),
+            lambda: fm.multibit_external_product(acc, comb, bl, L), 50),
         multibit_step=graph_ms(lambda: fm.multibit_step(acc, d, ks, bl, L),
-                               50))
+                               50),
+        # a whole group step in each schedule (scan1's is multibit_step)
+        scan3_group_step=graph_ms(lambda: fm.multi_bit_blind_rotate_cuda(
+            one_group, acc, d[None], mode="scan3"), 50))
     say("timing_multibit", t0, card=card, params=p.name, pbs_per_s=rates,
         batch_ms=batch_ms, batch_split_ms=split_ms,
         device_ms_per_launch_b256=ms256,
@@ -1852,9 +1867,8 @@ def main():
             "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
             "library_ms": None, "redesigned": REDESIGNED.get(name)})
     for name, line, src in (
-            ("decompose", 264, "pbs_kernels.cuh"),
             ("multibit_combine", 747, "multibit_kernels.cuh"),
-            ("multibit_external_product", 823, "pbs_kernels.cuh"),
+            ("multibit_external_product", 823, "multibit_core.cuh"),
             ("multibit_step", 539, "multibit_core.cuh")):
         kernels.append({
             "name": name, "route": "cuda",

@@ -2,6 +2,7 @@
 compare two trees of tfhe_tpu_torch on one card.
 
     python3 kernel_times.py [--root DIR] [--seeds 2024 1 2 3]
+                            [--no-rotations]
 
 DIR is the directory holding the tfhe_tpu_torch to time (default: this
 script's).  Every tree gets the same inputs: for each seed, the multi-bit
@@ -11,14 +12,17 @@ default_rng(seed) as its `modes_kernels_phase` draws them at
 PARAM_MESSAGE_2_CARRY_2_KS_PBS's width, so seed 2024 gives the smoke's own
 inputs.  Timed at B = 64, each as a CUDA graph of 100 launches replayed
 three times between CUDA events: K1 `rotate_decompose` and K2
-`external_product_crt` (N=2048, G=2, L=1, base_log 23, u64), and K8
-(`decompose`, `multibit_combine`, `multibit_external_product`) and K9
-`multibit_step` at PARAM_MULTI_BIT_MESSAGE_2_CARRY_2_GROUP_3_KS_PBS's
-width (gf=3).  K9 is timed as a whole group step, `multibit_group_step`:
-`multi_bit_blind_rotate_cuda` in mode "scan1" over one group, whatever
-launches the tree makes for it; `multibit_group_step_B256` the same at
-B = 256 (inputs from default_rng([seed, 256])).  Then, from a generator
-of their own per seed and width (default_rng([seed, n])), K2 at boolean
+`external_product_crt` (N=2048, G=2, L=1, base_log 23, u64), and at
+PARAM_MULTI_BIT_MESSAGE_2_CARRY_2_GROUP_3_KS_PBS's width (gf=3) K8's
+`multibit_combine` and its external product from the accumulator
+(`multibit_external_product_from_acc`: the digits and the product, as
+the tree makes them: `decompose` then the product of the digits, or the
+product taking the accumulator).  K9 and K8 are timed as a whole group
+step: `multi_bit_blind_rotate_cuda` over one group in mode "scan1"
+(`multibit_group_step`) and "scan3" (`multibit_scan3_group_step`),
+whatever launches the tree makes for it; `*_B256` the same at B = 256
+(inputs from default_rng([seed, 256])).  Then, from a generator of their
+own per seed and width (default_rng([seed, n])), K1 and K2 at boolean
 DEFAULT_PARAMETERS' width (N=512, G=3, L=3, base_log 6, u32) and both
 widths at B = 256, and at both widths and B = 64 and 256 K3 `pbs_step`
 and K4 `pbs_step_single_cta` (one step each), K7
@@ -30,8 +34,10 @@ main path's depth (742 and 722 steps; CUDA events around 3 launches after
 2 warm-ups).  Then K10's whole step, `polymul_ntt.spectral_mac` over the
 five primes (whatever launches the tree makes for it), at the widths of
 the CRT-NTT layout's three paths (shortint, boolean, u128) and B = 64 and
-256, from default_rng([seed, 10, B]) (graphs of 100).  Only functions that
-both trees of the port have are called.  Prints one JSON line, with the
+256, from default_rng([seed, 10, B]) (graphs of 100).  --no-rotations
+leaves out the whole rotations of K5 and K7, most of the run's time, to
+compare forms of the other kernels.  Only functions that both trees of
+the port have are called.  Prints one JSON line, with the
 card's name and power limit.
 """
 
@@ -44,7 +50,7 @@ import sys
 from chip_smoke import B_LARGE, B_MAIN, SEED, card_line, cuda_ms, graph_ms
 
 
-def times(seed):
+def times(seed, rotations=True):
     import numpy as np
     import torch
 
@@ -73,10 +79,16 @@ def times(seed):
                          .astype(np.int32)).to(dev)
     d[:, :, 0] = 0
     ks = mkey.kspec[0]
-    mdig = fm.decompose_plain(macc, bl, L)
     comb = fm.multibit_combine_plain(d[0], ks)
     mbl, mL = bl, L
     one_group = dataclasses.replace(mkey, input_dim=gf)
+    if hasattr(fm, "decompose"):  # a tree whose product takes digits
+        def product_from_acc():
+            return fm.multibit_external_product(fm.decompose(macc, mbl, mL),
+                                                comb)
+    else:
+        def product_from_acc():
+            return fm.multibit_external_product(macc, comb, mbl, mL)
 
     rng = np.random.default_rng(seed)
     N, G, L, bl = (cp.polynomial_size, cp.glwe_size, cp.pbs_level,
@@ -91,12 +103,12 @@ def times(seed):
         "rotate_decompose": lambda: fp.rotate_decompose(acc, ahat[0], bl, L),
         "external_product_crt": lambda: fp.external_product_crt(
             dig, key.kspec[0], key.kshoup[0], acc),
-        "decompose": lambda: fm.decompose(macc, mbl, mL),
         "multibit_combine": lambda: fm.multibit_combine(d[0], ks),
-        "multibit_external_product": lambda: fm.multibit_external_product(
-            mdig, comb),
+        "multibit_external_product_from_acc": product_from_acc,
         "multibit_group_step": lambda: fm.multi_bit_blind_rotate_cuda(
             one_group, macc, d[:1], mode="scan1"),
+        "multibit_scan3_group_step": lambda: fm.multi_bit_blind_rotate_cuda(
+            one_group, macc, d[:1], mode="scan3"),
     }
     out = {k: graph_ms(fn, 100) for k, fn in calls.items()}
     rng = np.random.default_rng([seed, B_LARGE])
@@ -104,19 +116,21 @@ def times(seed):
     d = torch.from_numpy(rng.integers(0, 2 * N_MB, (1, B_LARGE, per))
                          .astype(np.int32)).to(dev)
     d[:, :, 0] = 0
-    out["multibit_group_step_B256"] = graph_ms(
-        lambda: fm.multi_bit_blind_rotate_cuda(one_group, macc, d,
-                                               mode="scan1"), 100)
-    out.update(redesigned(seed))
+    for mode, name in (("scan1", "multibit_group_step"),
+                       ("scan3", "multibit_scan3_group_step")):
+        out[f"{name}_B256"] = graph_ms(
+            lambda: fm.multi_bit_blind_rotate_cuda(  # noqa: B023
+                one_group, macc, d, mode=mode), 100)
+    out.update(redesigned(seed, rotations))
     out.update(ntt_step(seed))
     return out
 
 
-def redesigned(seed):
-    """K2 at both widths and B = 64 / 256 (the shortint width at B = 64 is
-    timed above); K3 and K4 (one step each), K7 over one step and K6's
-    `ntt_mac_prime` (prime 0) at both widths and batch sizes; and K5 and K7
-    at both widths, depths and batch sizes."""
+def redesigned(seed, rotations=True):
+    """K1 and K2 at both widths and B = 64 / 256 (the shortint width at
+    B = 64 is timed above); K3 and K4 (one step each), K7 over one step and
+    K6's `ntt_mac_prime` (prime 0) at both widths and batch sizes; and,
+    with `rotations`, K5 and K7 at both widths, depths and batch sizes."""
     import numpy as np
     import torch
 
@@ -146,6 +160,9 @@ def redesigned(seed):
                                     .astype(np.int32)).to(dev)
             dig = fp.rotate_decompose_plain(acc, ahat[0], bl, L, bits)
             if (tag, B) != ("shortint", B_MAIN):
+                out[f"rotate_decompose_{tag}_B{B}"] = graph_ms(
+                    lambda: fp.rotate_decompose(  # noqa: B023
+                        acc, ahat[0], bl, L, bits), 100)
                 out[f"external_product_crt_{tag}_B{B}"] = graph_ms(
                     lambda: fp.external_product_crt(  # noqa: B023
                         dig, key.kspec[0], key.kshoup[0], acc, bits), 100)
@@ -169,6 +186,8 @@ def redesigned(seed):
             out[f"ntt_mac_prime_{tag}_B{B}"] = graph_ms(
                 lambda: fp.ntt_mac_prime(  # noqa: B023
                     dig, key.kspec[0, 0], key.kshoup[0, 0], 0, res), 100)
+            if not rotations:
+                continue
             out[f"blind_rotate_single_cta_{tag}_B{B}"] = cuda_ms(
                 lambda: fp.blind_rotate_single_cta(  # noqa: B023
                     acc, ahat, key.kspec, key.kshoup, bl, L, bits), 3)
@@ -219,6 +238,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=here)
     ap.add_argument("--seeds", type=int, nargs="+", default=[SEED, 1, 2, 3])
+    ap.add_argument("--no-rotations", dest="rotations", action="store_false",
+                    help="leave out K5's and K7's whole rotations")
     args = ap.parse_args()
     import torch
 
@@ -232,7 +253,7 @@ def main():
     fused_pbs.single_cta_library()
     fused_multibit.cuda_library()
     shoup_mac.cuda_library()
-    out = {str(s): times(s) for s in args.seeds}
+    out = {str(s): times(s, args.rotations) for s in args.seeds}
     print(json.dumps({"card": card_line(), "root": args.root,
                       "device_ms_per_launch": out}), flush=True)
     return 0

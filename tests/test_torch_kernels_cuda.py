@@ -5,7 +5,9 @@ and a batch past the 65535 blocks of a grid's y dimension; K2 on the
 register-resident NTT core at every width the port runs (both full widths,
 the PBS_KS set's base_log 21, the TEST sets, the sets at N = 1024 and the
 cases) and at batch
-sizes around one and two waves of the card's 132 SMs.  Marked `cuda`: they skip where there is no card; on one, run
+sizes around one and two waves of the card's 132 SMs; K1 at every such
+width and batch, with a = 0, 2N (the identity) and random rotations.
+Marked `cuda`: they skip where there is no card; on one, run
 `python -m pytest -m cuda --noconftest tests/test_torch_kernels_cuda.py`
 (tests/conftest.py imports JAX, which is not needed here)."""
 
@@ -106,6 +108,25 @@ def test_external_product_on_the_core_matches_plain(width, B, card):
         dig, key.kspec[0], acc, bits))
 
 
+@pytest.mark.parametrize("B", BATCHES)
+@pytest.mark.parametrize("width", WIDTHS, ids=WIDTH_IDS)
+def test_rotate_decompose_matches_plain(width, B, card):
+    # K1, one launch, with the edge rotations a = 0 and a = 2N (both the
+    # identity) among random ones, each past the wrap at N or 2N
+    rng = np.random.default_rng([37, B])
+    L, G, N, bl, bits = (width[k] for k in ("L", "G", "N", "bl", "bits"))
+    acc = _words(rng, (B, G, N), bits, card)
+    ahat = rng.integers(0, 2 * N, (B,), endpoint=True)
+    ahat[:2] = (0, 2 * N)[:B]
+    ahat = torch.from_numpy(ahat.astype(np.int32)).to(card)
+    fused_pbs.reset_launch_counts()
+    got = fused_pbs.rotate_decompose(acc, ahat, bl, L, bits)
+    torch.cuda.synchronize()
+    assert fused_pbs.rotate_decompose.launches == 1
+    assert torch.equal(got, fused_pbs.rotate_decompose_plain(acc, ahat, bl, L,
+                                                             bits))
+
+
 def test_batch_beyond_a_grid_dimension_of_65535(card):
     # K2's kernel puts the batch on grid.x: B past 65535 (grid.y's limit)
     # launches, and each ciphertext's result is its own
@@ -146,6 +167,12 @@ def test_wrappers_reject_bad_inputs(card):
         fused_pbs.rotate_decompose(acc, ahat, 23, 1)
     with pytest.raises(ValueError):
         fused_pbs.rotate_decompose(acc[:, :, ::2], ahat.int(), 23, 1)
+    # K1 reads 16 bytes at a time: a contiguous accumulator that starts 8
+    # bytes into its buffer is refused
+    shifted = torch.zeros(acc.numel() + 1, dtype=torch.int64,
+                          device=card)[1:].view(acc.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        fused_pbs.rotate_decompose(shifted, ahat.int(), 23, 1)
     # the core's limits: L*G <= 9 (the launch is refused) and
     # 256 <= N <= 2048 (no tables)
     for L, G, N, error, match in ((5, 2, 256, RuntimeError, "InvalidValue"),

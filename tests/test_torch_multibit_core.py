@@ -1,6 +1,8 @@
 """A plain PyTorch model of K9 `multibit_step` as it runs on the
 register-resident NTT core (tfhe_tpu_torch/ops/csrc/multibit_core.cuh),
-checked word for word on the CPU.
+and of K8's two stages, `multibit_combine` (multibit_kernels.cuh) and
+`multibit_external_product` (K9's kernel with one subset and the key per
+ciphertext), checked word for word on the CPU.
 
 The model does what the kernel's threads do: the signed digits of the
 accumulator itself, each made at its own word (`decompose_word` of
@@ -15,13 +17,20 @@ product by w^(m mod 4) unless that is 1 and a negation 2p - y for m >= 4,
 each product a lazy Shoup product on uint32 words; the products with the
 canonical key words summed exactly (in 64 bits on the card); one
 reduction of each sum into [0, 2p); the inverse transforms; and the
-explicit CRT from zero.  Checked: the split of e(n)
-the kernel relies on, for every N the core takes; the model against
-`multibit_step_plain` (and the other schedule's plain kernels) at N = 256
+explicit CRT from zero.  K8's external product is the same model with one
+subset, no monomial, and each ciphertext's own combined key.  K8's combine
+is modelled per thread: a thread owns one ciphertext's 8 words n0 ... n0 +
+7 of each key row (n0 a multiple of 8), gathers psi^(d_j e(n0)) with its
+companion once per subset, makes the four values psi^(d_j e(n0)) w^s
+(s < 4), picks and signs one per word as above, and sums the products
+with the canonical key words exactly, reduced canonical once.  Checked: the split of e(n) the kernel relies on, for
+every N the core takes; the models against `multibit_step_plain`,
+`multibit_combine_plain` and `multibit_external_product_plain` at N = 256
 and 512, gf = 2 and 3; and, through a whole multi-bit blind rotation whose
-every group step is the model, against the reference's
-`fused_multibit_rotate_scan1` (tfhe_tpu/ops/fused_multibit.py:508),
-interpreted on the CPU as tests/test_fused_multibit.py runs it."""
+every group step is the model (both schedules), against the reference's
+`fused_multibit_rotate_scan1` and `fused_multibit_rotate_scan`
+(tfhe_tpu/ops/fused_multibit.py:508, :702), interpreted on the CPU as
+tests/test_fused_multibit.py runs them."""
 
 import numpy as np
 import pytest
@@ -39,11 +48,26 @@ from test_torch_ntt_core_steps import decompose_word
 BITREV3 = [0, 4, 2, 6, 1, 5, 3, 7]
 
 
-def model_multibit_step(acc, d, kspec, base_log, levels):
+def root_power(y, m, pw, pwsh, N, p):
+    """y [B, ...] words below 2^32 times w^m, m [B] in [0, 8): a lazy Shoup
+    product by w^(m mod 4) (w = psi^(N/4)) unless that is 1, then 2p - y
+    for m >= 4, as the kernels compute it."""
+    shape = (-1,) + (1,) * (y.dim() - 1)
+    m = m.reshape(shape)
+    r = (m & 3) * (N // 4)
+    y = torch.where((m & 3) > 0, shoup_lazy(y, pw[r], pwsh[r], p), y)
+    return torch.where(m >= 4, 2 * p - y, y)
+
+
+def model_multibit_step(acc, d, kspec, base_log, levels, combined=False):
     """K9 as the kernel computes it: acc [B, G, N] int64, d [B, 2^gf] int32,
-    kspec [2^gf, P, LJ, G, 2, N] -> the new accumulator [B, G, N] int64."""
+    kspec [2^gf, P, LJ, G, 2, N] -> the new accumulator [B, G, N] int64.
+    With `combined`, K8's external product on the same kernel: kspec the
+    combined keys [B, P, LJ, G, 2, N], one subset, no monomial (d is not
+    read)."""
     B, G, N = acc.shape
     per, P, LJ, O, M, _ = kspec.shape
+    per = 1 if combined else per
     T = N // ntt.PASS_RADIX
     dig = decompose_word(to_numpy(acc).astype(np.uint64), base_log, levels,
                          64)  # [L, B, G, N], level-major
@@ -51,7 +75,7 @@ def model_multibit_step(acc, d, kspec, base_log, levels):
         dig.transpose(1, 0, 2, 3))).reshape(B, LJ, N)
     mono = ntt.monomial_tables_for(N, "cpu")
     e0 = mono.exponents.to(torch.int64)[torch.arange(T) * ntt.PASS_RADIX]
-    dj = d.to(torch.int64)
+    dj = None if combined else d.to(torch.int64)
     pos = elem(T, 0)
     xcrt = ntt.tables_for(N, "cpu").xcrt
     res = torch.empty((B, O, M, P, N), dtype=torch.int64)
@@ -69,23 +93,71 @@ def model_multibit_step(acc, d, kspec, base_log, levels):
                 dm = shoup_lazy(spec, pw[t][:, None, :, None],
                                 pwsh[t][:, None, :, None], c.p).clone()
                 for k in range(1, ntt.PASS_RADIX):
-                    # w^m, m = d_j bitrev3(k) mod 8: a product by
-                    # w^(m mod 4) unless that is 1, then 2p - y for m >= 4
-                    m = ((dj[:, j] * BITREV3[k]) & 7)[:, None, None]  # [B]
-                    r = (m & 3) * (N // 4)
-                    y = dm[..., k]
-                    y = torch.where((m & 3) > 0,
-                                    shoup_lazy(y, pw[r], pwsh[r], c.p), y)
-                    dm[..., k] = torch.where(m >= 4, 2 * c.p - y, y)
-            key = kspec[j, pi].to(torch.int64).reshape(LJ, O * M, N)[..., pos]
-            o = o + (dm[:, :, None] * key[None]).sum(dim=1)
-        assert int(o.max()) < 1 << 43  # the kernel's 64-bit sums' bound
+                    # w^m, m = d_j bitrev3(k) mod 8
+                    dm[..., k] = root_power(dm[..., k],
+                                            (dj[:, j] * BITREV3[k]) & 7,
+                                            pw, pwsh, N, c.p)
+            if combined:  # each ciphertext's own key [B, LJ, OM, T, r]
+                key = kspec[:, pi].to(torch.int64).reshape(
+                    B, LJ, O * M, N)[..., pos]
+            else:
+                key = kspec[j, pi].to(torch.int64).reshape(
+                    LJ, O * M, N)[..., pos][None]
+            o = o + (dm[:, :, None] * key).sum(dim=1)
+        # the kernel's 64-bit sums' bound: 2^gf LJ terms below 2^35, or
+        # (K8) LJ terms
+        assert int(o.max()) < 1 << (39 if combined else 43)
         c32 = (1 << 32) % c.p
         low = shoup_lazy(o & M32, 1, c.one_sh, c.p) + (o >> 32) * c32
         x = shoup_lazy(low, 1, c.one_sh, c.p)  # [0, 2p)
         out = c.canonical(c.inverse(x), int(xcrt[pi, 1]), int(xcrt[pi, 2]))
         res[:, :, :, pi] = out.reshape(B, O, M, N)
     return explicit_crt(res, torch.zeros_like(acc), 64)
+
+
+def model_combine(d, kspec):
+    """K8's combine as its threads compute it: d [B, 2^gf] int32, kspec
+    [2^gf, P, LJ, O, M, N] canonical -> combined [B, P, LJ, O, M, N]
+    int32.  A thread owns one ciphertext's words n0 ... n0 + 7 (n0 a
+    multiple of 8) of every key row; per subset j >= 1 it gathers
+    psi^(d_j e(n0)) and its companion, makes the four canonical values
+    V_s = psi^(d_j e(n0)) w^s (s < 4) by Shoup products, takes mon_j(n0 +
+    k) = V_(m mod 4), negated for m >= 4 (m = d_j bitrev3(k) mod 8), and
+    sums K_0 + sum_j mon_j K_j exactly (64 bits on the card), reduced
+    canonical once.  The kernel's tiles of rows only schedule this."""
+    per, P, LJ, O, M, N = kspec.shape
+    B, T, R = d.shape[0], N // ntt.PASS_RADIX, LJ * O * M
+    mono = ntt.monomial_tables_for(N, "cpu")
+    e0 = mono.exponents.to(torch.int64)[torch.arange(T) * ntt.PASS_RADIX]
+    dj = d.to(torch.int64)
+    key = (kspec.to(torch.int64) & M32).reshape(per, P, R, T,
+                                                ntt.PASS_RADIX)
+    rows = torch.arange(B)
+    out = torch.empty((B, P, R, T, ntt.PASS_RADIX), dtype=torch.int64)
+    for pi, p in enumerate(ntt.PRIMES):
+        pw = mono.powers[pi, 0].to(torch.int64) & M32
+        pwsh = mono.powers[pi, 1].to(torch.int64) & M32
+        one_sh = int(pwsh[0])  # the companion of psi^0 = 1
+        o = key[0, pi].expand(B, -1, -1, -1).clone()
+        for j in range(1, per):
+            t = (dj[:, j, None] * e0) & (2 * N - 1)  # [B, T]
+            v0, v0sh = pw[t], pwsh[t]
+            vals = [v0]
+            for s in range(1, 4):  # w^s times psi^t, canonical
+                y = shoup_lazy(int(pw[s * N // 4]), v0, v0sh, p)
+                vals.append(torch.where(y >= p, y - p, y))
+            vals = torch.stack(vals)  # [4, B, T]
+            for k in range(ntt.PASS_RADIX):
+                m = (dj[:, j] * BITREV3[k]) & 7  # [B]
+                v = vals[m & 3, rows]
+                mon = torch.where((m >= 4)[:, None], p - v, v)
+                o[..., k] += key[j, pi][None, ..., k] * mon[:, None, :]
+        assert int(o.max()) < 1 << 38  # K_0 + 15 products below p^2
+        c32 = (1 << 32) % p
+        r = shoup_lazy(shoup_lazy(o & M32, 1, one_sh, p) + (o >> 32) * c32,
+                       1, one_sh, p)
+        out[:, pi] = torch.where(r >= p, r - p, r)
+    return out.reshape(B, P, LJ, O, M, N).to(torch.int32)
 
 
 @pytest.mark.parametrize("N", [256, 512, 1024, 2048])
@@ -122,16 +194,38 @@ def test_step_model_equals_plain(case):
     assert torch.equal(got, fused_multibit.multibit_step_plain(
         acc, d, key.kspec[0], bl, L))
     assert torch.equal(got, fused_multibit.multibit_external_product_plain(
-        fused_multibit.decompose_plain(acc, bl, L),
-        fused_multibit.multibit_combine_plain(d, key.kspec[0])))
+        acc, fused_multibit.multibit_combine_plain(d, key.kspec[0]), bl, L))
+
+
+@pytest.mark.parametrize("case", STEP_CASES, ids=STEP_IDS)
+def test_scan3_stage_models_equal_plain(case):
+    # K8's combine thread and its external product (K9's kernel at one
+    # subset, the key per ciphertext), each against its plain twin
+    gf, N, L, bl, G = case
+    rng = np.random.default_rng([13] + list(case))
+    key = core.prepare_multi_bit_bsk_cuda(to_tensor(rng.integers(
+        0, 1 << 64, (1, 1 << gf, L, G, G, N), dtype=np.uint64), "cpu"), bl, gf)
+    acc = to_tensor(rng.integers(0, 1 << 64, (3, G, N), dtype=np.uint64),
+                    "cpu")
+    d = torch.from_numpy(rng.integers(0, 2 * N, (3, 1 << gf))
+                         .astype(np.int32))
+    d[0] = torch.tensor([0, N, 2 * N - 1, 1] * (1 << gf))[:1 << gf]
+    comb = model_combine(d, key.kspec[0])
+    assert torch.equal(comb, fused_multibit.multibit_combine_plain(
+        d, key.kspec[0]))
+    got = model_multibit_step(acc, None, comb, bl, L, combined=True)
+    assert torch.equal(got, fused_multibit.multibit_external_product_plain(
+        acc, comb, bl, L))
 
 
 # (gf, N, L, base_log, groups, B): tests/test_fused_multibit.py's cases
 ROTATION_CASES = [(3, 256, 1, 15, 4, 4), (2, 256, 2, 8, 3, 3)]
 
 
-@pytest.mark.parametrize("case", ROTATION_CASES, ids=["gf3L1", "gf2L2"])
-def test_rotation_with_the_model_equals_the_reference(case, monkeypatch):
+def rotate_with_the_models(case, mode, monkeypatch):
+    """The port's rotation in `mode` with every kernel replaced by its
+    model, and the reference's Pallas rotation in the same schedule,
+    interpreted; and the number of group steps the models ran."""
     gf, N, L, bl, groups, B = case
     G = 2
     rng = np.random.default_rng(11)
@@ -146,11 +240,36 @@ def test_rotation_with_the_model_equals_the_reference(case, monkeypatch):
         steps.append(d.shape)
         return model_multibit_step(acc, d, kspec, base_log, levels)
 
+    def combine(d, kspec):
+        steps.append(d.shape)
+        return model_combine(d, kspec)
+
+    def product(acc, combined, base_log, levels):
+        return model_multibit_step(acc, None, combined, base_log, levels,
+                                   combined=True)
+
     monkeypatch.setattr(fused_multibit, "multibit_step", model)
+    monkeypatch.setattr(fused_multibit, "multibit_combine", combine)
+    monkeypatch.setattr(fused_multibit, "multibit_external_product", product)
     got = core.multi_bit_blind_rotate(key, to_tensor(lut, "cpu"),
-                                      to_tensor(lwe, "cpu"), mode="scan1")
-    assert len(steps) == groups
-    monkeypatch.setenv("TFHE_TPU_MULTIBIT_MODE", "scan1")
+                                      to_tensor(lwe, "cpu"), mode=mode)
+    monkeypatch.setenv("TFHE_TPU_MULTIBIT_MODE", mode)
     want = np.asarray(multi_bit_blind_rotate_fused(
         prepare_multi_bit_bsk_fused(mbsk, bl, gf), lut, lwe))
-    assert np.array_equal(to_numpy(got), want)
+    return to_numpy(got), want, len(steps)
+
+
+@pytest.mark.parametrize("case", ROTATION_CASES, ids=["gf3L1", "gf2L2"])
+def test_rotation_with_the_model_equals_the_reference(case, monkeypatch):
+    got, want, steps = rotate_with_the_models(case, "scan1", monkeypatch)
+    assert steps == case[4]
+    assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("case", ROTATION_CASES, ids=["gf3L1", "gf2L2"])
+def test_scan3_rotation_with_the_models_equals_the_reference(case,
+                                                             monkeypatch):
+    # K8's schedule: the combine's model, then the external product's
+    got, want, steps = rotate_with_the_models(case, "scan3", monkeypatch)
+    assert steps == case[4]
+    assert np.array_equal(got, want)

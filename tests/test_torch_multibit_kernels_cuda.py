@@ -2,9 +2,11 @@
 bit, on a card (tolerance 0): one group step of each at the two
 tests/test_fused_multibit.py shapes and at the width of
 PARAM_MULTI_BIT_MESSAGE_2_CARRY_2_GROUP_3_KS_PBS, a short blind rotation in
-both schedules, and the two schedules against each other; K9's one-launch
-step on the register-resident core at gf = 2, 3 and 4, N = 256 ... 2048
-and B = 1, 3 and 64; the layouts beyond the kernels' limits, refused.
+both schedules, and the two schedules against each other; K8's two stages
+(the combine, and the external product from the accumulator on the
+register-resident core) and K9's one-launch step on the core at gf = 2, 3
+and 4, N = 256 ... 2048 and B = 1, 3, 64 and 256; the layouts beyond the
+kernels' limits, refused.
 Marked `cuda`: they skip where there is no card; on one, run
 `python -m pytest -m cuda --noconftest tests/test_torch_multibit_kernels_cuda.py`
 (tests/conftest.py imports JAX, which is not needed here)."""
@@ -52,20 +54,17 @@ def _inputs(case, dev, seed=7):
 def test_kernels_match_plain(case, card):
     gf, N, L, bl, B, groups = case
     key, acc, d = _inputs(case, card)
-    dig = fm.decompose(acc, bl, L)
-    assert torch.equal(dig, fm.decompose_plain(acc, bl, L))
     comb = fm.multibit_combine(d[0], key.kspec[0])
     assert torch.equal(comb, fm.multibit_combine_plain(d[0], key.kspec[0]))
-    want = fm.multibit_external_product_plain(dig, comb)
-    assert torch.equal(fm.multibit_external_product(dig, comb), want)
+    want = fm.multibit_external_product_plain(acc, comb, bl, L)
+    assert torch.equal(fm.multibit_external_product(acc, comb, bl, L), want)
     assert torch.equal(fm.multibit_step_plain(acc, d[0], key.kspec[0], bl, L),
                        want)
     assert torch.equal(fm.multibit_step(acc, d[0], key.kspec[0], bl, L), want)
     plain = acc
     for g in range(groups):
         plain = fm.multibit_external_product_plain(
-            fm.decompose_plain(plain, bl, L),
-            fm.multibit_combine_plain(d[g], key.kspec[g]))
+            plain, fm.multibit_combine_plain(d[g], key.kspec[g]), bl, L)
     for mode in fm.MODES:
         got = fm.multi_bit_blind_rotate_cuda(key, acc, d, mode=mode)
         torch.cuda.synchronize()
@@ -73,16 +72,17 @@ def test_kernels_match_plain(case, card):
 
 
 def test_schedules_agree_and_count_their_launches(card):
-    # scan3: decompose, combine, external product a group step; scan1: one
-    # launch a group step
+    # scan3: combine, then the external product from the accumulator, a
+    # group step; scan1: one launch a group step
     key, acc, d = _inputs(CASES[1], card, seed=3)
     fm.reset_launch_counts()
     scan3 = fm.multi_bit_blind_rotate_cuda(key, acc, d, mode="scan3")
-    assert [k.launches for k in fm.KERNELS] == [3, 3, 3, 0]
+    assert [k.launches for k in fm.KERNELS] == [3, 3, 0]
+    fm.reset_launch_counts()
     scan1 = fm.multi_bit_blind_rotate_cuda(key, acc, d, mode="scan1")
     torch.cuda.synchronize()
     assert torch.equal(scan3, scan1)
-    assert [k.launches for k in fm.KERNELS] == [3, 3, 3, 3]
+    assert [k.launches for k in fm.KERNELS] == [0, 0, 3]
 
 
 # K9 on the core: (gf, N, L, base_log, G) at every N the core takes, and the
@@ -93,7 +93,7 @@ STEP_IDS = ["gf2N256L2", "gf3N512G4", "gf4N1024", "gf3N2048", "gf2N2048",
             "gf4N2048"]
 
 
-@pytest.mark.parametrize("B", [1, 3, 64])
+@pytest.mark.parametrize("B", [1, 3, 64, 256])
 @pytest.mark.parametrize("width", STEP_WIDTHS, ids=STEP_IDS)
 def test_step_on_the_core_matches_plain(width, B, card):
     gf, N, L, bl, G = width
@@ -106,9 +106,31 @@ def test_step_on_the_core_matches_plain(width, B, card):
     fm.reset_launch_counts()
     got = fm.multibit_step(acc, d, key.kspec[0], bl, L)
     torch.cuda.synchronize()
-    assert [k.launches for k in fm.KERNELS] == [0, 0, 0, 1]
+    assert [k.launches for k in fm.KERNELS] == [0, 0, 1]
     assert torch.equal(got, fm.multibit_step_plain(acc, d, key.kspec[0], bl,
                                                    L))
+
+
+@pytest.mark.parametrize("B", [1, 3, 64, 256])
+@pytest.mark.parametrize("width", STEP_WIDTHS, ids=STEP_IDS)
+def test_scan3_stages_match_plain(width, B, card):
+    # K8's two stages, each against its plain twin, one launch each
+    gf, N, L, bl, G = width
+    rng = np.random.default_rng([31, B])
+    key = fm.prepare_multi_bit_bsk_cuda(
+        _words(rng, (1, 1 << gf, L, G, G, N), card), bl, gf)
+    acc = _words(rng, (B, G, N), card)
+    d = torch.from_numpy(rng.integers(0, 2 * N, (B, 1 << gf))
+                         .astype(np.int32)).to(card)
+    fm.reset_launch_counts()
+    comb = fm.multibit_combine(d, key.kspec[0])
+    got = fm.multibit_external_product(acc, comb, bl, L)
+    torch.cuda.synchronize()
+    assert [k.launches for k in fm.KERNELS] == [1, 1, 0]
+    comb_p = fm.multibit_combine_plain(d, key.kspec[0])
+    assert torch.equal(comb, comb_p)
+    assert torch.equal(got, fm.multibit_external_product_plain(acc, comb_p,
+                                                               bl, L))
 
 
 def test_empty_batch_launches_nothing(card):
@@ -118,7 +140,7 @@ def test_empty_batch_launches_nothing(card):
         out = fm.multi_bit_blind_rotate_cuda(key, acc[:0], d[:, :0], mode)
         assert out.shape == (0, G, 256)
     torch.cuda.synchronize()
-    assert [k.launches for k in fm.KERNELS] == [0, 0, 0, 0]
+    assert [k.launches for k in fm.KERNELS] == [0, 0, 0]
 
 
 def test_wrappers_reject_bad_inputs(card):
@@ -127,8 +149,17 @@ def test_wrappers_reject_bad_inputs(card):
         fm.multibit_combine(d[0].long(), key.kspec[0])
     with pytest.raises(ValueError):
         fm.multibit_combine(d[0], key.kspec[0][:, :3])
+    comb = fm.multibit_combine(d[0], key.kspec[0])
     with pytest.raises(ValueError):
-        fm.decompose(acc[:, :, ::2], 15, 1)
+        fm.multibit_external_product(acc[:, :, ::2], comb, 15, 1)
+    with pytest.raises(ValueError):  # levels 2: comb holds L*G = 2 rows
+        fm.multibit_external_product(acc, comb, 15, 2)
+    # a contiguous copy that starts 4 bytes into its buffer
+    shifted = torch.empty(comb.numel() + 1, dtype=comb.dtype, device=card)
+    shifted = shifted[1:].view(comb.shape)
+    shifted.copy_(comb)
+    with pytest.raises(ValueError, match="aligned"):
+        fm.multibit_external_product(acc, shifted, 15, 1)
     with pytest.raises(ValueError):
         fm.multibit_step(acc, d[0][:, :4], key.kspec[0], 15, 1)
     with pytest.raises(ValueError):
@@ -137,9 +168,9 @@ def test_wrappers_reject_bad_inputs(card):
 
 def test_kernels_reject_layouts_beyond_their_limits(card):
     """The C entry points, not the wrappers, hold the kernels' limits:
-    2^gf <= 16 subsets, O*M <= 8 outputs, the device's shared memory; and
-    K9's on the core: L*G <= 9 digit polynomials and 256 <= N <= 2048 (N by
-    the core's tables, in Python)."""
+    2^gf <= 16 subsets, O*M <= 8 outputs; and those of K8's external
+    product and K9 on the core: L*G <= 9 digit polynomials and 256 <= N <=
+    2048 (N by the core's tables, in Python)."""
     gen = torch.Generator(device=card).manual_seed(1)
 
     def words(*shape):
@@ -169,5 +200,15 @@ def test_kernels_reject_layouts_beyond_their_limits(card):
     with pytest.raises(ValueError):  # N = 4096, past the core's 2048
         fm.multibit_step(acc(2, 4096), words(1, 2) & 1,
                          words(2, 5, 2, 2, 2, 4096), 21, 1)
+    # K8's external product: O*M = 10 outputs, L*G = 10, N = 4096
+    with pytest.raises(RuntimeError, match="InvalidValue"):
+        fm.multibit_external_product(acc(5, 256), words(1, 5, 5, 5, 2, 256),
+                                     15, 1)
+    with pytest.raises(RuntimeError, match="InvalidValue"):
+        fm.multibit_external_product(acc(2, 256), words(1, 5, 10, 2, 2, 256),
+                                     8, 5)
+    with pytest.raises(ValueError):
+        fm.multibit_external_product(acc(2, 4096),
+                                     words(1, 5, 2, 2, 2, 4096), 21, 1)
     torch.cuda.synchronize()
-    assert [k.launches for k in fm.KERNELS] == [0, 0, 0, 0]
+    assert [k.launches for k in fm.KERNELS] == [0, 0, 0]

@@ -97,7 +97,7 @@ def test_decompose_plain_matches_reference(bl, L):
     acc[0, 0, :3] = [0, 2**64 - 1, 2**63]
     want = np.asarray(ref_dec.signed_decompose(acc, bl, L)).transpose(
         0, 3, 1, 2)
-    got = fused_multibit.decompose(to_tensor(acc, "cpu"), bl, L)
+    got = fused_multibit.decompose_plain(to_tensor(acc, "cpu"), bl, L)
     assert got.dtype == torch.int32 and np.array_equal(got.numpy(), want)
 
 
@@ -137,9 +137,8 @@ def test_one_step_schedules_agree():
                     "cpu")
     d = torch.from_numpy(rng.integers(0, 2 * N, (3, 1 << gf)).astype(np.int32))
     d[:, 0] = 0
-    dig = fused_multibit.decompose(acc, bl, L)
     comb = fused_multibit.multibit_combine(d, key.kspec[0])
-    scan3 = fused_multibit.multibit_external_product(dig, comb)
+    scan3 = fused_multibit.multibit_external_product(acc, comb, bl, L)
     scan1 = fused_multibit.multibit_step(acc, d, key.kspec[0], bl, L)
     assert torch.equal(scan3, scan1)
     whole = fused_multibit.multi_bit_blind_rotate_cuda(key, acc, d[None])

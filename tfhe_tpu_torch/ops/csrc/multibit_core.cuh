@@ -1,9 +1,14 @@
 // K9, the multi-bit group step, in one launch on the register-resident NTT
-// core (ntt_core.cuh), for Hopper (sm_90a):
+// core (ntt_core.cuh), for Hopper (sm_90a), and K8's external product with
+// the per-ciphertext combined key on the same kernel:
 //
-//   multibit_step_cluster_kernel  <- fused_multibit_rotate_scan1 (:508)
-//                                    -> step_kernel (:539)
+//   multibit_step_cluster_kernel<., false>  <- fused_multibit_rotate_scan1
+//                                    (:508) -> step_kernel (:539)
 //                                    -> _mb_step_math_onekernel (:368)
+//   multibit_step_cluster_kernel<., true>   <- fused_multibit_rotate_scan
+//                                    (:702) -> mac_kernel (:823), with its
+//                                    digits (_dec_limbs :264, called at
+//                                    :828)
 // (lines of tfhe_tpu/ops/fused_multibit.py).
 //
 // One group step of gf mask elements replaces the accumulator by the
@@ -18,7 +23,7 @@
 // 512 threads per (ciphertext, prime) on the shared-memory core of
 // pbs_kernels.cuh: `%` digits, a barrier a radix-2 stage, scalar key and
 // companion loads, the monomial gathered per coefficient from a padded
-// shared copy of the 2N powers), then crt_accumulate_kernel<false> over
+// shared copy of the 2N powers), then a CRT launch from zero over
 // residues in device memory: three launches a group step, 0.2257 ms at
 // PARAM_MULTI_BIT_MESSAGE_2_CARRY_2_GROUP_3_KS_PBS and B = 64 on an H100,
 // 20x its bound by operations.
@@ -50,6 +55,20 @@
 // terms, below 2^43.  One reduction per output word brings the sum into
 // [0, 2p) for the inverse transform, so the MAC reads no key companions.
 //
+// K8's MAC (kCombined): the same kernel with one subset, no monomial, and
+// the key of the ciphertext's own combined GGSW (multibit_combine,
+// multibit_kernels.cuh) in place of the subset keys; its sums hold LJ <= 9
+// terms below 2^35, below 2^39.  It replaces the first port's two launches:
+// a MAC kernel of one CTA of 512 threads per (ciphertext, prime) on the old
+// shared-memory core (a barrier a radix-2 stage, Barrett products of the
+// combined key) over digits read from device memory, then a CRT launch from
+// zero over residues in device memory; 0.0925 ms with the digits' launch
+// at GROUP_3 width and B = 64 on an H100, against 0.0310 for this form
+// (kernel_times.py; 4 outputs a chunk instead of kMbChunk's 2: 0.0404).
+// Registers (-Xptxas -v, sm_90a) for LJ <= 2 / 4 / 9: 80 / 103 / 149, no
+// spill; K9's form 80 (12 bytes spilled) / 128 / 182, as before it shared
+// the kernel.
+//
 // What bounds it, measured on an H100 with kernel_times.py (PERF.md
 // section 6): latency and issue in the MAC, not key traffic.  Every CTA
 // reads its prime's 2^gf subset key spectra, 2^gf LJ OM N 4 bytes (512 KB
@@ -67,11 +86,11 @@
 //
 // Layouts: acc, out [B, G, N] int64 (u64 torus words); d [B, 2^gf] int32
 // in [0, 2N) (d_0 is not read: subset 0 is empty); kspec [2^gf, P, LJ, G,
-// 2, N] uint32 canonical; powers [P, 2, 2N] uint32 psi^t and companions
-// (ntt.monomial_tables_for); exps [N] int32 e(n); tables
-// ntt.pass_tables_for(N); xcrt ntt._explicit_crt_host.  Limits (the
-// launcher refuses anything else): those of the core (LJ <= 9, 256 <= N <=
-// 2048, P <= 8), 2^gf <= kMaxSubsets, G * 2 <= kMaxOutputs
+// 2, N] uint32 canonical (K8: [B, P, LJ, G, 2, N]); powers [P, 2, 2N]
+// uint32 psi^t and companions (ntt.monomial_tables_for); exps [N] int32
+// e(n); tables ntt.pass_tables_for(N); xcrt ntt._explicit_crt_host.
+// Limits (the launcher refuses anything else): those of the core (LJ <= 9,
+// 256 <= N <= 2048, P <= 8), 2^gf <= kMaxSubsets, G * 2 <= kMaxOutputs
 // (multibit_kernels.cuh).
 #pragma once
 
@@ -83,7 +102,7 @@
 namespace tfhe_core {
 
 // output polynomials whose 64-bit sums a thread holds at once, 16 registers
-// each; the monomial products are made again for each chunk
+// each; K9's monomial products are made again for each chunk
 constexpr int kMbChunk = 2;
 
 // shared memory of a CTA: OM output polynomials, then LJ digit spectra
@@ -108,7 +127,10 @@ __device__ __forceinline__ int32_t digit_at(uint64_t word, int base_log,
 
 // One group step: cluster b = blockIdx.x / P owns ciphertext b, CTA rank pi
 // prime pi; grid B * P, N/8 threads.  Shared memory: multibit_step_smem.
-template <int LJ_MAX>
+// kCombined is K8's MAC: one subset (per = 1), kspec the per-ciphertext
+// combined keys [B, P, LJ, G, 2, N], and deg, powers and exps not read (may
+// be null).
+template <int LJ_MAX, bool kCombined>
 __global__ void __launch_bounds__(256, min_ctas<LJ_MAX>())
     multibit_step_cluster_kernel(const int64_t* __restrict__ acc,
                                  const int32_t* __restrict__ deg,
@@ -166,35 +188,49 @@ __global__ void __launch_bounds__(256, min_ctas<LJ_MAX>())
   //    into [0, 2p), inverse pass 0, the words to buf polynomial om
   int offs[kRadix];
   pass_offsets(tid, 0, offs);
-  const uint32_t* pw = powers + (long long)pi * 4 * N;  // psi^t, companions
-  const int e0 = __ldg(exps + tid * kRadix);
-  // w^1, w^2, w^3 (w = psi^(N/4)) and companions: w^(m + 4) = -w^m
-  const uint32_t w1 = __ldg(pw + (N >> 2)), w2 = __ldg(pw + (N >> 1)),
-                 w3 = __ldg(pw + 3 * (N >> 2));
-  const uint32_t w1sh = __ldg(pw + 2 * N + (N >> 2)),
-                 w2sh = __ldg(pw + 2 * N + (N >> 1)),
-                 w3sh = __ldg(pw + 2 * N + 3 * (N >> 2));
+  // psi^t and companions, e(tid 8), and w^1, w^2, w^3 (w = psi^(N/4)) with
+  // their companions, w^(m + 4) = -w^m: K9's monomials only
+  const uint32_t* pw = nullptr;
+  int e0 = 0;
+  uint32_t w1 = 0, w2 = 0, w3 = 0, w1sh = 0, w2sh = 0, w3sh = 0;
+  if constexpr (!kCombined) {
+    pw = powers + (long long)pi * 4 * N;
+    e0 = __ldg(exps + tid * kRadix);
+    w1 = __ldg(pw + (N >> 2));
+    w2 = __ldg(pw + (N >> 1));
+    w3 = __ldg(pw + 3 * (N >> 2));
+    w1sh = __ldg(pw + 2 * N + (N >> 2));
+    w2sh = __ldg(pw + 2 * N + (N >> 1));
+    w3sh = __ldg(pw + 2 * N + 3 * (N >> 2));
+  }
   const uint32_t c32 = 0u - c.one_sh * c.p;  // 2^32 mod p
   const long long W = (long long)LJ * OM * N;  // a subset key, one prime
-  const uint32_t* key = kspec + (long long)pi * W + tid * kRadix;
+  // K9: subset j's key at kspec[j, pi]; K8: the ciphertext's at kspec[b, pi]
+  const uint32_t* key =
+      kspec + (kCombined ? b * P + pi : (long long)pi) * W + tid * kRadix;
   for (int om0 = 0; om0 < OM; om0 += kMbChunk) {
     uint64_t o[kMbChunk][kRadix];
 #pragma unroll
     for (int q = 0; q < kMbChunk; ++q)
 #pragma unroll
       for (int k = 0; k < kRadix; ++k) o[q][k] = 0;
-    for (int j = 0; j < per; ++j) {
+    for (int j = 0; j < (kCombined ? 1 : per); ++j) {
       // mon_j = psi^(d_j e(tid 8)) w^(d_j bitrev3(k) mod 8); mon_0 = 1
-      const int dj = __ldg(deg + b * per + j);
-      const int t = (dj * e0) & (2 * N - 1);
-      const uint32_t bw = __ldg(pw + t), bsh = __ldg(pw + 2 * N + t);
+      int dj = 0;
+      uint32_t bw = 0, bsh = 0;
+      if constexpr (!kCombined) {
+        dj = __ldg(deg + b * per + j);
+        const int t = (dj * e0) & (2 * N - 1);
+        bw = __ldg(pw + t);
+        bsh = __ldg(pw + 2 * N + t);
+      }
       const uint32_t* kj = key + (long long)j * P * W;
 #pragma unroll
       for (int lj = 0; lj < LJ_MAX; ++lj) {
         if (lj < LJ) {
           uint32_t dm[kRadix];
           load_words(dig + lj * N, 0, offs, dm);
-          if (j > 0) {
+          if (!kCombined && j > 0) {
 #pragma unroll
             for (int k = 0; k < kRadix; ++k) {
               // w^m is the same for the whole CTA: a product for
@@ -233,7 +269,7 @@ __global__ void __launch_bounds__(256, min_ctas<LJ_MAX>())
         uint32_t x[kRadix];
 #pragma unroll
         for (int k = 0; k < kRadix; ++k) {
-          // o < 2^43: its high word is below 2^11
+          // o < 2^43 (K8: < 2^39): its high word is below 2^11
           const uint32_t r =
               shoup_lazy((uint32_t)o[q][k], 1u, c.one_sh, c.p) +
               (uint32_t)(o[q][k] >> 32) * c32;

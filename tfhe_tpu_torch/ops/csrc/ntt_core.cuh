@@ -2,11 +2,12 @@
 // per-prime external product built on it.  K2, K3 and K4 (one kernel on
 // the card), K5, K6's per-prime stage and K7 (ntt_core_kernels.cuh) run
 // external_product_prime; K9 (multibit_core.cuh) runs its two halves,
-// forward_transforms and inverse_transforms, around a MAC of its own.  K8
-// alone keeps the shared-memory core of pbs_kernels.cuh.
+// forward_transforms and inverse_transforms, around a MAC of its own, and
+// so does K8's external product (the same kernel, the key per ciphertext).
+// No other NTT is left in the port.
 //
-// What bounded the old core (`ntt_forward_smem` / `ntt_inverse_smem`,
-// pbs_kernels.cuh): a radix-2 loop that puts each of the log2 N stages
+// What bounded the old shared-memory core (once in pbs_kernels.cuh, now
+// removed): a radix-2 loop that puts each of the log2 N stages
 // through shared memory.  Per butterfly it makes two shared loads, two
 // shared stores and two twiddle loads from device memory, and each stage
 // ends in a barrier with 2-8 butterflies a thread between barriers.  So its

@@ -112,8 +112,8 @@
 // the rotated words read over distributed shared memory, was 0.3-2%
 // slower.
 //
-// K6's per-prime stage, first design: ntt_mac_kernel<false> of
-// pbs_kernels.cuh, one CTA of 512 threads per ciphertext, 22 stage
+// K6's per-prime stage, first design: a MAC kernel on the old shared-memory
+// core, one CTA of 512 threads per ciphertext, 22 stage
 // barriers, scalar key loads, `%` digits; 0.0332 ms at shortint width and
 // B = 64.  New: ntt_mac_prime_kernel, external_product_prime for the one
 // prime, its outputs scaled by N^-1 (the pass table's header) and written

@@ -76,7 +76,7 @@ int launch_crt_accumulate(const void* residues, const void* crt,
   const long long total = (long long)B * O * N;
   const int threads = 256;
   const unsigned blocks = (unsigned)((total + threads - 1) / threads);
-  tfhe_pbs::crt_accumulate_kernel<true><<<blocks, threads, 0, st>>>(
+  tfhe_pbs::crt_accumulate_kernel<<<blocks, threads, 0, st>>>(
       (const uint32_t*)residues, (const int64_t*)crt, (const int64_t*)acc,
       (int64_t*)out, B, O, M, P, N, bits);
   return (int)cudaGetLastError();
@@ -84,15 +84,22 @@ int launch_crt_accumulate(const void* residues, const void* crt,
 
 }  // namespace
 
+// acc 16-byte aligned; a thread owns tfhe_pbs::kRotWords coefficients, a
+// block 256 threads: min(N / kRotWords, 256) along a row and the rest over
+// ciphertexts; the GLWE polynomial on grid.y, the row's chunks on grid.z.
+// N < kRotWords, or not a power of two, launches nothing and returns
+// cudaErrorInvalidValue.
 extern "C" int tfhe_rotate_decompose(const void* acc, const void* ahat,
                                      void* digits, int B, int G, int N,
                                      int base_log, int levels, int bits,
                                      void* stream) {
-  const long long total = (long long)B * G * N;
-  const int threads = 256;
-  const unsigned blocks = (unsigned)((total + threads - 1) / threads);
-  tfhe_pbs::rotate_decompose_kernel<true><<<blocks, threads, 0,
-                                      (cudaStream_t)stream>>>(
+  const int units = N / tfhe_pbs::kRotWords;  // word groups of a row
+  if (units < 1 || (N & (N - 1))) return (int)cudaErrorInvalidValue;
+  const int tx = units < 256 ? units : 256;
+  const dim3 block(tx, 256 / tx);
+  const dim3 grid((unsigned)((B + block.y - 1) / block.y), (unsigned)G,
+                  (unsigned)(units / tx));
+  tfhe_pbs::rotate_decompose_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
       (const int64_t*)acc, (const int32_t*)ahat, (int32_t*)digits, B, G, N,
       base_log, levels, bits);
   return (int)cudaGetLastError();

@@ -1,48 +1,45 @@
-// Blind-rotation step kernels for Hopper (sm_90a) on the shared-memory NTT
-// core, and the device functions the other kernels share:
+// K1 and K6's last stage for Hopper (sm_90a), and the device functions the
+// kernels on the register-resident core (ntt_core_kernels.cuh,
+// multibit_core.cuh) share:
 //
 //   rotate_decompose_kernel  <- rot_kernel (:1229) -> _rot_dec_limbs (:614)
 //                               of `tfhe_tpu/ops/fused_pbs.py:1213`
-//                               (`fused_blind_rotate_scan2`), K1
+//                               (`fused_blind_rotate_scan2`), K1; also run
+//                               by scan3 (:1489)
 //   crt_accumulate_kernel    <- crt_kernel (:1520) -> _crt_accumulate (:709),
 //                               K6's last stage
-//   ntt_mac_kernel           <- K8's mac_kernel (multibit_kernels.cuh)
 //
-// Each is a template on one flag.  The classic schedules instantiate
-// rotate_decompose_kernel<true> and crt_accumulate_kernel<true>; the
-// multi-bit step (`multibit_kernels.cuh`) rotate_decompose_kernel<false>,
-// ntt_mac_kernel<true> and crt_accumulate_kernel<false>: the decomposition
-// of the accumulator itself with no rotation, a key per ciphertext instead
-// of one shared key, and a CRT that starts from zero because the multi-bit
-// external product replaces the accumulator.  The classic per-prime stage
-// (ntt_mac_kernel<false>, K2's and K6's first port) moved to the
-// register-resident core of ntt_core.cuh.
+// Every NTT of the port runs on the register-resident core of ntt_core.cuh;
+// the shared-memory core this file held until K8 moved off it (a radix-2
+// loop with a barrier a stage) is gone.
 //
 // Integer arithmetic only; every result is bit-exact.  Layouts (all dense):
 //   acc       [B, G, N]          int64  u64 torus words (u32: in [0, 2^32))
 //   ahat      [B]                int32  modulus-switched mask element, [0, 2N]
 //   digits    [B, L, G, N]       int32  signed gadget digits, level-major
-//   kspec     [P, LJ, O, M, N]   uint32 one step's key spectra, canonical mod p
-//   kshoup    [P, LJ, O, M, N]   uint32 their Shoup companions
-//   tables    [P, 5, N]          uint32 psi^bitrev, companion, psi^-bitrev,
-//                                       companion, (N^-1, companion, p,
-//                                       floor(2^34 / p), 0...)
 //   crt       [P, 2P + 4]        int64  Garner constants (see ops/ntt.py)
 //   residues  [B, O, M, P, N]    uint32 per-prime convolutions, canonical
-// with LJ = L*G digit polynomials, O = G output polynomials, M key planes
-// (two 32-bit planes of a u64 key word, one for a u32 word) and P primes.
+// with O = G output polynomials, M key planes (two 32-bit planes of a u64
+// key word, one for a u32 word) and P primes.
 //
 // What bounds them on the card: rotate_decompose moves 8 bytes in and
-// 4*L bytes out per coefficient and is bound by memory.  ntt_mac does
-// (LJ + O*M) NTTs of N points per (ciphertext, prime), 32-bit Shoup
-// products throughout; it runs far above its integer-issue bound, its time
-// going to barrier and load latency (a shared round trip and two twiddle
-// loads a butterfly, a barrier a stage: PERF.md section 6); K2, K3, K4,
-// K6 and K9 moved to the register-resident core of ntt_core.cuh.  It keeps
-// every transform in shared memory, so device memory sees only the digits,
-// the step's key spectra (shared by all ciphertexts, so mostly from L2) and
-// the residues.  crt_accumulate reads the residues and the accumulator once
-// and writes the accumulator once.
+// 4*L bytes out per coefficient and is bound by memory; crt_accumulate
+// reads the residues and the accumulator once and writes the accumulator
+// once.
+//
+// K1, first design: one thread per output word, its (ciphertext,
+// polynomial, coefficient) found with 64-bit `%` and `/` by a runtime N
+// (a software division on the card), scalar 4-byte digit stores; 0.00353
+// ms at PARAM_MESSAGE_2_CARRY_2_KS_PBS width and B = 64 on an H100, 3.8x
+// its bound.  New: a thread owns kRotWords = 4 consecutive coefficients of
+// one (ciphertext, polynomial) row, its indices 32-bit and taken from the
+// grid with no division; it reads its own words as two 16-byte loads and
+// the rotated source word by word (consecutive coefficients read
+// consecutive source words, but at one wrap), decomposes the 4 words in
+// lock step and stores each level's 4 digits as one 16-byte store.  8
+// words a thread halved the threads and starved the card at small batches:
+// 0.00290 ms at shortint width and 0.00332 at boolean DEFAULT_PARAMETERS
+// width (B = 64), against 0.00225 and 0.00230 at 4 words.
 #pragma once
 
 #include <stdint.h>
@@ -54,6 +51,8 @@ constexpr int kMaxPrimes = 8;
 // w's Shoup companion, Q/p mod 2^64, round(2^kFracBits / p), Q mod 2^64
 constexpr int kXcrtWidth = 6;
 constexpr int kFracBits = 28;
+// coefficients a K1 thread owns
+constexpr int kRotWords = 4;
 
 __device__ __forceinline__ uint32_t add_mod(uint32_t a, uint32_t b,
                                             uint32_t p) {
@@ -76,18 +75,6 @@ __device__ __forceinline__ uint32_t mul_shoup(uint32_t a, uint32_t w,
   return r >= p ? r - p : r;
 }
 
-// a * b mod p for a, b < p < 2^17, with mu = floor(2^34 / p): x = a * b
-// < 2^34 and x * mu < 2^55, and q = floor(x * mu / 2^34) > x / p - 2, so
-// x - q * p lies in [0, 2p) and one subtraction lands it.  For products of
-// two operands that vary per ciphertext, where no Shoup companion exists.
-__device__ __forceinline__ uint32_t mul_mod(uint32_t a, uint32_t b,
-                                            uint32_t p, uint32_t mu) {
-  const uint64_t x = (uint64_t)a * b;
-  const uint64_t q = (x * mu) >> 34;
-  const uint32_t r = (uint32_t)(x - q * p);
-  return r >= p ? r - p : r;
-}
-
 // Coefficient j of acc * X^a - acc for one GLWE polynomial `row`, masked to
 // the torus width, for a in [0, 2N): coefficient j of acc * X^a is
 // +-acc[(j - a) mod N], negated when (j - a) mod 2N wraps past N (X^N == -1).
@@ -99,193 +86,93 @@ __device__ __forceinline__ uint64_t rotated_diff(const int64_t* row, int a,
   return (v - (uint64_t)row[j]) & mask;
 }
 
-// The signed gadget decomposition of one torus word
-// (tfhe_tpu/ops/decomposition.py:24-87): emit(level, digit) for each of the
-// `levels` digits, level index 0 the largest.
+// The signed gadget decompositions of kW torus words in lock step
+// (tfhe_tpu/ops/decomposition.py:24-87, on each word): emit(level, dg) for
+// each of the `levels` levels, smallest weight first, dg[k] the digit of
+// word k; level index 0 is the largest.
+template <int kW, typename Emit>
+__device__ __forceinline__ void decompose_words(const uint64_t (&diff)[kW],
+                                                int base_log, int levels,
+                                                int bits, uint64_t mask,
+                                                Emit emit) {
+  // closest_representable: round to a multiple of q / B^levels
+  const int non_rep = bits - base_log * levels;
+  const uint64_t bmask = (1ull << base_log) - 1ull;
+  uint64_t state[kW];
+#pragma unroll
+  for (int k = 0; k < kW; ++k) {
+    uint64_t res = ((diff[k] >> (non_rep - 1)) + 1ull) & ~1ull;
+    res = (res << (non_rep - 1)) & mask;
+    state[k] = res >> non_rep;
+  }
+  for (int it = 0; it < levels; ++it) {
+    int32_t dg[kW];
+#pragma unroll
+    for (int k = 0; k < kW; ++k) {
+      const uint64_t r = state[k] & bmask;
+      state[k] >>= base_log;
+      uint64_t carry = ((r - 1ull) | state[k]) & r;
+      carry >>= (base_log - 1);
+      state[k] += carry;
+      dg[k] = (int32_t)r - ((int32_t)carry << base_log);
+    }
+    emit(levels - 1 - it, dg);
+  }
+}
+
+// The signed gadget decomposition of one torus word: emit(level, digit)
+// for each of the `levels` digits, level index 0 the largest.
 template <typename Emit>
 __device__ __forceinline__ void decompose_word(uint64_t diff, int base_log,
                                                int levels, int bits,
                                                uint64_t mask, Emit emit) {
-  // closest_representable: round to a multiple of q / B^levels
-  const int non_rep = bits - base_log * levels;
-  uint64_t res = ((diff >> (non_rep - 1)) + 1ull) & ~1ull;
-  res = (res << (non_rep - 1)) & mask;
-  uint64_t state = res >> non_rep;
-  const uint64_t bmask = (1ull << base_log) - 1ull;
-  for (int k = 0; k < levels; ++k) {
-    const uint64_t r = state & bmask;
-    state >>= base_log;
-    uint64_t carry = ((r - 1ull) | state) & r;
-    carry >>= (base_log - 1);
-    state += carry;
-    // digits come out smallest weight first
-    emit(levels - 1 - k, (int32_t)r - ((int32_t)carry << base_log));
-  }
+  const uint64_t one[1] = {diff};
+  decompose_words(one, base_log, levels, bits, mask,
+                  [&](int lvl, const int32_t(&dg)[1]) { emit(lvl, dg[0]); });
 }
 
-// K1 (kRotate): rotated = acc * X^ahat, diff = rotated - acc, then the
-// signed gadget decomposition of diff.  Without kRotate, the decomposition
-// of acc itself (the multi-bit step, tfhe_tpu/ops/fused_multibit.py:264
-// _dec_limbs); ahat is not read.  One thread per (ciphertext, GLWE
-// polynomial, coefficient).
-template <bool kRotate>
+// K1: diff = acc * X^ahat - acc, then the signed gadget decomposition of
+// diff.  Block (x, g, z), thread (tx, ty): ciphertext b = x blockDim.y +
+// ty, GLWE polynomial g, the kRotWords coefficients from j0 = (z blockDim.x
+// + tx) kRotWords.  acc must be 16-byte aligned.
 __global__ void rotate_decompose_kernel(const int64_t* __restrict__ acc,
                                         const int32_t* __restrict__ ahat,
                                         int32_t* __restrict__ digits, int B,
                                         int G, int N, int base_log, int levels,
                                         int bits) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long long)B * G * N) return;
-  const int j = (int)(idx % N);
-  const int g = (int)((idx / N) % G);
-  const int b = (int)(idx / ((long long)N * G));
+  const int b = blockIdx.x * blockDim.y + threadIdx.y;
+  if (b >= B) return;
+  const int g = blockIdx.y;
   const uint64_t mask = bits == 64 ? ~0ull : 0xFFFFFFFFull;
-
-  uint64_t diff;
-  if constexpr (kRotate) {
-    // a == 2N is the identity
-    diff = rotated_diff(acc + ((long long)b * G + g) * N,
-                        ahat[b] & (2 * N - 1), j, N, mask);
-  } else {
-    diff = (uint64_t)acc[idx] & mask;
+  const int a = __ldg(ahat + b) & (2 * N - 1);  // 2N is the identity
+  const long long plane = (long long)G * N;     // one level's words
+  const int64_t* row = acc + (long long)b * plane + (long long)g * N;
+  int32_t* out = digits + (long long)b * levels * plane + (long long)g * N;
+  const int j0 = (blockIdx.z * blockDim.x + threadIdx.x) * kRotWords;
+  uint64_t diff[kRotWords];
+  const longlong2* own = reinterpret_cast<const longlong2*>(row + j0);
+#pragma unroll
+  for (int h = 0; h < kRotWords / 2; ++h) {
+    const longlong2 v = __ldg(own + h);
+    diff[2 * h] = (uint64_t)v.x;
+    diff[2 * h + 1] = (uint64_t)v.y;
   }
-  decompose_word(diff, base_log, levels, bits, mask,
-                 [&](int lvl, int32_t digit) {
-                   digits[(((long long)b * levels + lvl) * G + g) * N + j] =
-                       digit;
-                 });
-}
-
-// Forward negacyclic NTT of `count` polynomials held in shared memory:
-// Cooley-Tukey butterflies with psi^bitrev twiddles (ops/ntt.py forward_ntt).
-__device__ __forceinline__ void ntt_forward_smem(uint32_t* a, int count,
-                                                 int N, int log_n,
-                                                 const uint32_t* psi,
-                                                 const uint32_t* psi_sh,
-                                                 uint32_t p) {
-  const int half = N >> 1;
-  for (int m = 1, log_t = log_n - 1; m < N; m <<= 1, --log_t) {
-    const int t = 1 << log_t;
-    for (int idx = threadIdx.x; idx < count * half; idx += blockDim.x) {
-      const int poly = idx >> (log_n - 1);
-      const int bf = idx & (half - 1);
-      const int i = bf >> log_t;
-      const int jj = (i << (log_t + 1)) + (bf & (t - 1));
-      uint32_t* x = a + poly * N;
-      const uint32_t u = x[jj];
-      const uint32_t v = mul_shoup(x[jj + t], psi[m + i], psi_sh[m + i], p);
-      x[jj] = add_mod(u, v, p);
-      x[jj + t] = sub_mod(u, v, p);
-    }
-    __syncthreads();
+#pragma unroll
+  for (int k = 0; k < kRotWords; ++k) {
+    const int t = (j0 + k - a) & (2 * N - 1);
+    uint64_t v = (uint64_t)__ldg(row + (t & (N - 1)));
+    if (t >= N) v = 0ull - v;
+    diff[k] = (v - diff[k]) & mask;
   }
-}
-
-// Inverse: Gentleman-Sande butterflies with psi^-bitrev twiddles, without
-// the final N^-1 scale (ops/ntt.py inverse_ntt).
-__device__ __forceinline__ void ntt_inverse_smem(uint32_t* a, int count,
-                                                 int N, int log_n,
-                                                 const uint32_t* psi_inv,
-                                                 const uint32_t* psi_inv_sh,
-                                                 uint32_t p) {
-  const int half = N >> 1;
-  for (int h = N >> 1, log_t = 0; h >= 1; h >>= 1, ++log_t) {
-    const int t = 1 << log_t;
-    for (int idx = threadIdx.x; idx < count * half; idx += blockDim.x) {
-      const int poly = idx >> (log_n - 1);
-      const int bf = idx & (half - 1);
-      const int i = bf >> log_t;
-      const int jj = (i << (log_t + 1)) + (bf & (t - 1));
-      uint32_t* x = a + poly * N;
-      const uint32_t u = x[jj];
-      const uint32_t v = x[jj + t];
-      x[jj] = add_mod(u, v, p);
-      x[jj + t] = mul_shoup(sub_mod(u, v, p), psi_inv[h + i],
-                            psi_inv_sh[h + i], p);
-    }
-    __syncthreads();
-  }
-}
-
-// One prime's external product of one ciphertext, in shared memory: dsp
-// [LJ, N] holds the digits mod p (written and synchronised by the caller)
-// and is transformed in place; on return osp [O*M, N] holds the inverse
-// transforms of sum_lj dsp_lj * key_lj, not yet scaled by N^-1.  ks (and ksh)
-// point at this prime's key block [LJ, O*M, N]; with kKeyPerCiphertext the
-// key varies per ciphertext (the multi-bit combined key), its products are
-// Barrett products and ksh is not read.
-template <bool kKeyPerCiphertext>
-__device__ __forceinline__ void ntt_mac_smem(uint32_t* dsp, uint32_t* osp,
-                                             const uint32_t* ks,
-                                             const uint32_t* ksh,
-                                             const uint32_t* tab, int LJ,
-                                             int OM, int N, int log_n) {
-  const uint32_t p = tab[4 * N + 2];
-  const uint32_t mu = tab[4 * N + 3];
-  ntt_forward_smem(dsp, LJ, N, log_n, tab, tab + N, p);
-  for (int idx = threadIdx.x; idx < OM * N; idx += blockDim.x) {
-    const int n = idx & (N - 1);
-    uint32_t s = 0;
-    for (int lj = 0; lj < LJ; ++lj) {
-      const long long k = (long long)lj * OM * N + idx;
-      if constexpr (kKeyPerCiphertext) {
-        s = add_mod(s, mul_mod(dsp[lj * N + n], ks[k], p, mu), p);
-      } else {
-        s = add_mod(s, mul_shoup(dsp[lj * N + n], ks[k], ksh[k], p), p);
-      }
-    }
-    osp[idx] = s;
-  }
-  __syncthreads();
-  ntt_inverse_smem(osp, OM, N, log_n, tab + 2 * N, tab + 3 * N, p);
-}
-
-// K8's external product (kKeyPerCiphertext; the <false> form, K2's and K6's
-// first port, is launched by nothing now): one block per (ciphertext,
-// prime).  Digits mod p -> forward NTT -> spectrum multiply-accumulate
-// against the step's key -> inverse NTT -> per-prime residues of the O*M
-// convolutions.  The block's prime is prime0 + blockIdx.y of P; kspec (and
-// kshoup) start at prime prime0's block, [gridDim.y, LJ, O, M, N], or with
-// kKeyPerCiphertext are the whole [B, P, LJ, O, M, N].
-template <bool kKeyPerCiphertext>
-__global__ void ntt_mac_kernel(const int32_t* __restrict__ digits,
-                               const uint32_t* __restrict__ kspec,
-                               const uint32_t* __restrict__ kshoup,
-                               const uint32_t* __restrict__ tables,
-                               uint32_t* __restrict__ residues, int LJ, int O,
-                               int M, int N, int log_n, int prime0, int P) {
-  extern __shared__ uint32_t smem[];
-  const int b = blockIdx.x;
-  const int pi = prime0 + blockIdx.y;
-  const int OM = O * M;
-  const uint32_t* tab = tables + (long long)pi * 5 * N;
-  const uint32_t ninv = tab[4 * N];
-  const uint32_t ninv_sh = tab[4 * N + 1];
-  const uint32_t p = tab[4 * N + 2];
-  uint32_t* dsp = smem;           // [LJ, N] digit spectra
-  uint32_t* osp = smem + LJ * N;  // [O*M, N] output spectra
-
-  const int32_t* dig = digits + (long long)b * LJ * N;
-  for (int idx = threadIdx.x; idx < LJ * N; idx += blockDim.x) {
-    int32_t r = dig[idx] % (int32_t)p;
-    dsp[idx] = (uint32_t)(r < 0 ? r + (int32_t)p : r);
-  }
-  __syncthreads();
-
-  const long long kstride = (long long)LJ * OM * N;
-  const long long kblock =
-      kKeyPerCiphertext ? (long long)b * P + pi : blockIdx.y;
-  ntt_mac_smem<kKeyPerCiphertext>(
-      dsp, osp, kspec + kblock * kstride,
-      kKeyPerCiphertext ? nullptr : kshoup + kblock * kstride, tab, LJ, OM, N,
-      log_n);
-
-  for (int idx = threadIdx.x; idx < OM * N; idx += blockDim.x) {
-    const int n = idx & (N - 1);
-    const int om = idx >> log_n;
-    residues[(((long long)b * OM + om) * P + pi) * N + n] =
-        mul_shoup(osp[idx], ninv, ninv_sh, p);
-  }
+  decompose_words(diff, base_log, levels, bits, mask,
+                  [&](int lvl, const int32_t(&dg)[kRotWords]) {
+                    int4* o = reinterpret_cast<int4*>(out + lvl * plane +
+                                                      j0);
+#pragma unroll
+                    for (int h = 0; h < kRotWords / 4; ++h)
+                      o[h] = make_int4(dg[4 * h], dg[4 * h + 1],
+                                       dg[4 * h + 2], dg[4 * h + 3]);
+                  });
 }
 
 // Balanced Garner reconstruction of one convolution coefficient from its P
@@ -318,12 +205,9 @@ __device__ __forceinline__ uint64_t garner(Residue residue,
   return x;
 }
 
-// K6's last stage and K8's CRT: Garner's reconstruction of each
-// convolution, its planes recombined as conv_0 + 2^32 conv_1, added to the
-// accumulator mod 2^64 (kAccumulate) or written as the new accumulator (the
-// multi-bit step; acc is not read).  One thread per (ciphertext, output
-// polynomial, coefficient).
-template <bool kAccumulate>
+// K6's last stage: Garner's reconstruction of each convolution, its planes
+// recombined as conv_0 + 2^32 conv_1, added to the accumulator mod 2^64.
+// One thread per (ciphertext, output polynomial, coefficient).
 __global__ void crt_accumulate_kernel(const uint32_t* __restrict__ residues,
                                       const int64_t* __restrict__ crt,
                                       const int64_t* __restrict__ acc,
@@ -333,7 +217,7 @@ __global__ void crt_accumulate_kernel(const uint32_t* __restrict__ residues,
   if (idx >= (long long)B * O * N) return;
   const int n = (int)(idx % N);
   const long long bo = idx / N;  // b * O + o
-  uint64_t total = kAccumulate ? (uint64_t)acc[idx] : 0ull;
+  uint64_t total = (uint64_t)acc[idx];
   for (int m = 0; m < M; ++m) {
     const uint32_t* r = residues + ((bo * M + m) * P) * N + n;
     const uint64_t x =

@@ -8,15 +8,16 @@ lwe_multi_bit_programmable_bootstrapping.rs:295-460), in n/gf steps.  The
 TPU has two schedules of that step, and so has the port, chosen by the
 explicit `mode` argument of `multi_bit_blind_rotate_cuda`:
 
-  "scan3" (default; K8, `fused_multibit_rotate_scan` :702, default at :927)
-      decompose                  the accumulator's signed gadget digits
-                                 (K8 mac_kernel's `_dec_limbs` :264);
+  "scan3" (default; K8, `fused_multibit_rotate_scan` :702, default at :927),
+  two launches a group step:
       multibit_combine           the per-ciphertext combined key spectra
                                  (K8 singles_kernel :747 + combine_kernel
-                                 :776);
-      multibit_external_product  forward NTT of the digits, MAC against the
-                                 combined key, inverse NTT, CRT into a fresh
-                                 accumulator (K8 mac_kernel :823);
+                                 :776), written to device memory;
+      multibit_external_product  from the accumulator: its signed gadget
+                                 digits (K8 mac_kernel's `_dec_limbs` :264),
+                                 forward NTT, MAC against the combined key,
+                                 inverse NTT, CRT into a fresh accumulator
+                                 (K8 mac_kernel :823);
   "scan1" (K9, `fused_multibit_rotate_scan1` :508 -> step_kernel :539)
       multibit_step              the whole group step in one launch: the
                                  digits, the same external product with the
@@ -25,11 +26,12 @@ explicit `mode` argument of `multi_bit_blind_rotate_cuda`:
                                  reach device memory.
 
 The kernels are CUDA C++ for sm_90a, built by nvcc at first use and called
-through ctypes: K8 in `csrc/multibit_kernels.cuh`, with the decomposition,
-per-ciphertext MAC and zero-based CRT as template variants of K1/K2 in
-`csrc/pbs_kernels.cuh`; K9 on the register-resident NTT core
-(`csrc/multibit_core.cuh` on `csrc/ntt_core.cuh`), one cluster of a CTA
-per prime per ciphertext.  Each wrapper takes its plain PyTorch version
+through ctypes: K8's combine in `csrc/multibit_kernels.cuh`; K8's external
+product and K9 on the register-resident NTT core (`csrc/multibit_core.cuh`
+on `csrc/ntt_core.cuh`), one cluster of a CTA per prime per ciphertext,
+one kernel with the key per ciphertext (K8) or the subsets combined inside
+the MAC (K9).  scan3 materialises the combined key and scan1 does not, so
+each checks the other.  Each wrapper takes its plain PyTorch version
 (`*_plain`) for CPU tensors, launches its kernel for CUDA tensors, and
 raises for anything else; each counts its launches in its `launches`
 attribute.  The wrappers check dtypes and shapes; the C entry points
@@ -56,8 +58,9 @@ from .._native import build_shared_library
 from . import ntt
 from .decomposition import signed_decompose
 from .fused_pbs import (_CORE_HEADERS, BUILD_TIMEOUT_S, NVCC_FLAGS, _check,
-                        _check_launch, _headers, _nvcc, _stream, bsk_spectra,
-                        digit_spectra, spectra_to_u64, spectral_mac)
+                        _check_aligned, _check_launch, _headers, _nvcc,
+                        _stream, bsk_spectra, digit_spectra, spectra_to_u64,
+                        spectral_mac)
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 MODES = ("scan3", "scan1")
@@ -85,13 +88,12 @@ def cuda_library() -> ctypes.CDLL:
                          "pbs_kernels.cuh", *_CORE_HEADERS))
     lib = ctypes.CDLL(path)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.tfhe_decompose.argtypes = [ptr, ptr] + [i32] * 6 + [ptr]
     lib.tfhe_multibit_combine.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
-    lib.tfhe_multibit_external_product.argtypes = ([ptr] * 6 + [i32] * 7
+    lib.tfhe_multibit_external_product.argtypes = ([ptr] * 5 + [i32] * 6
                                                    + [ptr])
     lib.tfhe_multibit_step.argtypes = [ptr] * 8 + [i32] * 7 + [ptr]
-    for fn in (lib.tfhe_decompose, lib.tfhe_multibit_combine,
-               lib.tfhe_multibit_external_product, lib.tfhe_multibit_step):
+    for fn in (lib.tfhe_multibit_combine, lib.tfhe_multibit_external_product,
+               lib.tfhe_multibit_step):
         fn.restype = i32
     return lib
 
@@ -102,42 +104,13 @@ def _device_of(name: str, t: torch.Tensor) -> str:
     return t.device.type
 
 
-# ---------------------------------------------------------------------------
-# decompose (K8 mac_kernel's digit stage)
-# ---------------------------------------------------------------------------
-
-
 def decompose_plain(acc: torch.Tensor, base_log: int,
                     levels: int) -> torch.Tensor:
     """acc [B, G, N] int64 -> digits [B, L, G, N] int32 of
-    signed_decompose(acc)."""
+    signed_decompose(acc): the digits K8's external product and K9 make
+    inside (`_dec_limbs`, tfhe_tpu/ops/fused_multibit.py:264)."""
     digits = signed_decompose(acc, base_log, levels, bits=BITS)
     return digits.permute(0, 3, 1, 2).contiguous()
-
-
-def decompose(acc: torch.Tensor, base_log: int, levels: int) -> torch.Tensor:
-    """Signed gadget digits of the accumulator itself (replaces
-    `_dec_limbs`, tfhe_tpu/ops/fused_multibit.py:264, inside K8's
-    mac_kernel and K9's step_kernel)."""
-    if _device_of("decompose", acc) == "cpu":
-        return decompose_plain(acc, base_log, levels)
-    B, G, N = acc.shape
-    _check("acc", acc, torch.int64, (B, G, N), acc.device)
-    if N & (N - 1) or BITS - base_log * levels < 1:
-        raise ValueError("N must be a power of two and the decomposition "
-                         "must leave at least one bit")
-    out = torch.empty((B, levels, G, N), dtype=torch.int32, device=acc.device)
-    if B == 0:  # a grid of zero blocks is an invalid launch
-        return out
-    err = cuda_library().tfhe_decompose(
-        acc.data_ptr(), out.data_ptr(), B, G, N, base_log, levels, BITS,
-        _stream(acc.device))
-    _check_launch(err, "decompose")
-    decompose.launches += 1
-    return out
-
-
-decompose.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -171,13 +144,18 @@ def multibit_combine_plain(d: torch.Tensor,
 
 def multibit_combine(d: torch.Tensor, kspec: torch.Tensor) -> torch.Tensor:
     """Per-ciphertext combined key spectra (replaces K8's singles_kernel,
-    tfhe_tpu/ops/fused_multibit.py:747, and combine_kernel, :776)."""
+    tfhe_tpu/ops/fused_multibit.py:747, and combine_kernel, :776):
+    `multibit_combine_kernel`, a block holding a tile of the subset keys
+    in shared memory for 8 ciphertexts, a thread owning one ciphertext's 8
+    consecutive words of each key row.  The launch is refused past
+    2^gf = 16 subsets or below N = 256."""
     if _device_of("multibit_combine", d) == "cpu":
         return multibit_combine_plain(d, kspec)
     dev = d.device
     per, P, LJ, O, N = _check_group_key(kspec, dev)
     B = d.shape[0]
     _check("d", d, torch.int32, (B, per), dev)
+    _check_aligned("kspec", kspec)
     out = torch.empty((B, P, LJ, O, M, N), dtype=torch.int32, device=dev)
     if B == 0:
         return out
@@ -195,35 +173,46 @@ def multibit_combine(d: torch.Tensor, kspec: torch.Tensor) -> torch.Tensor:
 multibit_combine.launches = 0
 
 
-def multibit_external_product_plain(digits: torch.Tensor,
-                                    combined: torch.Tensor) -> torch.Tensor:
-    """digits [B, L, G, N] int32, combined [B, P, LJ, O, M, N] -> the new
-    accumulator [B, O, N] int64: sum_lj digits_lj (x) key_lj (mod 2^64)."""
-    return spectra_to_u64(spectral_mac(digit_spectra(digits), combined), BITS)
+def multibit_external_product_plain(acc: torch.Tensor,
+                                    combined: torch.Tensor, base_log: int,
+                                    levels: int) -> torch.Tensor:
+    """acc [B, G, N] int64, combined [B, P, LJ, G, M, N] -> the new
+    accumulator [B, G, N] int64: sum_lj D_lj (x) K_lj (mod 2^64) over the
+    signed digits D of acc itself."""
+    return spectra_to_u64(spectral_mac(digit_spectra(decompose_plain(
+        acc, base_log, levels)), combined), BITS)
 
 
-def multibit_external_product(digits: torch.Tensor,
-                              combined: torch.Tensor) -> torch.Tensor:
-    """External product with a key per ciphertext, into a fresh accumulator
-    (replaces K8's mac_kernel, tfhe_tpu/ops/fused_multibit.py:823).  The two
-    CUDA kernels (ntt_mac<true>, crt_accumulate<false>) run back to back on
-    one stream and count as one launch."""
-    if _device_of("multibit_external_product", digits) == "cpu":
-        return multibit_external_product_plain(digits, combined)
-    dev = digits.device
-    B, L, G, N = digits.shape
+def multibit_external_product(acc: torch.Tensor, combined: torch.Tensor,
+                              base_log: int, levels: int) -> torch.Tensor:
+    """External product of the accumulator with a key per ciphertext, into
+    a fresh accumulator (replaces K8's mac_kernel,
+    tfhe_tpu/ops/fused_multibit.py:823, which takes the accumulator and
+    makes its digits inside, :828): K9's kernel
+    `multibit_step_cluster_kernel` with one subset and the combined key,
+    one launch.  The core takes 256 <= N <= 2048 (`ntt.pass_tables_for`
+    raises otherwise) and L*G <= 9, the kernel G <= 4: the launch is
+    refused otherwise."""
+    if _device_of("multibit_external_product", acc) == "cpu":
+        return multibit_external_product_plain(acc, combined, base_log,
+                                               levels)
+    dev = acc.device
+    B, G, N = acc.shape
     P = len(ntt.PRIMES)
-    _check("digits", digits, torch.int32, (B, L, G, N), dev)
-    _check("combined", combined, torch.int32, (B, P, L * G, G, M, N), dev)
-    tab = ntt.tables_for(N, dev)
-    residues = torch.empty((B, G, M, P, N), dtype=torch.int32, device=dev)
-    out = torch.empty((B, G, N), dtype=torch.int64, device=dev)
-    if B == 0:
+    _check("acc", acc, torch.int64, (B, G, N), dev)
+    _check("combined", combined, torch.int32,
+           (B, P, levels * G, G, M, N), dev)
+    _check_aligned("combined", combined)
+    if BITS - base_log * levels < 1:
+        raise ValueError("the decomposition must leave at least one bit")
+    tables = ntt.pass_tables_for(N, dev)
+    out = torch.empty_like(acc)
+    if B == 0:  # a grid of zero blocks is an invalid launch
         return out
     err = cuda_library().tfhe_multibit_external_product(
-        digits.data_ptr(), combined.data_ptr(), tab.kernel.data_ptr(),
-        tab.crt.data_ptr(), residues.data_ptr(), out.data_ptr(), B, L * G, G,
-        M, P, N, BITS, _stream(dev))
+        acc.data_ptr(), combined.data_ptr(), tables.data_ptr(),
+        ntt.tables_for(N, dev).xcrt.data_ptr(), out.data_ptr(), B, G, P, N,
+        base_log, levels, _stream(dev))
     _check_launch(err, "multibit_external_product")
     multibit_external_product.launches += 1
     return out
@@ -244,8 +233,8 @@ def multibit_step_plain(acc: torch.Tensor, d: torch.Tensor,
     LJ, G, M, N] (canonical residues) -> the new accumulator [B, G, N]
     int64: the digits of acc, then the kernel's order of the MAC, sum_j
     spec(X^{d_j}) * (sum_lj D_lj * K_j) with spec(X^{d_0}) = 1, then the
-    CRT into a fresh accumulator; the same words as combine + external
-    product."""
+    CRT into a fresh accumulator; the same words as combine, then the
+    external product."""
     per, P, LJ, O, _, N = kspec.shape
     p = ntt.tables_for(N, kspec.device).primes.view(1, P, 1, 1, 1)
     dspec = digit_spectra(decompose_plain(acc, base_log, levels))
@@ -274,6 +263,7 @@ def multibit_step(acc: torch.Tensor, d: torch.Tensor, kspec: torch.Tensor,
     B, G, _ = acc.shape
     _check("acc", acc, torch.int64, (B, G, N), dev)
     _check("d", d, torch.int32, (B, per), dev)
+    _check_aligned("kspec", kspec)
     if LJ != levels * G or O != G or BITS - base_log * levels < 1:
         raise ValueError(f"key layout LJ={LJ}, O={O} does not match acc "
                          f"{tuple(acc.shape)} at {levels} levels of "
@@ -295,8 +285,7 @@ def multibit_step(acc: torch.Tensor, d: torch.Tensor, kspec: torch.Tensor,
 
 multibit_step.launches = 0
 
-KERNELS = (decompose, multibit_combine, multibit_external_product,
-           multibit_step)
+KERNELS = (multibit_combine, multibit_external_product, multibit_step)
 
 
 def reset_launch_counts() -> None:
@@ -350,8 +339,9 @@ def multi_bit_blind_rotate_cuda(bsk: PreparedMultiBitBskCuda,
                                 mode: str = "scan3") -> torch.Tensor:
     """The group-step loop: acc [B, G, N] int64 (already rotated by X^-b),
     d_all [n/gf, B, 2^gf] int32 switched subset sums mod 2N -> rotated
-    accumulator.  `mode` picks the schedule: "scan3" (K8, three launches a
-    group step) or "scan1" (K9, one)."""
+    accumulator.  `mode` picks the schedule: "scan3" (K8, two launches a
+    group step: combine, then the external product) or "scan1" (K9,
+    one)."""
     check_mode(mode)
     acc = acc.contiguous()
     for g in range(bsk.input_dim // bsk.grouping_factor):
@@ -359,7 +349,7 @@ def multi_bit_blind_rotate_cuda(bsk: PreparedMultiBitBskCuda,
             acc = multibit_step(acc, d_all[g], bsk.kspec[g], bsk.base_log,
                                 bsk.levels)
             continue
-        digits = decompose(acc, bsk.base_log, bsk.levels)
         combined = multibit_combine(d_all[g], bsk.kspec[g])
-        acc = multibit_external_product(digits, combined)
+        acc = multibit_external_product(acc, combined, bsk.base_log,
+                                        bsk.levels)
     return acc

@@ -155,6 +155,13 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
         raise ValueError(f"{name} must be contiguous")
 
 
+def _check_aligned(name: str, t: torch.Tensor) -> None:
+    """Kernels that read or write 16 bytes at a time take 16-byte aligned
+    tensors."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")
+
+
 def _check_launch(err: int, name: str) -> None:
     if err != 0:
         why = (" (cudaErrorInvalidValue: a layout or shared-memory size "
@@ -186,7 +193,10 @@ def rotate_decompose_plain(acc: torch.Tensor, ahat: torch.Tensor,
 
 def rotate_decompose(acc: torch.Tensor, ahat: torch.Tensor, base_log: int,
                      levels: int, bits: int = 64) -> torch.Tensor:
-    """K1 (replaces rot_kernel, tfhe_tpu/ops/fused_pbs.py:1229)."""
+    """K1 (replaces rot_kernel, tfhe_tpu/ops/fused_pbs.py:1229): a thread
+    owns 4 consecutive coefficients of one (ciphertext, polynomial) row, so
+    N >= 4, and reads its own as 16-byte loads, so acc is 16-byte
+    aligned."""
     if acc.device.type == "cpu":
         return rotate_decompose_plain(acc, ahat, base_log, levels, bits)
     if acc.device.type != "cuda":
@@ -194,9 +204,10 @@ def rotate_decompose(acc: torch.Tensor, ahat: torch.Tensor, base_log: int,
     B, G, N = acc.shape
     _check("acc", acc, torch.int64, (B, G, N), acc.device)
     _check("ahat", ahat, torch.int32, (B,), acc.device)
-    if N & (N - 1) or bits - base_log * levels < 1:
-        raise ValueError("N must be a power of two and the decomposition "
-                         "must leave at least one bit")
+    if N & (N - 1) or N < 4 or bits - base_log * levels < 1:
+        raise ValueError("N must be a power of two of at least 4 and the "
+                         "decomposition must leave at least one bit")
+    _check_aligned("acc", acc)
     out = torch.empty((B, levels, G, N), dtype=torch.int32, device=acc.device)
     if B == 0:  # a grid of zero blocks is an invalid launch
         return out
