@@ -18,7 +18,7 @@ Phases, each printing one flushed line with its wall time:
      kernel that ran it, one CTA or a cluster per ciphertext, and the
      clusters K5's kernel holds on the card at once and its waves), K3, K4 and
      ntt_mac_prime at B=256 too (K4 naming the kernel that K3 and K4 run
-     for each batch), and a
+     for each batch), crt_accumulate at B=1, 3 and 256 too, and a
      4-step rotation in every mode, bit-exact (tolerance 0), with device,
      eager and plain times per launch and bounds;
   4. main path: PARAM_MESSAGE_2_CARRY_2_KS_PBS keys generated on the card,
@@ -33,7 +33,17 @@ Phases, each printing one flushed line with its wall time:
      one many-LUT PBS batch, the neg / sub / scalar / trivial / extract
      batches over the 16 values, each op family through the one-block API,
      the `_clean` path at a saturated carry, checked_add refusing; the
-     many-LUT batch again in scan1w and mega, identical), and
+     many-LUT batch again in scan1w and mega, identical),
+     main_path_integer on the same keys (the radix integer layer at 32
+     blocks, a u64: add, sub, mul, bitxor, scalar_mul, scalar_left_shift,
+     eq, lt, max, if_then_else, neg, the signed add and lt on seeded pairs
+     with 0, 2^63 and 2^64 - 1 among them, each op warmed up once first,
+     div_rem at 8 blocks, on basis [2, 3] a chain of four CRT adds (two
+     carry-clearing PBS batches) and a CRT mul; every result decrypted right, each
+     op's PBS batches and wall ms, n launches of K1 and of K2 per PBS
+     batch),
+     card_vs_cpu_integer (add, mul, lt at 4 blocks of
+     PARAM_MESSAGE_2_CARRY_2_COMPACT_TEST, card == CPU word for word), and
      main_path_pbs_ks (PARAM_MESSAGE_2_CARRY_2_COMPACT_PK_PBS_KS keys on
      the card, ciphertexts under the small key, PBS then keyswitch, three
      univariate and one bivariate LUT on 64 messages) with
@@ -104,8 +114,8 @@ around a few eager launches); the eager per-launch times beside them include
 the host's launch cost.
 Then a `kernels` JSON line (each kernel's `redesigned` names the source
 it was rebuilt on after its first port: K2, K3, K4, K5, ntt_mac_prime, K7
-and K9 on the register-resident NTT core, K10 in its own file; null for
-the others), the nvidia-smi
+and K9 on the register-resident NTT core, K10, K8's combine, K1 and
+crt_accumulate in their own files), the nvidia-smi
 line, and as the last line {"ok": true, "device": {...}}.  Any failed phase
 raises, so the script exits non-zero and prints no result; it needs a card
 and refuses to run without one.  A watchdog ends a hung run with a
@@ -135,8 +145,8 @@ PEAK_OPS_PER_S = 67e12
 # were rebuilt on: K2, K3 (on K4's kernel), K4, K5 (K4's step looped), K6's
 # ntt_mac_prime, K7, K8's external product (on K9's kernel) and K9 on the
 # register-resident NTT core; K10 (one launch a step for every prime), K8's
-# combine (a key tile in shared memory) and K1 (4 words a thread) in their
-# own files
+# combine (a key tile in shared memory), K1 and K6's crt_accumulate (4
+# words a thread; the CRT the core's explicit one) in their own files
 REDESIGNED = dict.fromkeys(("external_product_crt", "pbs_step",
                             "pbs_step_single_cta", "blind_rotate_persistent",
                             "ntt_mac_prime", "blind_rotate_single_cta",
@@ -146,6 +156,7 @@ REDESIGNED["shoup_mac"] = "tfhe_tpu_torch/ops/csrc/shoup_mac_kernels.cuh"
 REDESIGNED["multibit_combine"] = (
     "tfhe_tpu_torch/ops/csrc/multibit_kernels.cuh")
 REDESIGNED["rotate_decompose"] = "tfhe_tpu_torch/ops/csrc/pbs_kernels.cuh"
+REDESIGNED["crt_accumulate"] = "tfhe_tpu_torch/ops/csrc/pbs_kernels.cuh"
 
 
 def say(phase, t0, **fields):
@@ -770,17 +781,26 @@ def modes_kernels_phase(dev):
                                                L, bits), step_l)
                  for k in ("pbs_step", "pbs_step_single_cta")}
         err_l["ntt_mac_prime"] = max_abs_err(res_l, res_lp)
+        # K6's crt_accumulate at B = 256 on those residues, and at B = 1
+        # and 3 on the first ciphertexts of the B = 64 step's
+        err_l["crt_accumulate"] = max_abs_err(
+            fp.crt_accumulate(res_lp, acc_l, bits),
+            fp.crt_accumulate_plain(res_lp, acc_l, bits))
+        crt_small = {f"B{B}": max_abs_err(
+            fp.crt_accumulate(res_p[:B], acc[:B], bits),
+            fp.crt_accumulate_plain(res_p[:B], acc[:B], bits))
+            for B in (1, 3)}
         # K3 and K4 run the same kernel, which this names for each batch
         k4_form = {f"B{B}": fp.pbs_step_single_cta_form(B, N, G, L, bits)
                    for B in (B_MAIN, B_LARGE)}
         if (any(err.values()) or any(err_rot.values())
                 or any(k7_err.values()) or any(k5_err.values())
-                or any(err_l.values())):
+                or any(err_l.values()) or any(crt_small.values())):
             raise AssertionError(
                 f"{p.name}: classic kernels disagree with their plain "
                 f"versions: {err}, {steps}-step rotation per mode {err_rot}, "
                 f"K7 at depth {n} {k7_checked}, K5 {k5_checked}, "
-                f"B = {B_LARGE} {err_l}")
+                f"B = {B_LARGE} {err_l}, crt_accumulate {crt_small}")
         # a persistent or single-CTA launch runs a whole rotation: CUDA
         # events around eager launches, not a graph of 100; their plain
         # version, n steps of plain ops, as one graph replayed once
@@ -802,7 +822,8 @@ def modes_kernels_phase(dev):
             max_abs_err=err, rotation_max_abs_err=err_rot,
             blind_rotate_single_cta_at_depth=k7_checked,
             blind_rotate_persistent_at_depth=k5_checked,
-            max_abs_err_b256=err_l, pbs_step_single_cta_kernel=k4_form,
+            max_abs_err_b256=err_l, crt_accumulate_max_abs_err=crt_small,
+            pbs_step_single_cta_kernel=k4_form,
             device_ms_per_launch=ms, eager_ms_per_launch=eager,
             plain_device_ms=plain_ms, rotation_ms_per_mode=rot_ms,
             bound_ms={k: v[0] for k, v in bounds.items()},
@@ -1105,6 +1126,175 @@ def shortint_ops_main_path(cks, sks):
         for name, c in v.items():
             launches[name] = launches.get(name, 0) + c
     return launches
+
+
+def integer_main_path(cks, sks):
+    """The radix integer layer (tfhe_tpu_torch.integer, host schedules) on
+    the main path's PARAM_MESSAGE_2_CARRY_2_KS_PBS keys at 32 blocks (a u64,
+    the FheUint64 width at 2_2): add, sub, mul, bitxor, scalar_mul,
+    scalar_left_shift, eq, lt, max, if_then_else, neg and the signed add
+    and lt on seeded pairs with 0, 2^63 and 2^64 - 1 among them; div_rem
+    at 8 blocks; on basis [2, 3] a chain of four CRT adds (the third
+    clears both operands' carries, a PBS batch each: a single add of fresh
+    blocks is linear and launches nothing) and a CRT mul.  Each op runs once on the
+    first pair as a warm-up (its wall ms kept apart as `cold_ms`), then
+    once a pair.  Every result decrypted and equal to the clear one; each
+    op's PBS batches and wall ms per call (host clock, synchronised; one
+    entry a pair); K1 and K2 launched exactly n times per PBS batch
+    (scan2), warm-up included, nothing else launched.  Returns the
+    launches."""
+    import numpy as np
+    import torch
+
+    from tfhe_tpu_torch import integer
+    from tfhe_tpu_torch.ops import fused_pbs as fp
+
+    t0 = time.time()
+    p, nb = sks.params, 32
+    n, mod = p.lwe_dimension, p.message_modulus ** nb
+    rng = np.random.default_rng(SEED + 14)
+
+    def u64():
+        return int.from_bytes(rng.bytes(8), "little")
+
+    pairs = [(0, 2**64 - 1), (2**63, 2**64 - 1), (u64(), u64())]
+    scalar = 0x9E3779B97F4A7C15
+    fp.reset_launch_counts()
+    counted, calls = counting_pbs(sks)
+    rck = integer.RadixClientKey(p, nb, _key=cks)
+    isk = integer.IntegerServerKey(counted)
+    signed = lambda v: v - mod if v >= mod // 2 else v  # noqa: E731
+    ops = {  # name: (the op on ciphertexts, the clear result, decryption)
+        "add": (lambda a, b, c: isk.add_parallelized(a, b),
+                lambda x, y: (x + y) % mod, "decrypt"),
+        "sub": (lambda a, b, c: isk.sub_parallelized(a, b),
+                lambda x, y: (x - y) % mod, "decrypt"),
+        "mul": (lambda a, b, c: isk.mul_parallelized(a, b),
+                lambda x, y: x * y % mod, "decrypt"),
+        "bitxor": (lambda a, b, c: isk.bitxor_parallelized(a, b),
+                   lambda x, y: x ^ y, "decrypt"),
+        "scalar_mul": (lambda a, b, c: isk.scalar_mul_parallelized(a, scalar),
+                       lambda x, y: x * scalar % mod, "decrypt"),
+        "scalar_left_shift": (
+            lambda a, b, c: isk.scalar_left_shift_parallelized(a, 13),
+            lambda x, y: (x << 13) % mod, "decrypt"),
+        "eq": (lambda a, b, c: isk.eq_parallelized(a, b),
+               lambda x, y: x == y, "decrypt_bool"),
+        "lt": (lambda a, b, c: isk.lt_parallelized(a, b),
+               lambda x, y: x < y, "decrypt_bool"),
+        "max": (lambda a, b, c: isk.max_parallelized(a, b), max, "decrypt"),
+        "if_then_else": (lambda a, b, c: isk.if_then_else_parallelized(c, a,
+                                                                       b),
+                         lambda x, y: x if x % 3 else y, "decrypt"),
+        "neg": (lambda a, b, c: isk.neg_parallelized(a),
+                lambda x, y: -x % mod, "decrypt"),
+        "signed_add": (lambda a, b, c: isk.add_parallelized(a, b),
+                       lambda x, y: signed((x + y) % mod), "decrypt_signed"),
+        "signed_lt": (lambda a, b, c: isk.signed_cmp_parallelized(a, b, "lt"),
+                      lambda x, y: signed(x) < signed(y), "decrypt_bool"),
+    }
+    batches, wall_ms, cold_ms, cold_batches, wrong = {}, {}, {}, [0], []
+
+    def run(name, fn, want, dec, cold=False):
+        """fn() timed and its PBS batches counted, one entry per call under
+        `name` (a warm-up call's ms under cold_ms, its batches only in the
+        total); dec decrypts each of its results."""
+        torch.cuda.synchronize()
+        calls[0] = 0
+        t = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        (cold_ms if cold else wall_ms).setdefault(name, []).append(
+            (time.time() - t) * 1e3)
+        if cold:
+            cold_batches[0] += calls[0]
+        else:
+            batches.setdefault(name, []).append(calls[0])
+        got = tuple(map(dec, out)) if isinstance(out, tuple) else dec(out)
+        if got != want:
+            wrong.append((name, str(got), str(want)))
+
+    for i, (x, y) in enumerate([pairs[0]] + pairs):
+        enc = {False: (rck.encrypt(x), rck.encrypt(y)),
+               True: (rck.encrypt_signed(signed(x)),
+                      rck.encrypt_signed(signed(y)))}
+        cond = rck.encrypt_bool(bool(x % 3))
+        for name, (fn, clear, how) in ops.items():
+            a, b = enc[name.startswith("signed")]
+            run(name, lambda: fn(a, b, cond),  # noqa: B023
+                clear(x, y), getattr(rck, how), cold=i == 0)
+    # div_rem at 8 blocks (a u16), and a CRT add and mul on basis [2, 3]
+    x, y = u64() % 2**16, u64() % 2**8 + 1
+    a, b = rck.encrypt(x, 8), rck.encrypt(y, 8)
+    run("div_rem_8_blocks", lambda: isk.div_rem_parallelized(a, b),
+        (x // y, x % y), rck.decrypt)
+    crt_ck = integer.CrtClientKey(p, [2, 3], key=cks)
+    crt_sk = integer.CrtServerKey(counted)
+    a, b = crt_ck.encrypt(5), crt_ck.encrypt(3)
+
+    def crt_add_chain():
+        s = crt_sk.crt_add_parallelized(a, b)
+        for _ in range(3):
+            s = crt_sk.crt_add_parallelized(s, s)
+        return s
+
+    run("crt_add_x4", crt_add_chain, (5 + 3) * 8 % 6, crt_ck.decrypt)
+    run("crt_mul", lambda: crt_sk.crt_mul_parallelized(a, b), 5 * 3 % 6,
+        crt_ck.decrypt)
+    launches = launched(fp.KERNELS)
+    total = sum(map(sum, batches.values())) + cold_batches[0]
+    say("main_path_integer", t0, params=p.name, num_blocks=nb,
+        pairs=[[str(v) for v in pr] for pr in pairs], scalar=str(scalar),
+        pbs_batches=batches, wall_ms=wall_ms, cold_ms=cold_ms,
+        warm_up_pbs_batches=cold_batches[0], wrong=wrong,
+        launches=launches)
+    if batches["crt_add_x4"] != [2]:
+        raise AssertionError(f"the CRT add chain ran "
+                             f"{batches['crt_add_x4']} PBS batches, not 2")
+    if wrong:
+        raise AssertionError(f"radix ops wrong: {wrong}")
+    want_l = {k: v * total for k, v in rotation_launches("scan2", n).items()}
+    if launches != want_l:
+        raise AssertionError(f"integer ops launched {launches}, expected "
+                             f"{want_l} ({total} PBS batches)")
+    return launches
+
+
+def integer_card_vs_cpu():
+    """add, mul and lt on 4-block radix integers at
+    PARAM_MESSAGE_2_CARRY_2_COMPACT_TEST, keys from one seed on the card and
+    on the CPU: the same blocks, degrees and noise levels, word for word."""
+    import numpy as np
+
+    from tfhe_tpu_torch import integer
+    from tfhe_tpu_torch.params import PARAM_MESSAGE_2_CARRY_2_COMPACT_TEST
+
+    t0 = time.time()
+    outs = {}
+    for where in ("cuda", "cpu"):
+        rck, isk = integer.gen_keys_radix(PARAM_MESSAGE_2_CARRY_2_COMPACT_TEST,
+                                          4, seed=SEED, device=where)
+        a, b = rck.encrypt(201), rck.encrypt(77)
+        res = {"add": isk.add_parallelized(a, b),
+               "mul": isk.mul_parallelized(a, b),
+               "lt": isk.lt_parallelized(a, b)}
+        got = (rck.decrypt(res["add"]), rck.decrypt(res["mul"]),
+               rck.decrypt_bool(res["lt"]))
+        if got != ((201 + 77) % 256, 201 * 77 % 256, False):
+            raise AssertionError(f"{where}: radix ops wrong: {got}")
+        outs[where] = {k: v.blocks if k != "lt" else v.block
+                       for k, v in res.items()}
+    same = {k: bool(np.array_equal(c.data.cpu().numpy(),
+                                   outs["cpu"][k].data.numpy())
+                    and np.array_equal(c.degrees, outs["cpu"][k].degrees)
+                    and np.array_equal(c.noise, outs["cpu"][k].noise))
+            for k, c in outs["cuda"].items()}
+    say("card_vs_cpu_integer", t0,
+        params=PARAM_MESSAGE_2_CARRY_2_COMPACT_TEST.name, num_blocks=4,
+        identical=same)
+    if not all(same.values()):
+        raise AssertionError(f"radix ops on the card and the CPU differ: "
+                             f"{same}")
 
 
 def pbs_ks_main_path(dev):
@@ -1743,6 +1933,11 @@ def main():
         launches[k] = launches.get(k, 0) + v
     t_ops = time.time() - t1
     t1 = time.time()
+    for k, v in integer_main_path(cks, sks).items():
+        launches[k] = launches.get(k, 0) + v
+    t_integer = time.time() - t1
+    integer_card_vs_cpu()
+    t1 = time.time()
     pk_launches, pk_cks, pk_sks = pbs_ks_main_path(dev)
     t_pbs_ks = time.time() - t1
     for k, v in pk_launches.items():
@@ -1893,6 +2088,7 @@ def main():
         "redesigned": REDESIGNED.get("shoup_mac")})
     say("done", t_start, main_path_s=round(t_main, 3),
         main_path_shortint_ops_s=round(t_ops, 3),
+        main_path_integer_s=round(t_integer, 3),
         main_path_pbs_ks_s=round(t_pbs_ks, 3),
         main_path_multibit_s=round(t_main_mb, 3),
         main_path_boolean_s=round(t_main_bool, 3),

@@ -28,7 +28,8 @@ widths at B = 256, and at both widths and B = 64 and 256 K3 `pbs_step`
 and K4 `pbs_step_single_cta` (one step each), K7
 `blind_rotate_single_cta` over one step (the kernel K7's launcher picks
 for that batch; CUDA events around 100 eager launches, as its launcher
-queries the device) and K6's `ntt_mac_prime` for prime 0 (graphs of
+queries the device), K6's `ntt_mac_prime` for prime 0 and its
+`crt_accumulate` on the step's residues of all five primes (graphs of
 100), and K5 `blind_rotate_persistent` and K7 a whole rotation at the
 main path's depth (742 and 722 steps; CUDA events around 3 launches after
 2 warm-ups).  Then K10's whole step, `polymul_ntt.spectral_mac` over the
@@ -128,8 +129,9 @@ def times(seed, rotations=True):
 
 def redesigned(seed, rotations=True):
     """K1 and K2 at both widths and B = 64 / 256 (the shortint width at
-    B = 64 is timed above); K3 and K4 (one step each), K7 over one step and
-    K6's `ntt_mac_prime` (prime 0) at both widths and batch sizes; and,
+    B = 64 is timed above); K3 and K4 (one step each), K7 over one step,
+    K6's `ntt_mac_prime` (prime 0) and its `crt_accumulate` (on the step's
+    residues) at both widths and batch sizes; and,
     with `rotations`, K5 and K7 at both widths, depths and batch sizes."""
     import numpy as np
     import torch
@@ -186,6 +188,13 @@ def redesigned(seed, rotations=True):
             out[f"ntt_mac_prime_{tag}_B{B}"] = graph_ms(
                 lambda: fp.ntt_mac_prime(  # noqa: B023
                     dig, key.kspec[0, 0], key.kshoup[0, 0], 0, res), 100)
+            # K6's crt_accumulate on this step's residues, every prime's
+            for pi in range(5):
+                fp.ntt_mac_prime(dig, key.kspec[0, pi], key.kshoup[0, pi],
+                                 pi, res)
+            out[f"crt_accumulate_{tag}_B{B}"] = graph_ms(
+                lambda: fp.crt_accumulate(res, acc, bits),  # noqa: B023
+                100)
             if not rotations:
                 continue
             out[f"blind_rotate_single_cta_{tag}_B{B}"] = cuda_ms(

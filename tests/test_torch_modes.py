@@ -125,6 +125,90 @@ def test_explicit_crt_constants_reconstruct_the_convolution(N):
         assert u64(acc - k * u64(tab[0][5])) == u64(x), x
 
 
+def _residue_crt_word(r, consts):
+    """crt_accumulate's kernel on one plane, in Python integers: canonical
+    residues r_i -> (c_i, the u32 fraction sum_i c_i T_i, k, the word
+    sum_i c_i Q_i - k Q mod 2^64)."""
+    u64 = lambda v: v % (1 << 64)  # noqa: E731
+    cs, acc, frac = [], 0, 0
+    for ri, (p, w, wsh, q_i, t, _) in zip(r, consts):
+        c = ri * w % p
+        assert c == (ri * w - (ri * wsh >> 32) * p) % p  # the Shoup form
+        cs.append(c)
+        frac += c * t
+        acc += c * u64(q_i)
+    assert frac < 1 << 32
+    k = (frac + (1 << (ntt.XCRT_FRAC_BITS - 1))) >> ntt.XCRT_FRAC_BITS
+    return cs, frac, k, u64(acc - k * u64(consts[0][5]))
+
+
+def test_residue_crt_constants_match_garner_over_the_whole_range():
+    # crt_accumulate's constants (ntt.residue_crt_for) against Garner's
+    # balanced reconstruction (ntt.crt_to_u64_centered, the plain version)
+    # for residue tuples drawn over the whole 5-prime range: the c_i
+    # recombine to Garner's integer exactly with the exact k = round(sum_i
+    # c_i / p_i); the kernel's 28-bit fraction gives that k wherever the
+    # exact fraction lies more than P 2^-12 from a half, which every
+    # integer below 2^67 in magnitude does (|x| / Q < 2^-10)
+    from fractions import Fraction
+
+    consts = ntt.residue_crt_for("cpu").tolist()
+    assert consts == ntt._explicit_crt_host(1).tolist()
+    primes = [int(p) for p in ntt.PRIMES]
+    Q = ntt.CRT_MODULUS
+    rng = np.random.default_rng(7)
+    tuples = [[int(rng.integers(0, p)) for p in primes] for _ in range(251)]
+    tuples += [[0] * 5, [p - 1 for p in primes], [1] * 5,
+               [p // 2 for p in primes], [(p + 1) // 2 for p in primes]]
+    # [1, P, 256]: the plain version's tables are for a power-of-two N
+    res = torch.tensor(tuples, dtype=torch.int64).T.reshape(1, 5, -1)
+    garner = ntt.crt_to_u64_centered(res)[0].tolist()
+    u64 = lambda v: v % (1 << 64)  # noqa: E731
+    for r, g in zip(tuples, garner):
+        x = sum(ri * pow(Q // p, -1, p) * (Q // p) for ri, p in
+                zip(r, primes)) % Q
+        x = x - Q if x > Q // 2 else x  # the balanced integer
+        assert u64(x) == u64(g)
+        cs, frac, k, word = _residue_crt_word(r, consts)
+        exact = sum(Fraction(c, p) for c, p in zip(cs, primes))
+        k_exact = round(exact)
+        assert sum(c * (Q // p) for c, p in zip(cs, primes)) - k_exact * Q \
+            == x
+        if abs(exact - int(exact) - Fraction(1, 2)) > Fraction(5, 2**12):
+            assert (k, word) == (k_exact, u64(x))
+
+
+@pytest.mark.parametrize("bits", [64, 32])
+def test_residue_crt_reconstructs_convolutions_below_2_67(bits):
+    # the kernel's arithmetic on the residues of integers |x| < 2^67 (every
+    # convolution K6 reconstructs), the extremes among them (x = 0 and
+    # x = -1, whose residues are 0 and p - 1 for every prime), equals
+    # crt_accumulate_plain word for word
+    consts = ntt.residue_crt_for("cpu").tolist()
+    rng = np.random.default_rng(bits)
+    M, N, B, O = (2 if bits == 64 else 1), 8, 3, 2
+    xs = [int(a) * 2**34 + int(b) for a, b in zip(
+        rng.integers(-2**33 + 1, 2**33, B * O * M * N),
+        rng.integers(0, 2**34, B * O * M * N))]
+    xs[:4] = [0, -1, 2**67 - 1, -(2**67 - 1)]
+    res = torch.tensor([[x % int(p) for p in ntt.PRIMES] for x in xs],
+                       dtype=torch.int32).reshape(B, O, M, N, 5)
+    res = res.permute(0, 1, 2, 4, 3).contiguous()
+    acc = to_tensor(rng.integers(0, 2**bits - 1, (B, O, N),
+                                 dtype=np.uint64, endpoint=True), "cpu")
+    u64 = lambda v: v % (1 << 64)  # noqa: E731
+    want = to_numpy(fused_pbs.crt_accumulate_plain(res, acc, bits), bits)
+    a = to_numpy(acc, bits)
+    for b in range(B):
+        for o in range(O):
+            for n in range(N):
+                total = int(a[b, o, n])
+                for m in range(M):
+                    r = res[b, o, m, :, n].tolist()
+                    total += _residue_crt_word(r, consts)[3] << (32 * m)
+                assert u64(total) % (1 << bits) == int(want[b, o, n])
+
+
 def test_single_cta_wrappers_take_the_plain_version_for_cpu_tensors_only():
     key, acc, ahat = _step_inputs(64)
     bl, L = key.base_log, key.levels

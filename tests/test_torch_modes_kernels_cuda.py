@@ -7,7 +7,9 @@ K4's kernel), "scan1w" (K4 `pbs_step_single_cta`), "grid" (K5
 PARAM_MESSAGE_2_CARRY_2_KS_PBS and of boolean DEFAULT_PARAMETERS; a blind
 rotation in every mode, equal across modes, with its launch counts; the
 empty batch; a batch past 65535 ciphertexts in one persistent launch and in
-one single-CTA launch; K3 and K4, K5, K6's `ntt_mac_prime` and K7 on the
+one single-CTA launch; K6's `crt_accumulate` at N = 256 ... 2048, both
+torus widths, B = 1, 3, 64 and 256, on residues of integers at the
+extremes of its range; K3 and K4, K5, K6's `ntt_mac_prime` and K7 on the
 register-resident NTT core at every width the port runs (the sets at
 N = 1024 among them), at batch sizes around one and two waves of the
 card's 132 SMs, and K5 and K7 at the main paths' depth (742 and 722
@@ -255,6 +257,57 @@ def test_prime_stage_on_the_core_matches_plain(width, B, card):
         torch.cuda.synchronize()
         assert torch.equal(got, want), pi
     assert fused_pbs.ntt_mac_prime.launches == P
+
+
+def _residues_below_2_67(rng, B, O, M, N):
+    """Canonical residues [B, O, M, P, N] int32 of integers x = hi 2^34 + lo
+    with |x| < 2^67 (every convolution K6 reconstructs), the first and the
+    last ciphertext's first and last 4 words at the extremes: x = 0 and
+    x = -1 (residues 0 and p - 1 for every prime), x = +-(2^67 - 1)."""
+    hi = rng.integers(-2**33 + 1, 2**33, (B, O, M, N))
+    lo = rng.integers(0, 2**34, (B, O, M, N))
+    ends = [(0, 0), (-1, 2**34 - 1), (2**33 - 1, 2**34 - 1), (-2**33, 1)]
+    for b, n0 in ((0, 0), (B - 1, N - 4)):
+        for k, (h, low) in enumerate(ends):
+            hi[b, 0, 0, n0 + k], lo[b, 0, 0, n0 + k] = h, low
+    res = np.stack([((hi % p) * (2**34 % p) + lo % p) % p
+                    for p in ntt.PRIMES], axis=3)
+    return torch.from_numpy(res.astype(np.int32))
+
+
+@pytest.mark.parametrize("B", [1, 3, 64, 256])
+@pytest.mark.parametrize("N", [256, 512, 1024, 2048])
+@pytest.mark.parametrize("bits", [64, 32])
+def test_crt_stage_matches_plain(bits, N, B, card):
+    # K6's crt_accumulate: 4 coefficients a thread, the explicit CRT; B = 1
+    # and 3 leave the last block part empty (B O N / 4 threads)
+    rng = np.random.default_rng([47, B, N, bits])
+    O, M = (2, 2) if bits == 64 else (3, 1)
+    res = _residues_below_2_67(rng, B, O, M, N).to(card)
+    acc = torch.from_numpy(rng.integers(0, 2**bits - 1, (B, O, N),
+                                        dtype=np.uint64, endpoint=True)
+                           .view(np.int64)).to(card)
+    fused_pbs.reset_launch_counts()
+    got = fused_pbs.crt_accumulate(res, acc, bits)
+    torch.cuda.synchronize()
+    assert launched() == {"crt_accumulate": 1}
+    assert torch.equal(got, fused_pbs.crt_accumulate_plain(res, acc, bits))
+
+
+def test_crt_stage_refuses_misaligned_inputs(card):
+    # the kernel reads 16 bytes at a time: a view 4 or 8 bytes into a
+    # buffer is refused before any launch
+    B, O, M, N = 2, 2, 2, 256
+    res = torch.zeros(B * O * M * P * N + 4, dtype=torch.int32, device=card)
+    acc = torch.zeros(B * O * N + 2, dtype=torch.int64, device=card)
+    fused_pbs.reset_launch_counts()
+    with pytest.raises(ValueError, match="aligned"):
+        fused_pbs.crt_accumulate(res[1:1 + B * O * M * P * N].view(
+            B, O, M, P, N), acc[:B * O * N].view(B, O, N))
+    with pytest.raises(ValueError, match="aligned"):
+        fused_pbs.crt_accumulate(res[:B * O * M * P * N].view(
+            B, O, M, P, N), acc[1:1 + B * O * N].view(B, O, N))
+    assert launched() == {}
 
 
 def test_empty_batch_launches_nothing_in_any_mode(card):

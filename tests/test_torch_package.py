@@ -256,3 +256,39 @@ def test_ntt_entry_points_need_a_card_unless_asked_for_the_cpu():
     assert sks.device == torch.device("cpu")
     assert isinstance(sks.bsk, core.PreparedBskNtt)
     assert sks.bsk.spectra.device == torch.device("cpu")
+
+
+def test_integer_modules_are_among_the_checked_sources():
+    # the walk above reaches the integer layer's modules, and none of them
+    # imports JAX or the reference
+    checked = {os.path.relpath(p, ROOT) for p in _port_sources()}
+    new = {f"tfhe_tpu_torch/integer/{m}.py" for m in
+           ("__init__", "ciphertext", "client_key", "server_key", "signed",
+            "crt")}
+    assert new <= checked
+    for rel in sorted(new):
+        mods = list(_imported_modules(os.path.join(ROOT, rel)))
+        assert not [m for m in mods
+                    if m.split(".")[0] in ("jax", "jaxlib", "tfhe_tpu")]
+    assert tfhe_tpu_torch.integer.gen_keys_radix is not None
+
+
+def test_integer_entry_points_need_a_card_unless_asked_for_the_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the no-card refusal cannot be shown")
+    from tfhe_tpu_torch import integer
+
+    p = PARAM_MESSAGE_2_CARRY_2_COMPACT_TEST
+    for call in (lambda: integer.gen_keys_radix(p, 4, seed=1),
+                 lambda: integer.RadixClientKey(p, 4, seed=1),
+                 lambda: integer.gen_keys_crt(p, [2, 3], seed=1),
+                 lambda: integer.CrtClientKey(p, [2, 3], seed=1)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    cks, sks = integer.gen_keys_radix(p, 4, seed=1, device="cpu")
+    assert sks.key.device == torch.device("cpu") and sks.key.mode == "scan2"
+    # a u64 at 32 blocks of 2 bits: values past 2^63 through Python ints
+    wide = integer.RadixClientKey(p, 32, _key=cks.key)
+    for v in (2**63, 2**64 - 1, 2**64 + 5):
+        assert wide.decrypt(wide.encrypt(v)) == v % 2**64
+    assert wide.decrypt_signed(wide.encrypt_signed(-1)) == -1

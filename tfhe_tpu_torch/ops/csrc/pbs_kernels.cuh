@@ -17,7 +17,8 @@
 //   acc       [B, G, N]          int64  u64 torus words (u32: in [0, 2^32))
 //   ahat      [B]                int32  modulus-switched mask element, [0, 2N]
 //   digits    [B, L, G, N]       int32  signed gadget digits, level-major
-//   crt       [P, 2P + 4]        int64  Garner constants (see ops/ntt.py)
+//   xcrt      [P, 6]             int64  the explicit CRT's constants
+//                                       (ntt.residue_crt_for)
 //   residues  [B, O, M, P, N]    uint32 per-prime convolutions, canonical
 // with O = G output polynomials, M key planes (two 32-bit planes of a u64
 // key word, one for a u32 word) and P primes.
@@ -40,6 +41,29 @@
 // words a thread halved the threads and starved the card at small batches:
 // 0.00290 ms at shortint width and 0.00332 at boolean DEFAULT_PARAMETERS
 // width (B = 64), against 0.00225 and 0.00230 at 4 words.
+//
+// crt_accumulate, first design: one thread per output word, its indices
+// found with 64-bit `%` and `/` by a runtime N, scalar 8-byte accumulator
+// loads and stores, and a balanced Garner reconstruction: P(P-1)/2 = 10
+// dependent Shoup products a plane and word, its table read as int64
+// through generic loads; 0.01567 ms at PARAM_MESSAGE_2_CARRY_2_KS_PBS
+// width and 0.00447 at boolean DEFAULT_PARAMETERS width (B = 64) on an
+// H100, 3.6x and 4.2x its bound.  New: a thread owns kCrtWords = 4
+// consecutive coefficients of one (ciphertext, output polynomial) row, its
+// indices 32-bit and taken from the grid, as K1; each (plane, prime)
+// residue quad is one 16-byte load, the accumulator two 16-byte loads and
+// two 16-byte stores; and the CRT is the core's explicit one (crt_word),
+// its constants held in registers: c_i = r_i (Q/p_i)^-1 mod p_i, one
+// Shoup product a prime (the residues are canonical, already scaled by
+// N^-1), then P independent 64-bit multiply-adds and one rounding a plane.
+// Exact on its inputs for the reason K2's CRT is (ntt._explicit_crt_host):
+// the residues are those of a convolution below 2^67 in magnitude; P
+// residues drawn at random name an integer up to Q/2 ~ 2^76, where the
+// 28-bit fraction may round the wrong way.  72 registers, no spill; blocks
+// of 128 threads (2-4% faster than 256).  On an H100: 0.00565 ms at
+// shortint width and 0.00330 at boolean width (B = 64; 1.3x and 3.1x the
+// bound, the latter near a launch's floor), 0.0281 and 0.0048 at B = 256
+// (first design 0.0575 and 0.0123).
 #pragma once
 
 #include <stdint.h>
@@ -53,17 +77,9 @@ constexpr int kXcrtWidth = 6;
 constexpr int kFracBits = 28;
 // coefficients a K1 thread owns
 constexpr int kRotWords = 4;
-
-__device__ __forceinline__ uint32_t add_mod(uint32_t a, uint32_t b,
-                                            uint32_t p) {
-  uint32_t s = a + b;
-  return s >= p ? s - p : s;
-}
-
-__device__ __forceinline__ uint32_t sub_mod(uint32_t a, uint32_t b,
-                                            uint32_t p) {
-  return a >= b ? a - b : a + p - b;
-}
+// coefficients a crt_accumulate thread owns: one 16-byte load of each
+// (plane, prime) residue quad
+constexpr int kCrtWords = 4;
 
 // a * w mod p for any 32-bit a and 0 <= w < p < 2^31, with
 // wsh = floor(w * 2^32 / p): the quotient estimate is off by at most one, so
@@ -175,57 +191,82 @@ __global__ void rotate_decompose_kernel(const int64_t* __restrict__ acc,
                   });
 }
 
-// Balanced Garner reconstruction of one convolution coefficient from its P
-// canonical residues, residue(i) for prime i: the unique integer in
-// (-Q/2, Q/2), Q = prod p, with those residues, as a word mod 2^64.
-template <typename Residue>
-__device__ __forceinline__ uint64_t garner(Residue residue,
-                                           const int64_t* __restrict__ crt,
-                                           int P) {
-  const int W = 2 * P + 4;  // row width of the Garner table
-  int32_t bs[kMaxPrimes];
-  uint64_t x = 0;
-  for (int i = 0; i < P; ++i) {
-    const int64_t* row = crt + (long long)i * W;
-    const uint32_t p = (uint32_t)row[2 * P + 2];
-    uint32_t partial = 0;
-    for (int j = 0; j < i; ++j) {
-      // |b_j| < p_j / 2 < p_i (primes ascend), so one add canonicalizes
-      const uint32_t bj = (uint32_t)(bs[j] < 0 ? bs[j] + (int32_t)p : bs[j]);
-      partial = add_mod(partial,
-                        mul_shoup(bj, (uint32_t)row[j], (uint32_t)row[P + j],
-                                  p),
-                        p);
-    }
-    uint32_t d = sub_mod(residue(i), partial, p);
-    d = mul_shoup(d, (uint32_t)row[2 * P], (uint32_t)row[2 * P + 1], p);
-    bs[i] = d > p / 2 ? (int32_t)d - (int32_t)p : (int32_t)d;
-    x += (uint64_t)(int64_t)bs[i] * (uint64_t)row[2 * P + 3];
-  }
-  return x;
-}
-
-// K6's last stage: Garner's reconstruction of each convolution, its planes
-// recombined as conv_0 + 2^32 conv_1, added to the accumulator mod 2^64.
-// One thread per (ciphertext, output polynomial, coefficient).
+// K6's last stage: the explicit CRT of each convolution from its P
+// canonical residues (ntt_core_kernels.cuh's crt_word, the residues read
+// from device memory), its planes joined as conv_0 + 2^32 conv_1, added
+// to the accumulator mod 2^bits.  Block (x, o, z), thread (tx, ty):
+// ciphertext b = x blockDim.y + ty, output polynomial o, the kCrtWords
+// coefficients from j0 = (z blockDim.x + tx) kCrtWords.  xcrt is
+// ntt.residue_crt_for: w_i = (Q/p_i)^-1 mod p_i (no N^-1: ntt_mac_prime
+// already scaled the residues), so c_i = r_i w_i mod p_i is one Shoup
+// product a prime.  residues, acc and out are 16-byte aligned; out may not
+// alias acc.
 __global__ void crt_accumulate_kernel(const uint32_t* __restrict__ residues,
-                                      const int64_t* __restrict__ crt,
+                                      const int64_t* __restrict__ xcrt,
                                       const int64_t* __restrict__ acc,
                                       int64_t* __restrict__ out, int B, int O,
                                       int M, int P, int N, int bits) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long long)B * O * N) return;
-  const int n = (int)(idx % N);
-  const long long bo = idx / N;  // b * O + o
-  uint64_t total = (uint64_t)acc[idx];
-  for (int m = 0; m < M; ++m) {
-    const uint32_t* r = residues + ((bo * M + m) * P) * N + n;
-    const uint64_t x =
-        garner([&](int i) { return r[(long long)i * N]; }, crt, P);
-    total += m == 0 ? x : (x << 32);
+  const int b = blockIdx.x * blockDim.y + threadIdx.y;
+  if (b >= B) return;
+  const long long row = (long long)b * O + blockIdx.y;  // (b, o)
+  const int j0 = (blockIdx.z * blockDim.x + threadIdx.x) * kCrtWords;
+  uint32_t p[kMaxPrimes], w[kMaxPrimes], wsh[kMaxPrimes], t[kMaxPrimes];
+  uint64_t q[kMaxPrimes];
+#pragma unroll
+  for (int i = 0; i < kMaxPrimes; ++i) {
+    if (i < P) {
+      const int64_t* c = xcrt + i * kXcrtWidth;
+      p[i] = (uint32_t)__ldg(c);
+      w[i] = (uint32_t)__ldg(c + 1);
+      wsh[i] = (uint32_t)__ldg(c + 2);
+      q[i] = (uint64_t)__ldg(c + 3);
+      t[i] = (uint32_t)__ldg(c + 4);
+    }
   }
-  if (bits == 32) total &= 0xFFFFFFFFull;
-  out[idx] = (int64_t)total;
+  const uint64_t Q = (uint64_t)__ldg(xcrt + 5);
+  uint64_t total[kCrtWords];
+  const longlong2* in = reinterpret_cast<const longlong2*>(acc + row * N + j0);
+#pragma unroll
+  for (int h = 0; h < kCrtWords / 2; ++h) {
+    const longlong2 v = __ldg(in + h);
+    total[2 * h] = (uint64_t)v.x;
+    total[2 * h + 1] = (uint64_t)v.y;
+  }
+  for (int m = 0; m < M; ++m) {
+    const uint32_t* r = residues + (row * M + m) * P * N + j0;
+    uint64_t sum[kCrtWords];
+    uint32_t frac[kCrtWords];
+#pragma unroll
+    for (int k = 0; k < kCrtWords; ++k) {
+      sum[k] = 0;
+      frac[k] = 0;
+    }
+#pragma unroll
+    for (int i = 0; i < kMaxPrimes; ++i) {
+      if (i < P) {
+        const uint4 v =
+            __ldg(reinterpret_cast<const uint4*>(r + (long long)i * N));
+        const uint32_t rv[kCrtWords] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int k = 0; k < kCrtWords; ++k) {
+          const uint32_t c = mul_shoup(rv[k], w[i], wsh[i], p[i]);
+          sum[k] += (uint64_t)c * q[i];
+          frac[k] += c * t[i];
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kCrtWords; ++k) {
+      const uint64_t kq = (frac[k] + (1u << (kFracBits - 1))) >> kFracBits;
+      total[k] += (sum[k] - kq * Q) << (32 * m);
+    }
+  }
+  const uint64_t mask = bits == 64 ? ~0ull : 0xFFFFFFFFull;
+  longlong2* o = reinterpret_cast<longlong2*>(out + row * N + j0);
+#pragma unroll
+  for (int h = 0; h < kCrtWords / 2; ++h)
+    o[h] = make_longlong2((long long)(total[2 * h] & mask),
+                          (long long)(total[2 * h + 1] & mask));
 }
 
 }  // namespace tfhe_pbs

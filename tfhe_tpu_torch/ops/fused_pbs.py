@@ -382,8 +382,12 @@ def crt_accumulate_plain(residues: torch.Tensor, acc: torch.Tensor,
 def crt_accumulate(residues: torch.Tensor, acc: torch.Tensor,
                    bits: int = 64) -> torch.Tensor:
     """K6's last stage (replaces crt_kernel -> _crt_accumulate,
-    tfhe_tpu/ops/fused_pbs.py:1520, :709): `crt_accumulate_kernel`.
-    Returns a new accumulator."""
+    tfhe_tpu/ops/fused_pbs.py:1520, :709): `crt_accumulate_kernel`, the
+    explicit CRT on `ntt.residue_crt_for`, 4 coefficients a thread.
+    Returns a new accumulator.  The residues are those of convolutions
+    below 2^67 in magnitude, as `ntt_mac_prime` writes them (the explicit
+    CRT's range, `ntt._explicit_crt_host`); residues and acc 16-byte
+    aligned, N a power of two of at least 4."""
     if residues.device.type == "cpu":
         return crt_accumulate_plain(residues, acc, bits)
     if residues.device.type != "cuda":
@@ -396,11 +400,13 @@ def crt_accumulate(residues: torch.Tensor, acc: torch.Tensor,
     _check("acc", acc, torch.int64, (B, O, N), dev)
     if M != (2 if bits == 64 else 1):
         raise ValueError(f"{M} residue planes do not match bits={bits}")
+    _check_aligned("residues", residues)
+    _check_aligned("acc", acc)
     out = torch.empty_like(acc)
     if B == 0:  # a grid of zero blocks is an invalid launch
         return out
     err = cuda_library().tfhe_crt_accumulate(
-        residues.data_ptr(), ntt.tables_for(N, dev).crt.data_ptr(),
+        residues.data_ptr(), ntt.residue_crt_for(dev).data_ptr(),
         acc.data_ptr(), out.data_ptr(), B, O, M, P, N, bits, _stream(dev))
     _check_launch(err, "crt_accumulate")
     crt_accumulate.launches += 1

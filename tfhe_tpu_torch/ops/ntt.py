@@ -164,7 +164,8 @@ def _explicit_crt_host(N: int) -> np.ndarray:
     is within P 2^-12 of sum_i c_i / p_i, which is within |x| / Q of the
     integer k.  For |x| < 2^67 and these five primes (Q > 2^77) the two
     errors add to below 0.003, far from the 1/2 at which k could round
-    the wrong way: x is exact."""
+    the wrong way: x is exact.  N = 1 gives the constants for residues
+    already scaled by N^-1 (`residue_crt_for`)."""
     P = len(PRIMES)
     Q = int(CRT_MODULUS)
     out = np.zeros((P, XCRT_WIDTH), np.int64)
@@ -357,6 +358,18 @@ def tables_for(N: int, device: torch.device) -> NttTables:
 def _pass_tables(N: int, device: str) -> torch.Tensor:
     return torch.from_numpy(_as_i32_bits(_host_pass_tables(N))).to(
         torch.device(device))
+
+
+@functools.cache
+def _residue_crt(device: str) -> torch.Tensor:
+    return torch.from_numpy(_explicit_crt_host(1)).to(torch.device(device))
+
+
+def residue_crt_for(device: torch.device) -> torch.Tensor:
+    """[P, XCRT_WIDTH] int64: the explicit CRT's constants for canonical
+    residues r_i of a convolution (no N^-1 to fold in): w_i = (Q/p_i)^-1
+    mod p_i, so c_i = r_i w_i mod p_i (`crt_accumulate`'s kernel)."""
+    return _residue_crt(str(torch.device(device)))
 
 
 def pass_tables_for(N: int, device: torch.device) -> torch.Tensor:
