@@ -43,6 +43,21 @@ Phases, each printing one flushed line with its wall time:
      op's PBS batches and wall ms, n launches of K1 and of K2 per PBS
      batch),
      card_vs_cpu_integer (add, mul, lt at 4 blocks of
+     PARAM_MESSAGE_2_CARRY_2_COMPACT_TEST, card == CPU word for word),
+     main_path_integer_fused (IntegerServerKey(fused=True) on the same keys
+     and pairs at 32 blocks: add, sub, neg, mul, eq, lt, bitxor, select and
+     max, each one CUDA graph captured at its first call and replayed after;
+     per op the PBS batches of its chain beside the host schedule's, cold
+     and warm ms beside the host schedule's, a replay's device time; every
+     replay decrypted right and equal bit for bit to the chain run
+     eagerly), main_path_batched (BatchedRadixOps, B = 64 integers of 8
+     blocks: add, mul and lt in the "scan" and "ripple" carry schedules,
+     ms and PBS waves each), main_path_strings (the string library on the
+     same keys, 4 blocks a char: eq, contains, find, to_uppercase, trim,
+     split, replace and nth_encrypted on strings of 8 to 16 characters and
+     BatchedStringOps.contains over 64 texts, equal to Python's `str`, PBS
+     batches and warm ms each), card_vs_cpu_strings (eq, contains, find,
+     to_uppercase, nth_encrypted and the compact push_padding_to_end at
      PARAM_MESSAGE_2_CARRY_2_COMPACT_TEST, card == CPU word for word), and
      main_path_pbs_ks (PARAM_MESSAGE_2_CARRY_2_COMPACT_PK_PBS_KS keys on
      the card, ciphertexts under the small key, PBS then keyswitch, three
@@ -1257,7 +1272,7 @@ def integer_main_path(cks, sks):
     if launches != want_l:
         raise AssertionError(f"integer ops launched {launches}, expected "
                              f"{want_l} ({total} PBS batches)")
-    return launches
+    return launches, wall_ms, batches
 
 
 def integer_card_vs_cpu():
@@ -1295,6 +1310,326 @@ def integer_card_vs_cpu():
     if not all(same.values()):
         raise AssertionError(f"radix ops on the card and the CPU differ: "
                              f"{same}")
+
+
+# the single-program ops the fused phase drives, by the name of their
+# FusedIntegerOps program: (the IntegerServerKey call, the clear result,
+# the decryption, the host schedule's op in main_path_integer)
+FUSED_OPS = {
+    "add": (lambda k, a, b, c: k.add_parallelized(a, b),
+            lambda x, y, m: (x + y) % m, "decrypt", "add"),
+    "sub": (lambda k, a, b, c: k.sub_parallelized(a, b),
+            lambda x, y, m: (x - y) % m, "decrypt", "sub"),
+    "neg": (lambda k, a, b, c: k.neg_parallelized(a),
+            lambda x, y, m: -x % m, "decrypt", "neg"),
+    "mul": (lambda k, a, b, c: k.mul_parallelized(a, b),
+            lambda x, y, m: x * y % m, "decrypt", "mul"),
+    "eq": (lambda k, a, b, c: k.eq_parallelized(a, b),
+           lambda x, y, m: x == y, "decrypt_bool", "eq"),
+    "lt": (lambda k, a, b, c: k.lt_parallelized(a, b),
+           lambda x, y, m: x < y, "decrypt_bool", "lt"),
+    "bxor": (lambda k, a, b, c: k.bitxor_parallelized(a, b),
+             lambda x, y, m: x ^ y, "decrypt", "bitxor"),
+    "select": (lambda k, a, b, c: k.if_then_else_parallelized(c, a, b),
+               lambda x, y, m: x if x % 3 else y, "decrypt",
+               "if_then_else"),
+    "max": (lambda k, a, b, c: k.max_parallelized(a, b),
+            lambda x, y, m: max(x, y), "decrypt", "max"),
+}
+
+
+def integer_fused_main_path(cks, sks, host_ms, host_batches):
+    """The single-program radix schedule (IntegerServerKey(fused=True):
+    each op one CUDA graph, captured at its first call and replayed) on the
+    main path's PARAM_MESSAGE_2_CARRY_2_KS_PBS keys in scan2, at 32 blocks
+    on main_path_integer's pairs: add, sub, neg, mul, eq, lt, bitxor,
+    select and max.  Per op: the PBS batches of its chain (K1 launches per
+    rotation in the capture; beside them the host schedule's), the cold ms
+    (the eager warm-up, the capture and the first replay) and the warm ms
+    of each later replay (host clock, synchronised), beside the host
+    schedule's ms from main_path_integer, and the device time of a replay
+    (CUDA events around 3 back-to-back replays); every replay decrypted
+    right and equal bit for bit to the same chain run eagerly on the card.
+    Returns the launches: the counters' (the warm-ups, the captures and
+    the eager runs) less the captures, plus each capture's launches per
+    replay."""
+    import numpy as np
+    import torch
+
+    from tfhe_tpu_torch import integer
+    from tfhe_tpu_torch.ops import fused_pbs as fp
+
+    t0 = time.time()
+    p, nb = sks.params, 32
+    n, mod = p.lwe_dimension, p.message_modulus ** nb
+    rng = np.random.default_rng(SEED + 14)
+
+    def u64():
+        return int.from_bytes(rng.bytes(8), "little")
+
+    pairs = [(0, 2**64 - 1), (2**63, 2**64 - 1), (u64(), u64())]
+    rck = integer.RadixClientKey(p, nb, _key=cks)
+    isk = integer.IntegerServerKey(sks, fused=True)
+    fp.reset_launch_counts()
+    batches, cold_ms, warm_ms, wrong, not_eager = {}, {}, {}, [], []
+    captured, replays = {}, {}
+    for i, (x, y) in enumerate(pairs):
+        a, b = rck.encrypt(x), rck.encrypt(y)
+        cond = rck.encrypt_bool(bool(x % 3))
+        for name, (fn, clear, how, _) in FUSED_OPS.items():
+            before = fp.rotate_decompose.launches
+            torch.cuda.synchronize()
+            t = time.time()
+            out = fn(isk, a, b, cond)
+            torch.cuda.synchronize()
+            dt = (time.time() - t) * 1e3
+            if i == 0:  # warm-up, capture, first replay
+                cold_ms[name] = dt
+                # the warm-up and the capture each count the chain once
+                batches[name] = (fp.rotate_decompose.launches - before) \
+                    // (2 * n)
+            else:
+                warm_ms.setdefault(name, []).append(dt)
+            replays[name] = replays.get(name, 0) + 1
+            got = getattr(rck, how)(out)
+            if got != clear(x, y, mod):
+                wrong.append((name, str(got), str(clear(x, y, mod))))
+            args = [v.block if hasattr(v, "block") else v.blocks for v in
+                    ((cond, a, b) if name == "select" else
+                     (a,) if name == "neg" else (a, b))]
+            eager = isk._fused_ops.try_op(name, *args, graph=False)
+            res = out.block if hasattr(out, "block") else out.blocks
+            if not torch.equal(res.data, eager.data):
+                not_eager.append((name, i))
+    graphs = sorted({k[0] for k in isk._fused_ops._graphs})
+    counted = launched(fp.KERNELS)
+    # each graph's device time: CUDA events around 3 replays of its last
+    # inputs (nothing on the host between them)
+    device_ms = {}
+    for (name, _), (_, graph, _) in isk._fused_ops._graphs.items():
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(3):
+            graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        device_ms[name] = start.elapsed_time(end) / 3
+        replays[name] += 3
+    per_chain = {k: v * sum(batches.values()) for k, v in
+                 rotation_launches("scan2", n).items()}
+    # the counters hold one warm-up, one capture and one eager run a pair
+    # and op; a capture launches nothing, each replay launches its chain
+    launches = {k: counted.get(k, 0) + per_chain[k] * (len(pairs) + 2)
+                for k in per_chain}
+    say("main_path_integer_fused", t0, params=p.name, num_blocks=nb,
+        mode=sks.mode, pairs=[[str(v) for v in pr] for pr in pairs],
+        graphs=graphs, pbs_batches=batches,
+        host_pbs_batches={k: host_batches[v[3]][0]
+                          for k, v in FUSED_OPS.items()},
+        cold_ms=cold_ms, warm_ms=warm_ms, device_ms=device_ms,
+        host_wall_ms={k: host_ms[v[3]] for k, v in FUSED_OPS.items()},
+        replays=replays, wrong=wrong, replay_differs_from_eager=not_eager,
+        launches=launches)
+    if wrong or not_eager or graphs != sorted(FUSED_OPS):
+        raise AssertionError(f"fused radix ops: wrong {wrong}, replay != "
+                             f"eager {not_eager}, graphs {graphs}")
+    want = {k: v * sum(batches.values()) * (2 + len(pairs)) for k, v in
+            rotation_launches("scan2", n).items()}
+    if counted != want:
+        raise AssertionError(f"fused radix ops counted {counted}, expected "
+                             f"{want}")
+    return launches
+
+
+def batched_main_path(cks, sks):
+    """BatchedRadixOps on the main path's keys: B = 64 radix integers of 8
+    blocks, add, mul and lt in both carry schedules ("scan" and "ripple"),
+    each op once cold and once timed (host clock, synchronised), its PBS
+    waves counted; every result decrypted right.  Returns the launches."""
+    import numpy as np
+    import torch
+
+    from tfhe_tpu_torch import integer
+    from tfhe_tpu_torch.integer.batched import (BatchedRadixOps,
+                                                decrypt_batch_radix,
+                                                encrypt_batch_radix)
+    from tfhe_tpu_torch.ops import fused_pbs as fp
+
+    t0 = time.time()
+    p, nb, B = sks.params, 8, B_MAIN
+    n, mod = p.lwe_dimension, p.message_modulus ** nb
+    rng = np.random.default_rng(SEED + 15)
+    av = rng.integers(0, mod, B).tolist()
+    bv = rng.integers(0, mod, B).tolist()
+    av[:2], bv[:2] = [mod - 1, mod - 1], [1, mod - 1]  # carry chains
+    rck = integer.RadixClientKey(p, nb, _key=cks)
+    a, b = encrypt_batch_radix(rck, av, nb), encrypt_batch_radix(rck, bv, nb)
+    fp.reset_launch_counts()
+    counted, calls = counting_pbs(sks)
+    clear = {"add": lambda x, y: (x + y) % mod,
+             "mul": lambda x, y: x * y % mod, "lt": lambda x, y: int(x < y)}
+    ms, waves, wrong = {}, {}, []
+    for mode in ("scan", "ripple"):
+        ops = BatchedRadixOps(counted, mode)
+        for name, f in clear.items():
+            for cold in (True, False):
+                torch.cuda.synchronize()
+                calls[0] = 0
+                t = time.time()
+                out = getattr(ops, name)(a, b)
+                torch.cuda.synchronize()
+                if not cold:
+                    ms[f"{name}_{mode}"] = (time.time() - t) * 1e3
+                    waves[f"{name}_{mode}"] = calls[0]
+            got = (rck.key.decrypt_batch(out).tolist() if name == "lt"
+                   else decrypt_batch_radix(rck, out))
+            if got != [f(x, y) for x, y in zip(av, bv)]:
+                wrong.append(f"{name}_{mode}")
+    launches = launched(fp.KERNELS)
+    say("main_path_batched", t0, params=p.name, batch=B, num_blocks=nb,
+        wall_ms=ms, pbs_waves=waves, wrong=wrong, launches=launches)
+    if wrong:
+        raise AssertionError(f"batched radix ops wrong: {wrong}")
+    want = {k: v * 2 * sum(waves.values()) for k, v in
+            rotation_launches("scan2", n).items()}
+    if launches != want:
+        raise AssertionError(f"batched ops launched {launches}, expected "
+                             f"{want}")
+    return launches
+
+
+def strings_main_path(cks, sks):
+    """The string library on the main path's PARAM_MESSAGE_2_CARRY_2_KS_PBS
+    keys (4 blocks a char, no second keygen): eq, contains, find,
+    to_uppercase, trim, split, replace and nth_encrypted on strings of 8 to
+    16 characters, and BatchedStringOps.contains over 64 texts of up to 16;
+    each op once cold and once timed (host clock, synchronised), its PBS
+    batches counted; every result equal to Python's `str`.  Returns the
+    launches."""
+    import numpy as np
+    import torch
+
+    from tfhe_tpu_torch import integer, strings
+    from tfhe_tpu_torch.ops import fused_pbs as fp
+    from tfhe_tpu_torch.strings.batched import (BatchedStringOps,
+                                                encrypt_batch_strings)
+
+    t0 = time.time()
+    p, n = sks.params, sks.params.lwe_dimension
+    fp.reset_launch_counts()
+    counted, calls = counting_pbs(sks)
+    scks = strings.StringClientKey(
+        integer.RadixClientKey(p, strings.NUMBER_BLOCKS, _key=cks))
+    ssks = strings.StringServerKey(integer.IntegerServerKey(counted))
+    ik = scks.integer_key
+    text = "Hello, World"
+    enc = scks.encrypt_str
+    h = enc(text)
+    padded = scks.encrypt_str_padding("  hi there ", 2)
+    rng = np.random.default_rng(SEED + 16)
+    words = ["".join(chr(c) for c in rng.integers(97, 100, rng.integers(
+        8, 17))) for _ in range(B_MAIN)]
+    blocks = encrypt_batch_strings(scks, words, 16)
+    bops = BatchedStringOps(counted)
+    cases = {  # name: (the op, its decryption, Python's result)
+        "eq": (lambda: ssks.eq(h, "Hello, World"), ik.decrypt_bool, True),
+        "contains": (lambda: ssks.contains(h, "World"), ik.decrypt_bool,
+                     True),
+        "find": (lambda: ssks.find(h, "o"),
+                 lambda r: (ik.decrypt_bool(r[0]), ik.decrypt(r[1])),
+                 (True, text.find("o"))),
+        "to_uppercase": (lambda: ssks.to_uppercase(h), scks.decrypt_string,
+                         text.upper()),
+        "trim": (lambda: ssks.trim(padded), scks.decrypt_string, "hi there"),
+        "split": (lambda: ssks.split(enc("alpha,beta"), ","),
+                  scks.decrypt_split, "alpha,beta".split(",")),
+        "replace": (lambda: ssks.replace(enc("a-b-c-d-e"), "-", "+"),
+                    scks.decrypt_string, "a-b-c-d-e".replace("-", "+")),
+        "nth_encrypted": (lambda: ssks.nth_encrypted(h, ik.encrypt(7)),
+                          scks.decrypt_ascii_char, ord(text[7])),
+        "batched_contains_64": (
+            lambda: bops.contains(blocks, "ab"),
+            lambda r: ik.key.decrypt_batch(r).tolist(),
+            [int("ab" in w) for w in words]),
+    }
+    ms, cold_ms, pbs_batches, wrong = {}, {}, {}, []
+    for name, (fn, dec, want) in cases.items():
+        for cold in (True, False):
+            torch.cuda.synchronize()
+            calls[0] = 0
+            t = time.time()
+            out = fn()
+            torch.cuda.synchronize()
+            (cold_ms if cold else ms)[name] = (time.time() - t) * 1e3
+            pbs_batches[name] = calls[0]
+            if dec(out) != want:
+                wrong.append((name, str(dec(out)), str(want)))
+    launches = launched(fp.KERNELS)
+    say("main_path_strings", t0, params=p.name, text=text,
+        batched_texts=len(words), wall_ms=ms, cold_ms=cold_ms,
+        pbs_batches=pbs_batches, wrong=wrong, launches=launches)
+    if wrong:
+        raise AssertionError(f"string ops wrong: {wrong}")
+    # every PBS batch ran in the classic schedule, scan2
+    if set(launches) != {"rotate_decompose", "external_product_crt"} or \
+            launches["rotate_decompose"] % n:
+        raise AssertionError(f"string ops launched {launches}")
+    return launches
+
+
+def strings_card_vs_cpu():
+    """The string library at PARAM_MESSAGE_2_CARRY_2_COMPACT_TEST, keys from
+    one seed on the card and on the CPU: eq, contains, find, to_uppercase,
+    nth_encrypted and push_padding_to_end in the card's compact schedule (a
+    random-padded string), the same blocks, degrees and noise levels, word
+    for word."""
+    import random
+
+    import numpy as np
+
+    from tfhe_tpu_torch import strings
+
+    t0 = time.time()
+    outs = {}
+    for where in ("cuda", "cpu"):
+        cks, sks = strings.gen_keys_test(seed=SEED, device=where)
+        h = cks.encrypt_str("hello")
+        rp = cks.encrypt_str_random_padding("abc", 2, random.Random(1))
+        res = {"eq": sks.eq(h, "hello"), "contains": sks.contains(h, "ll"),
+               "find": sks.find(h, "l")[1], "to_uppercase":
+               sks.to_uppercase(cks.encrypt_str("aZ")),
+               "nth_encrypted": sks.nth_encrypted(
+                   h, cks.integer_key.encrypt(1)).ct,
+               # the card's schedule, named on the CPU
+               "push_padding_to_end": sks._push_padding_compact(rp)}
+        got = (cks.integer_key.decrypt_bool(res["eq"]),
+               cks.integer_key.decrypt_bool(res["contains"]),
+               cks.integer_key.decrypt(res["find"]),
+               cks.decrypt_string(res["to_uppercase"]),
+               cks.integer_key.decrypt(res["nth_encrypted"]),
+               cks.decrypt_string(res["push_padding_to_end"]))
+        if got != (True, True, 2, "AZ", ord("e"), "abc"):
+            raise AssertionError(f"{where}: string ops wrong: {got}")
+        flat = {}
+        for k, v in res.items():
+            if k in ("to_uppercase", "push_padding_to_end"):
+                for i, c in enumerate(v.content):
+                    flat[f"{k}[{i}]"] = c.ct.blocks
+            else:
+                flat[k] = v.blocks if hasattr(v, "blocks") else v.block
+        outs[where] = flat
+    same = {k: bool(np.array_equal(c.data.cpu().numpy(),
+                                   outs["cpu"][k].data.numpy())
+                    and np.array_equal(c.degrees, outs["cpu"][k].degrees)
+                    and np.array_equal(c.noise, outs["cpu"][k].noise))
+            for k, c in outs["cuda"].items()}
+    say("card_vs_cpu_strings", t0,
+        params="PARAM_MESSAGE_2_CARRY_2_COMPACT_TEST",
+        identical=all(same.values()), compared=len(same))
+    if not all(same.values()):
+        raise AssertionError(f"string ops on the card and the CPU differ: "
+                             f"{[k for k, v in same.items() if not v]}")
 
 
 def pbs_ks_main_path(dev):
@@ -1933,10 +2268,25 @@ def main():
         launches[k] = launches.get(k, 0) + v
     t_ops = time.time() - t1
     t1 = time.time()
-    for k, v in integer_main_path(cks, sks).items():
+    int_launches, host_ms, host_batches = integer_main_path(cks, sks)
+    for k, v in int_launches.items():
         launches[k] = launches.get(k, 0) + v
     t_integer = time.time() - t1
     integer_card_vs_cpu()
+    t1 = time.time()
+    for k, v in integer_fused_main_path(cks, sks, host_ms,
+                                        host_batches).items():
+        launches[k] = launches.get(k, 0) + v
+    t_fused = time.time() - t1
+    t1 = time.time()
+    for k, v in batched_main_path(cks, sks).items():
+        launches[k] = launches.get(k, 0) + v
+    t_batched = time.time() - t1
+    t1 = time.time()
+    for k, v in strings_main_path(cks, sks).items():
+        launches[k] = launches.get(k, 0) + v
+    t_strings = time.time() - t1
+    strings_card_vs_cpu()
     t1 = time.time()
     pk_launches, pk_cks, pk_sks = pbs_ks_main_path(dev)
     t_pbs_ks = time.time() - t1
@@ -2089,6 +2439,9 @@ def main():
     say("done", t_start, main_path_s=round(t_main, 3),
         main_path_shortint_ops_s=round(t_ops, 3),
         main_path_integer_s=round(t_integer, 3),
+        main_path_integer_fused_s=round(t_fused, 3),
+        main_path_batched_s=round(t_batched, 3),
+        main_path_strings_s=round(t_strings, 3),
         main_path_pbs_ks_s=round(t_pbs_ks, 3),
         main_path_multibit_s=round(t_main_mb, 3),
         main_path_boolean_s=round(t_main_bool, 3),

@@ -292,3 +292,70 @@ def test_integer_entry_points_need_a_card_unless_asked_for_the_cpu():
     for v in (2**63, 2**64 - 1, 2**64 + 5):
         assert wide.decrypt(wide.encrypt(v)) == v % 2**64
     assert wide.decrypt_signed(wide.encrypt_signed(-1)) == -1
+
+
+def test_schedule_and_strings_modules_are_among_the_checked_sources():
+    # the walk above reaches the integer layer's single-program and batched
+    # schedules and the string library, and none of them imports JAX or the
+    # reference
+    checked = {os.path.relpath(p, ROOT) for p in _port_sources()}
+    new = {f"tfhe_tpu_torch/integer/{m}.py" for m in
+           ("fused", "fused_dispatch", "batched")} | {
+        f"tfhe_tpu_torch/strings/{m}.py" for m in
+        ("__init__", "ciphertext", "client_key", "server_key", "split",
+         "batched")}
+    assert new <= checked
+    for rel in sorted(new):
+        mods = list(_imported_modules(os.path.join(ROOT, rel)))
+        assert not [m for m in mods
+                    if m.split(".")[0] in ("jax", "jaxlib", "tfhe_tpu")]
+    assert "strings" in tfhe_tpu_torch.__all__
+
+
+def test_no_environment_variable_chooses_a_schedule():
+    # the schedules are arguments: only the CUDA toolkit's location is read
+    # from the environment
+    reads = []
+    for path in _port_sources():
+        for node in ast.walk(ast.parse(open(path).read())):
+            if isinstance(node, ast.Attribute) and node.attr in ("environ",
+                                                                 "getenv"):
+                reads.append(os.path.relpath(path, ROOT))
+    assert reads == ["tfhe_tpu_torch/ops/fused_pbs.py"]
+    src = open(os.path.join(PKG, "ops", "fused_pbs.py")).read()
+    assert 'os.environ.get("CUDA_HOME"' in src
+
+
+def test_schedules_are_arguments():
+    from tfhe_tpu_torch import integer
+    from tfhe_tpu_torch.integer.batched import BatchedRadixOps
+
+    cks, sks = integer.gen_keys_radix(PARAM_MESSAGE_2_CARRY_2_COMPACT_TEST, 4,
+                                      seed=1, device="cpu")
+    assert sks.fused is False
+    assert integer.IntegerServerKey(sks.key, fused=True).fused is True
+    for mode in ("scan", "ripple"):
+        assert BatchedRadixOps(sks.key, mode).mode == mode
+    for mode in ("auto", None, "Scan"):
+        with pytest.raises(ValueError, match="carry schedule"):
+            BatchedRadixOps(sks.key, mode)
+    with pytest.raises(TypeError):
+        integer.gen_keys_radix(PARAM_MESSAGE_2_CARRY_2_COMPACT_TEST, 4,
+                               seed=1, device="cpu", mode="scan1")
+
+
+def test_strings_entry_points_need_a_card_unless_asked_for_the_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the no-card refusal cannot be shown")
+    from tfhe_tpu_torch import strings
+
+    for call in (lambda: strings.gen_keys(seed=1),
+                 lambda: strings.gen_keys_test(seed=1),
+                 lambda: strings.gen_keys(PARAM_MESSAGE_2_CARRY_2_COMPACT_TEST,
+                                          seed=1)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    cks, sks = strings.gen_keys_test(seed=1, device="cpu")
+    assert sks.sks.device == torch.device("cpu")
+    assert not sks.integer_key.fused
+    assert cks.decrypt_string(cks.encrypt_str("ok")) == "ok"

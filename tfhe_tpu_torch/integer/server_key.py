@@ -11,8 +11,11 @@ rotation on the kernels of `ops/fused_pbs.py`, in the key's `mode`); the
 Hillis-Steele parallel-prefix carry propagation (radix_parallel/
 add.rs:572-603) is a log2(n)-round batched bivariate-PBS scan.
 
-The reference's single-program formulation (`fused_dispatch`, chosen by
-the environment variable TFHE_TPU_FUSED_INTEGER) is not here.  Block data
+`IntegerServerKey(key, fused=True)` sends the ops at the reference's hook
+points (`tfhe_tpu/integer/server_key.py:213-555`) to the single-program
+schedule of `fused_dispatch` first (the reference chooses it by the
+environment variable TFHE_TPU_FUSED_INTEGER); an op whose inputs are not
+clean takes the host schedule there, as in the reference.  Block data
 stays in one tensor on the key's device: blocks are cut with views, joined
 with `torch.cat` and gathered with one index tensor per gather; degrees and
 noise levels are numpy bookkeeping, so no op reads a block back to the host.
@@ -20,7 +23,7 @@ noise levels are numpy bookkeeping, so no op reads a block back to the host.
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -61,9 +64,26 @@ def _gather(b: ShortintBatch, rows) -> ShortintBatch:
 
 
 class IntegerServerKey(SignedOps):
-    def __init__(self, key: ShortintServerKey):
+    """`fused` picks the radix ops' schedule: False (the default) the host
+    schedule, every op its reference's host path; True the single-program
+    ops of `fused_dispatch` for clean inputs (one CUDA graph replay per op
+    on a card), the host schedule for the others."""
+
+    def __init__(self, key: ShortintServerKey, fused: bool = False):
         self.key = key
         self.message_modulus = key.message_modulus
+        self.fused = fused
+        self._fused_ops = None
+
+    def _fused(self, op: str, *batches) -> Optional[ShortintBatch]:
+        """`op` in the single-program schedule over clean blocks, or None:
+        the host schedule (fused=False, or blocks that are not clean)."""
+        if not self.fused:
+            return None
+        if self._fused_ops is None:
+            from .fused_dispatch import FusedIntegerOps
+            self._fused_ops = FusedIntegerOps(self)
+        return self._fused_ops.try_op(op, *batches)
 
     # ------------------------------------------------------------------
     # helpers
@@ -201,6 +221,9 @@ class IntegerServerKey(SignedOps):
 
     def add_parallelized(self, a: RadixCiphertext, b: RadixCiphertext
                          ) -> RadixCiphertext:
+        r = self._fused("add", a.blocks, b.blocks)
+        if r is not None:
+            return RadixCiphertext(r)
         s = self.key.unchecked_add_batch(a.blocks, b.blocks)
         clean, _ = self.propagate_single_carry(s)
         return RadixCiphertext(clean)
@@ -227,11 +250,17 @@ class IntegerServerKey(SignedOps):
             carry_modulus=b.carry_modulus, noise=b.noise.copy())
 
     def neg_parallelized(self, a: RadixCiphertext) -> RadixCiphertext:
+        r = self._fused("neg", a.blocks)
+        if r is not None:
+            return RadixCiphertext(r)
         clean, _ = self.propagate_single_carry(self._neg_blocks(a.blocks))
         return RadixCiphertext(clean)
 
     def sub_parallelized(self, a: RadixCiphertext, b: RadixCiphertext
                          ) -> RadixCiphertext:
+        r = self._fused("sub", a.blocks, b.blocks)
+        if r is not None:
+            return RadixCiphertext(r)
         nbk = self._neg_blocks(b.blocks)
         s = self.key.unchecked_add_batch(a.blocks, nbk)
         clean, _ = self.propagate_single_carry(s)
@@ -297,6 +326,9 @@ class IntegerServerKey(SignedOps):
 
     def mul_parallelized(self, a: RadixCiphertext, b: RadixCiphertext
                          ) -> RadixCiphertext:
+        r = self._fused("mul", a.blocks, b.blocks)
+        if r is not None:
+            return RadixCiphertext(r)
         msg = self._msg
         sks = self.key
         nb = a.num_blocks
@@ -369,15 +401,27 @@ class IntegerServerKey(SignedOps):
             self.key.unchecked_bivariate_batch(a.blocks, b.blocks, blut))
 
     def bitand_parallelized(self, a, b):
+        r = self._fused("band", a.blocks, b.blocks)
+        if r is not None:
+            return RadixCiphertext(r)
         return self._blockwise_bivariate(a, b, lambda x, y: x & y)
 
     def bitor_parallelized(self, a, b):
+        r = self._fused("bor", a.blocks, b.blocks)
+        if r is not None:
+            return RadixCiphertext(r)
         return self._blockwise_bivariate(a, b, lambda x, y: x | y)
 
     def bitxor_parallelized(self, a, b):
+        r = self._fused("bxor", a.blocks, b.blocks)
+        if r is not None:
+            return RadixCiphertext(r)
         return self._blockwise_bivariate(a, b, lambda x, y: x ^ y)
 
     def bitnot(self, a: RadixCiphertext) -> RadixCiphertext:
+        r = self._fused("bnot", a.blocks)
+        if r is not None:
+            return RadixCiphertext(r)
         lut = self.key.generate_lookup_table(
             lambda x: (self._msg - 1) - (x % self._msg))
         return RadixCiphertext(self.key.apply_lookup_table_batch(a.blocks,
@@ -418,23 +462,29 @@ class IntegerServerKey(SignedOps):
         lut = self.key.generate_lookup_table(lambda x: int(f(x)))
         return BooleanBlock(self.key.apply_lookup_table_batch(sign, lut))
 
+    def _cmp_op(self, op: str, a, b, f) -> BooleanBlock:
+        r = self._fused(op, a.blocks, b.blocks)
+        if r is not None:
+            return BooleanBlock(r)
+        return self._sign_to_bool(self._compare(a, b), f)
+
     def eq_parallelized(self, a, b) -> BooleanBlock:
-        return self._sign_to_bool(self._compare(a, b), lambda s: s == 0)
+        return self._cmp_op("eq", a, b, lambda s: s == 0)
 
     def ne_parallelized(self, a, b) -> BooleanBlock:
-        return self._sign_to_bool(self._compare(a, b), lambda s: s != 0)
+        return self._cmp_op("ne", a, b, lambda s: s != 0)
 
     def lt_parallelized(self, a, b) -> BooleanBlock:
-        return self._sign_to_bool(self._compare(a, b), lambda s: s == 1)
+        return self._cmp_op("lt", a, b, lambda s: s == 1)
 
     def le_parallelized(self, a, b) -> BooleanBlock:
-        return self._sign_to_bool(self._compare(a, b), lambda s: s != 2)
+        return self._cmp_op("le", a, b, lambda s: s != 2)
 
     def gt_parallelized(self, a, b) -> BooleanBlock:
-        return self._sign_to_bool(self._compare(a, b), lambda s: s == 2)
+        return self._cmp_op("gt", a, b, lambda s: s == 2)
 
     def ge_parallelized(self, a, b) -> BooleanBlock:
-        return self._sign_to_bool(self._compare(a, b), lambda s: s != 1)
+        return self._cmp_op("ge", a, b, lambda s: s != 1)
 
     def scalar_eq_parallelized(self, a: RadixCiphertext,
                                scalar: int) -> BooleanBlock:
@@ -453,6 +503,9 @@ class IntegerServerKey(SignedOps):
     def if_then_else_parallelized(self, cond: BooleanBlock,
                                   a: RadixCiphertext,
                                   b: RadixCiphertext) -> RadixCiphertext:
+        r = self._fused("select", cond.block, a.blocks, b.blocks)
+        if r is not None:
+            return RadixCiphertext(r)
         sks = self.key
         nb = a.num_blocks
         cond_rep = ShortintBatch(
@@ -473,9 +526,15 @@ class IntegerServerKey(SignedOps):
     cmux = if_then_else_parallelized
 
     def max_parallelized(self, a, b):
+        r = self._fused("max", a.blocks, b.blocks)
+        if r is not None:
+            return RadixCiphertext(r)
         return self.if_then_else_parallelized(self.ge_parallelized(a, b), a, b)
 
     def min_parallelized(self, a, b):
+        r = self._fused("min", a.blocks, b.blocks)
+        if r is not None:
+            return RadixCiphertext(r)
         return self.if_then_else_parallelized(self.le_parallelized(a, b), a, b)
 
     # ------------------------------------------------------------------
