@@ -108,8 +108,9 @@ Phases, each printing one flushed line with its wall time:
      step;
  14. main_path_ntt: mode="ntt" (the CRT-NTT layout, one K10 launch a step)
      at full width: PARAM_MESSAGE_2_CARRY_2_KS_PBS keys on the card, two
-     LUTs on 64 messages, and boolean DEFAULT_PARAMETERS, every gate and mux
-     on 64 seeded bits; decrypted right, word for word equal to scan2 keys
+     LUTs on 64 messages, and boolean DEFAULT_PARAMETERS, nand and mux on
+     64 seeded bits (two gate batches keep the smoke inside its watchdog;
+     every gate runs in main_path_boolean); decrypted right, word for word equal to scan2 keys
      rebuilt from the same raw keys, K10 launched exactly n times per PBS
      batch and nothing else launched;
  15. main_path_u128: the u128 PBS at the PBS widths and noise of
@@ -119,10 +120,35 @@ Phases, each printing one flushed line with its wall time:
  16. card_vs_cpu_ntt: mode="ntt" shortint and boolean at the TEST sets and
      the u128 PBS at tests/test_u128.py's toy size, card == CPU word for
      word (keys, ciphertexts, outputs);
- 17. timing_ntt: PBS/s (gates/s) and batch ms at B=64 and B=256 for
+ 17. timing_ntt: PBS/s (gates/s) and batch ms at B=64 (after a warm-up)
+     and B=256 (after the B=64 runs) for
      shortint mode="ntt", the u128 PBS and boolean mode="ntt", and a
      CUDA-event split of one step into decomposition, forward NTT, K10 (one
-     launch), inverse NTT and CRT.
+     launch), inverse NTT and CRT;
+ 18. main_path_api (after main_path_strings): the high-level API at full
+     width, generate_keys on the ConfigBuilder default
+     (PARAM_MESSAGE_2_CARRY_2_KS_PBS) with fused=True, set_server_key,
+     FheUint64 (32 blocks) +, -, *, scalar +, &, ^, scalar <<, eq, lt,
+     max, FheBool.if_then_else, cast_into(FheUint32 / FheInt64), FheInt64
+     lt and abs, FheUint8 div_rem; every result decrypted against Python's;
+     keygen s, cold and warm ms, PBS batches and K1 / K2 launches; + and *
+     again with fused=False, the same words, both latencies; then
+     card_vs_cpu_api (API ops at PARAM_MESSAGE_2_CARRY_2_COMPACT_TEST,
+     card == CPU word for word);
+ 19. main_path_multibit_ntt (after timing_multibit): the GROUP_3 raw keys
+     of main_path_multibit in mode="ntt" (the multi-bit CRT-NTT layout,
+     torch ops a step), one LUT batch at B=64 equal word for word to the
+     scan3 key's, decrypted right; prepare s, PBS/s, peak device MB;
+ 20. main_path_examples (its radix half after main_path_strings, its
+     boolean half after timing_boolean): the dark market (one order book
+     at 8 blocks) and three regex patterns on the main path's keys;
+     SHA-256 (a 4-round compression and one schedule word) and Trivium
+     (the full 1152-step warm-up, the first 64 keystream bits against the
+     KAT FBE0BF265859051B, one transciphered word) on main_path_boolean's
+     keys; `python -m tfhe_tpu_torch.examples.fhe_strings_cli abcab ab
+     --real-params` as a subprocess (exit 0, 14 ops ok); each part
+     decrypted against its clear function, its wall s and PBS (gate)
+     batches.
 Kernel times are device times: a CUDA graph of many launches replayed
 between CUDA events (a whole rotation, persistent or single-CTA: CUDA events
 around a few eager launches); the eager per-launch times beside them include
@@ -1821,9 +1847,12 @@ def ntt_main_path(dev):
     """mode="ntt" at full width: PARAM_MESSAGE_2_CARRY_2_KS_PBS keys on the
     card, two LUTs on 64 messages, decrypted right and equal word for word
     to a scan2 key rebuilt from the same raw keys; boolean DEFAULT_PARAMETERS
-    gates and mux the same way.  K10 launches are exact: n per PBS batch
-    (one `shoup_mac_primes` launch a step), nothing else launches.  Returns
-    K10's launches."""
+    nand and mux (two bootstraps in one batch) the same way (two gate
+    batches keep the smoke inside its watchdog; the other gates differ
+    only in their linear combinations, which main_path_boolean runs in
+    every mode).  K10 launches are exact:
+    n per PBS batch (one `shoup_mac_primes` launch a step), nothing else
+    launches.  Returns K10's launches."""
     import numpy as np
     import torch
 
@@ -1866,11 +1895,11 @@ def ntt_main_path(dev):
     x, y, z = np.random.default_rng(SEED + 1).integers(
         0, 2, (3, B_MAIN)).astype(bool)
     a, b, c = (bcks.encrypt_batch(v) for v in (x, y, z))
-    clear = {"and": x & y, "or": x | y, "nand": ~(x & y), "nor": ~(x | y),
-             "xor": x ^ y, "xnor": ~(x ^ y), "mux": np.where(z, x, y)}
+    ntt_gates = ("nand",)
+    clear = {"nand": ~(x & y), "mux": np.where(z, x, y)}
     reset_all_launches()
     t1 = time.time()
-    gates = {g: getattr(bsks, f"{g}_batch")(a, b) for g in BOOLEAN_GATES}
+    gates = {g: getattr(bsks, f"{g}_batch")(a, b) for g in ntt_gates}
     gates["mux"] = bsks.mux_batch(c, a, b)
     torch.cuda.synchronize()
     t_gates = time.time() - t1
@@ -1880,7 +1909,7 @@ def ntt_main_path(dev):
                                              == clear[g]))
     bscan2 = boolean.ServerKey.from_raw(bp, bsks.raw_bsk, bsks.raw_ksk,
                                         device=dev, mode="scan2")
-    for g in BOOLEAN_GATES:
+    for g in ntt_gates:
         same[f"boolean_{g}"] = bool(torch.equal(
             getattr(bscan2, f"{g}_batch")(a, b), gates[g]))
     same["boolean_mux"] = bool(torch.equal(bscan2.mux_batch(c, a, b),
@@ -1888,10 +1917,10 @@ def ntt_main_path(dev):
     expected = {"shortint": {"shoup_mac_primes": p.lwe_dimension
                              * len(funcs)},
                 "boolean": {"shoup_mac_primes": bp.lwe_dimension
-                            * (len(BOOLEAN_GATES) + 1)}}
+                            * (len(ntt_gates) + 1)}}
     say("main_path_ntt", t0, params=[p.name, bp.name], batch=B_MAIN,
         keygen_s=dict(shortint=t_keygen, boolean=t_keygen_bool),
-        two_luts_s=t_luts, seven_gate_batches_s=t_gates, correct=correct,
+        two_luts_s=t_luts, nand_and_mux_batches_s=t_gates, correct=correct,
         identical_to_scan2=same, launches=launches,
         peak_device_mb=dict(
             shortint=peak_shortint,
@@ -2054,7 +2083,11 @@ def ntt_timing(card, dev, u128_state, rng):
     rates, batch_ms, split_ms = {}, {}, {}
 
     def clock(key, B, run):
-        run()  # warm-up
+        # a warm-up before the B = 64 runs; the B = 256 runs follow the
+        # same path's B = 64 runs, so they are timed without one (the
+        # smoke's time limit)
+        if B == B_MAIN:
+            run()
         torch.cuda.synchronize()
         reps = 2 if B == B_MAIN else 1
         t1 = time.time()
@@ -2122,6 +2155,444 @@ def ntt_timing(card, dev, u128_state, rng):
         clock(f"boolean_ntt_B{B}", B, lambda: bsks.nand_batch(a, b))  # noqa
     say("timing_ntt", t0, card=card, pbs_or_gates_per_s=rates,
         batch_ms=batch_ms, step_split_ms=split_ms)
+
+
+API_U64 = (0xDEADBEEFCAFEF00D, 0x0123456789ABCDEF)
+
+
+def counting_api_key(sks, n):
+    """Counters on the API server key `sks`: its host-schedule PBS batches
+    (its shortint key's `_pbs_device`, wrapped on the instance) and its
+    single-program chains (FusedIntegerOps._replay, wrapped: each call a
+    capture at a new (op, shapes), then a replay).  Returns (host, seen,
+    chain): host[0] counts host batches, `seen` lists each (key,
+    captured) replayed, chain maps each graph's key to the PBS batches of
+    its chain (K1's count over its capture, which runs the chain eagerly
+    once and counts it once more while capturing, / 2n)."""
+    from tfhe_tpu_torch.integer.fused_dispatch import FusedIntegerOps
+    from tfhe_tpu_torch.ops import fused_pbs as fp
+
+    isk = sks.integer_key
+    key = isk.key
+    host, seen, chain = [0], [], {}
+    pbs = key._pbs_device
+
+    def counted_pbs(data, acc):
+        host[0] += 1
+        return pbs(data, acc)
+
+    key._pbs_device = counted_pbs
+    if isk._fused_ops is None:
+        isk._fused_ops = FusedIntegerOps(isk)
+    fops = isk._fused_ops
+    replay = fops._replay
+
+    def counted_replay(k, fn, dev):
+        new = k not in fops._graphs
+        k1 = fp.rotate_decompose.launches
+        out = replay(k, fn, dev)
+        if new:
+            chain[k] = (fp.rotate_decompose.launches - k1) // (2 * n)
+        seen.append((k, new))
+        return out
+
+    fops._replay = counted_replay
+    return host, seen, chain
+
+
+def api_main_path():
+    """The high-level API at full width: generate_keys on the
+    ConfigBuilder default (PARAM_MESSAGE_2_CARRY_2_KS_PBS) on the card with
+    fused=True, set_server_key, then FheUint64 (32 blocks) +, -, *, a
+    scalar +, &, ^, a scalar <<, eq, lt, max, FheBool.if_then_else,
+    cast_into(FheUint32) and cast_into(FheInt64); FheInt64 lt and abs;
+    FheUint8 div_rem.  Each op runs cold (a single-program chain met first:
+    eager warm-up, capture and first replay) and warm once, synchronised;
+    its PBS batches, host-schedule and graph-replayed, counted
+    (counting_api_key); every result decrypted against the clear Python
+    value.  Then + and * again on keys from the same seed with
+    fused=False: the same words, and both latencies.  Returns the K1 and
+    K2 launches: the counters (each eager launch, and each capture's,
+    which launches nothing) less the captures' chains, plus every
+    replay's chain (a replay launches with no wrapper call)."""
+    import torch
+
+    from tfhe_tpu_torch import api
+    from tfhe_tpu_torch.ops import fused_pbs as fp
+
+    t0 = time.time()
+    config = api.ConfigBuilder.default().build()
+    p = config.parameters
+    n = p.lwe_dimension
+    cks, sks = api.generate_keys(config, seed=SEED, device="cuda",
+                                 fused=True)
+    torch.cuda.synchronize()
+    t_keygen = time.time() - t0
+    api.set_server_key(sks)
+    host, seen, chain = counting_api_key(sks, n)
+    x, y = API_U64
+    m64 = 1 << 64
+    a, b = api.FheUint64.encrypt(x, cks), api.FheUint64.encrypt(y, cks)
+    cond = api.FheBool.encrypt(True, cks)
+    sa, sb_ = api.FheInt64.encrypt(x - m64, cks), api.FheInt64.encrypt(y, cks)
+    u8a, u8b = api.FheUint8.encrypt(201, cks), api.FheUint8.encrypt(7, cks)
+    ops = {  # name: (the op, the clear result)
+        "add": (lambda: a + b, (x + y) % m64),
+        "sub": (lambda: a - b, (x - y) % m64),
+        "mul": (lambda: a * b, x * y % m64),
+        "scalar_add": (lambda: a + 0x9E3779B97F4A7C15,
+                       (x + 0x9E3779B97F4A7C15) % m64),
+        "bitand": (lambda: a & b, x & y),
+        "bitxor": (lambda: a ^ b, x ^ y),
+        "scalar_shl": (lambda: a << 13, (x << 13) % m64),
+        "eq": (lambda: a.eq(b), x == y),
+        "lt": (lambda: a < b, x < y),
+        "max": (lambda: a.max(b), max(x, y)),
+        "if_then_else": (lambda: cond.if_then_else(a, b), x),
+        "cast_u32": (lambda: a.cast_into(api.FheUint32), x % (1 << 32)),
+        "cast_i64": (lambda: a.cast_into(api.FheInt64), x - m64),
+        "signed_lt": (lambda: sa < sb_, x - m64 < y),
+        "signed_abs": (lambda: sa.abs(), m64 - x),
+        "u8_div_rem": (lambda: u8a.div_rem(u8b), (201 // 7, 201 % 7)),
+    }
+    fp.reset_launch_counts()
+    cold_ms, warm_ms, batches, wrong, bad_count = {}, {}, {}, [], []
+    for name, (fn, want) in ops.items():
+        for run in ("cold", "warm"):
+            k1, h0, s0 = fp.rotate_decompose.launches, host[0], len(seen)
+            torch.cuda.synchronize()
+            t = time.time()
+            out = fn()
+            torch.cuda.synchronize()
+            (cold_ms if run == "cold" else warm_ms)[name] = \
+                (time.time() - t) * 1e3
+            hosted = host[0] - h0
+            replayed = sum(chain[k] for k, _ in seen[s0:])
+            captured = sum(chain[k] for k, new in seen[s0:] if new)
+            # K1 counts each host batch once and each captured chain twice
+            if fp.rotate_decompose.launches - k1 != n * (hosted
+                                                         + 2 * captured):
+                bad_count.append((name, run))
+            batches[name] = dict(host=hosted, graph_replayed=replayed)
+            got = (tuple(v.decrypt(cks) for v in out)
+                   if isinstance(out, tuple) else out.decrypt(cks))
+            if got != want:
+                wrong.append((name, run, str(got), str(want)))
+    # the host schedule, on keys from the same seed
+    hc, hs = api.generate_keys(config, seed=SEED, device="cuda", fused=False)
+    ha, hb = api.FheUint64.encrypt(x, hc), api.FheUint64.encrypt(y, hc)
+    host_ms, host_same = {}, {}
+    for name, fn in (("add", lambda: ha + hb), ("mul", lambda: ha * hb)):
+        api.set_server_key(hs)
+        ms = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t = time.time()
+            out = fn()
+            torch.cuda.synchronize()
+            ms.append((time.time() - t) * 1e3)
+        host_ms[name] = ms
+        api.set_server_key(sks)
+        fused_out = ops[name][0]()
+        host_same[name] = bool(torch.equal(out.inner.blocks.data,
+                                           fused_out.inner.blocks.data))
+        if out.decrypt(hc) != ops[name][1]:
+            wrong.append((name, "host", str(out.decrypt(hc)),
+                          str(ops[name][1])))
+    api.set_server_key(None)
+    torch.cuda.synchronize()
+    counted = launched(fp.KERNELS)
+    net = (sum(chain[k] for k, _ in seen)
+           - sum(chain[k] for k, new in seen if new))
+    launches = {k: counted.get(k, 0) + v * net
+                for k, v in rotation_launches("scan2", n).items()}
+    say("main_path_api", t0, params=p.name, fheuint64_blocks=32,
+        keygen_s=t_keygen, fused=True,
+        graphs=sorted({k[0] for k in chain}), cold_ms=cold_ms,
+        warm_ms=warm_ms, pbs_batches=batches, host_schedule_ms=host_ms,
+        host_equals_fused=host_same, wrong=wrong,
+        launch_count_off=bad_count, launches=launches)
+    if wrong or not all(host_same.values()) or bad_count:
+        raise AssertionError(f"API ops wrong {wrong}, host == fused "
+                             f"{host_same}, launch counts off {bad_count}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"API ops launched {launches}")
+    return launches
+
+
+def api_card_vs_cpu():
+    """A few API ops at PARAM_MESSAGE_2_CARRY_2_COMPACT_TEST, keys from one
+    seed on the card and on the CPU (host schedule): the same words."""
+    import numpy as np
+
+    from tfhe_tpu_torch import api
+    from tfhe_tpu_torch.params import PARAM_MESSAGE_2_CARRY_2_COMPACT_TEST
+
+    t0 = time.time()
+    config = api.ConfigBuilder.default().use_custom_parameters(
+        PARAM_MESSAGE_2_CARRY_2_COMPACT_TEST).build()
+    outs = {}
+    for where in ("cuda", "cpu"):
+        cks, sks = api.generate_keys(config, seed=SEED, device=where)
+        api.set_server_key(sks)
+        a, b = api.FheUint8.encrypt(201, cks), api.FheUint8.encrypt(77, cks)
+        res = {"add": a + b, "lt": a < b, "xor_shl": (a ^ b) << 1,
+               "cast_i8_abs": a.cast_into(api.FheInt8).abs()}
+        got = {k: v.decrypt(cks) for k, v in res.items()}
+        if got != {"add": (201 + 77) % 256, "lt": False,
+                   "xor_shl": ((201 ^ 77) << 1) % 256, "cast_i8_abs": 55}:
+            raise AssertionError(f"{where}: API ops wrong: {got}")
+        outs[where] = {k: (v.inner.blocks if hasattr(v.inner, "blocks")
+                           else v.inner.block) for k, v in res.items()}
+    api.set_server_key(None)
+    same = {k: bool(np.array_equal(c.data.cpu().numpy(),
+                                   outs["cpu"][k].data.numpy())
+                    and np.array_equal(c.degrees, outs["cpu"][k].degrees))
+            for k, c in outs["cuda"].items()}
+    say("card_vs_cpu_api", t0, params=PARAM_MESSAGE_2_CARRY_2_COMPACT_TEST.name,
+        identical=all(same.values()), compared=sorted(same))
+    if not all(same.values()):
+        raise AssertionError(f"API ops on the card and the CPU differ: "
+                             f"{same}")
+
+
+def multibit_ntt_main_path(cks, sks):
+    """The multi-bit CRT-NTT key layout (mode="ntt") at GROUP_3 on the card:
+    the raw keys of main_path_multibit through ServerKey.from_raw(...,
+    mode="ntt"); one LUT batch at B = 64 (cold, then timed), word for word
+    equal to the scan3 key's; the prepare s, PBS/s and peak device MB.
+    The step is torch ops (the reference's is jnp ops): no wrapper of ours
+    launches."""
+    import numpy as np
+    import torch
+
+    from tfhe_tpu_torch import core, shortint
+
+    t0 = time.time()
+    mp = sks.params
+    torch.cuda.reset_peak_memory_stats()
+    t = time.time()
+    nsks = shortint.ServerKey.from_raw(mp, sks.raw_bsk, sks.raw_ksk,
+                                       device="cuda", mode="ntt")
+    torch.cuda.synchronize()
+    t_prepare = time.time() - t
+    if not isinstance(nsks.bsk, core.PreparedMultiBitBskNtt):
+        raise AssertionError("mode 'ntt' did not prepare the CRT-NTT layout")
+    f = lambda v: (3 * v + 1) % 16  # noqa: E731
+    lut = sks.generate_lookup_table(f)
+    msgs = np.arange(B_MAIN) % mp.total_modulus
+    data = cks.encrypt_batch(msgs).data
+    want = sks._pbs_device(data, lut.acc)  # scan3, on the kernels
+    torch.cuda.synchronize()
+    reset_all_launches()
+    t = time.time()
+    got = nsks._pbs_device(data, lut.acc)
+    torch.cuda.synchronize()
+    cold_s = time.time() - t
+    t = time.time()
+    again = nsks._pbs_device(data, lut.acc)
+    torch.cuda.synchronize()
+    warm_s = time.time() - t
+    launches = all_launches()
+    same = bool(torch.equal(got, want) and torch.equal(again, want))
+    correct = int(np.sum(cks.decrypt_batch_message_and_carry(got)
+                         == f(msgs)))
+    say("main_path_multibit_ntt", t0, params=mp.name, batch=B_MAIN,
+        group_steps=mp.lwe_dimension // mp.grouping_factor,
+        prepare_s=t_prepare, cold_batch_s=cold_s, warm_batch_s=warm_s,
+        pbs_per_s=B_MAIN / warm_s, equals_scan3=same, correct=correct,
+        key_mb=nsks.bsk.spectra.numel() * 4 / 2**20,
+        peak_device_mb=torch.cuda.max_memory_allocated() / 2**20,
+        launches=launches)
+    if not same or correct != B_MAIN:
+        raise AssertionError(f"multi-bit mode 'ntt': equal to scan3 {same}, "
+                             f"{correct} of {B_MAIN} decrypted right")
+    if launches:
+        raise AssertionError(f"the CRT-NTT multi-bit step launched "
+                             f"{launches}")
+
+
+SHA_MASK = 0xFFFFFFFF
+
+
+def sha256_clear(state, words, rounds):
+    """The clear SHA-256 compression cut to `rounds` rounds (the schedule
+    words past 16 expanded as FIPS 180-4 does), to check the encrypted
+    circuit."""
+    from tfhe_tpu_torch.examples.sha256_bool import K
+
+    def rotr(x, n):
+        return ((x >> n) | (x << (32 - n))) & SHA_MASK
+
+    w = list(words)
+    for t in range(16, rounds):
+        s0 = rotr(w[t - 15], 7) ^ rotr(w[t - 15], 18) ^ (w[t - 15] >> 3)
+        s1 = rotr(w[t - 2], 17) ^ rotr(w[t - 2], 19) ^ (w[t - 2] >> 10)
+        w.append((w[t - 16] + s0 + w[t - 7] + s1) & SHA_MASK)
+    a, b, c, d, e, f, g, h = state
+    for t in range(rounds):
+        s1 = rotr(e, 6) ^ rotr(e, 11) ^ rotr(e, 25)
+        ch = (e & f) ^ (~e & g)
+        t1 = (h + s1 + ch + K[t] + w[t]) & SHA_MASK
+        s0 = rotr(a, 2) ^ rotr(a, 13) ^ rotr(a, 22)
+        maj = (a & b) ^ (a & c) ^ (b & c)
+        t2 = (s0 + maj) & SHA_MASK
+        h, g, f = g, f, e
+        e = (d + t1) & SHA_MASK
+        d, c, b = c, b, a
+        a = (t1 + t2) & SHA_MASK
+    return [(x + y) & SHA_MASK
+            for x, y in zip(state, [a, b, c, d, e, f, g, h])], w
+
+
+def bits_hex(bits):
+    bits = [int(v) for v in bits]
+    return "".join(f"{sum(v << j for j, v in enumerate(bits[i:i + 8])):02X}"
+                   for i in range(0, len(bits), 8))
+
+
+def examples_radix_part(cks, sks):
+    """The dark market (one order book at 8 blocks) and three regex
+    patterns (texts of at most 6 chars) on the main path's
+    PARAM_MESSAGE_2_CARRY_2_KS_PBS keys, each decrypted against its clear
+    function; per part the wall s and PBS batches (K1 launches / n).
+    Returns (fields, launches)."""
+    import torch
+
+    from tfhe_tpu_torch import integer, strings
+    from tfhe_tpu_torch.examples import dark_market, regex_engine
+    from tfhe_tpu_torch.ops import fused_pbs as fp
+
+    n = sks.params.lwe_dimension
+    fp.reset_launch_counts()
+    fields, wrong = {}, []
+    t = time.time()
+    rck = integer.RadixClientKey(sks.params, 8, _key=cks)
+    isk = integer.IntegerServerKey(sks)
+    sells, buys = [1200, 800, 350], [1000, 900]
+    got = dark_market.run_example(rck, isk, sells, buys)
+    torch.cuda.synchronize()
+    if got != dark_market.volume_match_plain(sells, buys):
+        wrong.append(("dark_market", str(got)))
+    fields["dark_market"] = dict(
+        num_blocks=8, sells=sells, buys=buys, s=time.time() - t,
+        pbs_batches=fp.rotate_decompose.launches // n)
+    scks = strings.StringClientKey(
+        integer.RadixClientKey(sks.params, strings.NUMBER_BLOCKS, _key=cks))
+    ssks = strings.StringServerKey(isk)
+    regex = {}
+    for text, pattern, want in (("hello", "/^h[a-e]llo$/", True),
+                                ("heo", "/hel*o/", True),
+                                ("HELLO", "/hello/i", True)):
+        k1 = fp.rotate_decompose.launches
+        t = time.time()
+        out = regex_engine.has_match(ssks, scks.encrypt_str(text), pattern)
+        got = scks.integer_key.decrypt_bool(out)
+        regex[f"{text} {pattern}"] = dict(
+            s=time.time() - t,
+            pbs_batches=(fp.rotate_decompose.launches - k1) // n)
+        if got is not want:
+            wrong.append((pattern, text, got))
+    fields["regex"] = regex
+    if wrong:
+        raise AssertionError(f"examples wrong: {wrong}")
+    return fields, launched(fp.KERNELS)
+
+
+def examples_boolean_part(cks, sks):
+    """SHA-256 (a 4-round compression and one schedule expansion) and
+    Trivium (the full 1152-step warm-up, the first 64 keystream bits for
+    key = iv = 0 against the KAT FBE0BF265859051B, then one transciphered
+    word) on the boolean DEFAULT_PARAMETERS keys of main_path_boolean;
+    per part the wall s and gate batches (K1 launches / n).  Returns
+    (fields, launches)."""
+    import numpy as np
+    import torch
+
+    from tfhe_tpu_torch.apps import trivium
+    from tfhe_tpu_torch.examples import sha256_bool as sb
+    from tfhe_tpu_torch.ops import fused_pbs as fp
+
+    n = sks.params.lwe_dimension
+    fp.reset_launch_counts()
+    fields, wrong = {}, []
+    rng = np.random.default_rng(SEED + 17)
+    words = [int(v) for v in rng.integers(0, 1 << 32, 16)]
+    t = time.time()
+    eng = sb.Sha256Fhe(sks)
+    enc = sb.encrypt_words(cks, words)
+    out = eng.compress([eng.trivial_word(h) for h in sb.H_INIT], enc,
+                       rounds=4)
+    got = [sb.decrypt_word(cks, w) for w in out]
+    want, _ = sha256_clear(sb.H_INIT, words, 4)
+    if got != want:
+        wrong.append(("sha256_4_rounds", got, want))
+    fields["sha256_4_rounds"] = dict(
+        s=time.time() - t, gate_batches=eng._gates,
+        pbs_batches=fp.rotate_decompose.launches // n)
+    k1, g0 = fp.rotate_decompose.launches, eng._gates
+    t = time.time()
+    w16 = eng.add_many([eng._small_sigma1(enc[14]), enc[9],
+                        eng._small_sigma0(enc[1]), enc[0]])
+    got16 = sb.decrypt_word(cks, w16)
+    _, w = sha256_clear(sb.H_INIT, words, 17)
+    if got16 != w[16]:
+        wrong.append(("sha256_schedule", got16, w[16]))
+    fields["sha256_schedule_word"] = dict(
+        s=time.time() - t, gate_batches=eng._gates - g0,
+        pbs_batches=(fp.rotate_decompose.launches - k1) // n)
+    k1 = fp.rotate_decompose.launches
+    t = time.time()
+    stream = trivium.trivium_fhe(cks, sks, [0] * 80, [0] * 80)
+    z = stream.next_64()
+    torch.cuda.synchronize()
+    t_kat = time.time() - t
+    kat = bits_hex(cks.decrypt_batch(z))
+    if kat != "FBE0BF265859051B":
+        wrong.append(("trivium_kat", kat))
+    clear = trivium.trivium_clear([0] * 80, [0] * 80)
+    clear.next_64()
+    ks2 = clear.next_64()
+    data = int(rng.integers(0, 1 << 63))
+    masked = [((data >> i) & 1) ^ int(k) for i, k in enumerate(ks2)]
+    t = time.time()
+    plain = cks.decrypt_batch(trivium.trans_decrypt_64(sks, stream, masked))
+    t_trans = time.time() - t
+    if sum(int(v) << i for i, v in enumerate(plain)) != data:
+        wrong.append(("transciphering", data))
+    fields["trivium"] = dict(
+        warmup_steps=64 * trivium.TriviumStream.WARMUP_WAVES,
+        warmup_and_first_word_s=t_kat, first_64_bits=kat,
+        transciphered_word_s=t_trans,
+        pbs_batches=(fp.rotate_decompose.launches - k1) // n)
+    if wrong:
+        raise AssertionError(f"examples wrong: {wrong}")
+    return fields, launched(fp.KERNELS)
+
+
+def examples_cli():
+    """`python -m tfhe_tpu_torch.examples.fhe_strings_cli abcab ab
+    --real-params` as a subprocess on the card: it exits 0, every op's line
+    says ok and none MISMATCH."""
+    import os
+
+    t = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-m", "tfhe_tpu_torch.examples.fhe_strings_cli",
+         "abcab", "ab", "--real-params"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=300)
+    lines = [ln.split() for ln in proc.stdout.splitlines()
+             if ln.rstrip().endswith(" ok")]
+    fields = dict(rc=proc.returncode, s=time.time() - t,
+                  ops_ok=len(lines),
+                  op_ms={ln[0]: float(ln[1]) for ln in lines})
+    if (proc.returncode != 0 or "MISMATCH" in proc.stdout
+            or len(lines) != 14):
+        raise AssertionError(f"fhe_strings_cli: rc {proc.returncode}, "
+                             f"stdout {proc.stdout[-2000:]}, stderr "
+                             f"{proc.stderr[-2000:]}")
+    return fields
 
 
 def main():
@@ -2288,6 +2759,16 @@ def main():
     t_strings = time.time() - t1
     strings_card_vs_cpu()
     t1 = time.time()
+    examples, examples_launches_radix = examples_radix_part(cks, sks)
+    t_examples = time.time() - t1
+    for k, v in examples_launches_radix.items():
+        launches[k] = launches.get(k, 0) + v
+    t1 = time.time()
+    for k, v in api_main_path().items():
+        launches[k] = launches.get(k, 0) + v
+    t_api = time.time() - t1
+    api_card_vs_cpu()
+    t1 = time.time()
     pk_launches, pk_cks, pk_sks = pbs_ks_main_path(dev)
     t_pbs_ks = time.time() - t1
     for k, v in pk_launches.items():
@@ -2356,6 +2837,9 @@ def main():
     t_main_mb = time.time() - t0
     multibit_card_vs_cpu(dev)
     multibit_timing(card, dev, mb_cks, mb_sks, rng)
+    t0 = time.time()
+    multibit_ntt_main_path(mb_cks, mb_sks)
+    t_main_mb_ntt = time.time() - t0
     del mb_cks, mb_sks
     torch.cuda.empty_cache()
 
@@ -2367,8 +2851,24 @@ def main():
     boolean_timing(card, dev, bool_cks, bool_sks, rng)
     for k, v in bool_launches.items():
         launches[k] = launches.get(k, 0) + v
+    t0 = time.time()
+    fields, bool_ex_launches = examples_boolean_part(bool_cks, bool_sks)
+    examples.update(fields)
+    for k, v in bool_ex_launches.items():
+        launches[k] = launches.get(k, 0) + v
     del bool_cks, bool_sks
     torch.cuda.empty_cache()
+    examples["fhe_strings_cli"] = examples_cli()
+    t_examples += time.time() - t0
+    ex_launches = {k: bool_ex_launches.get(k, 0)
+                   + examples_launches_radix.get(k, 0)
+                   for k in set(bool_ex_launches) | set(
+                       examples_launches_radix)}
+    say("main_path_examples", t0, card=card, all_parts_s=t_examples,
+        parts=examples, launches=ex_launches)
+    if min(ex_launches.get(k, 0) for k in ("rotate_decompose",
+                                           "external_product_crt")) <= 0:
+        raise AssertionError(f"the examples launched {ex_launches}")
 
     # -- 13-17. the CRT-NTT key layout on K10, at 32, 64 and 128 bits -------
     t0 = time.time()
@@ -2446,7 +2946,10 @@ def main():
         main_path_multibit_s=round(t_main_mb, 3),
         main_path_boolean_s=round(t_main_bool, 3),
         main_path_ntt_s=round(t_main_ntt, 3),
-        main_path_u128_s=round(t_main_u128, 3))
+        main_path_u128_s=round(t_main_u128, 3),
+        main_path_api_s=round(t_api, 3),
+        main_path_multibit_ntt_s=round(t_main_mb_ntt, 3),
+        main_path_examples_s=round(t_examples, 3))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     faulthandler.cancel_dump_traceback_later()

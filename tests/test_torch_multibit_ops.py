@@ -145,7 +145,7 @@ def test_one_step_schedules_agree():
     assert torch.equal(whole, scan3)
 
 
-def test_mode_must_be_named_and_pbs_then_keyswitch_is_not_ported():
+def test_mode_must_be_named_and_pbs_then_keyswitch_is_ported():
     gf, N, L, bl = CASES[0]
     key = core.prepare_multi_bit_bsk_cuda(
         torch.zeros((1, 1 << gf, L, G, G, N), dtype=torch.int64), bl, gf)

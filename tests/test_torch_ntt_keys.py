@@ -2,8 +2,9 @@
 CRT-NTT key layout (tfhe_tpu_torch, on the CPU) == tfhe_tpu, which runs
 that layout off the TPU, word for word, and == the port's scan2 on the same
 raw keys; the reference's raw keys carried into the layout by
-`weights.py`; and mode="ntt" refused on a multi-bit key.  (The layout's
-external product and blind rotation: tests/test_torch_polymul_ntt.py.)"""
+`weights.py`; and a multi-bit key's mode="ntt" equal to its scan3.  (The
+layout's external product and blind rotation:
+tests/test_torch_polymul_ntt.py.)"""
 
 import dataclasses
 import functools
@@ -78,13 +79,27 @@ def test_shortint_ntt_key_matches_reference_and_scan2(order):
 
 
 def test_ntt_mode_is_refused_on_a_multi_bit_key():
+    """Since the multi-bit CRT-NTT layout was ported, a multi-bit key takes
+    mode="ntt" (the name is kept from when it refused it): its ciphertexts
+    equal the scan3 key's; an unknown mode still raises, on either key
+    kind.  (The layout against the reference:
+    tests/test_torch_multibit_ntt.py.)"""
     p = PARAM_MULTI_BIT_MESSAGE_2_CARRY_2_GROUP_2_TEST
     cks = shortint.ClientKey(p, seed=1, device="cpu")
-    with pytest.raises(ValueError, match="mode"):
-        shortint.ServerKey(cks, mode="ntt")
-    with pytest.raises(ValueError, match="mode"):
-        shortint.gen_keys(PARAM_MESSAGE_2_CARRY_2_COMPACT_TEST, seed=1,
-                          device="cpu", mode="ntt3")
+    ntt_key = shortint.ServerKey(cks, mode="ntt")
+    assert isinstance(ntt_key.bsk, core.PreparedMultiBitBskNtt)
+    scan3 = shortint.ServerKey.from_raw(p, ntt_key.raw_bsk, ntt_key.raw_ksk,
+                                        device="cpu", mode="scan3")
+    f = lambda x: (7 * x + 2) % 16  # noqa: E731
+    b = cks.encrypt_batch(VALUES)
+    got = ntt_key.apply_lookup_table_batch(b, ntt_key.generate_lookup_table(f))
+    want = scan3.apply_lookup_table_batch(b, scan3.generate_lookup_table(f))
+    assert torch.equal(got.data, want.data)
+    assert np.array_equal(cks.decrypt_batch_message_and_carry(got),
+                          [f(int(v)) for v in VALUES])
+    for params in (p, PARAM_MESSAGE_2_CARRY_2_COMPACT_TEST):
+        with pytest.raises(ValueError, match="mode"):
+            shortint.gen_keys(params, seed=1, device="cpu", mode="ntt3")
 
 
 @functools.cache

@@ -359,3 +359,75 @@ def test_strings_entry_points_need_a_card_unless_asked_for_the_cpu():
     assert sks.sks.device == torch.device("cpu")
     assert not sks.integer_key.fused
     assert cks.decrypt_string(cks.encrypt_str("ok")) == "ok"
+
+
+def test_api_examples_apps_and_utils_are_among_the_checked_sources():
+    # the walk above reaches the high-level API, the examples, the Trivium
+    # app and the serialization errors, and none of them imports JAX or the
+    # reference
+    checked = {os.path.relpath(p, ROOT) for p in _port_sources()}
+    new = {"tfhe_tpu_torch/api/__init__.py",
+           "tfhe_tpu_torch/apps/__init__.py",
+           "tfhe_tpu_torch/apps/trivium.py",
+           "tfhe_tpu_torch/utils/__init__.py",
+           "tfhe_tpu_torch/utils/serialization.py",
+           "tfhe_tpu_torch/core/multibit.py"} | {
+        f"tfhe_tpu_torch/examples/{m}.py" for m in
+        ("__init__", "dark_market", "sha256_bool", "regex_engine",
+         "fhe_strings_cli")}
+    assert new <= checked
+    for rel in sorted(new):
+        mods = list(_imported_modules(os.path.join(ROOT, rel)))
+        assert not [m for m in mods
+                    if m.split(".")[0] in ("jax", "jaxlib", "tfhe_tpu")]
+    # importing the API needs no serialization
+    code = ("import sys\n"
+            "sys.modules['tfhe_tpu_torch.utils.serialization'] = None\n"
+            "import tfhe_tpu_torch\n"
+            "assert tfhe_tpu_torch.FheUint64.NUM_BITS == 64\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_api_and_examples_need_a_card_unless_asked_for_the_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the no-card refusal cannot be shown")
+    from tfhe_tpu_torch import api, weights
+    from tfhe_tpu_torch.examples import sha256_bool
+    from tfhe_tpu_torch.params import (BOOLEAN_SHA_TEST_PARAMETERS,
+                                       PARAM_MESSAGE_2_CARRY_2_KS_PBS)
+
+    assert api.ConfigBuilder.default().build().parameters is \
+        PARAM_MESSAGE_2_CARRY_2_KS_PBS
+    config = api.ConfigBuilder.default().use_custom_parameters(
+        PARAM_MESSAGE_2_CARRY_2_COMPACT_TEST).build()
+    for call in (lambda: api.generate_keys(config, seed=1),
+                 lambda: api.generate_keys(config, seed=1, fused=True),
+                 lambda: api.ClientKey(config, seed=1)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    p = PARAM_MESSAGE_2_CARRY_2_COMPACT_TEST
+    n, N = p.lwe_dimension, p.polynomial_size
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        weights.api_keys_from_reference(
+            config, np.zeros(n, np.uint64), np.zeros((1, N), np.uint64),
+            np.zeros((n, p.pbs_level, 2, 2, N), np.uint64),
+            np.zeros((N, p.ks_level, n + 1), np.uint64))
+    cks, sks = api.generate_keys(config, seed=1, device="cpu", fused=True)
+    assert cks.radix.key.device == sks.integer_key.key.device == \
+        torch.device("cpu")
+    assert sks.integer_key.fused is True
+    for cls in (api.PublicKey, api.CompactPublicKey, api.CompressedServerKey):
+        with pytest.raises(NotImplementedError, match="A.6"):
+            cls(cks)
+    # a multi-bit key in mode "ntt" asks for the card like every mode
+    mb = shortint.ClientKey(PARAM_MULTI_BIT_MESSAGE_2_CARRY_2_GROUP_2_TEST,
+                            seed=1, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        shortint.ServerKey(mb, device="cuda", mode="ntt")
+    # the SHA-256 engine makes its words where its key lives
+    _, bsks = boolean.gen_keys(BOOLEAN_SHA_TEST_PARAMETERS, seed=1,
+                               device="cpu")
+    word = sha256_bool.Sha256Fhe(bsks).trivial_word(0xABCD)
+    assert word.device == torch.device("cpu") and word.shape[0] == 32

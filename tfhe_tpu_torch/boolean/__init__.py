@@ -280,7 +280,7 @@ class ServerKey:
 
 class PublicKey:
     """Boolean public key (tfhe_tpu/boolean/__init__.py:251-277): not ported
-    yet, since it needs `core/public_key.py` (ROADMAP A.7)."""
+    yet, since it needs `core/public_key.py` (ROADMAP A.6)."""
 
     def __init__(self, cks: ClientKey):
         raise NotImplementedError(

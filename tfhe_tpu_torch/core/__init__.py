@@ -1,8 +1,8 @@
 """Core crypto: keygen, encryption, keyswitch, programmable bootstrap.
 
 Port of `tfhe_tpu/core` for the classic and multi-bit PBS paths, each in
-both PBS orders, on the kernels' key layouts or (classic) the CRT-NTT
-layout, and for the 128-bit torus."""
+both PBS orders, on the kernels' key layouts or the CRT-NTT layout, and
+for the 128-bit torus."""
 
 from .secret import GlweSecretKey, LweSecretKey, binary_ext_matrix, glwe_phase
 from .encrypt import (decrypt_glwe, decrypt_lwe, encrypt_glwe_assign,
@@ -21,10 +21,13 @@ from .u128_crypto import (decrypt_glwe_u128, decrypt_lwe_u128,
                           generate_binary_lwe_secret_key_u128,
                           generate_bootstrap_key_u128, glwe_phase_u128,
                           negacyclic_mul_binary)
-from .multibit import (combine_key_bits, generate_multi_bit_bootstrap_key,
+from .multibit import (MULTI_BIT_MODES, PreparedMultiBitBskNtt,
+                       check_multi_bit_mode, combine_key_bits,
+                       generate_multi_bit_bootstrap_key,
                        keyswitch_then_multi_bit_pbs, multi_bit_blind_rotate,
                        multi_bit_pbs_then_keyswitch,
-                       multi_bit_programmable_bootstrap,
+                       multi_bit_programmable_bootstrap, multi_bit_step_ntt,
+                       prepare_multi_bit_bsk, prepare_multi_bit_bsk_ntt,
                        switched_subset_sums)
 from ..ops.fused_pbs import PreparedBskCuda, prepare_bsk_cuda
 from ..ops.fused_multibit import (PreparedMultiBitBskCuda,
@@ -45,7 +48,10 @@ __all__ = [
     "PreparedMultiBitBskCuda", "prepare_multi_bit_bsk_cuda",
     "switched_subset_sums", "multi_bit_blind_rotate",
     "multi_bit_programmable_bootstrap", "keyswitch_then_multi_bit_pbs",
-    "multi_bit_pbs_then_keyswitch",
+    "multi_bit_pbs_then_keyswitch", "MULTI_BIT_MODES",
+    "check_multi_bit_mode", "PreparedMultiBitBskNtt",
+    "prepare_multi_bit_bsk_ntt", "prepare_multi_bit_bsk",
+    "multi_bit_step_ntt",
     "PreparedBskNtt", "prepare_bsk_ntt", "NTT_MODE", "CLASSIC_MODES",
     "check_classic_mode", "prepare_classic_bsk", "fill_accumulator_u128",
     "sample_extract_u128", "encrypt_lwe_u128", "decrypt_lwe_u128",

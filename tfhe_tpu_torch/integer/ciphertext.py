@@ -4,8 +4,8 @@ significant first.
 Port of `tfhe_tpu/integer/ciphertext.py` (ref: tfhe/src/integer/ciphertext/
 mod.rs:18-30) over the port's `ShortintBatch`: the blocks' LWE data is one
 int64 tensor [num_blocks, lwe_size] on the key's device, their degrees and
-noise levels numpy bookkeeping.  The reference's `_conformance_check` waits
-for the port's `ShortintBatch._conformance_check` (the serialization slice).
+noise levels numpy bookkeeping.  `_conformance_check` delegates to the
+blocks' (`ShortintBatch._conformance_check`).
 """
 
 from __future__ import annotations
@@ -34,6 +34,9 @@ class RadixCiphertext:
     def block_degrees(self) -> np.ndarray:
         return self.blocks.degrees
 
+    def _conformance_check(self, params) -> None:
+        self.blocks._conformance_check(params)
+
 
 @dataclass
 class BooleanBlock:
@@ -44,3 +47,6 @@ class BooleanBlock:
 
     def copy(self) -> "BooleanBlock":
         return BooleanBlock(self.block.copy())
+
+    def _conformance_check(self, params) -> None:
+        self.block._conformance_check(params)

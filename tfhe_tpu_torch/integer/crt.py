@@ -49,6 +49,9 @@ class CrtCiphertext:
     def copy(self) -> "CrtCiphertext":
         return CrtCiphertext(self.blocks.copy(), list(self.moduli))
 
+    def _conformance_check(self, params) -> None:
+        self.blocks._conformance_check(params)
+
 
 class CrtClientKey:
     """(ref: integer/client_key/mod.rs CrtClientKey)"""

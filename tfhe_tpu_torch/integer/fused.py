@@ -28,8 +28,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..core import keyswitch_then_multi_bit_pbs, keyswitch_then_pbs
-from ..ops.fused_multibit import MODES as MULTIBIT_MODES
+from ..core import (PreparedMultiBitBskNtt, keyswitch_then_multi_bit_pbs,
+                    keyswitch_then_pbs)
 from ..ops.fused_multibit import PreparedMultiBitBskCuda
 
 
@@ -59,9 +59,8 @@ def fused_ks_pbs(ksk, bsk, acc: torch.Tensor, cts: torch.Tensor, *,
     flat = cts.reshape(-1, cts.shape[-1])
     if acc.dim() > 3:
         acc = acc.reshape(-1, *acc.shape[-2:])
-    if isinstance(bsk, PreparedMultiBitBskCuda):
-        out = keyswitch_then_multi_bit_pbs(ksk, bsk, acc, flat,
-                                           mode or MULTIBIT_MODES[0])
+    if isinstance(bsk, (PreparedMultiBitBskCuda, PreparedMultiBitBskNtt)):
+        out = keyswitch_then_multi_bit_pbs(ksk, bsk, acc, flat, mode)
     else:
         out = keyswitch_then_pbs(ksk, bsk, acc, flat, mode)
     return out.reshape(*lead, out.shape[-1])

@@ -74,3 +74,22 @@ class ShortintBatch:
         return ShortintBatch(self.data.clone(), self.degrees.copy(),
                              self.message_modulus, self.carry_modulus,
                              self.noise.copy())
+
+    def _conformance_check(self, params) -> None:
+        """Structural conformance against a parameter set: the moduli and
+        the LWE size must match (tfhe_tpu/shortint/ciphertext.py:82-99;
+        ref: tfhe/src/conformance.rs ParameterSetConformant)."""
+        from ..utils.serialization import ConformanceError
+
+        if (self.message_modulus != params.message_modulus
+                or self.carry_modulus != params.carry_modulus):
+            raise ConformanceError(
+                f"modulus mismatch: ct ({self.message_modulus},"
+                f"{self.carry_modulus}) != params "
+                f"({params.message_modulus},{params.carry_modulus})"
+            )
+        if self.data.shape[-1] != params.ciphertext_lwe_size:
+            raise ConformanceError(
+                f"LWE size mismatch: ct {self.data.shape[-1]} != params "
+                f"{params.ciphertext_lwe_size}"
+            )

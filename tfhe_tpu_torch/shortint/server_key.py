@@ -9,7 +9,8 @@ blocks (ref: mod.rs:783-857), in the parameter set's PBS order
 (keyswitch-then-bootstrap for ciphertexts under the big key, bootstrap-then-
 keyswitch under the small key) with the classic or the multi-bit blind
 rotation.  On a card the rotation runs the kernels of `ops/fused_pbs.py` or
-`ops/fused_multibit.py` in the schedule the key's `mode` names.
+`ops/fused_multibit.py` in the schedule the key's `mode` names, or, in
+mode "ntt", the CRT-NTT key layout's step loop.
 The reference's XLA shape buckets and on-disk key cache have no counterpart
 here: PyTorch runs eagerly at any batch size, and nothing is written to
 disk.
@@ -56,7 +57,8 @@ class ServerKey:
     """`mode` picks the blind rotation's schedule: for classic parameters
     one of `fused_pbs.MODES` (default "scan2") or "ntt", the CRT-NTT key
     layout on the Shoup MAC kernel (`core.CLASSIC_MODES`); for multi-bit
-    ones one of `fused_multibit.MODES` (default "scan3"); any other value
+    ones one of `fused_multibit.MODES` (default "scan3") or "ntt", the
+    multi-bit CRT-NTT key layout (`core.MULTI_BIT_MODES`); any other value
     raises."""
 
     def __init__(self, cks: ClientKey, _raw=None, device=None,
@@ -77,7 +79,7 @@ class ServerKey:
             raise ValueError("multi-bit keys are on the 64-bit torus only")
         if self.is_multi_bit:
             self.mode = fused_multibit.MODES[0] if mode is None else mode
-            fused_multibit.check_mode(self.mode)
+            core.check_multi_bit_mode(self.mode)
         else:
             self.mode = fused_pbs.MODES[0] if mode is None else mode
             core.check_classic_mode(self.mode)
@@ -98,8 +100,8 @@ class ServerKey:
         self.raw_bsk = bsk
         self.raw_ksk = ksk
         if self.is_multi_bit:
-            self.bsk = core.prepare_multi_bit_bsk_cuda(bsk, p.pbs_base_log,
-                                                       p.grouping_factor)
+            self.bsk = core.prepare_multi_bit_bsk(bsk, p.pbs_base_log,
+                                                  p.grouping_factor, self.mode)
         else:
             self.bsk = core.prepare_classic_bsk(bsk, p.pbs_base_log,
                                                 p.torus_bits, self.mode)

@@ -1,10 +1,12 @@
 """Keys carried across from the JAX package.
 
 The reference keeps key material as numpy arrays (`ServerKey.raw_bsk` /
-`raw_ksk`, `ClientKey.lwe_sk.bits_array` / `glwe_sk.bits_array`); its
-boolean `ServerKey` keeps no raw keys, so those come from its
-`core.generate_bootstrap_key` / `generate_keyswitch_key`, and its u128
-bootstrap key from `core.generate_bootstrap_key_u128`.  These
+`raw_ksk`, `ClientKey.lwe_sk.bits_array` / `glwe_sk.bits_array`; its
+high-level keys hold them in `ClientKey.radix.key` and
+`ServerKey.integer_key.key`); its boolean `ServerKey` keeps no raw keys, so
+those come from its `core.generate_bootstrap_key` /
+`generate_keyswitch_key`, and its u128 bootstrap key from
+`core.generate_bootstrap_key_u128`.  These
 functions turn such arrays into the port's keys, so both packages can
 compute on the same keys.  They take plain numpy arrays and import nothing
 from the JAX package.
@@ -16,7 +18,8 @@ from typing import Optional
 
 import numpy as np
 
-from . import boolean
+from . import api, boolean
+from .integer import IntegerServerKey, RadixClientKey
 from .ops.polymul_ntt import PreparedBskNtt, prepare_bsk_ntt
 from .params import (BooleanParameters, ClassicPBSParameters,
                      MultiBitPBSParameters)
@@ -32,7 +35,7 @@ def server_key_from_reference(
     [n/gf, 2^gf, L, G, G, N] for multi-bit ones; raw_ksk, from the big key
     to the small one, is [k*N, ks_level, n+1].  The server key's blind
     rotation runs in schedule `mode` (None: the key kind's default; "ntt",
-    classic keys only, prepares the CRT-NTT layout)."""
+    for classic and multi-bit keys, prepares the CRT-NTT layout)."""
     gf = getattr(params, "grouping_factor", None)
     G, N = params.glwe_size, params.polynomial_size
     n, L = params.lwe_dimension, params.pbs_level
@@ -56,6 +59,27 @@ def client_key_from_reference(
     `ClientKey.from_raw` inputs, client_key.py:30)."""
     return ClientKey.from_raw(params, lwe_sk_bits, glwe_sk_bits, seed=seed,
                               device=device)
+
+
+def api_keys_from_reference(
+        config: api.Config, lwe_sk_bits, glwe_sk_bits, raw_bsk, raw_ksk,
+        seed: Optional[int] = None, device="cuda",
+        fused: bool = False) -> tuple[api.ClientKey, api.ServerKey]:
+    """The high-level API's (ClientKey, ServerKey) from the reference's
+    high-level keys' arrays (`cks.radix.key.lwe_sk.bits_array`,
+    `...glwe_sk.bits_array`, `sks.integer_key.key.raw_bsk`, `...raw_ksk`),
+    at `config.parameters`: the client key through
+    `client_key_from_reference` (`seed` seeds its encryptions), the server
+    key through `server_key_from_reference`, in the radix schedule `fused`
+    names."""
+    p = config.parameters
+    key = client_key_from_reference(p, lwe_sk_bits, glwe_sk_bits, seed=seed,
+                                    device=device)
+    cks = api.ClientKey(config, _radix=RadixClientKey(p, 1, _key=key))
+    isk = IntegerServerKey(
+        server_key_from_reference(p, raw_bsk, raw_ksk, device=device),
+        fused=fused)
+    return cks, api.ServerKey(cks, _integer_key=isk)
 
 
 def boolean_client_key_from_reference(
