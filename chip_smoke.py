@@ -149,6 +149,34 @@ Phases, each printing one flushed line with its wall time:
      --real-params` as a subprocess (exit 0, 14 ops ok); each part
      decrypted against its clear function, its wall s and PBS (gate)
      batches.
+ 21. main_path_keys (after main_path_pbs_ks, on the main path's keys):
+     the public key at PARAM_MESSAGE_2_CARRY_2_KS_PBS (131264 zero
+     encryptions, 2.15 GB: keygen s, an encryption of B=64 in ms, decrypted,
+     a LUT batch on it), the compact public key at
+     PARAM_MESSAGE_2_CARRY_2_COMPACT_PK_KS_PBS (64 messages compact, then
+     expanded), the compressed server key (its bytes beside the server
+     key's, decompression s, a LUT batch; the CPU's decompression of its
+     bytes gives the same raw keys), a ServerKey through safe_serialize and
+     safe_deserialize (bytes, s each way, a LUT batch equal to the
+     original key's), and through the API a FheUint8 under the public key
+     and a compact FheUint64, all decrypted;
+ 22. main_path_wopbs (after timing): WOPBS_PARAM_MESSAGE_2_CARRY_2_KS_PBS
+     keys with the pfpksk list (keygen s, MB), wopbs_batch on the 16
+     packed values with an identity, a message and a full-domain LUT, and
+     IntegerWopbsKey.wopbs on a 4-block radix ((3x + 5) mod 256), every
+     output decrypted; ms of extraction, circuit bootstrap and vertical
+     packing, PBS batches, CMuxes, and K1 and K2 launches (above zero);
+ 23. kernels_wide: a LUT batch (B=8) at PARAM_4_BITS_5_BLOCKS (L*G = 18),
+     at WOPBS_PARAM_MESSAGE_1_NORM2_6_KS_PBS (L*G = 12) and at
+     main_path_wopbs's WOPBS_PARAM_MESSAGE_2_CARRY_2_KS_PBS (L*G = 4,
+     N = 2048), decrypted and identical in all six classic modes; K1 and
+     every classic kernel on the core (K2, ntt_mac_prime, K3, K4, K5 and K7
+     over 4 steps) at the three widths against their plain versions
+     (tolerance 0); K2's 18-digit
+     variant's device ms and bound at B=64; a WoPBS at
+     PARAM_4_BITS_5_BLOCKS on its 16 values, decrypted;
+ 24. card_vs_cpu_wopbs: a WoPBS at WOPBS_PARAM_MESSAGE_2_CARRY_2_TEST on
+     the card and on the CPU from one seed, identical words.
 Kernel times are device times: a CUDA graph of many launches replayed
 between CUDA events (a whole rotation, persistent or single-CTA: CUDA events
 around a few eager launches); the eager per-launch times beside them include
@@ -2595,6 +2623,438 @@ def examples_cli():
     return fields
 
 
+
+# ---------------------------------------------------------------------------
+# WoPBS, the wide core variant, and the public, seeded and compressed keys
+# ---------------------------------------------------------------------------
+
+
+class WopbsCounts:
+    """Counts the PBS batches and CMuxes of `core.wopbs` while active (the
+    module's own calls go through these names)."""
+
+    def __init__(self):
+        from tfhe_tpu_torch.core import wopbs as wop
+
+        self.wop, self.pbs, self.cmux = wop, 0, 0
+        self._saved = (wop.programmable_bootstrap, wop.cmux_dynamic)
+
+    def __enter__(self):
+        pbs, cmux = self._saved
+
+        def counted_pbs(*args):
+            self.pbs += 1
+            return pbs(*args)
+
+        def counted_cmux(*args):
+            self.cmux += 1
+            return cmux(*args)
+
+        self.wop.programmable_bootstrap = counted_pbs
+        self.wop.cmux_dynamic = counted_cmux
+        return self
+
+    def __exit__(self, *exc):
+        self.wop.programmable_bootstrap, self.wop.cmux_dynamic = self._saved
+
+
+def wopbs_stages(wk, batch, lut):
+    """wopbs_batch's three stages, each synchronised and timed: -> (output
+    data, {stage: ms}, PBS batches, CMuxes)."""
+    import torch
+
+    from tfhe_tpu_torch.core import wopbs as wop
+
+    p = wk.params
+    delta_log = p.delta.bit_length() - 1
+    ms = {}
+    with WopbsCounts() as counts:
+        t = time.time()
+        bits = wk.extract_bits_batch(batch, delta_log, wk._nb_bits)
+        torch.cuda.synchronize()
+        ms["extract_bits"] = (time.time() - t) * 1e3
+        t = time.time()
+        ggsw = [wk.cbs.circuit_bootstrap(bits[:, j], 63)
+                for j in range(wk._nb_bits)]
+        torch.cuda.synchronize()
+        ms["circuit_bootstrap"] = (time.time() - t) * 1e3
+        t = time.time()
+        out = wop.vertical_packing(lut.polys, ggsw, p.glwe_size,
+                                   p.cbs_base_log, p.cbs_level)
+        torch.cuda.synchronize()
+        ms["vertical_packing"] = (time.time() - t) * 1e3
+    return out, ms, counts.pbs, counts.cmux
+
+
+def key_mb(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors) / 1e6
+
+
+def wopbs_main_path():
+    """WOPBS_PARAM_MESSAGE_2_CARRY_2_KS_PBS on the card: keygen (with the
+    pfpksk list), wopbs_batch on the 16 packed values with an identity, a
+    message and a full-domain LUT, and IntegerWopbsKey.wopbs on a 4-block
+    radix; every output decrypted; the stages' ms, PBS batches, CMuxes and
+    K1 / K2 launches.  Returns the launches."""
+    import numpy as np
+    import torch
+
+    from tfhe_tpu_torch import integer, shortint
+    from tfhe_tpu_torch.params import WOPBS_PARAM_MESSAGE_2_CARRY_2_KS_PBS
+
+    p = WOPBS_PARAM_MESSAGE_2_CARRY_2_KS_PBS
+    t0 = time.time()
+    reset_all_launches()
+    cks, sks, wk = shortint.gen_keys_wopbs(p, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    keygen_s = time.time() - t0
+    mb = dict(bsk_ksk=key_mb(sks.raw_bsk, sks.raw_ksk),
+              pfpksk=key_mb(wk.cbs.pfpksk_list))
+    msgs = np.arange(p.total_modulus)
+    batch = cks.encrypt_batch(msgs)
+    cases = {"identity": (wk.generate_lut(lambda x: x), cks.decrypt_batch,
+                          msgs % p.message_modulus),
+             "message": (wk.generate_lut(lambda x: (3 * x + 1) % 4),
+                         cks.decrypt_batch, (3 * msgs + 1) % 4),
+             "full_domain": (wk.generate_lut_full_domain(
+                 lambda x: (x * x + 5) % 16),
+                 cks.decrypt_batch_message_and_carry, (msgs * msgs + 5) % 16)}
+    correct, stages = {}, {}
+    for name, (lut, dec, want) in cases.items():
+        out, ms, pbs, cmux = wopbs_stages(wk, batch, lut)
+        correct[name] = int(np.sum(dec(out) == want))
+        stages[name] = dict(ms=ms, pbs_batches=pbs, cmuxes=cmux)
+    # the integer WoPBS: (x * 3 + 5) mod 256 on a 4-block radix (8 bits)
+    rck = integer.RadixClientKey(p, 4, _key=cks)
+    iwk = integer.IntegerWopbsKey(wk)
+    values = (0, 11, 200, 255)
+    t1 = time.time()
+    with WopbsCounts() as counts:
+        int_ok = 0
+        for v in values:
+            ct = rck.encrypt(v)
+            out = iwk.wopbs(ct, iwk.generate_lut(ct, lambda x: (x * 3 + 5)
+                                                 % 256))
+            int_ok += rck.decrypt(out) == (v * 3 + 5) % 256
+    torch.cuda.synchronize()
+    launches = all_launches()
+    say("main_path_wopbs", t0, params=p.name, keygen_s=keygen_s, key_mb=mb,
+        batch=int(len(msgs)), correct=correct, stages=stages,
+        integer=dict(blocks=4, values=list(values), correct=int(int_ok),
+                     ms_each=(time.time() - t1) * 1e3 / len(values),
+                     pbs_batches=counts.pbs, cmuxes=counts.cmux),
+        launches=launches)
+    if (any(v != len(msgs) for v in correct.values())
+            or int_ok != len(values)):
+        raise AssertionError(f"WoPBS: {correct} of {len(msgs)}, integer "
+                             f"{int_ok} of {len(values)}")
+    if min(launches.get(k, 0) for k in ("rotate_decompose",
+                                        "external_product_crt")) <= 0:
+        raise AssertionError(f"the WoPBS launched {launches}")
+    return launches
+
+
+def kernels_wide_phase(dev):
+    """The core's widest variants and main_path_wopbs's own shape: one LUT
+    batch (B = 8) at PARAM_4_BITS_5_BLOCKS (L*G = 18), at
+    WOPBS_PARAM_MESSAGE_1_NORM2_6_KS_PBS (L*G = 12) and at
+    WOPBS_PARAM_MESSAGE_2_CARRY_2_KS_PBS (L*G = 4, N = 2048, base_log 15),
+    decrypted, and identical in all six classic schedules; K1 and every
+    classic kernel on the core (K2, ntt_mac_prime, K3, K4, and K5 and K7
+    over 4 steps) at the three widths against their plain versions on
+    the card (tolerance 0), K2's device ms and bound at 18 digits, and a
+    WoPBS at PARAM_4_BITS_5_BLOCKS decrypted.  Returns (errors, K2 times and
+    bound at 18 digits, launches)."""
+    import numpy as np
+    import torch
+
+    from tfhe_tpu_torch import shortint
+    from tfhe_tpu_torch.ops import fused_pbs as fp
+    from tfhe_tpu_torch.core import keyswitch_then_pbs
+    from tfhe_tpu_torch.params import (WOPBS_PARAM_MESSAGE_2_CARRY_2_KS_PBS,
+                                       wopbs_params)
+
+    t0 = time.time()
+    rng = np.random.default_rng([SEED, 18])
+    B, P, steps = 8, 5, 4
+    errs, wide, lut_ok, modes_same = {}, {}, {}, {}
+    launches = {}
+    for p in (wopbs_params.PARAM_4_BITS_5_BLOCKS,
+              wopbs_params.WOPBS_PARAM_MESSAGE_1_NORM2_6_KS_PBS,
+              WOPBS_PARAM_MESSAGE_2_CARRY_2_KS_PBS):
+        N, G, L, bl = (p.polynomial_size, p.glwe_size, p.pbs_level,
+                       p.pbs_base_log)
+        LJ = L * G
+        reset_all_launches()
+        if LJ == 18:
+            cks, sks, wk = shortint.gen_keys_wopbs(p, seed=SEED, device=dev)
+        else:
+            cks, sks = shortint.gen_keys(p, seed=SEED, device=dev)
+        msgs = np.arange(B) % p.total_modulus
+        f = (lambda x, t=p.total_modulus: (x + 1) % t)
+        out = sks.apply_lookup_table_batch(cks.encrypt_batch(msgs),
+                                           sks.generate_lookup_table(f))
+        lut_ok[p.name] = int(np.sum(cks.decrypt_batch_message_and_carry(out)
+                                    == (msgs + 1) % p.total_modulus))
+        for k, v in all_launches().items():
+            launches[k] = launches.get(k, 0) + v
+        reset_all_launches()
+
+        def words(*shape):
+            return torch.from_numpy(rng.integers(
+                0, 2**64 - 1, shape, dtype=np.uint64, endpoint=True)
+                .view(np.int64)).to(dev)
+
+        # the LUT batch in every classic schedule: the same words
+        data = cks.encrypt_batch(msgs).data
+        acc_lut = sks.generate_lookup_table(f).acc
+        want = keyswitch_then_pbs(sks.ksk, sks.bsk, acc_lut, data, "scan2")
+        modes_same[p.name] = {
+            m: bool(torch.equal(keyswitch_then_pbs(sks.ksk, sks.bsk, acc_lut,
+                                                   data, m), want))
+            for m in fp.MODES[1:]}
+        reset_all_launches()
+        acc = words(B, G, N)
+        ahat = torch.from_numpy(rng.integers(0, 2 * N, (steps, B),
+                                             endpoint=True)
+                                .astype(np.int32)).to(dev)
+        kspec, kshoup = sks.bsk.kspec[:steps], sks.bsk.kshoup[:steps]
+        ks, ksh = kspec[0], kshoup[0]
+        dig = fp.rotate_decompose_plain(acc, ahat[0], bl, L)
+        res_shape = (B, G, 2, P, N)
+        res_p = torch.empty(res_shape, dtype=torch.int32, device=dev)
+        res_k = torch.empty(res_shape, dtype=torch.int32, device=dev)
+        for pi in range(P):
+            fp.ntt_mac_prime_plain(dig, ks[pi], pi, res_p)
+            fp.ntt_mac_prime(dig, ks[pi], ksh[pi], pi, res_k)
+        step_plain = fp.pbs_step_plain(acc, ahat[0], ks, bl, L)
+        whole_plain = fp.blind_rotate_persistent_plain(acc, ahat, kspec, bl,
+                                                       L)
+        errs[p.name] = dict(
+            rotate_decompose=max_abs_err(
+                fp.rotate_decompose(acc, ahat[0], bl, L), dig),
+            external_product_crt=max_abs_err(
+                fp.external_product_crt(dig, ks, ksh, acc),
+                fp.external_product_crt_plain(dig, ks, acc)),
+            ntt_mac_prime=max_abs_err(res_k, res_p),
+            pbs_step=max_abs_err(
+                fp.pbs_step(acc, ahat[0], ks, ksh, bl, L), step_plain),
+            pbs_step_single_cta=max_abs_err(
+                fp.pbs_step_single_cta(acc, ahat[0], ks, ksh, bl, L),
+                step_plain),
+            blind_rotate_persistent=max_abs_err(
+                fp.blind_rotate_persistent(acc, ahat, kspec, kshoup, bl, L),
+                whole_plain),
+            blind_rotate_single_cta=max_abs_err(
+                fp.blind_rotate_single_cta(acc, ahat, kspec, kshoup, bl, L),
+                whole_plain))
+        if LJ == 18:
+            acc64 = words(B_MAIN, G, N)
+            ahat64 = torch.from_numpy(rng.integers(0, 2 * N, (B_MAIN,),
+                                                   endpoint=True)
+                                      .astype(np.int32)).to(dev)
+            dig64 = fp.rotate_decompose(acc64, ahat64, bl, L)
+            ks, ksh = sks.bsk.kspec[0], sks.bsk.kshoup[0]
+            bound = bounds_ms(B_MAIN, G, L, N, P)["external_product_crt"]
+            wide = dict(
+                params=p.name, digit_polys=LJ, batch=B_MAIN,
+                ms=graph_ms(lambda: fp.external_product_crt(
+                    dig64, ks, ksh, acc64), 50),
+                plain_ms=cuda_ms(lambda: fp.external_product_crt_plain(
+                    dig64, ks, acc64), 2, warmup=1),
+                bound_ms=bound[0], bound_by=bound[1])
+            # a WoPBS at this set, on every value of its 16
+            wmsgs = np.arange(p.total_modulus)
+            wlut = wk.generate_lut(lambda x: (5 * x + 3) % 16)
+            reset_all_launches()
+            t1 = time.time()
+            wout, ms, pbs, cmux = wopbs_stages(wk, cks.encrypt_batch(wmsgs),
+                                               wlut)
+            wide["wopbs"] = dict(
+                values=int(len(wmsgs)), ms=ms, pbs_batches=pbs, cmuxes=cmux,
+                wall_s=time.time() - t1, correct=int(np.sum(
+                    cks.decrypt_batch(wout) == (5 * wmsgs + 3) % 16)))
+            for k, v in all_launches().items():
+                launches[k] = launches.get(k, 0) + v
+            del wk
+        del cks, sks
+        torch.cuda.empty_cache()
+    say("kernels_wide", t0, max_abs_err=errs, lut_batch_correct=lut_ok,
+        modes_identical_to_scan2=modes_same, k2_18_digits=wide,
+        launches=launches)
+    bad = [e for v in errs.values() for e in v.values() if e]
+    if bad or any(v != B for v in lut_ok.values()) or \
+            not all(x for v in modes_same.values() for x in v.values()) or \
+            wide["wopbs"]["correct"] != wide["wopbs"]["values"]:
+        raise AssertionError(f"wide core: errors {errs}, LUT batches "
+                             f"{lut_ok}, modes {modes_same}, WoPBS "
+                             f"{wide['wopbs']}")
+    return errs, wide, launches
+
+
+def wopbs_card_vs_cpu():
+    """A WoPBS at WOPBS_PARAM_MESSAGE_2_CARRY_2_TEST on the card and on the
+    CPU from one seed: identical words."""
+    import numpy as np
+    import torch
+
+    from tfhe_tpu_torch import shortint
+    from tfhe_tpu_torch.params import WOPBS_PARAM_MESSAGE_2_CARRY_2_TEST
+
+    t0 = time.time()
+    outs = {}
+    for where in ("cuda", "cpu"):
+        cks, _, wk = shortint.gen_keys_wopbs(WOPBS_PARAM_MESSAGE_2_CARRY_2_TEST,
+                                             seed=SEED, device=where)
+        msgs = np.arange(16)
+        out = wk.wopbs_batch(cks.encrypt_batch(msgs),
+                             wk.generate_lut_full_domain(lambda x: (7 * x)
+                                                         % 16))
+        if not np.array_equal(cks.decrypt_batch_message_and_carry(out),
+                              (7 * msgs) % 16):
+            raise AssertionError(f"{where}: WoPBS at the test set wrong")
+        outs[where] = out.data.cpu()
+    same = bool(torch.equal(outs["cuda"], outs["cpu"]))
+    say("card_vs_cpu_wopbs", t0, params=WOPBS_PARAM_MESSAGE_2_CARRY_2_TEST
+        .name, identical=same)
+    if not same:
+        raise AssertionError("card and CPU WoPBS words differ")
+
+
+def keys_main_path(cks, sks):
+    """The public, compact and compressed keys and the wire format at
+    PARAM_MESSAGE_2_CARRY_2_KS_PBS (the compact key at
+    PARAM_MESSAGE_2_CARRY_2_COMPACT_PK_KS_PBS), on the main path's keys.
+    Returns the launches."""
+    import numpy as np
+    import torch
+
+    from tfhe_tpu_torch import api, integer, shortint
+    from tfhe_tpu_torch.core import seeded
+    from tfhe_tpu_torch.params import (
+        PARAM_MESSAGE_2_CARRY_2_COMPACT_PK_KS_PBS)
+    from tfhe_tpu_torch.utils.serialization import (safe_deserialize,
+                                                    safe_serialize, serialize)
+
+    t0 = time.time()
+    reset_all_launches()
+    p = cks.params
+    msgs = np.arange(B_MAIN) % p.total_modulus
+    fields, bad = {}, []
+
+    def sync_s(t):
+        torch.cuda.synchronize()
+        return time.time() - t
+
+    # the standard public key (2049 * 64 + 128 zero encryptions), made
+    # through the API; its shortint key is .inner
+    hl_cks = api.ClientKey(api.Config(parameters=p),
+                           _radix=integer.RadixClientKey(p, 1, _key=cks))
+    t = time.time()
+    hl_pk = api.PublicKey(hl_cks)
+    pk_keygen_s = sync_s(t)
+    pk = hl_pk.inner
+    t = time.time()
+    batch = pk.encrypt_batch(msgs, seed=SEED)
+    enc_ms = sync_s(t) * 1e3
+    t = time.time()
+    pk.encrypt_batch(msgs, seed=SEED + 1)
+    enc_warm_ms = sync_s(t) * 1e3
+    lut = sks.generate_lookup_table(lambda x: (x + 3) % 16)
+    out = sks.apply_lookup_table_batch(batch, lut)
+    fields["public_key"] = dict(
+        keygen_s=pk_keygen_s, mb=key_mb(pk.key.zero_encs),
+        zero_encryptions=pk.key.zero_encryption_count, batch=B_MAIN,
+        encrypt_ms=enc_ms, encrypt_warm_ms=enc_warm_ms,
+        correct=int(np.sum(cks.decrypt_batch_message_and_carry(batch)
+                           == msgs)),
+        lut_correct=int(np.sum(cks.decrypt_batch_message_and_carry(out)
+                               == (msgs + 3) % 16)))
+    # the API: a FheUint8 under the same public key
+    fields["api_public_key"] = int(api.FheUint8.encrypt_with_public_key(
+        201, hl_pk).decrypt(hl_cks) == 201)
+    del pk, hl_pk, batch
+    torch.cuda.empty_cache()
+
+    # the compact public key, and a compact FheUint64 through the API
+    cp = PARAM_MESSAGE_2_CARRY_2_COMPACT_PK_KS_PBS
+    c_cks = shortint.ClientKey(cp, seed=SEED, device="cuda")
+    hl_ccks = api.ClientKey(api.Config(parameters=cp),
+                            _radix=integer.RadixClientKey(cp, 1, _key=c_cks))
+    t = time.time()
+    hl_cpk = api.CompactPublicKey(hl_ccks)
+    cpk_keygen_ms = sync_s(t) * 1e3
+    cpk = hl_cpk.inner
+    t = time.time()
+    compact = cpk.encrypt_compact_batch(msgs, seed=SEED)
+    c_enc_ms = sync_s(t) * 1e3
+    t = time.time()
+    expanded = compact.expand()
+    expand_ms = sync_s(t) * 1e3
+    v64 = 2**64 - 12345
+    fields["compact_public_key"] = dict(
+        params=cp.name, keygen_ms=cpk_keygen_ms, batch=B_MAIN,
+        encrypt_ms=c_enc_ms, expand_ms=expand_ms,
+        bytes_compact=len(serialize(compact)),
+        bytes_expanded=len(serialize(expanded)),
+        correct=int(np.sum(c_cks.decrypt_batch_message_and_carry(expanded)
+                           == msgs)),
+        api_fheuint64=int(api.CompactFheUint64.encrypt(v64, hl_cpk).expand()
+                          .decrypt(hl_ccks) == v64))
+    del c_cks, cpk, compact, expanded, hl_cpk, hl_ccks
+
+    # the compressed server key: bytes, decompression, a LUT batch, and the
+    # CPU's decompression of the same bytes
+    t = time.time()
+    comp = shortint.CompressedServerKey(cks)
+    comp_keygen_s = sync_s(t)
+    comp_bytes = serialize(comp)
+    t = time.time()
+    dsks = comp.decompress()
+    decompress_s = sync_s(t)
+    data = cks.encrypt_batch(msgs)
+    out = dsks.apply_lookup_table_batch(data, dsks.generate_lookup_table(
+        lambda x: (5 * x) % 16))
+    cpu_comp = safe_deserialize(comp_bytes, device="cpu")
+    same_raw = (torch.equal(seeded.decompress_bootstrap_key(
+        cpu_comp.seeded_bsk), dsks.raw_bsk.cpu())
+        and torch.equal(seeded.decompress_keyswitch_key(cpu_comp.seeded_ksk),
+                        dsks.raw_ksk.cpu()))
+    # the server key through the wire format, each way
+    t = time.time()
+    sks_bytes = safe_serialize(sks)
+    ser_s = time.time() - t
+    t = time.time()
+    back = safe_deserialize(sks_bytes, expected_params=p)
+    de_s = sync_s(t)
+    lut = sks.generate_lookup_table(lambda x: (x * x) % 16)
+    same_words = torch.equal(back.apply_lookup_table_batch(data, lut).data,
+                             sks.apply_lookup_table_batch(data, lut).data)
+    fields["compressed_server_key"] = dict(
+        keygen_s=comp_keygen_s, bytes=len(comp_bytes),
+        server_key_bytes=len(sks_bytes), decompress_s=decompress_s,
+        lut_correct=int(np.sum(cks.decrypt_batch_message_and_carry(out)
+                               == (5 * msgs) % 16)),
+        cpu_decompression_identical=bool(same_raw))
+    fields["server_key_wire"] = dict(
+        bytes=len(sks_bytes), serialize_s=ser_s, deserialize_s=de_s,
+        lut_batch_identical=bool(same_words))
+    del comp, dsks, back, cpu_comp, sks_bytes, comp_bytes
+    torch.cuda.empty_cache()
+    launches = all_launches()
+    say("main_path_keys", t0, params=p.name, **fields, launches=launches)
+    checks = (fields["public_key"]["correct"] == B_MAIN,
+              fields["public_key"]["lut_correct"] == B_MAIN,
+              fields["api_public_key"] == 1,
+              fields["compact_public_key"]["correct"] == B_MAIN,
+              fields["compact_public_key"]["api_fheuint64"] == 1,
+              fields["compressed_server_key"]["lut_correct"] == B_MAIN,
+              same_raw, same_words)
+    if not all(checks):
+        raise AssertionError(f"keys phase failed: {checks}")
+    return launches
+
+
 def main():
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     t_start = time.time()
@@ -2773,6 +3233,10 @@ def main():
     t_pbs_ks = time.time() - t1
     for k, v in pk_launches.items():
         launches[k] = launches.get(k, 0) + v
+    t1 = time.time()
+    for k, v in keys_main_path(cks, sks).items():
+        launches[k] = launches.get(k, 0) + v
+    t_keys = time.time() - t1
 
     # -- 5. timing ----------------------------------------------------------
     t0 = time.time()
@@ -2829,6 +3293,17 @@ def main():
                        if k in ("rotate_decompose", "external_product_crt")})
 
     del sks, cks, lut, acc, dig, data, small_ct, pk_sks, pk_cks, pk_lut
+    torch.cuda.empty_cache()
+
+    # -- WoPBS at full width, the core's 18-digit variant --------------------
+    t0 = time.time()
+    for k, v in wopbs_main_path().items():
+        launches[k] = launches.get(k, 0) + v
+    t_wopbs = time.time() - t0
+    wide_errs, wide_k2, wide_launches = kernels_wide_phase(dev)
+    for k, v in wide_launches.items():
+        launches[k] = launches.get(k, 0) + v
+    wopbs_card_vs_cpu()
     torch.cuda.empty_cache()
 
     # -- 6-9. the multi-bit path -------------------------------------------
@@ -2888,6 +3363,9 @@ def main():
     # DEFAULT_PARAMETERS (the persistent launch runs all 722 steps)
     errs = {k: max(w[0][k] for w in modes_k.values())
             for k in modes_k["DEFAULT_PARAMETERS"][0]}
+    for k in errs:  # kernels_wide's three widths' errors too, where checked
+        errs[k] = max([errs[k]] + [e[k] for e in wide_errs.values()
+                                   if k in e])
     kernels = []
     for name, line, src, width in (
             ("rotate_decompose", 1229, "pbs_kernels.cuh", p.name),
@@ -2911,6 +3389,8 @@ def main():
             "ms": ms[name], "plain_ms": plain_ms[name],
             "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
             "library_ms": None, "redesigned": REDESIGNED.get(name)})
+        if name == "external_product_crt":
+            kernels[-1]["wide_18_digits"] = wide_k2
     for name, line, src in (
             ("multibit_combine", 747, "multibit_kernels.cuh"),
             ("multibit_external_product", 823, "multibit_core.cuh"),
@@ -2943,6 +3423,8 @@ def main():
         main_path_batched_s=round(t_batched, 3),
         main_path_strings_s=round(t_strings, 3),
         main_path_pbs_ks_s=round(t_pbs_ks, 3),
+        main_path_keys_s=round(t_keys, 3),
+        main_path_wopbs_s=round(t_wopbs, 3),
         main_path_multibit_s=round(t_main_mb, 3),
         main_path_boolean_s=round(t_main_bool, 3),
         main_path_ntt_s=round(t_main_ntt, 3),

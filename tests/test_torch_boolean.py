@@ -195,5 +195,14 @@ def test_every_mode_gives_the_same_gates():
         assert torch.equal(outs[mode], outs["scan2"])
     with pytest.raises(ValueError, match="mode"):
         boolean.ServerKey.from_raw(p, bsk, ksk, device="cpu", mode="scan4")
-    with pytest.raises(NotImplementedError):
-        boolean.PublicKey(_keys("pbs_ks")[1][0])
+    # the public key works: its encryptions decrypt (a client key of its
+    # own, so the shared keys' generators stay where the other tests
+    # expect them)
+    cks = boolean.ClientKey(_params("pbs_ks")[1], seed=SEED + 1,
+                            device="cpu")
+    pk = boolean.PublicKey(cks)
+    bits = np.array([True, False, True])
+    ct = pk.encrypt_batch(bits, seed=4)
+    np.testing.assert_array_equal(cks.decrypt_batch(ct), bits)
+    assert pk.encrypt(True, seed=5).data.shape == ct[0].shape
+    assert cks.decrypt(pk.encrypt(True, seed=5)) is True

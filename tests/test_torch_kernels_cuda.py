@@ -173,9 +173,10 @@ def test_wrappers_reject_bad_inputs(card):
                           device=card)[1:].view(acc.shape)
     with pytest.raises(ValueError, match="aligned"):
         fused_pbs.rotate_decompose(shifted, ahat.int(), 23, 1)
-    # the core's limits: L*G <= 9 (the launch is refused) and
-    # 256 <= N <= 2048 (no tables)
-    for L, G, N, error, match in ((5, 2, 256, RuntimeError, "InvalidValue"),
+    # the core's limits: L*G <= 18 (the launch is refused, naming the
+    # limit) and 256 <= N <= 2048 (no tables)
+    for L, G, N, error, match in ((10, 2, 256, RuntimeError,
+                                   "InvalidValue.*at most 18 digit"),
                                   (1, 2, 128, ValueError, "NTT core")):
         key = fused_pbs.prepare_bsk_cuda(
             torch.zeros((1, L, G, G, N), dtype=torch.int64, device=card), 8)

@@ -373,10 +373,10 @@ def test_layouts_beyond_the_kernels_limits_are_refused(card):
                                 res)
     with pytest.raises(ValueError):
         fused_pbs.crt_accumulate(res, acc, bits=32)
-    # a whole rotation (K5) on the register-resident core with L*G = 16
-    # digit polynomials (G = 4, L = 4 at N = 2048), beyond the core's 9, is
-    # refused by the C entry point, under K5's name
-    G, L, N = 4, 4, 2048
+    # a whole rotation (K5) on the register-resident core with L*G = 20
+    # digit polynomials (G = 4, L = 5 at N = 2048), beyond the core's 18,
+    # is refused by the C entry point, under K5's name
+    G, L, N = 4, 5, 2048
     big = fused_pbs.prepare_bsk_cuda(
         torch.zeros((1, L, G, G, N), dtype=torch.int64, device=card), 8)
     acc = torch.zeros((1, G, N), dtype=torch.int64, device=card)
@@ -399,11 +399,11 @@ def test_layouts_beyond_the_kernels_limits_are_refused(card):
     with pytest.raises(RuntimeError, match="cudaErrorInvalidValue"):
         fused_pbs.blind_rotate_single_cta(acc, ahat1, big.kspec, big.kshoup,
                                           8, L)
-    dig16 = torch.zeros((1, L, G, N), dtype=torch.int32, device=card)
-    res16 = torch.zeros((1, G, 2, P, N), dtype=torch.int32, device=card)
+    dig20 = torch.zeros((1, L, G, N), dtype=torch.int32, device=card)
+    res20 = torch.zeros((1, G, 2, P, N), dtype=torch.int32, device=card)
     with pytest.raises(RuntimeError, match="cudaErrorInvalidValue"):
-        fused_pbs.ntt_mac_prime(dig16, big.kspec[0, 0], big.kshoup[0, 0], 0,
-                                res16)
+        fused_pbs.ntt_mac_prime(dig20, big.kspec[0, 0], big.kshoup[0, 0], 0,
+                                res20)
     # and an N outside 256 ... 2048, by the core's tables
     small = fused_pbs.prepare_bsk_cuda(
         torch.zeros((1, 1, 2, 2, 128), dtype=torch.int64, device=card), 23)

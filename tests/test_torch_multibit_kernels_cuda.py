@@ -85,12 +85,14 @@ def test_schedules_agree_and_count_their_launches(card):
     assert [k.launches for k in fm.KERNELS] == [0, 0, 3]
 
 
-# K9 on the core: (gf, N, L, base_log, G) at every N the core takes, and the
-# sets' G = 4 width (O*M = 8 outputs)
+# K9 on the core: (gf, N, L, base_log, G) at every N the core takes, the
+# sets' G = 4 width (O*M = 8 outputs), and L*G = 12 and 18 (the core's
+# 18-digit variant)
 STEP_WIDTHS = [(2, 256, 2, 8, 2), (3, 512, 1, 18, 4), (4, 1024, 1, 21, 2),
-               (3, 2048, 1, 21, 2), (2, 2048, 1, 22, 2), (4, 2048, 1, 21, 2)]
+               (3, 2048, 1, 21, 2), (2, 2048, 1, 22, 2), (4, 2048, 1, 21, 2),
+               (2, 1024, 6, 7, 2), (4, 2048, 6, 7, 3)]
 STEP_IDS = ["gf2N256L2", "gf3N512G4", "gf4N1024", "gf3N2048", "gf2N2048",
-            "gf4N2048"]
+            "gf4N2048", "gf2N1024LG12", "gf4N2048LG18"]
 
 
 @pytest.mark.parametrize("B", [1, 3, 64, 256])
@@ -169,7 +171,7 @@ def test_wrappers_reject_bad_inputs(card):
 def test_kernels_reject_layouts_beyond_their_limits(card):
     """The C entry points, not the wrappers, hold the kernels' limits:
     2^gf <= 16 subsets, O*M <= 8 outputs; and those of K8's external
-    product and K9 on the core: L*G <= 9 digit polynomials and 256 <= N <=
+    product and K9 on the core: L*G <= 18 digit polynomials and 256 <= N <=
     2048 (N by the core's tables, in Python)."""
     gen = torch.Generator(device=card).manual_seed(1)
 
@@ -190,23 +192,23 @@ def test_kernels_reject_layouts_beyond_their_limits(card):
     wide = words(2, 5, 5, 5, 2, 256)  # G = 5: O*M = 10 outputs
     with pytest.raises(RuntimeError, match="InvalidValue"):
         fm.multibit_step(acc(5, 256), words(1, 2) & 1, wide, 15, 1)
-    # L*G = 10 digit polynomials, one past the core's 9
-    with pytest.raises(RuntimeError, match="InvalidValue"):
+    # L*G = 20 digit polynomials, past the core's 18
+    with pytest.raises(RuntimeError, match="InvalidValue.*at most 18 digit"):
         fm.multibit_step(acc(2, 256), words(1, 2) & 1,
-                         words(2, 5, 10, 2, 2, 256), 8, 5)
+                         words(2, 5, 20, 2, 2, 256), 6, 10)
     deep = words(2, 5, 40, 2, 2, 2048)  # L = 20: 40 digit polynomials
     with pytest.raises(RuntimeError, match="InvalidValue"):
         fm.multibit_step(acc(2, 2048), words(1, 2) & 1, deep, 3, 20)
     with pytest.raises(ValueError):  # N = 4096, past the core's 2048
         fm.multibit_step(acc(2, 4096), words(1, 2) & 1,
                          words(2, 5, 2, 2, 2, 4096), 21, 1)
-    # K8's external product: O*M = 10 outputs, L*G = 10, N = 4096
+    # K8's external product: O*M = 10 outputs, L*G = 20, N = 4096
     with pytest.raises(RuntimeError, match="InvalidValue"):
         fm.multibit_external_product(acc(5, 256), words(1, 5, 5, 5, 2, 256),
                                      15, 1)
     with pytest.raises(RuntimeError, match="InvalidValue"):
-        fm.multibit_external_product(acc(2, 256), words(1, 5, 10, 2, 2, 256),
-                                     8, 5)
+        fm.multibit_external_product(acc(2, 256), words(1, 5, 20, 2, 2, 256),
+                                     6, 10)
     with pytest.raises(ValueError):
         fm.multibit_external_product(acc(2, 4096),
                                      words(1, 5, 2, 2, 2, 4096), 21, 1)

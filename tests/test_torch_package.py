@@ -1,5 +1,5 @@
 """Package rules of tfhe_tpu_torch: no JAX and nothing of tfhe_tpu inside
-the port, chip_smoke.py or kernel_times.py; entry points run on the card
+the port, chip_smoke.py, kernel_times.py or ptxas_report.py; entry points run on the card
 unless the caller asks for the CPU; chip_smoke.py refuses to run without a
 card."""
 
@@ -27,6 +27,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.dirname(tfhe_tpu_torch.__file__)
 SMOKE = os.path.join(ROOT, "chip_smoke.py")
 KERNEL_TIMES = os.path.join(ROOT, "kernel_times.py")
+PTXAS_REPORT = os.path.join(ROOT, "ptxas_report.py")
 
 
 def _port_sources():
@@ -37,6 +38,7 @@ def _port_sources():
                 yield os.path.join(dirpath, f)
     yield SMOKE
     yield KERNEL_TIMES
+    yield PTXAS_REPORT
 
 
 def _imported_modules(path):
@@ -61,7 +63,8 @@ def test_port_imports_with_jax_unimportable():
     modules = sorted(
         "tfhe_tpu_torch." + os.path.relpath(p, PKG)[:-3].replace(os.sep, ".")
         .replace(".__init__", "")
-        for p in _port_sources() if p not in (SMOKE, KERNEL_TIMES))
+        for p in _port_sources()
+        if p not in (SMOKE, KERNEL_TIMES, PTXAS_REPORT))
     code = ("import sys\n"
             "for m in ('jax', 'jaxlib', 'tfhe_tpu'): sys.modules[m] = None\n"
             "import importlib\n"
@@ -71,8 +74,8 @@ def test_port_imports_with_jax_unimportable():
             "for f in sys.argv[1:]: runpy.run_path(f, run_name='imported')\n"
             "assert not any(k.split('.')[0] in ('jax', 'tfhe_tpu') and v "
             "for k, v in sys.modules.items())\n")
-    proc = subprocess.run([sys.executable, "-c", code, SMOKE, KERNEL_TIMES],
-                          cwd=ROOT,
+    proc = subprocess.run([sys.executable, "-c", code, SMOKE, KERNEL_TIMES,
+                           PTXAS_REPORT], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
 
@@ -380,11 +383,16 @@ def test_api_examples_apps_and_utils_are_among_the_checked_sources():
         mods = list(_imported_modules(os.path.join(ROOT, rel)))
         assert not [m for m in mods
                     if m.split(".")[0] in ("jax", "jaxlib", "tfhe_tpu")]
-    # importing the API needs no serialization
-    code = ("import sys\n"
-            "sys.modules['tfhe_tpu_torch.utils.serialization'] = None\n"
-            "import tfhe_tpu_torch\n"
-            "assert tfhe_tpu_torch.FheUint64.NUM_BITS == 64\n")
+    # importing the API registers its wire-format adapters and stays
+    # cheap: no kernel is built and no key is made
+    code = ("import tfhe_tpu_torch\n"
+            "from tfhe_tpu_torch.ops import fused_pbs\n"
+            "from tfhe_tpu_torch.utils import serialization as ser\n"
+            "assert tfhe_tpu_torch.FheUint64.NUM_BITS == 64\n"
+            "assert 'api.FheUint' in ser._FROM_STATE\n"
+            "assert 'api.CompressedServerKey' in ser._FROM_STATE\n"
+            "assert fused_pbs.cuda_library.cache_info().currsize == 0\n"
+            "assert fused_pbs.single_cta_library.cache_info().currsize == 0\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
@@ -418,9 +426,17 @@ def test_api_and_examples_need_a_card_unless_asked_for_the_cpu():
     assert cks.radix.key.device == sks.integer_key.key.device == \
         torch.device("cpu")
     assert sks.integer_key.fused is True
-    for cls in (api.PublicKey, api.CompactPublicKey, api.CompressedServerKey):
-        with pytest.raises(NotImplementedError, match="A.6"):
-            cls(cks)
+    # the public, compact and compressed keys work on the CPU: encrypt,
+    # then decrypt
+    pk = api.PublicKey(cks)
+    assert api.FheUint8.encrypt_with_public_key(77, pk).decrypt(cks) == 77
+    cpk = api.CompactPublicKey(cks)
+    assert api.CompactFheUint8.encrypt(12, cpk).expand().decrypt(cks) == 12
+    dsks = api.CompressedServerKey(cks).decompress()
+    assert dsks.integer_key.key.device == torch.device("cpu")
+    api.set_server_key(dsks)
+    a = api.FheUint8.encrypt(17, cks)
+    assert (a + 5).decrypt(cks) == 22
     # a multi-bit key in mode "ntt" asks for the card like every mode
     mb = shortint.ClientKey(PARAM_MULTI_BIT_MESSAGE_2_CARRY_2_GROUP_2_TEST,
                             seed=1, device="cpu")
@@ -431,3 +447,54 @@ def test_api_and_examples_need_a_card_unless_asked_for_the_cpu():
                                device="cpu")
     word = sha256_bool.Sha256Fhe(bsks).trivial_word(0xABCD)
     assert word.device == torch.device("cpu") and word.shape[0] == 32
+
+
+def test_wopbs_keys_and_wire_modules_are_among_the_checked_sources():
+    # the walk above reaches WoPBS, the packing keyswitch, the public,
+    # seeded and compressed keys, the casting key, the entities, the wire
+    # format and the key cache, and none of them imports JAX or the
+    # reference
+    checked = {os.path.relpath(p, ROOT) for p in _port_sources()}
+    new = {f"tfhe_tpu_torch/{m}.py" for m in (
+        "core/packing_keyswitch", "core/wopbs", "core/public_key",
+        "core/seeded", "shortint/wopbs", "shortint/public_key",
+        "shortint/compressed", "shortint/key_switching_key",
+        "integer/wopbs", "entities/__init__", "utils/serialization",
+        "utils/keycache", "params/wopbs_params", "params/compact_pk_params")}
+    assert new <= checked
+    for rel in sorted(new):
+        mods = list(_imported_modules(os.path.join(ROOT, rel)))
+        assert not [m for m in mods
+                    if m.split(".")[0] in ("jax", "jaxlib", "tfhe_tpu")]
+
+
+def test_wopbs_and_key_entry_points_need_a_card_unless_asked_for_the_cpu(
+        tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the no-card refusal cannot be shown")
+    from tfhe_tpu_torch.params import WOPBS_PARAM_MESSAGE_2_CARRY_2_TEST
+    from tfhe_tpu_torch.utils import safe_deserialize, safe_serialize
+
+    p = PARAM_MESSAGE_2_CARRY_2_COMPACT_TEST
+    for call in (
+            lambda: shortint.gen_keys_wopbs(WOPBS_PARAM_MESSAGE_2_CARRY_2_TEST,
+                                            seed=1),
+            lambda: shortint.gen_keys(p, seed=1, cache_dir=str(tmp_path))):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    cks, sks = shortint.gen_keys(p, seed=1, device="cpu")
+    data = safe_serialize(sks)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        safe_deserialize(data)
+    assert safe_deserialize(data, device="cpu").device == torch.device("cpu")
+    # keys made from a CPU client key stay on the CPU
+    assert shortint.PublicKey(cks).key.zero_encs.device == \
+        torch.device("cpu")
+    assert shortint.CompactPublicKey(cks).key.mask.device == \
+        torch.device("cpu")
+    assert shortint.CompressedServerKey(cks).decompress().device == \
+        torch.device("cpu")
+    _, wsks, wk = shortint.gen_keys_wopbs(WOPBS_PARAM_MESSAGE_2_CARRY_2_TEST,
+                                          seed=1, device="cpu")
+    assert wk.cbs.pfpksk_list.device == torch.device("cpu")
+    assert wsks.mode == "scan2"

@@ -1,5 +1,5 @@
-"""High-level API (port of the first half of `tfhe_tpu/api/__init__.py`,
-:1-486; ref: tfhe/src/high_level_api/).
+"""High-level API (port of `tfhe_tpu/api/__init__.py`; ref: tfhe/src/
+high_level_api/).
 
 ConfigBuilder -> generate_keys(config) -> set_server_key(sk) ->
 operator-overloaded FheUint8..FheUint256 / FheInt8..FheInt256 / FheBool
@@ -14,11 +14,9 @@ schedule, True one CUDA graph replay an op on a card, the counterpart of
 the reference's choice on its accelerator, tfhe_tpu/integer/
 fused_dispatch.py:35-41).  No environment variable picks either.
 
-The reference's second half (:487-791: the compressed, public and compact
-types and the serialization adapters it registers at import) waits for the
-port of the wire format and public keys (ROADMAP A.6): `PublicKey`,
-`CompactPublicKey` and `CompressedServerKey` raise NotImplementedError, and
-importing this module needs no serialization.
+The second half (:487-791) too: the compressed, public and compact types,
+and the serialization adapters, registered at import under the
+reference's type names (registering loads no key and builds no kernel).
 """
 
 from __future__ import annotations
@@ -27,12 +25,16 @@ import threading
 from dataclasses import dataclass
 from typing import Optional
 
+import numpy as np
+
 from ..params import ClassicPBSParameters, PARAM_MESSAGE_2_CARRY_2_KS_PBS
 from ..integer import (
     BooleanBlock,
     IntegerServerKey,
     RadixCiphertext,
     RadixClientKey,
+    SignedRadixCiphertext,
+    gen_keys_radix,
 )
 from ..shortint import ServerKey as ShortintServerKey
 
@@ -88,10 +90,17 @@ class ServerKey:
 
 
 def generate_keys(config: Config, seed: Optional[int] = None, device="cuda",
-                  fused: bool = False):
+                  fused: bool = False, cache_dir: Optional[str] = None):
     """(ref: high_level_api/keys/mod.rs generate_keys) -> (ClientKey,
-    ServerKey) on `device`.  The reference's `cache_dir` has no counterpart
-    yet: the port writes no key to disk (ROADMAP A.6)."""
+    ServerKey) on `device`; with `cache_dir` and a seed the raw keys ride
+    the shortint key cache (`shortint.gen_keys(cache_dir=)`)."""
+    if cache_dir is not None and seed is not None:
+        r_cks, i_sks = gen_keys_radix(config.parameters, num_blocks=1,
+                                      seed=seed, device=device,
+                                      cache_dir=cache_dir)
+        cks = ClientKey(config, _radix=r_cks)
+        return cks, ServerKey(cks, _integer_key=IntegerServerKey(
+            i_sks.key, fused=fused))
     cks = ClientKey(config, seed=seed, device=device)
     return cks, ServerKey(cks, fused=fused)
 
@@ -498,34 +507,337 @@ FheInt256 = _make_fheint(256)
 
 
 # ---------------------------------------------------------------------------
-# the reference's second half (tfhe_tpu/api/__init__.py:487-791) waits for
-# ROADMAP A.6
+# compressed types (ref: high_level_api/integers/types/compressed.rs and
+# high_level_api/keys/server.rs CompressedServerKey)
 # ---------------------------------------------------------------------------
 
 
-def _needs_a6(what: str):
-    raise NotImplementedError(
-        f"the high-level {what} needs the port of the public keys, the "
-        f"seeded keys and the wire format (ROADMAP A.6), which the port "
-        f"does not have yet")
-
-
 class CompressedServerKey:
-    """(tfhe_tpu/api/__init__.py:493): not ported yet."""
+    """Seeded server key: about half the bytes on the wire; decompressed on
+    the server, onto the device its bodies are on
+    (ref: high_level_api/keys/server.rs CompressedServerKey)."""
 
     def __init__(self, cks: ClientKey):
-        _needs_a6("CompressedServerKey")
+        from ..shortint import CompressedServerKey as ShortintCompressed
+
+        self.inner = ShortintCompressed(cks.radix.key)
+
+    @classmethod
+    def _wrap(cls, inner) -> "CompressedServerKey":
+        self = cls.__new__(cls)
+        self.inner = inner
+        return self
+
+    @property
+    def params(self):
+        return self.inner.params
+
+    def decompress(self) -> ServerKey:
+        return ServerKey(None, _integer_key=IntegerServerKey(
+            self.inner.decompress()))
+
+
+class _CompressedFheBase:
+    """A compressed (seeded) fresh encryption of one FheUint/FheInt value:
+    the blocks' bodies + the public mask seed
+    (ref: high_level_api/integers/types/compressed.rs CompressedFheUint)."""
+
+    FHE_CLS = None
+
+    def __init__(self, compressed_list, signed: bool):
+        self.compressed_list = compressed_list
+        self.signed = signed
+
+    def _conformance_check(self, params) -> None:
+        self.compressed_list._conformance_check(params)
+
+    @classmethod
+    def encrypt(cls, value: int, key: ClientKey):
+        from ..shortint import encrypt_compressed_batch
+
+        rck = key.radix
+        nb = _blocks_for_bits(key.config.parameters, cls.FHE_CLS.NUM_BITS)
+        comp = encrypt_compressed_batch(rck.key, rck._to_blocks(value, nb))
+        return cls(comp, signed=issubclass(cls.FHE_CLS, _FheIntBase))
+
+    def decompress(self):
+        batch = self.compressed_list.decompress()
+        if self.signed:
+            return self.FHE_CLS(SignedRadixCiphertext(batch))
+        return self.FHE_CLS(RadixCiphertext(batch))
+
+
+def _make_compressed(fhe_cls):
+    return type(f"Compressed{fhe_cls.__name__}", (_CompressedFheBase,),
+                {"FHE_CLS": fhe_cls})
+
+
+CompressedFheUint8 = _make_compressed(FheUint8)
+CompressedFheUint16 = _make_compressed(FheUint16)
+CompressedFheUint32 = _make_compressed(FheUint32)
+CompressedFheUint64 = _make_compressed(FheUint64)
+CompressedFheUint128 = _make_compressed(FheUint128)
+CompressedFheUint256 = _make_compressed(FheUint256)
+CompressedFheInt8 = _make_compressed(FheInt8)
+CompressedFheInt16 = _make_compressed(FheInt16)
+CompressedFheInt32 = _make_compressed(FheInt32)
+CompressedFheInt64 = _make_compressed(FheInt64)
+CompressedFheInt128 = _make_compressed(FheInt128)
+CompressedFheInt256 = _make_compressed(FheInt256)
+
+
+# ---------------------------------------------------------------------------
+# public keys (ref: high_level_api/keys/public.rs PublicKey/CompactPublicKey
+# and integers/types/compact.rs CompactFheUint)
+# ---------------------------------------------------------------------------
+
+
+def _value_blocks(params, value: int, num_blocks: int) -> np.ndarray:
+    msg = params.message_modulus
+    value %= msg ** num_blocks
+    return np.array([(value // msg**i) % msg for i in range(num_blocks)],
+                    dtype=np.uint64)
 
 
 class PublicKey:
-    """(tfhe_tpu/api/__init__.py:584): not ported yet."""
+    """Standard public key, on the client key's device: anyone holding it
+    can encrypt (ref: high_level_api/keys/public.rs)."""
 
     def __init__(self, cks: ClientKey):
-        _needs_a6("PublicKey")
+        from ..shortint.public_key import PublicKey as ShortintPublicKey
+
+        self.inner = ShortintPublicKey(cks.radix.key)
+
+    @property
+    def params(self):
+        return self.inner.params
 
 
 class CompactPublicKey:
-    """(tfhe_tpu/api/__init__.py:598): not ported yet."""
+    """Compact public key: the ciphertext lists it makes stay packed until
+    `expand()` (ref: high_level_api/keys/public.rs CompactPublicKey)."""
 
     def __init__(self, cks: ClientKey):
-        _needs_a6("CompactPublicKey")
+        from ..shortint.public_key import (
+            CompactPublicKey as ShortintCompactPublicKey)
+
+        self.inner = ShortintCompactPublicKey(cks.radix.key)
+
+    @property
+    def params(self):
+        return self.inner.params
+
+
+class _CompactFheBase:
+    """Compact fresh encryption of one value under a CompactPublicKey
+    (ref: high_level_api/integers/types/compact.rs CompactFheUint)."""
+
+    FHE_CLS = None
+
+    def __init__(self, compact_list):
+        self.compact_list = compact_list
+
+    @classmethod
+    def encrypt(cls, value: int, key: CompactPublicKey):
+        p = key.params
+        nb = _blocks_for_bits(p, cls.FHE_CLS.NUM_BITS)
+        return cls(key.inner.encrypt_compact_batch(_value_blocks(p, value,
+                                                                 nb)))
+
+    def expand(self):
+        batch = self.compact_list.expand()
+        if issubclass(self.FHE_CLS, _FheIntBase):
+            return self.FHE_CLS(SignedRadixCiphertext(batch))
+        return self.FHE_CLS(RadixCiphertext(batch))
+
+    def _conformance_check(self, params) -> None:
+        self.compact_list._conformance_check(params)
+
+
+def _make_compact(fhe_cls):
+    return type(f"Compact{fhe_cls.__name__}", (_CompactFheBase,),
+                {"FHE_CLS": fhe_cls})
+
+
+CompactFheUint8 = _make_compact(FheUint8)
+CompactFheUint16 = _make_compact(FheUint16)
+CompactFheUint32 = _make_compact(FheUint32)
+CompactFheUint64 = _make_compact(FheUint64)
+CompactFheUint128 = _make_compact(FheUint128)
+CompactFheUint256 = _make_compact(FheUint256)
+CompactFheInt8 = _make_compact(FheInt8)
+CompactFheInt16 = _make_compact(FheInt16)
+CompactFheInt32 = _make_compact(FheInt32)
+CompactFheInt64 = _make_compact(FheInt64)
+CompactFheInt128 = _make_compact(FheInt128)
+CompactFheInt256 = _make_compact(FheInt256)
+
+
+def _encrypt_with_public_key(cls, value: int, key: PublicKey):
+    p = key.params
+    nb = _blocks_for_bits(p, cls.NUM_BITS)
+    batch = key.inner.encrypt_batch(_value_blocks(p, value, nb))
+    if issubclass(cls, _FheIntBase):
+        return cls(SignedRadixCiphertext(batch))
+    return cls(RadixCiphertext(batch))
+
+
+_FheUintBase.encrypt_with_public_key = classmethod(_encrypt_with_public_key)
+
+
+# ---------------------------------------------------------------------------
+# serialization adapters for the high-level types
+# (ref: serde derives on the high_level_api types + safe_deserialization.rs)
+# ---------------------------------------------------------------------------
+
+
+def _register_hl_adapters():
+    """Registered at import, under the reference's type names; registering
+    loads no key and builds no kernel."""
+    import sys
+
+    from ..utils import serialization as ser
+
+    mod = sys.modules[__name__]
+
+    def _fhe_state(obj):
+        inner_meta, arrays = ser._TO_STATE[type(obj.inner)](obj.inner)
+        return {"fhe_cls": type(obj).__name__, "inner": inner_meta}, arrays
+
+    def _fhe_from(meta, arrays, dev):
+        cls = getattr(mod, meta["fhe_cls"])
+        if issubclass(cls, _FheIntBase):
+            name = "integer.SignedRadixCiphertext"
+        elif issubclass(cls, _FheUintBase):
+            name = "integer.RadixCiphertext"
+        else:
+            name = "integer.BooleanBlock"
+        return cls(ser._FROM_STATE[name](meta["inner"], arrays, dev))
+
+    ser.register_adapter(_FheUintBase, "api.FheUint", _fhe_state, _fhe_from)
+    ser.register_adapter(FheBool, "api.FheBool", _fhe_state, _fhe_from)
+
+    def _comp_state(obj):
+        meta, arrays = ser._TO_STATE[type(obj.compressed_list)](
+            obj.compressed_list)
+        return {"fhe_cls": type(obj).__name__, "inner": meta}, arrays
+
+    def _comp_from(meta, arrays, dev):
+        cls = getattr(mod, meta["fhe_cls"])
+        inner = ser._FROM_STATE["shortint.CompressedCiphertextList"](
+            meta["inner"], arrays, dev)
+        return cls(inner, signed=issubclass(cls.FHE_CLS, _FheIntBase))
+
+    ser.register_adapter(_CompressedFheBase, "api.CompressedFhe",
+                         _comp_state, _comp_from)
+
+    def _sks_state(obj):
+        return ser._TO_STATE[type(obj.integer_key.key)](obj.integer_key.key)
+
+    def _sks_from(meta, arrays, dev):
+        return ServerKey(None, _integer_key=IntegerServerKey(
+            ser._FROM_STATE["shortint.ServerKey"](meta, arrays, dev)))
+
+    ser.register_adapter(ServerKey, "api.ServerKey", _sks_state, _sks_from)
+
+    ser.register_adapter(
+        CompressedServerKey, "api.CompressedServerKey",
+        lambda obj: ser._TO_STATE[type(obj.inner)](obj.inner),
+        lambda meta, arrays, dev: CompressedServerKey._wrap(
+            ser._FROM_STATE["shortint.CompressedServerKey"](meta, arrays,
+                                                            dev)))
+
+    def _cks_state(obj):
+        meta, arrays = ser._TO_STATE[type(obj.radix.key)](obj.radix.key)
+        return {"inner": meta}, arrays
+
+    def _cks_from(meta, arrays, dev):
+        skey = ser._FROM_STATE["shortint.ClientKey"](meta["inner"], arrays,
+                                                     dev)
+        return ClientKey(Config(parameters=skey.params),
+                         _radix=RadixClientKey(skey.params, 1, _key=skey))
+
+    ser.register_adapter(ClientKey, "api.ClientKey", _cks_state, _cks_from)
+
+    def _pk_state(obj):
+        return ser._TO_STATE[type(obj.inner)](obj.inner)
+
+    def _wrap_pk(cls, name):
+        def from_state(meta, arrays, dev):
+            self = cls.__new__(cls)
+            self.inner = ser._FROM_STATE[name](meta, arrays, dev)
+            return self
+
+        return from_state
+
+    ser.register_adapter(PublicKey, "api.PublicKey", _pk_state,
+                         _wrap_pk(PublicKey, "shortint.PublicKey"))
+    ser.register_adapter(CompactPublicKey, "api.CompactPublicKey", _pk_state,
+                         _wrap_pk(CompactPublicKey,
+                                  "shortint.CompactPublicKey"))
+
+    def _compact_fhe_state(obj):
+        meta, arrays = ser._TO_STATE[type(obj.compact_list)](
+            obj.compact_list)
+        return {"fhe_cls": type(obj).__name__, "inner": meta}, arrays
+
+    def _compact_fhe_from(meta, arrays, dev):
+        cls = getattr(mod, meta["fhe_cls"])
+        return cls(ser._FROM_STATE["shortint.CompactCiphertextList"](
+            meta["inner"], arrays, dev))
+
+    ser.register_adapter(_CompactFheBase, "api.CompactFhe",
+                         _compact_fhe_state, _compact_fhe_from)
+
+
+_register_hl_adapters()
+
+
+__all__ = [
+    "Config",
+    "ConfigBuilder",
+    "ClientKey",
+    "ServerKey",
+    "generate_keys",
+    "set_server_key",
+    "CompressedServerKey",
+    "PublicKey",
+    "CompactPublicKey",
+    "CompactFheUint8",
+    "CompactFheUint16",
+    "CompactFheUint32",
+    "CompactFheUint64",
+    "CompactFheUint128",
+    "CompactFheUint256",
+    "CompactFheInt8",
+    "CompactFheInt16",
+    "CompactFheInt32",
+    "CompactFheInt64",
+    "CompactFheInt128",
+    "CompactFheInt256",
+    "CompressedFheUint8",
+    "CompressedFheUint16",
+    "CompressedFheUint32",
+    "CompressedFheUint64",
+    "CompressedFheUint128",
+    "CompressedFheUint256",
+    "CompressedFheInt8",
+    "CompressedFheInt16",
+    "CompressedFheInt32",
+    "CompressedFheInt64",
+    "CompressedFheInt128",
+    "CompressedFheInt256",
+    "FheBool",
+    "FheUint8",
+    "FheUint16",
+    "FheUint32",
+    "FheUint64",
+    "FheUint128",
+    "FheUint256",
+    "FheInt8",
+    "FheInt16",
+    "FheInt32",
+    "FheInt64",
+    "FheInt128",
+    "FheInt256",
+]

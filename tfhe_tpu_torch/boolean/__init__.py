@@ -16,8 +16,8 @@ explicit counterpart of the reference's global TFHE_TPU_FUSED_MODE, and
 "ntt", the CRT-NTT key layout the reference runs off the TPU); every
 schedule gives the same words.
 
-`PublicKey` (tfhe_tpu/boolean/__init__.py:251-277) needs the public-key
-encryption of `core/public_key.py`, which is not ported yet: it raises.
+`PublicKey` (tfhe_tpu/boolean/__init__.py:251-277) encrypts through
+`core/public_key.py` on the u32 torus.
 """
 
 from __future__ import annotations
@@ -279,13 +279,36 @@ class ServerKey:
 
 
 class PublicKey:
-    """Boolean public key (tfhe_tpu/boolean/__init__.py:251-277): not ported
-    yet, since it needs `core/public_key.py` (ROADMAP A.6)."""
+    """Boolean public key: a zero-encryption list over the u32 torus, on
+    the client key's device (ref: tfhe/src/boolean/public_key/mod.rs;
+    tfhe_tpu/boolean/__init__.py:251-277)."""
 
     def __init__(self, cks: ClientKey):
-        raise NotImplementedError(
-            "the boolean PublicKey needs core/public_key.py, which the port "
-            "does not have yet")
+        from ..core import public_key as core_pk
+
+        self.params = cks.params
+        sk, std = cks.encryption_sk
+        count = core_pk.public_key_zero_encryption_count(
+            sk.lwe_dimension + 1, bits=BITS)
+        self.key = core_pk.generate_lwe_public_key(sk, count, std,
+                                                   cks.enc_gen)
+
+    def encrypt_batch(self, messages,
+                      seed: Optional[int] = None) -> torch.Tensor:
+        """[B] bools -> [B, n+1] ciphertexts; the choices from a fresh
+        generator (seeded by `seed`, else by the system)."""
+        from ..core import public_key as core_pk
+
+        seeder = Seeder(seed) if seed is not None else system_seeder()
+        sec = SecretRandomGenerator(seeder.seed())
+        messages = np.asarray(messages, dtype=bool)
+        encoded = np.where(messages, PLAINTEXT_TRUE, PLAINTEXT_FALSE).astype(
+            np.uint32)
+        return core_pk.encrypt_lwe_with_public_key(self.key, encoded, sec)
+
+    def encrypt(self, message: bool,
+                seed: Optional[int] = None) -> Ciphertext:
+        return Ciphertext(data=self.encrypt_batch([message], seed=seed)[0])
 
 
 def gen_keys(params: BooleanParameters = DEFAULT_PARAMETERS,

@@ -2,7 +2,8 @@
 
 Port of `tfhe_tpu/core` for the classic and multi-bit PBS paths, each in
 both PBS orders, on the kernels' key layouts or the CRT-NTT layout, and
-for the 128-bit torus."""
+for the 128-bit torus; the packing keyswitch, WoPBS (`core.wopbs`), and the
+public and seeded keys (`core.public_key`, `core.seeded`)."""
 
 from .secret import GlweSecretKey, LweSecretKey, binary_ext_matrix, glwe_phase
 from .encrypt import (decrypt_glwe, decrypt_lwe, encrypt_glwe_assign,
@@ -33,6 +34,8 @@ from ..ops.fused_pbs import PreparedBskCuda, prepare_bsk_cuda
 from ..ops.fused_multibit import (PreparedMultiBitBskCuda,
                                   prepare_multi_bit_bsk_cuda)
 from ..ops.polymul_ntt import PreparedBskNtt, prepare_bsk_ntt
+from .packing_keyswitch import (generate_packing_keyswitch_key,
+                                packing_keyswitch)
 
 __all__ = [
     "LweSecretKey", "GlweSecretKey", "binary_ext_matrix", "glwe_phase",
@@ -58,4 +61,5 @@ __all__ = [
     "encrypt_glwe_preset_u128", "decrypt_glwe_u128",
     "generate_binary_lwe_secret_key_u128", "generate_bootstrap_key_u128",
     "glwe_phase_u128", "negacyclic_mul_binary",
+    "generate_packing_keyswitch_key", "packing_keyswitch",
 ]

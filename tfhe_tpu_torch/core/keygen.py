@@ -142,7 +142,6 @@ def prepare_ksk(ksk: torch.Tensor, base_log: int,
                 bits: int = 64) -> PreparedKsk:
     """(ref: tfhe_tpu/core/keygen.py:208 prepare_ksk)"""
     n_in, levels, out_size = ksk.shape
-    lb = limbs.torus_to_limbs(ksk, bits)  # [n_in, L, T, M]
-    matrix = lb.permute(0, 1, 3, 2).reshape(n_in * levels, -1).contiguous()
+    matrix = limbs.key_limb_matrix(ksk.reshape(n_in * levels, out_size), bits)
     return PreparedKsk(matrix=matrix, base_log=base_log, levels=levels,
                        out_dim=out_size - 1, bits=bits)

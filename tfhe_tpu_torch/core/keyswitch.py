@@ -24,12 +24,8 @@ def keyswitch(ksk: PreparedKsk, ct: torch.Tensor) -> torch.Tensor:
     B, n_in = ct.shape[0], ct.shape[1] - 1
     digits = decomposition.signed_decompose(ct[:, :-1], ksk.base_log,
                                             ksk.levels, bits=bits)
-    dl = limbs.digits_to_limbs(digits, ksk.base_log)  # [B, n_in, L, I]
-    n_limbs = dl.shape[-1]
-    a = dl.permute(0, 3, 1, 2).reshape(B * n_limbs, n_in * ksk.levels)
-    prod = limbs.int8_matmul(a.contiguous(), ksk.matrix)
-    prod = prod.reshape(B, n_limbs, bits // 8, ksk.out_dim + 1)
-    acc = limbs.combine_limb_products(prod, (1, 2), bits)  # [B, n_out+1]
+    acc = limbs.digits_times_key(digits.reshape(B, n_in * ksk.levels),
+                                 ksk.base_log, ksk.matrix, bits)
     out = torch.zeros_like(acc)
     out[:, -1] = ct[:, -1]
     return wrap(out - acc, bits).reshape(*lead, ksk.out_dim + 1)

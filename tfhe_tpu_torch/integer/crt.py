@@ -243,8 +243,10 @@ class CrtServerKey:
 
 
 def gen_keys_crt(params: ClassicPBSParameters, basis: Sequence[int],
-                 seed: Optional[int] = None, device="cuda"):
+                 seed: Optional[int] = None, device="cuda",
+                 cache_dir: Optional[str] = None):
     """(ref: integer/mod.rs gen_keys_crt) -> (CrtClientKey, CrtServerKey) on
-    `device`. Nothing is cached on disk."""
-    scks, ssks = shortint_gen_keys(params, seed=seed, device=device)
+    `device`; `cache_dir` as `shortint.gen_keys`."""
+    scks, ssks = shortint_gen_keys(params, seed=seed, device=device,
+                                   cache_dir=cache_dir)
     return CrtClientKey(params, basis, key=scks), CrtServerKey(ssks)

@@ -40,11 +40,12 @@ inline size_t product_smem(int LJ, int OM, int N) {
 }
 
 // f(std::integral_constant<int, LJ_MAX>) for the kernels' variant that
-// takes LJ digit polynomials
+// takes LJ digit polynomials: 2, 4, 9 or kMaxDigitPolys
 template <class F>
 int by_digit_polys(int LJ, F f) {
   if (LJ <= 2) return f(std::integral_constant<int, 2>{});
   if (LJ <= 4) return f(std::integral_constant<int, 4>{});
+  if (LJ <= 9) return f(std::integral_constant<int, 9>{});
   return f(std::integral_constant<int, kMaxDigitPolys>{});
 }
 

@@ -51,14 +51,14 @@
 //     sum_j sum_lj (mon_j D_lj) K_j,lj,om,
 // LJ products a subset instead of O*M.  Each product of a word at most 2p
 // by a key word below p is below 2^35, and is summed exactly in 64 bits
-// (one 32 x 32 + 64 multiply-add each): at most 2^gf LJ <= 16 * 9 = 144
-// terms, below 2^43.  One reduction per output word brings the sum into
+// (one 32 x 32 + 64 multiply-add each): at most 2^gf LJ <= 16 * 18 = 288
+// terms, below 2^44.  One reduction per output word brings the sum into
 // [0, 2p) for the inverse transform, so the MAC reads no key companions.
 //
 // K8's MAC (kCombined): the same kernel with one subset, no monomial, and
 // the key of the ciphertext's own combined GGSW (multibit_combine,
-// multibit_kernels.cuh) in place of the subset keys; its sums hold LJ <= 9
-// terms below 2^35, below 2^39.  It replaces the first port's two launches:
+// multibit_kernels.cuh) in place of the subset keys; its sums hold LJ <= 18
+// terms below 2^35, below 2^40.  It replaces the first port's two launches:
 // a MAC kernel of one CTA of 512 threads per (ciphertext, prime) on the old
 // shared-memory core (a barrier a radix-2 stage, Barrett products of the
 // combined key) over digits read from device memory, then a CRT launch from
@@ -89,7 +89,7 @@
 // 2, N] uint32 canonical (K8: [B, P, LJ, G, 2, N]); powers [P, 2, 2N]
 // uint32 psi^t and companions (ntt.monomial_tables_for); exps [N] int32
 // e(n); tables ntt.pass_tables_for(N); xcrt ntt._explicit_crt_host.
-// Limits (the launcher refuses anything else): those of the core (LJ <= 9,
+// Limits (the launcher refuses anything else): those of the core (LJ <= 18,
 // 256 <= N <= 2048, P <= 8), 2^gf <= kMaxSubsets, G * 2 <= kMaxOutputs
 // (multibit_kernels.cuh).
 #pragma once
@@ -269,7 +269,8 @@ __global__ void __launch_bounds__(256, min_ctas<LJ_MAX>())
         uint32_t x[kRadix];
 #pragma unroll
         for (int k = 0; k < kRadix; ++k) {
-          // o < 2^43 (K8: < 2^39): its high word is below 2^11
+          // o < 2^44 (K8: < 2^40): its high word is below 2^12, and
+          // times 2^32 mod p (< 2^17) below 2^29
           const uint32_t r =
               shoup_lazy((uint32_t)o[q][k], 1u, c.one_sh, c.p) +
               (uint32_t)(o[q][k] >> 32) * c32;

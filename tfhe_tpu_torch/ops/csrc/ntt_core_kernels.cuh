@@ -23,8 +23,8 @@
 // (lines of tfhe_tpu/ops/fused_pbs.py).  Layouts are those of
 // pbs_kernels.cuh; `tables` is ntt.pass_tables_for(N) [P, kHeader + 2 W],
 // `xcrt` the explicit CRT's constants [P, 6] (ntt._explicit_crt_host).
-// All take LJ = L*G <= 9 (every parameter set of the catalog) and
-// 256 <= N <= 2048; their launchers (core_launch.cuh) refuse anything
+// All take LJ = L*G <= kMaxDigitPolys (18; the WoPBS catalog's widest
+// set) and 256 <= N <= 2048; their launchers (core_launch.cuh) refuse anything
 // else.  Registers from `nvcc -Xptxas -v` (sm_90a, the card's toolkit),
 // none spilled unless said, for LJ <= 2 / 4 / 9: external_product_cluster
 // 80 / 110 / 150, pbs_step_cluster 79 / 110 / 154,
@@ -137,7 +137,10 @@ namespace tfhe_core {
 
 namespace cg = cooperative_groups;
 
-constexpr int kMaxDigitPolys = 9;
+// The digit polynomials (L*G) every kernel on the core takes, in its 2-,
+// 4-, 9- and 18-digit variants (the WoPBS catalog's sets reach L*G = 18);
+// the launchers refuse more (core_refuses).
+constexpr int kMaxDigitPolys = 18;
 
 // The explicit CRT's constants of every prime (ntt._explicit_crt_host):
 // Q/p_i mod 2^64, round(2^28 / p_i), Q mod 2^64.
@@ -404,9 +407,11 @@ __global__ void __launch_bounds__(256, min_ctas<LJ_MAX>())
 // Registers: at most kStreamRegs (K4's launch bounds, but 168 for LJ_MAX
 // = 9, where the step loop would take 206 and leave 4 CTAs of 64 threads
 // an SM at boolean DEFAULT_PARAMETERS width instead of the 6 its shared
-// memory allows).
+// memory allows; the 18-digit variant's digit spectra alone take 144, so
+// it has the 255 a thread may hold).
 template <int LJ_MAX>
-constexpr int kStreamRegs = LJ_MAX <= 2 ? 80 : (LJ_MAX <= 4 ? 128 : 168);
+constexpr int kStreamRegs =
+    LJ_MAX <= 2 ? 80 : (LJ_MAX <= 4 ? 128 : (LJ_MAX <= 9 ? 168 : 255));
 
 template <int LJ_MAX>
 __global__ void __maxnreg__(kStreamRegs<LJ_MAX>)

@@ -18,7 +18,7 @@
 //                              residues into the accumulator, on
 //                              ntt.residue_crt_for
 //
-// The kernels on the core take LJ <= tfhe_core::kMaxDigitPolys and
+// The kernels on the core take LJ <= tfhe_core::kMaxDigitPolys (18) and
 // 256 <= N <= 2048; a layout beyond that, or more shared memory than the
 // device allows a block, launches nothing and returns
 // cudaErrorInvalidValue.  The opt-in to more than 48 KB of shared memory

@@ -191,7 +191,7 @@ def multibit_external_product(acc: torch.Tensor, combined: torch.Tensor,
     makes its digits inside, :828): K9's kernel
     `multibit_step_cluster_kernel` with one subset and the combined key,
     one launch.  The core takes 256 <= N <= 2048 (`ntt.pass_tables_for`
-    raises otherwise) and L*G <= 9, the kernel G <= 4: the launch is
+    raises otherwise) and L*G <= 18, the kernel G <= 4: the launch is
     refused otherwise."""
     if _device_of("multibit_external_product", acc) == "cpu":
         return multibit_external_product_plain(acc, combined, base_log,
@@ -254,7 +254,7 @@ def multibit_step(acc: torch.Tensor, d: torch.Tensor, kspec: torch.Tensor,
     NTT core, the digits made inside, the subset keys combined inside the
     MAC (which reads no key companions), the explicit CRT in the same
     launch.  Returns a new accumulator.  The core takes 256 <= N <= 2048
-    (`ntt.pass_tables_for` raises otherwise) and L*G <= 9; the kernel
+    (`ntt.pass_tables_for` raises otherwise) and L*G <= 18; the kernel
     2^gf <= 16 subsets and G <= 4: the launch is refused otherwise."""
     if _device_of("multibit_step", acc) == "cpu":
         return multibit_step_plain(acc, d, kspec, base_log, levels)

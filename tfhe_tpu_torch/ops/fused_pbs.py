@@ -162,10 +162,20 @@ def _check_aligned(name: str, t: torch.Tensor) -> None:
         raise ValueError(f"{name} must be 16-byte aligned")
 
 
+# digit polynomials (L*G) every kernel on the register-resident core takes
+# (csrc/ntt_core_kernels.cuh kMaxDigitPolys); their C entry points refuse
+# more
+MAX_DIGIT_POLYS = 18
+
+
 def _check_launch(err: int, name: str) -> None:
+    """Raises RuntimeError unless the launch succeeded; a refused layout
+    (cudaErrorInvalidValue) is named with the kernel's limits."""
     if err != 0:
-        why = (" (cudaErrorInvalidValue: a layout or shared-memory size "
-               "beyond the kernel's limits)" if err == 1 else "")
+        why = (f" (cudaErrorInvalidValue: a layout or shared-memory size "
+               f"beyond the kernel's limits: at most {MAX_DIGIT_POLYS} digit "
+               f"polynomials L*G, 256 <= N <= 2048 on the NTT core)"
+               if err == 1 else "")
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}"
                            + why)
 
@@ -276,8 +286,10 @@ def external_product_crt(digits: torch.Tensor, kspec: torch.Tensor,
     new accumulator, from one launch of `external_product_cluster_kernel`:
     a cluster of one CTA per prime and ciphertext on the register-resident
     NTT core, the explicit CRT in the same launch.  The core takes
-    256 <= N <= 2048 (`ntt.pass_tables_for` raises otherwise) and L*G <= 9
-    digit polynomials (the launch is refused otherwise)."""
+    256 <= N <= 2048 (`ntt.pass_tables_for` raises otherwise) and L*G <=
+    MAX_DIGIT_POLYS (18) digit polynomials, in the 9-digit variant up to 9
+    and an 18-digit one above (the launch is refused otherwise), as every
+    kernel on the core."""
     if digits.device.type == "cpu":
         return external_product_crt_plain(digits, kspec, acc, bits)
     if digits.device.type != "cuda":
@@ -342,7 +354,7 @@ def ntt_mac_prime(digits: torch.Tensor, kspec_p: torch.Tensor,
     two CTAs per ciphertext when the batch's pairs fit on the card at once,
     else one CTA per ciphertext.  Writes that prime's rows of residues in
     place (canonical) and returns it.  256 <= N <= 2048
-    (`ntt.pass_tables_for` raises otherwise) and L*G <= 9, or the launch is
+    (`ntt.pass_tables_for` raises otherwise) and L*G <= 18, or the launch is
     refused."""
     if digits.device.type == "cpu":
         return ntt_mac_prime_plain(digits, kspec_p, prime_index, residues)
@@ -473,7 +485,7 @@ def pbs_step(acc: torch.Tensor, ahat: torch.Tensor, kspec: torch.Tensor,
     scheduling artefact; on Hopper they are one kernel.  Counted here, not
     in `pbs_step_single_cta.launches`.  acc [B, G, N], ahat [B], kspec /
     kshoup [P, LJ, O, M, N]; returns a new accumulator.  256 <= N <= 2048
-    (`ntt.pass_tables_for` raises otherwise) and L*G <= 9, or the launch is
+    (`ntt.pass_tables_for` raises otherwise) and L*G <= 18, or the launch is
     refused."""
     return _step_on_core(pbs_step, acc, ahat, kspec, kshoup, base_log, levels,
                          bits)
@@ -492,7 +504,7 @@ def blind_rotate_persistent(acc: torch.Tensor, ahat: torch.Tensor,
     of one CTA per prime and ciphertext at every B, the accumulator updated
     in place in the output (resident in L2) and only the step's key slice
     streamed (`blind_rotate_persistent_waves` says how many waves a batch
-    takes).  256 <= N <= 2048 (a ValueError otherwise) and L*G <= 9, or
+    takes).  256 <= N <= 2048 (a ValueError otherwise) and L*G <= 18, or
     the launch is refused.  ahat [n, B], kspec / kshoup [n, P, LJ, O, M, N];
     returns a new accumulator."""
     if acc.device.type == "cpu":
@@ -579,7 +591,7 @@ def pbs_step_single_cta(acc: torch.Tensor, ahat: torch.Tensor,
     device's occupancy (`pbs_step_single_cta_form` says which).  acc
     [B, G, N], ahat [B], kspec / kshoup [P, LJ, O, M, N]; returns a new
     accumulator.  256 <= N <= 2048 (`ntt.pass_tables_for` raises otherwise)
-    and L*G <= 9, or the launch is refused.  Its plain version is
+    and L*G <= 18, or the launch is refused.  Its plain version is
     `pbs_step_plain`."""
     return _step_on_core(pbs_step_single_cta, acc, ahat, kspec, kshoup,
                          base_log, levels, bits)
@@ -603,7 +615,7 @@ def blind_rotate_single_cta(acc: torch.Tensor, ahat: torch.Tensor,
     idle, `blind_rotate_cluster_core_kernel` (a cluster of one CTA per
     prime); the C entry point picks one from B and the device's SM count
     (`blind_rotate_single_cta_form` says which).  256 <= N <= 2048
-    (`ntt.pass_tables_for` raises otherwise) and L*G <= 9, or the launch
+    (`ntt.pass_tables_for` raises otherwise) and L*G <= 18, or the launch
     is refused.  ahat [n, B],
     kspec / kshoup [n, P, LJ, O, M, N]; returns a new accumulator.  Its
     plain version is `blind_rotate_persistent_plain`."""

@@ -5,8 +5,9 @@ Port of `tfhe_tpu/ops/limbs.py`.  A torus word x in Z_{2^64} is written as
 via the balanced-byte trick m_j = byte_j(x + 0x8080..80) - 128.  The
 products of limbs are int8 x int8 -> int32 matrix products
 (`torch._int_mm`), recombined by shifted adds mod 2^64.  They serve the
-keyswitch and the GLWE phase in key generation, which the reference leaves
-to XLA einsums rather than Pallas kernels.
+keyswitch, the packing keyswitches, public-key encryption and the GLWE
+phase in key generation, which the reference leaves to XLA einsums or numpy
+rather than Pallas kernels.
 """
 
 from __future__ import annotations
@@ -85,3 +86,27 @@ def combine_limb_products(prod: torch.Tensor, limb_axes: tuple[int, int],
             term = pi.select(ax_m - 1, m).to(torch.int64) << s
             acc = term if acc is None else acc + term
     return wrap(acc, bits)
+
+
+def key_limb_matrix(key: torch.Tensor, bits: int = 64) -> torch.Tensor:
+    """Torus words [K, C] -> the int8 matrix [K, M*C] of their limbs (limb
+    major), the right operand of `digits_times_key`."""
+    K, C = key.shape
+    return torus_to_limbs(key, bits).permute(0, 2, 1).reshape(K, -1
+                                                             ).contiguous()
+
+
+def digits_times_key(digits: torch.Tensor, base_log: int,
+                     matrix: torch.Tensor, bits: int = 64) -> torch.Tensor:
+    """sum_k digits[b, k] * key[k, c] (mod 2^bits) -> [B, C] int64, as one
+    int8 product: digits [B, K] signed, |d| <= 2^(base_log-1) (base_log 1
+    for 0/1 choices), matrix `key_limb_matrix(key)`.  Exact while
+    128 * 128 * K < 2^31."""
+    B, K = digits.shape
+    m = bits // 8
+    C = matrix.shape[1] // m
+    dl = digits_to_limbs(digits, base_log)  # [B, K, t]
+    t = dl.shape[-1]
+    a = dl.permute(0, 2, 1).reshape(B * t, K).contiguous()
+    prod = int8_matmul(a, matrix).reshape(B, t, m, C)
+    return combine_limb_products(prod, (1, 2), bits)

@@ -1,15 +1,16 @@
 """Named shortint parameter sets: the classic KS_PBS family, the two
-compact-public-key sets (one in each PBS order) and the insecure TEST sets.
+compact-public-key sets (one in each PBS order), the two WoPBS sets and the
+insecure TEST sets.
 
 Values copied from `tfhe_tpu/params/shortint_params.py`
 (ref: tfhe/src/shortint/parameters/mod.rs:598-760,
  shortint/parameters/parameters_compact_pk.rs:191-205, :613-627,
+ parameters_wopbs_message_carry.rs:432-451,
  tfhe/examples/fhe_strings/ciphertext.rs:75-105 for the insecure TEST sets).
-The WoPBS sets wait for the WoPBS slice.
 """
 
 from .types import (ClassicPBSParameters, EncryptionKeyChoice,
-                    MultiBitPBSParameters)
+                    MultiBitPBSParameters, WopbsParameters)
 
 PARAM_MESSAGE_1_CARRY_0_KS_PBS = ClassicPBSParameters(
     name="PARAM_MESSAGE_1_CARRY_0_KS_PBS",
@@ -233,6 +234,49 @@ PARAM_MULTI_BIT_MESSAGE_2_CARRY_2_GROUP_2_TEST = MultiBitPBSParameters(
     message_modulus=4,
     carry_modulus=4,
     grouping_factor=2,
+)
+
+# WoPBS parameter sets (ref: shortint/parameters/
+# parameters_wopbs_message_carry.rs:432-451)
+WOPBS_PARAM_MESSAGE_2_CARRY_2_KS_PBS = WopbsParameters(
+    name="WOPBS_PARAM_MESSAGE_2_CARRY_2_KS_PBS",
+    lwe_dimension=769,
+    glwe_dimension=1,
+    polynomial_size=2048,
+    lwe_modular_std_dev=0.0000043131554647504185,
+    glwe_modular_std_dev=0.00000000000000029403601535432533,
+    pbs_base_log=15,
+    pbs_level=2,
+    ks_base_log=6,
+    ks_level=2,
+    pfks_base_log=15,
+    pfks_level=2,
+    pfks_modular_std_dev=0.00000000000000029403601535432533,
+    cbs_base_log=5,
+    cbs_level=3,
+    message_modulus=4,
+    carry_modulus=4,
+)
+
+# Insecure toy WoPBS fixture for fast tests.
+WOPBS_PARAM_MESSAGE_2_CARRY_2_TEST = WopbsParameters(
+    name="WOPBS_PARAM_MESSAGE_2_CARRY_2_TEST",
+    lwe_dimension=16,
+    glwe_dimension=1,
+    polynomial_size=256,
+    lwe_modular_std_dev=0.0000000001,
+    glwe_modular_std_dev=0.00000000000000029403601535432533,
+    pbs_base_log=15,
+    pbs_level=2,
+    ks_base_log=6,
+    ks_level=2,
+    pfks_base_log=15,
+    pfks_level=2,
+    pfks_modular_std_dev=0.00000000000000029403601535432533,
+    cbs_base_log=6,
+    cbs_level=2,
+    message_modulus=4,
+    carry_modulus=4,
 )
 
 ALL_PARAMETER_SETS = {

@@ -1,5 +1,5 @@
 """Parameter dataclasses (copy of `tfhe_tpu/params/types.py`: classic and
-multi-bit PBS, and boolean).
+multi-bit PBS, WoPBS, and boolean).
 
 A frozen dataclass carries plain ints plus derived helpers, so parameter sets
 are hashable and compare field by field with the reference's.
@@ -117,6 +117,41 @@ class MultiBitPBSParameters:
     carry_modulus: int
     grouping_factor: int
     deterministic_execution: bool = True  # every sum has a fixed order
+    encryption_key_choice: EncryptionKeyChoice = EncryptionKeyChoice.BIG
+    torus_bits: int = 64
+
+    glwe_size = ClassicPBSParameters.glwe_size
+    big_lwe_dimension = ClassicPBSParameters.big_lwe_dimension
+    pbs_order = ClassicPBSParameters.pbs_order
+    total_modulus = ClassicPBSParameters.total_modulus
+    delta = ClassicPBSParameters.delta
+    max_degree = ClassicPBSParameters.max_degree
+    max_noise_level = ClassicPBSParameters.max_noise_level
+    ciphertext_lwe_size = ClassicPBSParameters.ciphertext_lwe_size
+
+
+@dataclass(frozen=True)
+class WopbsParameters:
+    """Without-padding-PBS parameters
+    (ref: shortint/parameters/mod.rs WopbsParameters)."""
+
+    name: str
+    lwe_dimension: int
+    glwe_dimension: int
+    polynomial_size: int
+    lwe_modular_std_dev: float
+    glwe_modular_std_dev: float
+    pbs_base_log: int
+    pbs_level: int
+    ks_base_log: int
+    ks_level: int
+    pfks_base_log: int
+    pfks_level: int
+    pfks_modular_std_dev: float
+    cbs_base_log: int
+    cbs_level: int
+    message_modulus: int
+    carry_modulus: int
     encryption_key_choice: EncryptionKeyChoice = EncryptionKeyChoice.BIG
     torus_bits: int = 64
 

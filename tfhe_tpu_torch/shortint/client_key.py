@@ -12,15 +12,16 @@ from .. import core
 from ..device import resolve_device
 from ..ops.torus import to_tensor
 from ..params import (ClassicPBSParameters, EncryptionKeyChoice,
-                      MultiBitPBSParameters)
+                      MultiBitPBSParameters, WopbsParameters)
 from ..prng import Seeder, system_seeder
 from ..prng.generators import EncryptionRandomGenerator, SecretRandomGenerator
 from .ciphertext import Ciphertext, ShortintBatch
 
 
 class ClientKey:
-    def __init__(self, params: ClassicPBSParameters | MultiBitPBSParameters,
-                 seed: Optional[int] = None, device="cuda"):
+    def __init__(self, params: ClassicPBSParameters | MultiBitPBSParameters
+                 | WopbsParameters, seed: Optional[int] = None,
+                 device="cuda"):
         self.params = params
         self.device = resolve_device(device)
         seeder = Seeder(seed) if seed is not None else system_seeder()
@@ -32,6 +33,8 @@ class ClientKey:
             params.glwe_dimension, params.polynomial_size, sec,
             device=self.device)
         self.big_sk = self.glwe_sk.as_lwe_secret_key()
+        # the compressed keys draw their public mask seeds from it
+        self._seeder = seeder
 
     @classmethod
     def from_raw(cls, params: ClassicPBSParameters | MultiBitPBSParameters,
@@ -54,6 +57,7 @@ class ClientKey:
             to_tensor(np.asarray(glwe_sk_bits, np.uint64), self.device),
             bits=bits)
         self.big_sk = self.glwe_sk.as_lwe_secret_key()
+        self._seeder = seeder
         return self
 
     @property

@@ -11,13 +11,15 @@ keyswitch under the small key) with the classic or the multi-bit blind
 rotation.  On a card the rotation runs the kernels of `ops/fused_pbs.py` or
 `ops/fused_multibit.py` in the schedule the key's `mode` names, or, in
 mode "ntt", the CRT-NTT key layout's step loop.
-The reference's XLA shape buckets and on-disk key cache have no counterpart
-here: PyTorch runs eagerly at any batch size, and nothing is written to
-disk.
+The reference's XLA shape buckets have no counterpart here: PyTorch runs
+eagerly at any batch size.  `gen_keys(..., cache_dir=)` keeps raw keys on
+disk as the reference does.
 """
 
 from __future__ import annotations
 
+import fcntl
+import os
 from dataclasses import dataclass
 from typing import Callable, Optional
 
@@ -27,8 +29,9 @@ import torch
 from .. import core
 from ..device import resolve_device
 from ..ops import fused_multibit, fused_pbs
-from ..ops.torus import to_tensor
-from ..params import ClassicPBSParameters, MultiBitPBSParameters, PBSOrder
+from ..ops.torus import to_numpy, to_tensor
+from ..params import (ClassicPBSParameters, MultiBitPBSParameters, PBSOrder,
+                      WopbsParameters)
 from .ciphertext import CheckError, Ciphertext, NOMINAL_NOISE, ShortintBatch
 from .client_key import ClientKey
 
@@ -59,7 +62,8 @@ class ServerKey:
     layout on the Shoup MAC kernel (`core.CLASSIC_MODES`); for multi-bit
     ones one of `fused_multibit.MODES` (default "scan3") or "ntt", the
     multi-bit CRT-NTT key layout (`core.MULTI_BIT_MODES`); any other value
-    raises."""
+    raises.  WoPBS parameters have the classic PBS fields and make a
+    classic key (its L*G up to 18 in "scan2", whose K2 takes that)."""
 
     def __init__(self, cks: ClientKey, _raw=None, device=None,
                  mode: Optional[str] = None):
@@ -110,8 +114,8 @@ class ServerKey:
         self.ciphertext_lwe_size = p.ciphertext_lwe_size
 
     @classmethod
-    def from_raw(cls, params: ClassicPBSParameters | MultiBitPBSParameters,
-                 bsk, ksk, device="cuda",
+    def from_raw(cls, params: ClassicPBSParameters | MultiBitPBSParameters
+                 | WopbsParameters, bsk, ksk, device="cuda",
                  mode: Optional[str] = None) -> "ServerKey":
         """Rebuild a server key from raw standard-domain BSK / KSK arrays
         (numpy uint64 or int64 tensors); a multi-bit BSK is
@@ -430,9 +434,39 @@ class ServerKey:
 
 def gen_keys(params: ClassicPBSParameters | MultiBitPBSParameters,
              seed: Optional[int] = None, device="cuda",
-             mode: Optional[str] = None):
+             mode: Optional[str] = None, cache_dir: Optional[str] = None):
     """(ref: shortint/mod.rs:87 gen_keys) -> (ClientKey, ServerKey), both on
     `device`, the server key's blind rotation in schedule `mode` (None: the
-    key kind's default).  Nothing is cached on disk."""
+    key kind's default).
+
+    With `cache_dir` and a fixed seed the raw BSK and KSK are kept on disk,
+    keyed by (parameter set name, seed), in the reference's file
+    (tfhe_tpu/shortint/server_key.py:468-490: the same name and arrays, so
+    both packages share it) under a file lock; a hit rebuilds the server
+    key on `device` and fast-forwards the encryption generator past the
+    key generation, so the client key encrypts as if it had made them."""
     cks = ClientKey(params, seed=seed, device=device)
-    return cks, ServerKey(cks, mode=mode)
+    if cache_dir is None or seed is None:
+        return cks, ServerKey(cks, mode=mode)
+    os.makedirs(cache_dir, exist_ok=True)
+    path = os.path.join(cache_dir, f"{params.name}_s{seed}.npz")
+    with open(path + ".lock", "w") as lock_f:
+        fcntl.flock(lock_f, fcntl.LOCK_EX)
+        try:
+            if os.path.exists(path):
+                with np.load(path) as data:
+                    cks.enc_gen.mask.current = int(data["mask_cur"])
+                    cks.enc_gen.noise.current = int(data["noise_cur"])
+                    raw = (data["bsk"], data["ksk"])
+                return cks, ServerKey(cks, _raw=raw, mode=mode)
+            sks = ServerKey(cks, mode=mode)
+            tmp = path + ".tmp"
+            with open(tmp, "wb") as f:
+                np.savez(f, bsk=to_numpy(sks.raw_bsk),
+                         ksk=to_numpy(sks.raw_ksk),
+                         mask_cur=cks.enc_gen.mask.current,
+                         noise_cur=cks.enc_gen.noise.current)
+            os.replace(tmp, path)
+            return cks, sks
+        finally:
+            fcntl.flock(lock_f, fcntl.LOCK_UN)

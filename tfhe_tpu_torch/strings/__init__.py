@@ -1,7 +1,5 @@
 """Encrypted ASCII strings (port of `tfhe_tpu/strings`; ref: tfhe/examples/
-fhe_strings/), on radix integers of NUMBER_BLOCKS blocks a char.  The
-reference's on-disk key cache has no counterpart: nothing is written to
-disk."""
+fhe_strings/), on radix integers of NUMBER_BLOCKS blocks a char."""
 
 from typing import Optional
 
@@ -15,11 +13,13 @@ from .server_key import StringServerKey
 
 
 def gen_keys(params: ClassicPBSParameters = PARAM_MESSAGE_2_CARRY_2_KS_PBS,
-             seed: Optional[int] = None, device="cuda"):
+             seed: Optional[int] = None, device="cuda",
+             cache_dir: Optional[str] = None):
     """(ref: fhe_strings/ciphertext.rs gen_keys) -> (StringClientKey,
     StringServerKey) on `device` (the card unless the caller passes
-    "cpu")."""
-    cks, sks = gen_keys_radix(params, NUMBER_BLOCKS, seed=seed, device=device)
+    "cpu"); `cache_dir` as `shortint.gen_keys`."""
+    cks, sks = gen_keys_radix(params, NUMBER_BLOCKS, seed=seed, device=device,
+                              cache_dir=cache_dir)
     return StringClientKey(cks), StringServerKey(sks)
 
 

@@ -1,4 +1,19 @@
-"""Utilities (port of `tfhe_tpu/utils`): for now only the errors of the
-serialization layer, which the ciphertexts' conformance checks raise.  The
-wire format, the key cache and the safe (de)serialization wait for ROADMAP
-A.6."""
+"""Utilities (port of `tfhe_tpu/utils`): the wire format with its size
+limit and conformance checks, and the key cache.  The reference's JAX
+compilation cache and profiling helpers have no counterpart."""
+
+from .keycache import KEY_CACHE, KeyCache
+from .serialization import (ConformanceError, DeserializationError,
+                            deserialize, safe_deserialize, safe_serialize,
+                            serialize)
+
+__all__ = [
+    "KeyCache",
+    "KEY_CACHE",
+    "ConformanceError",
+    "DeserializationError",
+    "safe_serialize",
+    "safe_deserialize",
+    "serialize",
+    "deserialize",
+]

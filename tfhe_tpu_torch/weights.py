@@ -6,7 +6,8 @@ high-level keys hold them in `ClientKey.radix.key` and
 `ServerKey.integer_key.key`); its boolean `ServerKey` keeps no raw keys, so
 those come from its `core.generate_bootstrap_key` /
 `generate_keyswitch_key`, and its u128 bootstrap key from
-`core.generate_bootstrap_key_u128`.  These
+`core.generate_bootstrap_key_u128`; its `WopbsKey` holds the pfpksk list
+as `cbs.pfpksk_list`.  These
 functions turn such arrays into the port's keys, so both packages can
 compute on the same keys.  They take plain numpy arrays and import nothing
 from the JAX package.
@@ -22,8 +23,8 @@ from . import api, boolean
 from .integer import IntegerServerKey, RadixClientKey
 from .ops.polymul_ntt import PreparedBskNtt, prepare_bsk_ntt
 from .params import (BooleanParameters, ClassicPBSParameters,
-                     MultiBitPBSParameters)
-from .shortint import ClientKey, ServerKey
+                     MultiBitPBSParameters, WopbsParameters)
+from .shortint import ClientKey, ServerKey, WopbsKey
 
 
 def server_key_from_reference(
@@ -127,3 +128,21 @@ def bootstrap_key_u128_from_reference(
         raise ValueError(f"u128 BSK of {raw_bsk.dtype} {tuple(raw_bsk.shape)}"
                          f", expected uint64 {want}")
     return prepare_bsk_ntt(raw_bsk, base_log, bits=128, device=device)
+
+
+def wopbs_key_from_reference(
+        params: WopbsParameters, raw_bsk, raw_ksk, pfpksk, device="cuda",
+        mode: Optional[str] = None) -> WopbsKey:
+    """The port's WopbsKey from the reference's raw arrays: its server
+    key's `raw_bsk` [n, L, G, G, N] and `raw_ksk` [k*N, ks_level, n+1], and
+    its WoPBS key's `cbs.pfpksk_list` [G, k*N+1, pfks_level, G, N], after a
+    check of the pfpksk's shape; the server key's blind rotation in
+    schedule `mode` (None: "scan2")."""
+    G, N = params.glwe_size, params.polynomial_size
+    want = (G, params.big_lwe_dimension + 1, params.pfks_level, G, N)
+    if tuple(pfpksk.shape) != want:
+        raise ValueError(f"{params.name}: pfpksk of shape "
+                         f"{tuple(pfpksk.shape)}, expected {want}")
+    sks = server_key_from_reference(params, raw_bsk, raw_ksk, device=device,
+                                    mode=mode)
+    return WopbsKey.from_raw(params, sks, np.asarray(pfpksk, np.uint64))
