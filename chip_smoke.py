@@ -37,7 +37,7 @@ Phases, each printing one flushed line with its wall time:
      main_path_integer on the same keys (the radix integer layer at 32
      blocks, a u64: add, sub, mul, bitxor, scalar_mul, scalar_left_shift,
      eq, lt, max, if_then_else, neg, the signed add and lt on seeded pairs
-     with 0, 2^63 and 2^64 - 1 among them, each op warmed up once first,
+     with 0, 2^63 and 2^64 - 1 among them (the first pair's run cold),
      div_rem at 8 blocks, on basis [2, 3] a chain of four CRT adds (two
      carry-clearing PBS batches) and a CRT mul; every result decrypted right, each
      op's PBS batches and wall ms, n launches of K1 and of K2 per PBS
@@ -56,7 +56,7 @@ Phases, each printing one flushed line with its wall time:
      same keys, 4 blocks a char: eq, contains, find, to_uppercase, trim,
      split, replace and nth_encrypted on strings of 8 to 16 characters and
      BatchedStringOps.contains over 64 texts, equal to Python's `str`, PBS
-     batches and warm ms each), card_vs_cpu_strings (eq, contains, find,
+     batches and ms each, one run), card_vs_cpu_strings (eq, contains, find,
      to_uppercase, nth_encrypted and the compact push_padding_to_end at
      PARAM_MESSAGE_2_CARRY_2_COMPACT_TEST, card == CPU word for word), and
      main_path_pbs_ks (PARAM_MESSAGE_2_CARRY_2_COMPACT_PK_PBS_KS keys on
@@ -107,24 +107,24 @@ Phases, each printing one flushed line with its wall time:
      main paths' call), with device, eager and plain times and bounds of a
      step;
  14. main_path_ntt: mode="ntt" (the CRT-NTT layout, one K10 launch a step)
-     at full width: PARAM_MESSAGE_2_CARRY_2_KS_PBS keys on the card, two
-     LUTs on 64 messages, and boolean DEFAULT_PARAMETERS, nand and mux on
-     64 seeded bits (two gate batches keep the smoke inside its watchdog;
-     every gate runs in main_path_boolean); decrypted right, word for word equal to scan2 keys
+     at full width: PARAM_MESSAGE_2_CARRY_2_KS_PBS keys on the card, one
+     LUT on 64 messages, and boolean DEFAULT_PARAMETERS, mux on 64 seeded
+     bit triples (one LUT and one gate batch keep the smoke inside its
+     watchdog; every gate runs in main_path_boolean); decrypted right,
+     word for word equal to scan2 keys
      rebuilt from the same raw keys, K10 launched exactly n times per PBS
      batch and nothing else launched;
  15. main_path_u128: the u128 PBS at the PBS widths and noise of
      PARAM_MESSAGE_2_CARRY_2_KS_PBS (n=742, N=2048, k=1, base_log 23, one
-     level): keygen on the card, the identity and (3x+1) mod 4 LUTs on 64
-     encryptions, all decrypted right, n K10 launches per rotation;
+     level): keygen on the card, the (3x+1) mod 4 LUT on 64 encryptions,
+     decrypted right, n K10 launches per rotation;
  16. card_vs_cpu_ntt: mode="ntt" shortint and boolean at the TEST sets and
      the u128 PBS at tests/test_u128.py's toy size, card == CPU word for
      word (keys, ciphertexts, outputs);
- 17. timing_ntt: PBS/s (gates/s) and batch ms at B=64 (after a warm-up)
-     and B=256 (after the B=64 runs) for
-     shortint mode="ntt", the u128 PBS and boolean mode="ntt", and a
-     CUDA-event split of one step into decomposition, forward NTT, K10 (one
-     launch), inverse NTT and CRT;
+ 17. timing_ntt: PBS/s (gates/s) and batch ms at B=64 (one run, after
+     the main paths ran these paths) for shortint mode="ntt", the u128 PBS and boolean mode="ntt", and a
+     CUDA-event split of one step at B=64 into decomposition, forward NTT,
+     K10 (one launch), inverse NTT and CRT;
  18. main_path_api (after main_path_strings): the high-level API at full
      width, generate_keys on the ConfigBuilder default
      (PARAM_MESSAGE_2_CARRY_2_KS_PBS) with fused=True, set_server_key,
@@ -142,10 +142,10 @@ Phases, each printing one flushed line with its wall time:
  20. main_path_examples (its radix half after main_path_strings, its
      boolean half after timing_boolean): the dark market (one order book
      at 8 blocks) and three regex patterns on the main path's keys;
-     SHA-256 (a 4-round compression and one schedule word) and Trivium
+     SHA-256 (a 2-round compression and one schedule word) and Trivium
      (the full 1152-step warm-up, the first 64 keystream bits against the
      KAT FBE0BF265859051B, one transciphered word) on main_path_boolean's
-     keys; `python -m tfhe_tpu_torch.examples.fhe_strings_cli abcab ab
+     keys; `python -m tfhe_tpu_torch.examples.fhe_strings_cli aba a
      --real-params` as a subprocess (exit 0, 14 ops ok); each part
      decrypted against its clear function, its wall s and PBS (gate)
      batches.
@@ -177,6 +177,25 @@ Phases, each printing one flushed line with its wall time:
      PARAM_4_BITS_5_BLOCKS on its 16 values, decrypted;
  24. card_vs_cpu_wopbs: a WoPBS at WOPBS_PARAM_MESSAGE_2_CARRY_2_TEST on
      the card and on the CPU from one seed, identical words.
+ 25. main_path_parallel (after main_path_integer_fused, on the main path's
+     keys): parallel/ on a one-rank NCCL group (create_mesh() -> (1, 1)),
+     shard_server_key, the batch-sharded keyswitch + PBS of 64 messages,
+     the batch-sharded add (B = 4) and mul (B = 2) of u64s (32 blocks),
+     the batch-sharded strings contains over 8 texts and the block-sharded
+     add (B = 4, 32 blocks); each decrypted right and equal word for word
+     to the unsharded chain, with its PBS batches, cold and warm ms, K1
+     and K2 launches (n a PBS batch) and point-to-point ops (0 at one
+     rank); with two cards or more, the block- and batch-sharded adds on
+     two NCCL ranks too; `ranks` lists the world sizes run; the group is
+     destroyed at the end;
+ 26. checkpoint_resume: ResumableBatchRunner over 256 ciphertexts in
+     chunks of 64 on the card, a failure injected after chunk 2, a fresh
+     runner that resumes and runs only the remaining chunk, equal to an
+     uninterrupted run; the CPU's load of a chunk's file equal to the
+     card's words; ms per save and per load;
+ 27. profiling: utils.trace around one B=64 LUT batch: the K1 and K2
+     kernel events in the trace equal to the wrappers' launch counters
+     (n each), and the traced device-busy share of the batch.
 Kernel times are device times: a CUDA graph of many launches replayed
 between CUDA events (a whole rotation, persistent or single-CTA: CUDA events
 around a few eager launches); the eager per-launch times beside them include
@@ -194,8 +213,10 @@ traceback.
 import dataclasses
 import faulthandler
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -1205,9 +1226,9 @@ def integer_main_path(cks, sks):
     and lt on seeded pairs with 0, 2^63 and 2^64 - 1 among them; div_rem
     at 8 blocks; on basis [2, 3] a chain of four CRT adds (the third
     clears both operands' carries, a PBS batch each: a single add of fresh
-    blocks is linear and launches nothing) and a CRT mul.  Each op runs once on the
-    first pair as a warm-up (its wall ms kept apart as `cold_ms`), then
-    once a pair.  Every result decrypted and equal to the clear one; each
+    blocks is linear and launches nothing) and a CRT mul.  Each op runs
+    once a pair; the first pair's run, the op's first, is kept apart as
+    `cold_ms`.  Every result decrypted and equal to the clear one; each
     op's PBS batches and wall ms per call (host clock, synchronised; one
     entry a pair); K1 and K2 launched exactly n times per PBS batch
     (scan2), warm-up included, nothing else launched.  Returns the
@@ -1226,7 +1247,9 @@ def integer_main_path(cks, sks):
     def u64():
         return int.from_bytes(rng.bytes(8), "little")
 
-    pairs = [(0, 2**64 - 1), (2**63, 2**64 - 1), (u64(), u64())]
+    # two pairs (three, with (2^63, 2^64 - 1), until the parallel,
+    # checkpoint and profiling phases needed the smoke's time)
+    pairs = [(0, 2**64 - 1), (2**63, u64())]
     scalar = 0x9E3779B97F4A7C15
     fp.reset_launch_counts()
     counted, calls = counting_pbs(sks)
@@ -1266,8 +1289,8 @@ def integer_main_path(cks, sks):
 
     def run(name, fn, want, dec, cold=False):
         """fn() timed and its PBS batches counted, one entry per call under
-        `name` (a warm-up call's ms under cold_ms, its batches only in the
-        total); dec decrypts each of its results."""
+        `name` (an op's first call's ms under cold_ms, its batches only in
+        the total); dec decrypts each of its results."""
         torch.cuda.synchronize()
         calls[0] = 0
         t = time.time()
@@ -1283,7 +1306,10 @@ def integer_main_path(cks, sks):
         if got != want:
             wrong.append((name, str(got), str(want)))
 
-    for i, (x, y) in enumerate([pairs[0]] + pairs):
+    # the first pair's run is each op's first, its cold one (a separate
+    # warm-up run on it was cut when the parallel, checkpoint and
+    # profiling phases needed the smoke's time)
+    for i, (x, y) in enumerate(pairs):
         enc = {False: (rck.encrypt(x), rck.encrypt(y)),
                True: (rck.encrypt_signed(signed(x)),
                       rck.encrypt_signed(signed(y)))}
@@ -1315,7 +1341,7 @@ def integer_main_path(cks, sks):
     say("main_path_integer", t0, params=p.name, num_blocks=nb,
         pairs=[[str(v) for v in pr] for pr in pairs], scalar=str(scalar),
         pbs_batches=batches, wall_ms=wall_ms, cold_ms=cold_ms,
-        warm_up_pbs_batches=cold_batches[0], wrong=wrong,
+        cold_pbs_batches=cold_batches[0], wrong=wrong,
         launches=launches)
     if batches["crt_add_x4"] != [2]:
         raise AssertionError(f"the CRT add chain ran "
@@ -1421,7 +1447,9 @@ def integer_fused_main_path(cks, sks, host_ms, host_batches):
     def u64():
         return int.from_bytes(rng.bytes(8), "little")
 
-    pairs = [(0, 2**64 - 1), (2**63, 2**64 - 1), (u64(), u64())]
+    # two pairs (three, with (2^63, 2^64 - 1), until the parallel,
+    # checkpoint and profiling phases needed the smoke's time)
+    pairs = [(0, 2**64 - 1), (2**63, u64())]
     rck = integer.RadixClientKey(p, nb, _key=cks)
     isk = integer.IntegerServerKey(sks, fused=True)
     fp.reset_launch_counts()
@@ -1496,6 +1524,392 @@ def integer_fused_main_path(cks, sks, host_ms, host_batches):
     return launches
 
 
+PARALLEL_TEXTS = ("homomorphic", "ciphertexts", "bootstrapping",
+                  "blind rotation", "key switching", "lookup tables",
+                  "graph of hops", "alphabet soup")
+PARALLEL_PATTERN = "ph"
+PARALLEL_BLOCKS = 32  # a u64
+
+
+def radix_value(cks, row, msg):
+    """The clear value of radix blocks [nb, lwe] (least significant
+    first)."""
+    return sum(int(d) * msg**j for j, d in enumerate(cks.decrypt_batch(row)))
+
+
+def parallel_rank(rank, store, a, b, seed, out_dir):
+    """One of two NCCL ranks (card `rank`) of main_path_parallel: keys from
+    seed + rank (shard_server_key makes rank 0's every rank's), the
+    block-sharded add over both ranks and the batch-sharded add, rank 1
+    handing `place` zeros; each rank writes the gathered words."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from tfhe_tpu_torch import parallel, shortint
+    from tfhe_tpu_torch.params import PARAM_MESSAGE_2_CARRY_2_KS_PBS
+
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", init_method=f"file://{store}",
+                            world_size=2, rank=rank)
+    try:
+        _, sks = shortint.gen_keys(PARAM_MESSAGE_2_CARRY_2_KS_PBS,
+                                   seed=seed + rank, device="cuda")
+        if rank:
+            a, b = np.zeros_like(a), np.zeros_like(b)
+        nb = a.shape[1]
+        for name, (step, place) in (
+                ("blockshard", parallel.make_blockshard_radix_add(
+                    parallel.create_mesh((2,), ("batch",)), sks, nb)),
+                ("batch", parallel.make_sharded_radix_add(
+                    parallel.create_mesh((2, 1)), sks, nb))):
+            out = step(place(a), place(b)).full_tensor()
+            np.save(f"{out_dir}/{name}_{rank}.npy",
+                    out.cpu().numpy().view(np.uint64))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def parallel_two_ranks(a, b, want, workdir):
+    """The block- and batch-sharded adds on two NCCL ranks, one spawned
+    process a card: every rank's words equal `want` (the unsharded add's
+    on one card).  Returns the ms from spawn to join."""
+    import numpy as np
+    import torch.multiprocessing as mp
+
+    from tfhe_tpu_torch.ops.torus import to_numpy
+
+    t = time.time()
+    mp.start_processes(parallel_rank,
+                       args=(f"{workdir}/store", to_numpy(a), to_numpy(b),
+                             SEED, workdir),
+                       nprocs=2, start_method="spawn", join=True)
+    ms = (time.time() - t) * 1e3
+    want = to_numpy(want)
+    for name in ("blockshard", "batch"):
+        for rank in range(2):
+            got = np.load(f"{workdir}/{name}_{rank}.npy")
+            if not np.array_equal(got, want):
+                raise AssertionError(f"two NCCL ranks: the {name}-sharded "
+                                     f"add on rank {rank} differs")
+    return ms
+
+
+def parallel_main_path(cks, sks, workdir):
+    """parallel/ at full width on the main path's PARAM_MESSAGE_2_CARRY_2_
+    KS_PBS keys (scan2): a one-rank NCCL group on a private store and
+    create_mesh() -> (1, 1) over ("batch", "poly"); shard_server_key (the
+    words kept); then, each on DTensors from `place` / shard_batch, the
+    batch-sharded keyswitch + PBS of 64 messages, the batch-sharded add of
+    B = 4 and mul of B = 2 u64s (32 blocks), the batch-sharded strings
+    contains over 8 texts of 11-14 chars and the block-sharded add of the
+    same B = 4 u64s; each decrypted against Python and equal word for word
+    to the unsharded chain (integer.fused) on the same inputs.  Per op: PBS
+    batches (K1 launches / n), cold and warm ms (host clock, synchronised),
+    K1 and K2 launches of one run (n a PBS batch, as many as the unsharded
+    chain's, nothing else launched) and point-to-point ops (0 at one
+    rank).  With two cards or more, two NCCL ranks run the block- and
+    batch-sharded adds too, with equal words.  The group is destroyed at
+    the end.  Returns the launches of the sharded runs."""
+    import functools
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from tfhe_tpu_torch import integer, parallel
+    from tfhe_tpu_torch.core import keyswitch_then_pbs
+    from tfhe_tpu_torch.ops import fused_pbs as fp
+    from tfhe_tpu_torch.parallel import fused as PF
+    from tfhe_tpu_torch.parallel.sharding import batch_spec
+    from tfhe_tpu_torch.strings import NUMBER_BLOCKS
+
+    t0 = time.time()
+    p, nb = sks.params, PARALLEL_BLOCKS
+    n, msg = p.lwe_dimension, p.message_modulus
+    mod = msg ** nb
+    rng = np.random.default_rng(SEED + 18)
+    mesh = parallel.create_mesh()
+    if (dist.get_backend() != "nccl" or tuple(mesh.shape) != (1, 1)
+            or mesh.mesh_dim_names != ("batch", "poly")):
+        raise AssertionError(f"mesh {mesh} on {dist.get_backend()}")
+    t = time.time()
+    bsk, ksk = parallel.shard_server_key(mesh, sks.bsk, sks.ksk)
+    torch.cuda.synchronize()
+    key_ms = (time.time() - t) * 1e3
+    if not (torch.equal(bsk.kspec, sks.bsk.kspec)
+            and torch.equal(bsk.kshoup, sks.bsk.kshoup)
+            and torch.equal(ksk.matrix, sks.ksk.matrix)):
+        raise AssertionError("shard_server_key changed the key's words")
+
+    def u64():
+        return int.from_bytes(rng.bytes(8), "little")
+
+    rck = integer.RadixClientKey(p, nb, _key=cks)
+
+    def radix(vals):
+        return torch.stack([rck.encrypt(v).blocks.data for v in vals])
+
+    launches, ops, wrong, differs, bad_counts = {}, {}, [], [], []
+
+    def run(name, step, args, unsharded, check):
+        fp.reset_launch_counts()
+        PF.reset_p2p_counts()
+        torch.cuda.synchronize()
+        t = time.time()
+        out = step(*args).full_tensor()
+        torch.cuda.synchronize()
+        cold_ms = (time.time() - t) * 1e3
+        counts = launched(fp.KERNELS)
+        p2p = PF._shift_up_collective.p2p_ops
+        t = time.time()
+        again = step(*args).full_tensor()
+        torch.cuda.synchronize()
+        warm_ms = (time.time() - t) * 1e3
+        for k, v in launched(fp.KERNELS).items():
+            launches[k] = launches.get(k, 0) + v
+        fp.reset_launch_counts()
+        want = unsharded()
+        torch.cuda.synchronize()
+        plain_counts = launched(fp.KERNELS)
+        k1 = counts.get("rotate_decompose", 0)
+        ops[name] = dict(pbs_batches=k1 // n, cold_ms=cold_ms,
+                         warm_ms=warm_ms, k1_launches=k1,
+                         k2_launches=counts.get("external_product_crt", 0),
+                         p2p_ops=p2p)
+        if not (torch.equal(out, want) and torch.equal(again, out)):
+            differs.append(name)
+        if (counts != {"rotate_decompose": k1, "external_product_crt": k1}
+                or not k1 or k1 % n or counts != plain_counts or p2p):
+            bad_counts.append((name, counts, plain_counts, p2p))
+        if not check(out):
+            wrong.append(name)
+        return out
+
+    # the keyswitch + PBS of 64 messages, the batch on the batch axis
+    msgs = np.arange(B_MAIN) % p.total_modulus
+    cts = cks.encrypt_batch(msgs).data
+    lut = sks.generate_lookup_table(lambda x: (3 * x + 1) % 16)
+    step, _ = PF.bind_to_mesh(mesh, batch_spec(2), functools.partial(
+        PF.fused_ks_pbs, ksk, bsk, lut.acc))
+    run("ks_pbs", step, (parallel.shard_batch(mesh, cts),),
+        lambda: keyswitch_then_pbs(sks.ksk, sks.bsk, lut.acc, cts),
+        lambda out: np.array_equal(cks.decrypt_batch_message_and_carry(out),
+                                   (3 * msgs + 1) % 16))
+
+    xs = [0, 2**64 - 1, 2**63, u64()]
+    ys = [2**64 - 1, 1, 2**63, u64()]
+    a, b = radix(xs), radix(ys)
+    sums = [(x + y) % mod for x, y in zip(xs, ys)]
+    add_step, place = parallel.make_sharded_radix_add(mesh, sks, nb)
+    add = run("sharded_add", add_step, (place(a), place(b)),
+              lambda: add_step.chain(a, b),
+              lambda out: [radix_value(cks, r, msg) for r in out] == sums)
+
+    step, place = parallel.make_sharded_radix_mul(mesh, sks, nb)
+    run("sharded_mul", step, (place(a[2:]), place(b[2:])),
+        lambda: step.chain(a[2:], b[2:]),
+        lambda out: [radix_value(cks, r, msg) for r in out]
+        == [x * y % mod for x, y in zip(xs[2:], ys[2:])])
+
+    width = max(len(s) for s in PARALLEL_TEXTS)
+    chars = torch.stack([cks.encrypt_batch([
+        (c // msg**d) % msg for c in [ord(ch) for ch in text]
+        + [0] * (width - len(text)) for d in range(NUMBER_BLOCKS)]).data
+        .reshape(width, NUMBER_BLOCKS, -1) for text in PARALLEL_TEXTS])
+    step, place = parallel.make_sharded_strings_contains(
+        mesh, sks, PARALLEL_PATTERN)
+    run("sharded_strings_contains", step, (place(chars),),
+        lambda: step.chain(chars),
+        lambda out: cks.decrypt_batch(out).tolist()
+        == [int(PARALLEL_PATTERN in s) for s in PARALLEL_TEXTS])
+
+    step, place = parallel.make_blockshard_radix_add(
+        parallel.create_mesh((1,), ("batch",)), sks, nb)
+    run("blockshard_add", step, (place(a), place(b)),
+        lambda: add_step.chain(a, b),
+        lambda out: [radix_value(cks, r, msg) for r in out] == sums)
+
+    ranks = [1]
+    two_rank_ms = None
+    if torch.cuda.device_count() >= 2:
+        two_rank_ms = parallel_two_ranks(a, b, add, workdir)
+        ranks.append(2)
+    dist.destroy_process_group()
+    say("main_path_parallel", t0, params=p.name, num_blocks=nb,
+        mode=sks.mode, backend="nccl", mesh=[1, 1], ranks=ranks,
+        shard_server_key_ms=key_ms, texts=list(PARALLEL_TEXTS),
+        pattern=PARALLEL_PATTERN, ops=ops, two_rank_ms=two_rank_ms,
+        wrong=wrong, differs_from_unsharded=differs, bad_counts=bad_counts,
+        launches=launches)
+    if wrong or differs or bad_counts or dist.is_initialized():
+        raise AssertionError(f"parallel: wrong {wrong}, differs from the "
+                             f"unsharded chain {differs}, counts "
+                             f"{bad_counts}")
+    return launches
+
+
+def checkpoint_main_path(cks, sks, workdir):
+    """ResumableBatchRunner over 256 ciphertexts in chunks of 64 on the
+    card (one LUT batch a chunk) on the main path's keys: an uninterrupted
+    run; a run whose fourth chunk fails (a failure injected after chunk 2,
+    no retry); a fresh runner that resumes and runs only the remaining
+    chunk, its result equal word for word to the uninterrupted run's and
+    decrypted right; the CPU's deserialization of one chunk's file equal to
+    the card's words.  ms per save and per load (host clock around the
+    manager's calls; a save copies the chunk from the card, a load to it).
+    Returns the launches (8 LUT batches)."""
+    import numpy as np
+    import torch
+
+    from tfhe_tpu_torch.ops import fused_pbs as fp
+    from tfhe_tpu_torch.parallel import CheckpointManager, ResumableBatchRunner
+    from tfhe_tpu_torch.shortint.ciphertext import ShortintBatch
+
+    t0 = time.time()
+    p = sks.params
+    total, chunk = 4 * B_MAIN, B_MAIN
+    msgs = np.arange(total) % p.total_modulus
+    data = cks.encrypt_batch(msgs).data
+    lut = sks.generate_lookup_table(lambda x: (x + 5) % 16)
+    save_ms, load_ms = [], []
+
+    class Timed(CheckpointManager):
+        def save(self, step, objects):
+            t = time.time()
+            super().save(step, objects)
+            save_ms.append((time.time() - t) * 1e3)
+
+        def load(self, step, device=None):
+            t = time.time()
+            out = super().load(step, device)
+            torch.cuda.synchronize()
+            load_ms.append((time.time() - t) * 1e3)
+            return out
+
+    def wrap(words):
+        return ShortintBatch(
+            data=words, degrees=np.full(words.shape[0], p.total_modulus - 1),
+            message_modulus=p.message_modulus, carry_modulus=p.carry_modulus)
+
+    calls = []
+
+    def fn(fail_at=None):
+        def lut_batch(words):
+            calls.append(1)
+            if len(calls) == fail_at:
+                raise RuntimeError("injected device loss")
+            return sks.apply_lookup_table_batch(wrap(words), lut).data
+        return lut_batch
+
+    fp.reset_launch_counts()
+    whole = ResumableBatchRunner(Timed(f"{workdir}/whole"), chunk).run(
+        fn(), data, wrap, lambda b: b.data)
+    mgr = Timed(f"{workdir}/job")
+    calls.clear()
+    try:
+        ResumableBatchRunner(mgr, chunk, max_retries=0).run(
+            fn(fail_at=4), data, wrap, lambda b: b.data)
+    except RuntimeError as e:
+        if "injected" not in str(e):
+            raise
+    else:
+        raise AssertionError("the injected failure did not stop the run")
+    crashed_at = mgr.latest_step()
+    calls.clear()
+    out = ResumableBatchRunner(Timed(f"{workdir}/job"), chunk,
+                               max_retries=0).run(fn(), data, wrap,
+                                                  lambda b: b.data)
+    torch.cuda.synchronize()
+    resumed_chunks = len(calls)
+    launches = launched(fp.KERNELS)
+    cpu_chunk = CheckpointManager(f"{workdir}/job", device="cpu").load(
+        1)["chunk"].data
+    correct = int(np.sum(cks.decrypt_batch_message_and_carry(out)
+                         == (msgs + 5) % 16))
+    same_cpu = bool(torch.equal(cpu_chunk, out[chunk:2 * chunk].cpu()))
+    say("checkpoint_resume", t0, params=p.name, ciphertexts=total,
+        chunk=chunk, crashed_after_step=crashed_at,
+        resumed_chunks=resumed_chunks, equal_to_uninterrupted=bool(
+            torch.equal(out, whole)), correct=correct,
+        cpu_load_equal=same_cpu, save_ms=save_ms, load_ms=load_ms,
+        chunk_bytes=os.path.getsize(
+            f"{workdir}/job/host0_step00000001/chunk.bin"),
+        launches=launches)
+    batches = 2 * total // chunk  # the uninterrupted run, 3 + 1 chunks
+    want = {k: batches * v for k, v in
+            rotation_launches("scan2", p.lwe_dimension).items()}
+    if (crashed_at != 2 or resumed_chunks != 1 or not torch.equal(out, whole)
+            or correct != total or not same_cpu or launches != want):
+        raise AssertionError(f"checkpoint and resume failed (launches "
+                             f"{launches}, expected {want})")
+    return launches
+
+
+def profiling_main_path(cks, sks, workdir):
+    """utils.trace around one B = 64 LUT batch on the main path's keys (an
+    annotated region that ends in a synchronise, after a warm-up): the K1
+    and K2 kernel events (rotate_decompose_kernel,
+    external_product_cluster_kernel) in the Chrome trace it writes against
+    the wrappers' launch counters (n each), their summed device ms, and the
+    device-busy share of the region: the union of the trace's kernel,
+    memcpy and memset intervals over the region's span.  Returns the
+    launches."""
+    import glob
+
+    import numpy as np
+    import torch
+
+    from tfhe_tpu_torch.ops import fused_pbs as fp
+    from tfhe_tpu_torch.utils import annotate, trace
+
+    t0 = time.time()
+    n = sks.params.lwe_dimension
+    batch = cks.encrypt_batch(np.arange(B_MAIN) % 16)
+    lut = sks.generate_lookup_table(lambda x: (x * 7) % 16)
+    sks.apply_lookup_table_batch(batch, lut)  # warm-up
+    torch.cuda.synchronize()
+    fp.reset_launch_counts()
+    logdir = f"{workdir}/trace"
+    with trace(logdir):
+        with annotate("lut_batch_b64"):
+            sks.apply_lookup_table_batch(batch, lut)
+            torch.cuda.synchronize()
+    counts = launched(fp.KERNELS)
+    (path,) = glob.glob(f"{logdir}/*.pt.trace.json")
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    (region,) = [e for e in events if e.get("name") == "lut_batch_b64"
+                 and e.get("cat") == "user_annotation"]
+    lo, hi = region["ts"], region["ts"] + region["dur"]
+    device = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                    if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy, end = 0.0, lo
+    for s, e in device:  # the union of the device intervals in the region
+        s, e = max(s, end), min(e, hi)
+        if e > s:
+            busy += e - s
+            end = e
+    kernels = {"rotate_decompose": "rotate_decompose_kernel",
+               "external_product_crt": "external_product_cluster_kernel"}
+    traced = {k: [e["dur"] for e in events if e.get("cat") == "kernel"
+                  and v in e.get("name", "")] for k, v in kernels.items()}
+    say("profiling", t0, params=sks.params.name, batch=B_MAIN,
+        trace_bytes=os.path.getsize(path), region_ms=(hi - lo) / 1e3,
+        device_busy_ms=busy / 1e3, device_busy_share=busy / (hi - lo),
+        device_events=len(device),
+        traced_launches={k: len(v) for k, v in traced.items()},
+        traced_device_ms={k: sum(v) / 1e3 for k, v in traced.items()},
+        counted_launches=counts)
+    want = {k: n for k in kernels}
+    if counts != want or {k: len(v) for k, v in traced.items()} != want:
+        raise AssertionError(
+            f"the trace holds {[len(v) for v in traced.values()]} K1 / K2 "
+            f"events, the counters {counts}; expected {want}")
+    return counts
+
+
 def batched_main_path(cks, sks):
     """BatchedRadixOps on the main path's keys: B = 64 radix integers of 8
     blocks, add, mul and lt in both carry schedules ("scan" and "ripple"),
@@ -1558,9 +1972,11 @@ def strings_main_path(cks, sks):
     keys (4 blocks a char, no second keygen): eq, contains, find,
     to_uppercase, trim, split, replace and nth_encrypted on strings of 8 to
     16 characters, and BatchedStringOps.contains over 64 texts of up to 16;
-    each op once cold and once timed (host clock, synchronised), its PBS
-    batches counted; every result equal to Python's `str`.  Returns the
-    launches."""
+    each op run once and timed (host clock, synchronised; a second, warm
+    run was cut when the parallel, checkpoint and profiling phases needed
+    the smoke's time: no string op captures a graph, so the two read
+    alike), its PBS batches counted; every result equal to Python's
+    `str`.  Returns the launches."""
     import numpy as np
     import torch
 
@@ -1607,21 +2023,20 @@ def strings_main_path(cks, sks):
             lambda r: ik.key.decrypt_batch(r).tolist(),
             [int("ab" in w) for w in words]),
     }
-    ms, cold_ms, pbs_batches, wrong = {}, {}, {}, []
+    ms, pbs_batches, wrong = {}, {}, []
     for name, (fn, dec, want) in cases.items():
-        for cold in (True, False):
-            torch.cuda.synchronize()
-            calls[0] = 0
-            t = time.time()
-            out = fn()
-            torch.cuda.synchronize()
-            (cold_ms if cold else ms)[name] = (time.time() - t) * 1e3
-            pbs_batches[name] = calls[0]
-            if dec(out) != want:
-                wrong.append((name, str(dec(out)), str(want)))
+        torch.cuda.synchronize()
+        calls[0] = 0
+        t = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        ms[name] = (time.time() - t) * 1e3
+        pbs_batches[name] = calls[0]
+        if dec(out) != want:
+            wrong.append((name, str(dec(out)), str(want)))
     launches = launched(fp.KERNELS)
     say("main_path_strings", t0, params=p.name, text=text,
-        batched_texts=len(words), wall_ms=ms, cold_ms=cold_ms,
+        batched_texts=len(words), wall_ms=ms,
         pbs_batches=pbs_batches, wrong=wrong, launches=launches)
     if wrong:
         raise AssertionError(f"string ops wrong: {wrong}")
@@ -1873,12 +2288,14 @@ def reset_all_launches():
 
 def ntt_main_path(dev):
     """mode="ntt" at full width: PARAM_MESSAGE_2_CARRY_2_KS_PBS keys on the
-    card, two LUTs on 64 messages, decrypted right and equal word for word
-    to a scan2 key rebuilt from the same raw keys; boolean DEFAULT_PARAMETERS
-    nand and mux (two bootstraps in one batch) the same way (two gate
-    batches keep the smoke inside its watchdog; the other gates differ
-    only in their linear combinations, which main_path_boolean runs in
-    every mode).  K10 launches are exact:
+    card, the x // 4 LUT on 64 messages, decrypted right and equal word for
+    word to a scan2 key rebuilt from the same raw keys; boolean
+    DEFAULT_PARAMETERS mux (two bootstraps in one batch) the same way (one
+    LUT and one gate batch keep the smoke inside its watchdog: the identity
+    LUT and nand ran here until the parallel, checkpoint and profiling
+    phases needed its time; the other gates differ only in their linear
+    combinations, which main_path_boolean runs in every mode).  K10
+    launches are exact:
     n per PBS batch (one `shoup_mac_primes` launch a step), nothing else
     launches.  Returns K10's launches."""
     import numpy as np
@@ -1895,7 +2312,7 @@ def ntt_main_path(dev):
     t_keygen = time.time() - t0
     msgs = np.arange(B_MAIN) % p.total_modulus
     batch = cks.encrypt_batch(msgs)
-    funcs = (("identity", lambda x: x), ("div4", lambda x: x // 4))
+    funcs = (("div4", lambda x: x // 4),)
     reset_all_launches()
     t1 = time.time()
     outs = {name: sks.apply_lookup_table_batch(
@@ -1915,7 +2332,7 @@ def ntt_main_path(dev):
     del cks, sks, scan2, batch, outs
     torch.cuda.empty_cache()
 
-    # boolean gates and mux
+    # the boolean mux
     t2 = time.time()
     bcks, bsks = boolean.gen_keys(bp, seed=SEED, device=dev, mode="ntt")
     torch.cuda.synchronize()
@@ -1923,12 +2340,10 @@ def ntt_main_path(dev):
     x, y, z = np.random.default_rng(SEED + 1).integers(
         0, 2, (3, B_MAIN)).astype(bool)
     a, b, c = (bcks.encrypt_batch(v) for v in (x, y, z))
-    ntt_gates = ("nand",)
-    clear = {"nand": ~(x & y), "mux": np.where(z, x, y)}
+    clear = {"mux": np.where(z, x, y)}
     reset_all_launches()
     t1 = time.time()
-    gates = {g: getattr(bsks, f"{g}_batch")(a, b) for g in ntt_gates}
-    gates["mux"] = bsks.mux_batch(c, a, b)
+    gates = {"mux": bsks.mux_batch(c, a, b)}
     torch.cuda.synchronize()
     t_gates = time.time() - t1
     launches["boolean"] = all_launches()
@@ -1937,18 +2352,14 @@ def ntt_main_path(dev):
                                              == clear[g]))
     bscan2 = boolean.ServerKey.from_raw(bp, bsks.raw_bsk, bsks.raw_ksk,
                                         device=dev, mode="scan2")
-    for g in ntt_gates:
-        same[f"boolean_{g}"] = bool(torch.equal(
-            getattr(bscan2, f"{g}_batch")(a, b), gates[g]))
     same["boolean_mux"] = bool(torch.equal(bscan2.mux_batch(c, a, b),
                                            gates["mux"]))
     expected = {"shortint": {"shoup_mac_primes": p.lwe_dimension
                              * len(funcs)},
-                "boolean": {"shoup_mac_primes": bp.lwe_dimension
-                            * (len(ntt_gates) + 1)}}
+                "boolean": {"shoup_mac_primes": bp.lwe_dimension}}
     say("main_path_ntt", t0, params=[p.name, bp.name], batch=B_MAIN,
         keygen_s=dict(shortint=t_keygen, boolean=t_keygen_bool),
-        two_luts_s=t_luts, nand_and_mux_batches_s=t_gates, correct=correct,
+        lut_s=t_luts, mux_batch_s=t_gates, correct=correct,
         identical_to_scan2=same, launches=launches,
         peak_device_mb=dict(
             shortint=peak_shortint,
@@ -1980,9 +2391,10 @@ def u128_keys(dev, n, k, N, base_log, levels, lwe_std, glwe_std, seed):
                                                 device=dev), enc
 
 
-def u128_lut_check(bsk, lwe, glwe, enc, lwe_std, B):
-    """The u128 PBS of the two LUTs on B encryptions of x in [0, 4):
-    returns outputs, the ciphertexts, and the count decrypted right."""
+def u128_lut_check(bsk, lwe, glwe, enc, lwe_std, B, luts=None):
+    """The u128 PBS of `luts` (default: U128_LUTS, both) on B encryptions of
+    x in [0, 4): returns outputs, the ciphertexts, and the count decrypted
+    right."""
     import numpy as np
 
     from tfhe_tpu_torch import core
@@ -1994,7 +2406,7 @@ def u128_lut_check(bsk, lwe, glwe, enc, lwe_std, B):
     cts = core.encrypt_lwe_u128(lwe, [int(m) * delta for m in msgs], lwe_std,
                                 enc)
     outs, correct = {}, {}
-    for name, f in U128_LUTS:
+    for name, f in (U128_LUTS if luts is None else luts):
         acc = core.fill_accumulator_u128(f, N, k + 1, U128_MSUP, delta,
                                          device=glwe.device)
         outs[name] = core.programmable_bootstrap(bsk, acc, cts)
@@ -2010,9 +2422,11 @@ def u128_lut_check(bsk, lwe, glwe, enc, lwe_std, B):
 def u128_main_path(dev):
     """The u128 PBS at the PBS widths and noise of
     PARAM_MESSAGE_2_CARRY_2_KS_PBS (n = 742, N = 2048, k = 1, base_log 23,
-    one level): keygen on the card, the CRT-NTT layout, the identity and
-    (3x+1) mod 4 LUTs on 64 encryptions, all decrypted right; n K10
-    launches per rotation.  Returns K10's launches and the keys."""
+    one level): keygen on the card, the CRT-NTT layout, the (3x+1) mod 4
+    LUT on 64 encryptions, all decrypted right; n K10 launches per
+    rotation (the identity LUT, run here until the parallel, checkpoint
+    and profiling phases needed the smoke's time, runs in
+    card_vs_cpu_ntt).  Returns K10's launches and the keys."""
     import torch
 
     from tfhe_tpu_torch.params import PARAM_MESSAGE_2_CARRY_2_KS_PBS as p
@@ -2028,15 +2442,16 @@ def u128_main_path(dev):
     reset_all_launches()
     t1 = time.time()
     _, _, correct = u128_lut_check(bsk, lwe, glwe, enc,
-                                   p.lwe_modular_std_dev, B_MAIN)
+                                   p.lwe_modular_std_dev, B_MAIN,
+                                   U128_LUTS[1:])
     torch.cuda.synchronize()
     t_luts = time.time() - t1
     launches = all_launches()
-    expected = {"shoup_mac_primes": p.lwe_dimension * len(U128_LUTS)}
+    expected = {"shoup_mac_primes": p.lwe_dimension}
     say("main_path_u128", t0, widths_of=p.name, n=p.lwe_dimension,
         N=p.polynomial_size, k=p.glwe_dimension, base_log=p.pbs_base_log,
         levels=p.pbs_level, batch=B_MAIN, keygen_s=t_keygen,
-        two_luts_and_decrypt_s=t_luts, correct=correct, launches=launches,
+        lut_and_decrypt_s=t_luts, correct=correct, launches=launches,
         peak_device_mb=torch.cuda.max_memory_allocated() / 2**20)
     if any(v != B_MAIN for v in correct.values()):
         raise AssertionError(f"u128 LUTs wrong: {correct} of {B_MAIN}")
@@ -2094,10 +2509,13 @@ def ntt_card_vs_cpu(dev):
 
 
 def ntt_timing(card, dev, u128_state, rng):
-    """PBS/s and batch ms (host clock after a warm-up, launch cost
-    included) at B = 64 and 256: shortint mode="ntt", the u128 PBS, boolean
-    gates; and a CUDA-event split of one shortint and one u128 step into
-    decomposition, forward NTT, K10 (one launch), inverse NTT and CRT."""
+    """PBS/s and batch ms (host clock, launch cost included, one run) at
+    B = 64: shortint mode="ntt", the u128 PBS, boolean gates;
+    and a CUDA-event split of one shortint and one u128 step into
+    decomposition, forward NTT, K10 (one launch), inverse NTT and CRT.
+    The B = 256 rows, a second timed run and the warm-up were cut to keep
+    the smoke inside its watchdog: these layouts are off every default
+    path."""
     import numpy as np
     import torch
 
@@ -2111,18 +2529,13 @@ def ntt_timing(card, dev, u128_state, rng):
     rates, batch_ms, split_ms = {}, {}, {}
 
     def clock(key, B, run):
-        # a warm-up before the B = 64 runs; the B = 256 runs follow the
-        # same path's B = 64 runs, so they are timed without one (the
-        # smoke's time limit)
-        if B == B_MAIN:
-            run()
+        # no warm-up: main_path_ntt and main_path_u128 ran these paths at
+        # B = 64 just before
         torch.cuda.synchronize()
-        reps = 2 if B == B_MAIN else 1
         t1 = time.time()
-        for _ in range(reps):
-            run()
+        run()
         torch.cuda.synchronize()
-        dt = (time.time() - t1) / reps
+        dt = time.time() - t1
         rates[key], batch_ms[key] = B / dt, dt * 1e3
 
     def split(key, bsk, acc, bits):
@@ -2149,7 +2562,7 @@ def ntt_timing(card, dev, u128_state, rng):
 
     cks, sks = shortint.gen_keys(p, seed=SEED + 5, device=dev, mode="ntt")
     lut = sks.generate_lookup_table(lambda x: x % 4)
-    for B in (B_MAIN, B_LARGE):
+    for B in (B_MAIN,):
         data = cks.encrypt_batch(np.arange(B) % 16).data
         clock(f"shortint_ntt_B{B}", B, lambda: core.keyswitch_then_pbs(
             sks.ksk, sks.bsk, lut.acc, data, "ntt"))  # noqa: B023
@@ -2164,7 +2577,7 @@ def ntt_timing(card, dev, u128_state, rng):
     delta = (1 << 128) // (2 * U128_MSUP)
     acc128 = core.fill_accumulator_u128(lambda x: x, N, k + 1, U128_MSUP,
                                         delta, device=dev)
-    for B in (B_MAIN, B_LARGE):
+    for B in (B_MAIN,):
         cts = core.encrypt_lwe_u128(
             lwe, [int(m) * delta for m in np.arange(B) % U128_MSUP],
             p.lwe_modular_std_dev, enc)
@@ -2177,7 +2590,7 @@ def ntt_timing(card, dev, u128_state, rng):
     del cts, acc
 
     bcks, bsks = boolean.gen_keys(bp, seed=SEED + 6, device=dev, mode="ntt")
-    for B in (B_MAIN, B_LARGE):
+    for B in (B_MAIN,):
         a, b = (bcks.encrypt_batch(rng.integers(0, 2, B).astype(bool))
                 for _ in range(2))
         clock(f"boolean_ntt_B{B}", B, lambda: bsks.nand_batch(a, b))  # noqa
@@ -2312,14 +2725,13 @@ def api_main_path():
     host_ms, host_same = {}, {}
     for name, fn in (("add", lambda: ha + hb), ("mul", lambda: ha * hb)):
         api.set_server_key(hs)
-        ms = []
-        for _ in range(2):
-            torch.cuda.synchronize()
-            t = time.time()
-            out = fn()
-            torch.cuda.synchronize()
-            ms.append((time.time() - t) * 1e3)
-        host_ms[name] = ms
+        # one timed run (two until the parallel, checkpoint and profiling
+        # phases needed the smoke's time)
+        torch.cuda.synchronize()
+        t = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        host_ms[name] = [(time.time() - t) * 1e3]
         api.set_server_key(sks)
         fused_out = ops[name][0]()
         host_same[name] = bool(torch.equal(out.inner.blocks.data,
@@ -2441,6 +2853,9 @@ def multibit_ntt_main_path(cks, sks):
 
 
 SHA_MASK = 0xFFFFFFFF
+# compression rounds of the SHA-256 part: 2 (4 until the parallel, checkpoint
+# and profiling phases needed the smoke's time)
+SHA_ROUNDS = 2
 
 
 def sha256_clear(state, words, rounds):
@@ -2528,7 +2943,7 @@ def examples_radix_part(cks, sks):
 
 
 def examples_boolean_part(cks, sks):
-    """SHA-256 (a 4-round compression and one schedule expansion) and
+    """SHA-256 (a 2-round compression and one schedule expansion) and
     Trivium (the full 1152-step warm-up, the first 64 keystream bits for
     key = iv = 0 against the KAT FBE0BF265859051B, then one transciphered
     word) on the boolean DEFAULT_PARAMETERS keys of main_path_boolean;
@@ -2550,12 +2965,12 @@ def examples_boolean_part(cks, sks):
     eng = sb.Sha256Fhe(sks)
     enc = sb.encrypt_words(cks, words)
     out = eng.compress([eng.trivial_word(h) for h in sb.H_INIT], enc,
-                       rounds=4)
+                       rounds=SHA_ROUNDS)
     got = [sb.decrypt_word(cks, w) for w in out]
-    want, _ = sha256_clear(sb.H_INIT, words, 4)
+    want, _ = sha256_clear(sb.H_INIT, words, SHA_ROUNDS)
     if got != want:
-        wrong.append(("sha256_4_rounds", got, want))
-    fields["sha256_4_rounds"] = dict(
+        wrong.append((f"sha256_{SHA_ROUNDS}_rounds", got, want))
+    fields[f"sha256_{SHA_ROUNDS}_rounds"] = dict(
         s=time.time() - t, gate_batches=eng._gates,
         pbs_batches=fp.rotate_decompose.launches // n)
     k1, g0 = fp.rotate_decompose.launches, eng._gates
@@ -2599,15 +3014,16 @@ def examples_boolean_part(cks, sks):
 
 
 def examples_cli():
-    """`python -m tfhe_tpu_torch.examples.fhe_strings_cli abcab ab
+    """`python -m tfhe_tpu_torch.examples.fhe_strings_cli aba a
     --real-params` as a subprocess on the card: it exits 0, every op's line
-    says ok and none MISMATCH."""
+    (14 ops) says ok and none MISMATCH (on "abcab ab" until the parallel,
+    checkpoint and profiling phases needed the smoke's time)."""
     import os
 
     t = time.time()
     proc = subprocess.run(
         [sys.executable, "-m", "tfhe_tpu_torch.examples.fhe_strings_cli",
-         "abcab", "ab", "--real-params"],
+         "aba", "a", "--real-params"],
         cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
         text=True, timeout=300)
     lines = [ln.split() for ln in proc.stdout.splitlines()
@@ -3209,6 +3625,23 @@ def main():
                                         host_batches).items():
         launches[k] = launches.get(k, 0) + v
     t_fused = time.time() - t1
+    # the checkout's scratch for the new phases' files (trace, checkpoints,
+    # the two-rank store), removed at the end
+    scratch = tempfile.TemporaryDirectory(
+        prefix="smoke_", dir=os.path.dirname(os.path.abspath(__file__)))
+    t1 = time.time()
+    for k, v in parallel_main_path(cks, sks, scratch.name).items():
+        launches[k] = launches.get(k, 0) + v
+    t_parallel = time.time() - t1
+    t1 = time.time()
+    for k, v in checkpoint_main_path(cks, sks, scratch.name).items():
+        launches[k] = launches.get(k, 0) + v
+    t_checkpoint = time.time() - t1
+    t1 = time.time()
+    for k, v in profiling_main_path(cks, sks, scratch.name).items():
+        launches[k] = launches.get(k, 0) + v
+    t_profiling = time.time() - t1
+    scratch.cleanup()
     t1 = time.time()
     for k, v in batched_main_path(cks, sks).items():
         launches[k] = launches.get(k, 0) + v
@@ -3420,6 +3853,9 @@ def main():
         main_path_shortint_ops_s=round(t_ops, 3),
         main_path_integer_s=round(t_integer, 3),
         main_path_integer_fused_s=round(t_fused, 3),
+        main_path_parallel_s=round(t_parallel, 3),
+        checkpoint_resume_s=round(t_checkpoint, 3),
+        profiling_s=round(t_profiling, 3),
         main_path_batched_s=round(t_batched, 3),
         main_path_strings_s=round(t_strings, 3),
         main_path_pbs_ks_s=round(t_pbs_ks, 3),

@@ -498,3 +498,68 @@ def test_wopbs_and_key_entry_points_need_a_card_unless_asked_for_the_cpu(
                                           seed=1, device="cpu")
     assert wk.cbs.pfpksk_list.device == torch.device("cpu")
     assert wsks.mode == "scan2"
+
+
+def test_parallel_and_profiling_modules_are_among_the_checked_sources():
+    # the walk above reaches the mesh layer, the checkpoints and the
+    # profiling helpers, and none of them imports JAX or the reference;
+    # the parallel package exports the reference's 19 names
+    checked = {os.path.relpath(p, ROOT) for p in _port_sources()}
+    new = {f"tfhe_tpu_torch/parallel/{m}.py" for m in
+           ("__init__", "mesh", "sharding", "fused", "checkpoint")} | {
+        "tfhe_tpu_torch/utils/profiling.py"}
+    assert new <= checked
+    for rel in sorted(new):
+        mods = list(_imported_modules(os.path.join(ROOT, rel)))
+        assert not [m for m in mods
+                    if m.split(".")[0] in ("jax", "jaxlib", "tfhe_tpu")]
+    ref_init = os.path.join(ROOT, "tfhe_tpu", "parallel", "__init__.py")
+    ref_all = next(
+        ast.literal_eval(node.value)
+        for node in ast.walk(ast.parse(open(ref_init).read()))
+        if isinstance(node, ast.Assign)
+        and getattr(node.targets[0], "id", None) == "__all__")
+    from tfhe_tpu_torch import parallel, utils
+
+    assert len(ref_all) == 19 and parallel.__all__ == ref_all
+    assert all(callable(getattr(parallel, n)) for n in ref_all)
+    assert {"OpTimer", "annotate", "trace"} <= set(utils.__all__)
+
+
+def test_no_environment_variable_chooses_the_world_rank_or_backend():
+    # every process group the port or the smoke starts names its world, its
+    # rank and its rendezvous (tcp://, a file:// store or a private store),
+    # never env://
+    calls = []
+    for path in _port_sources():
+        src = open(path).read()
+        assert "env://" not in src, path
+        for node in ast.walk(ast.parse(src)):
+            if (isinstance(node, ast.Call)
+                    and getattr(node.func, "attr", None)
+                    == "init_process_group"):
+                calls.append(node)
+                kws = {k.arg: k.value for k in node.keywords}
+                assert {"world_size", "rank"} <= set(kws), path
+                assert node.args or "backend" in kws, path
+                rendezvous = kws.get("init_method", kws.get("store"))
+                if isinstance(rendezvous, ast.JoinedStr):
+                    assert rendezvous.values[0].value in ("tcp://",
+                                                          "file://"), path
+                else:
+                    assert "store" in kws, path
+    assert len(calls) >= 2
+    # and at run time the variables torch's env:// rendezvous reads change
+    # nothing: a mesh without a group is a world of one on a private store
+    code = ("import torch.distributed as d\n"
+            "from tfhe_tpu_torch import parallel\n"
+            "m = parallel.create_mesh(device='cpu')\n"
+            "assert d.get_world_size() == 1 and d.get_rank() == 0\n"
+            "assert d.get_backend() == 'gloo' and m.size() == 1\n"
+            "d.destroy_process_group()\n")
+    env = dict(os.environ, WORLD_SIZE="4", RANK="3", LOCAL_RANK="3",
+               MASTER_ADDR="127.0.0.1", MASTER_PORT="1",
+               TORCH_DISTRIBUTED_BACKEND="nccl")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr

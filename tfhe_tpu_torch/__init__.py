@@ -7,8 +7,11 @@ u32 torus) and integer (radix, signed and CRT integers on shortint
 blocks, in the host, single-program and batched schedules), strings
 (encrypted ASCII strings on radix integers), the high-level API's core
 (`api`: ConfigBuilder, generate_keys, set_server_key, FheBool, FheUint*,
-FheInt*; its 16 names are also reachable here, imported at first use), and
-the examples and the Trivium app (`examples`, `apps`).
+FheInt*; its 16 names are also reachable here, imported at first use),
+the examples and the Trivium app (`examples`, `apps`), the device-mesh
+layer (`parallel`: one process a device under torch.distributed, sharded
+and block-sharded radix ops, checkpoint and resume) and the utilities
+(`utils`: the wire format, the key cache, profiling on torch.profiler).
 Entry points run on the card (device="cuda") unless the caller passes
 device="cpu", which runs the plain PyTorch versions of the kernels.  The
 package imports torch and numpy, never JAX or tfhe_tpu.

@@ -1,8 +1,11 @@
 """Utilities (port of `tfhe_tpu/utils`): the wire format with its size
-limit and conformance checks, and the key cache.  The reference's JAX
-compilation cache and profiling helpers have no counterpart."""
+limit and conformance checks, the key cache, and the profiling helpers
+(`trace` and `annotate` on torch.profiler, `OpTimer`).  The reference's
+JAX compilation cache has no counterpart: it exists only for JAX's
+compiles."""
 
 from .keycache import KEY_CACHE, KeyCache
+from .profiling import OpTimer, annotate, trace
 from .serialization import (ConformanceError, DeserializationError,
                             deserialize, safe_deserialize, safe_serialize,
                             serialize)
@@ -10,6 +13,9 @@ from .serialization import (ConformanceError, DeserializationError,
 __all__ = [
     "KeyCache",
     "KEY_CACHE",
+    "OpTimer",
+    "annotate",
+    "trace",
     "ConformanceError",
     "DeserializationError",
     "safe_serialize",
