@@ -199,7 +199,11 @@ Phases, each printing one flushed line with its wall time:
 Kernel times are device times: a CUDA graph of many launches replayed
 between CUDA events (a whole rotation, persistent or single-CTA: CUDA events
 around a few eager launches); the eager per-launch times beside them include
-the host's launch cost.
+the host's launch cost.  Those graphs are the smoke's own, outside the
+program: their captures count in the wrappers' `launches` and their replays
+count nothing.  The radix and API phases read the program's counters
+(`utils.profiling.counters()`: `pbs.batches` and the launches, where a
+replay of the program's graph counts its chain and a capture nothing).
 Then a `kernels` JSON line (each kernel's `redesigned` names the source
 it was rebuilt on after its first port: K2, K3, K4, K5, ntt_mac_prime, K7
 and K9 on the register-resident NTT core, K10, K8's combine, K1 and
@@ -282,7 +286,10 @@ def cuda_ms(fn, iters, warmup=2):
 
 def graph_ms(fn, reps, replays=3):
     """Device time per call of fn() in ms: `reps` calls captured in one CUDA
-    graph, replayed between CUDA events, so no host launch cost is in it."""
+    graph, replayed between CUDA events, so no host launch cost is in it.
+    The graph is the smoke's own, outside the program: its capture counts
+    `reps` calls in the wrappers' `launches` and its replays count none
+    (the program's graphs count a replay as its chain)."""
     import torch
 
     side = torch.cuda.Stream()
@@ -1423,21 +1430,24 @@ def integer_fused_main_path(cks, sks, host_ms, host_batches):
     each op one CUDA graph, captured at its first call and replayed) on the
     main path's PARAM_MESSAGE_2_CARRY_2_KS_PBS keys in scan2, at 32 blocks
     on main_path_integer's pairs: add, sub, neg, mul, eq, lt, bitxor,
-    select and max.  Per op: the PBS batches of its chain (K1 launches per
-    rotation in the capture; beside them the host schedule's), the cold ms
+    select and max.  Per op: the PBS batches of its chain (the program's
+    `pbs.batches` counter over a replay, equal to its count over the same
+    chain run eagerly; beside them the host schedule's), the cold ms
     (the eager warm-up, the capture and the first replay) and the warm ms
     of each later replay (host clock, synchronised), beside the host
     schedule's ms from main_path_integer, and the device time of a replay
     (CUDA events around 3 back-to-back replays); every replay decrypted
     right and equal bit for bit to the same chain run eagerly on the card.
-    Returns the launches: the counters' (the warm-ups, the captures and
-    the eager runs) less the captures, plus each capture's launches per
-    replay."""
+    Returns the launches, as the program counts them: the warm-ups, the
+    replays and the eager runs (a capture counts none; the three timed
+    replays are the smoke's own graph.replay() calls, outside the program,
+    and count none either)."""
     import numpy as np
     import torch
 
     from tfhe_tpu_torch import integer
     from tfhe_tpu_torch.ops import fused_pbs as fp
+    from tfhe_tpu_torch.utils import profiling
 
     t0 = time.time()
     p, nb = sks.params, 32
@@ -1447,31 +1457,34 @@ def integer_fused_main_path(cks, sks, host_ms, host_batches):
     def u64():
         return int.from_bytes(rng.bytes(8), "little")
 
+    def pbs_batches():
+        return profiling.counters()["pbs.batches"]
+
     # two pairs (three, with (2^63, 2^64 - 1), until the parallel,
     # checkpoint and profiling phases needed the smoke's time)
     pairs = [(0, 2**64 - 1), (2**63, u64())]
     rck = integer.RadixClientKey(p, nb, _key=cks)
     isk = integer.IntegerServerKey(sks, fused=True)
     fp.reset_launch_counts()
+    b0 = pbs_batches()
     batches, cold_ms, warm_ms, wrong, not_eager = {}, {}, {}, [], []
-    captured, replays = {}, {}
+    replays, counted_off = {}, []
     for i, (x, y) in enumerate(pairs):
         a, b = rck.encrypt(x), rck.encrypt(y)
         cond = rck.encrypt_bool(bool(x % 3))
         for name, (fn, clear, how, _) in FUSED_OPS.items():
-            before = fp.rotate_decompose.launches
+            before = pbs_batches()
             torch.cuda.synchronize()
             t = time.time()
             out = fn(isk, a, b, cond)
             torch.cuda.synchronize()
             dt = (time.time() - t) * 1e3
+            replayed = pbs_batches() - before
             if i == 0:  # warm-up, capture, first replay
                 cold_ms[name] = dt
-                # the warm-up and the capture each count the chain once
-                batches[name] = (fp.rotate_decompose.launches - before) \
-                    // (2 * n)
             else:
                 warm_ms.setdefault(name, []).append(dt)
+                batches[name] = replayed
             replays[name] = replays.get(name, 0) + 1
             got = getattr(rck, how)(out)
             if got != clear(x, y, mod):
@@ -1479,14 +1492,21 @@ def integer_fused_main_path(cks, sks, host_ms, host_batches):
             args = [v.block if hasattr(v, "block") else v.blocks for v in
                     ((cond, a, b) if name == "select" else
                      (a,) if name == "neg" else (a, b))]
+            before = pbs_batches()
             eager = isk._fused_ops.try_op(name, *args, graph=False)
+            eager_batches = pbs_batches() - before
+            # a replay counts its chain; the cold call its warm-up too
+            if replayed != eager_batches * (2 if i == 0 else 1):
+                counted_off.append((name, i, replayed, eager_batches))
             res = out.block if hasattr(out, "block") else out.blocks
             if not torch.equal(res.data, eager.data):
                 not_eager.append((name, i))
     graphs = sorted({k[0] for k in isk._fused_ops._graphs})
-    counted = launched(fp.KERNELS)
+    launches = launched(fp.KERNELS)
+    chains_run = pbs_batches() - b0
     # each graph's device time: CUDA events around 3 replays of its last
-    # inputs (nothing on the host between them)
+    # inputs (nothing on the host between them); the smoke's own
+    # graph.replay() calls, outside the program, which counts none
     device_ms = {}
     for (name, _), (_, graph, _) in isk._fused_ops._graphs.items():
         start = torch.cuda.Event(enable_timing=True)
@@ -1498,12 +1518,6 @@ def integer_fused_main_path(cks, sks, host_ms, host_batches):
         torch.cuda.synchronize()
         device_ms[name] = start.elapsed_time(end) / 3
         replays[name] += 3
-    per_chain = {k: v * sum(batches.values()) for k, v in
-                 rotation_launches("scan2", n).items()}
-    # the counters hold one warm-up, one capture and one eager run a pair
-    # and op; a capture launches nothing, each replay launches its chain
-    launches = {k: counted.get(k, 0) + per_chain[k] * (len(pairs) + 2)
-                for k in per_chain}
     say("main_path_integer_fused", t0, params=p.name, num_blocks=nb,
         mode=sks.mode, pairs=[[str(v) for v in pr] for pr in pairs],
         graphs=graphs, pbs_batches=batches,
@@ -1512,15 +1526,20 @@ def integer_fused_main_path(cks, sks, host_ms, host_batches):
         cold_ms=cold_ms, warm_ms=warm_ms, device_ms=device_ms,
         host_wall_ms={k: host_ms[v[3]] for k, v in FUSED_OPS.items()},
         replays=replays, wrong=wrong, replay_differs_from_eager=not_eager,
-        launches=launches)
-    if wrong or not_eager or graphs != sorted(FUSED_OPS):
+        replay_counted_off_eager=counted_off, launches=launches)
+    if wrong or not_eager or counted_off or graphs != sorted(FUSED_OPS):
         raise AssertionError(f"fused radix ops: wrong {wrong}, replay != "
-                             f"eager {not_eager}, graphs {graphs}")
-    want = {k: v * sum(batches.values()) * (2 + len(pairs)) for k, v in
+                             f"eager {not_eager}, replay counts != eager "
+                             f"{counted_off}, graphs {graphs}")
+    # every op: one warm-up, and a replay and an eager run a pair, of its
+    # chain
+    chains = sum(batches.values()) * (1 + 2 * len(pairs))
+    want = {k: v * chains for k, v in
             rotation_launches("scan2", n).items()}
-    if counted != want:
-        raise AssertionError(f"fused radix ops counted {counted}, expected "
-                             f"{want}")
+    if launches != want or chains_run != chains:
+        raise AssertionError(f"fused radix ops counted {launches} and "
+                             f"{chains_run} PBS batches, expected {want} "
+                             f"and {chains}")
     return launches
 
 
@@ -1880,8 +1899,10 @@ def profiling_main_path(cks, sks, workdir):
     (path,) = glob.glob(f"{logdir}/*.pt.trace.json")
     with open(path) as f:
         events = json.load(f)["traceEvents"]
+    # the program's spans are function-scope ranges (`cpu_op`), not user
+    # annotations, which the profiler would mirror onto the card's timeline
     (region,) = [e for e in events if e.get("name") == "lut_batch_b64"
-                 and e.get("cat") == "user_annotation"]
+                 and e.get("cat") == "cpu_op"]
     lo, hi = region["ts"], region["ts"] + region["dur"]
     device = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
                     if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
@@ -2601,44 +2622,27 @@ def ntt_timing(card, dev, u128_state, rng):
 API_U64 = (0xDEADBEEFCAFEF00D, 0x0123456789ABCDEF)
 
 
-def counting_api_key(sks, n):
-    """Counters on the API server key `sks`: its host-schedule PBS batches
-    (its shortint key's `_pbs_device`, wrapped on the instance) and its
-    single-program chains (FusedIntegerOps._replay, wrapped: each call a
-    capture at a new (op, shapes), then a replay).  Returns (host, seen,
-    chain): host[0] counts host batches, `seen` lists each (key,
-    captured) replayed, chain maps each graph's key to the PBS batches of
-    its chain (K1's count over its capture, which runs the chain eagerly
-    once and counts it once more while capturing, / 2n)."""
+def replayed_api_graphs(sks):
+    """The single-program chains the API server key `sks` replays: wraps
+    its FusedIntegerOps._replay, observing only (it counts nothing).
+    Returns `seen`, each replayed graph's key in order; the program keeps
+    each graph's PBS batches (`_graph_counts[key]["pbs.batches"]`)."""
     from tfhe_tpu_torch.integer.fused_dispatch import FusedIntegerOps
-    from tfhe_tpu_torch.ops import fused_pbs as fp
 
     isk = sks.integer_key
-    key = isk.key
-    host, seen, chain = [0], [], {}
-    pbs = key._pbs_device
-
-    def counted_pbs(data, acc):
-        host[0] += 1
-        return pbs(data, acc)
-
-    key._pbs_device = counted_pbs
     if isk._fused_ops is None:
         isk._fused_ops = FusedIntegerOps(isk)
     fops = isk._fused_ops
     replay = fops._replay
+    seen = []
 
-    def counted_replay(k, fn, dev):
-        new = k not in fops._graphs
-        k1 = fp.rotate_decompose.launches
+    def observed_replay(k, fn, dev):
         out = replay(k, fn, dev)
-        if new:
-            chain[k] = (fp.rotate_decompose.launches - k1) // (2 * n)
-        seen.append((k, new))
+        seen.append(k)
         return out
 
-    fops._replay = counted_replay
-    return host, seen, chain
+    fops._replay = observed_replay
+    return seen
 
 
 def api_main_path():
@@ -2649,17 +2653,18 @@ def api_main_path():
     cast_into(FheUint32) and cast_into(FheInt64); FheInt64 lt and abs;
     FheUint8 div_rem.  Each op runs cold (a single-program chain met first:
     eager warm-up, capture and first replay) and warm once, synchronised;
-    its PBS batches, host-schedule and graph-replayed, counted
-    (counting_api_key); every result decrypted against the clear Python
-    value.  Then + and * again on keys from the same seed with
-    fused=False: the same words, and both latencies.  Returns the K1 and
-    K2 launches: the counters (each eager launch, and each capture's,
-    which launches nothing) less the captures' chains, plus every
-    replay's chain (a replay launches with no wrapper call)."""
+    its PBS batches read from the program's `pbs.batches` counter, those
+    of the graphs it replayed (replayed_api_graphs) apart; K1's launches
+    equal n a batch, cold and warm; every result decrypted against the
+    clear Python value.  Then + and * again on keys from the same seed with
+    fused=False: the same words, and both latencies.  Returns the
+    launches, as the program counts them (a capture counts none, a replay
+    its chain)."""
     import torch
 
     from tfhe_tpu_torch import api
     from tfhe_tpu_torch.ops import fused_pbs as fp
+    from tfhe_tpu_torch.utils import profiling
 
     t0 = time.time()
     config = api.ConfigBuilder.default().build()
@@ -2670,7 +2675,8 @@ def api_main_path():
     torch.cuda.synchronize()
     t_keygen = time.time() - t0
     api.set_server_key(sks)
-    host, seen, chain = counting_api_key(sks, n)
+    seen = replayed_api_graphs(sks)
+    graph_counts = sks.integer_key._fused_ops._graph_counts
     x, y = API_U64
     m64 = 1 << 64
     a, b = api.FheUint64.encrypt(x, cks), api.FheUint64.encrypt(y, cks)
@@ -2700,21 +2706,23 @@ def api_main_path():
     cold_ms, warm_ms, batches, wrong, bad_count = {}, {}, {}, [], []
     for name, (fn, want) in ops.items():
         for run in ("cold", "warm"):
-            k1, h0, s0 = fp.rotate_decompose.launches, host[0], len(seen)
+            before, s0 = profiling.counters(), len(seen)
             torch.cuda.synchronize()
             t = time.time()
             out = fn()
             torch.cuda.synchronize()
             (cold_ms if run == "cold" else warm_ms)[name] = \
                 (time.time() - t) * 1e3
-            hosted = host[0] - h0
-            replayed = sum(chain[k] for k, _ in seen[s0:])
-            captured = sum(chain[k] for k, new in seen[s0:] if new)
-            # K1 counts each host batch once and each captured chain twice
-            if fp.rotate_decompose.launches - k1 != n * (hosted
-                                                         + 2 * captured):
+            moved = profiling.changes_since(before)
+            ran = moved.get("pbs.batches", 0)
+            replayed = sum(graph_counts[k]["pbs.batches"]
+                           for k in seen[s0:])
+            # every batch that ran, eager or replayed, is n K1 launches
+            if moved.get("fused_pbs.rotate_decompose.launches", 0) != n * ran:
                 bad_count.append((name, run))
-            batches[name] = dict(host=hosted, graph_replayed=replayed)
+            # cold, `host` holds a new graph's eager warm-up too
+            batches[name] = dict(host=ran - replayed,
+                                 graph_replayed=replayed)
             got = (tuple(v.decrypt(cks) for v in out)
                    if isinstance(out, tuple) else out.decrypt(cks))
             if got != want:
@@ -2741,14 +2749,10 @@ def api_main_path():
                           str(ops[name][1])))
     api.set_server_key(None)
     torch.cuda.synchronize()
-    counted = launched(fp.KERNELS)
-    net = (sum(chain[k] for k, _ in seen)
-           - sum(chain[k] for k, new in seen if new))
-    launches = {k: counted.get(k, 0) + v * net
-                for k, v in rotation_launches("scan2", n).items()}
+    launches = launched(fp.KERNELS)
     say("main_path_api", t0, params=p.name, fheuint64_blocks=32,
         keygen_s=t_keygen, fused=True,
-        graphs=sorted({k[0] for k in chain}), cold_ms=cold_ms,
+        graphs=sorted({k[0] for k in graph_counts}), cold_ms=cold_ms,
         warm_ms=warm_ms, pbs_batches=batches, host_schedule_ms=host_ms,
         host_equals_fused=host_same, wrong=wrong,
         launch_count_off=bad_count, launches=launches)

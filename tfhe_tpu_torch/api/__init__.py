@@ -13,6 +13,9 @@ picks the radix schedule (`IntegerServerKey(fused=)`: False the host
 schedule, True one CUDA graph replay an op on a card, the counterpart of
 the reference's choice on its accelerator, tfhe_tpu/integer/
 fused_dispatch.py:35-41).  No environment variable picks either.
+Every public operator, and `if_then_else`, is a span `api.<op>`
+(`utils.profiling.spanned`): recorded while a torch.profiler session runs,
+a flag check otherwise.
 
 The second half (:487-791) too: the compressed, public and compact types,
 and the serialization adapters, registered at import under the
@@ -37,6 +40,7 @@ from ..integer import (
     gen_keys_radix,
 )
 from ..shortint import ServerKey as ShortintServerKey
+from ..utils.profiling import spanned
 
 
 @dataclass
@@ -139,21 +143,26 @@ class FheBool:
     def decrypt(self, key: ClientKey) -> bool:
         return key.radix.decrypt_bool(self.inner)
 
+    @spanned("api.bitand")
     def __and__(self, other: "FheBool") -> "FheBool":
         return FheBool(_server_key().boolean_bitand(self.inner, other.inner))
 
+    @spanned("api.bitor")
     def __or__(self, other: "FheBool") -> "FheBool":
         return FheBool(_server_key().boolean_bitor(self.inner, other.inner))
 
+    @spanned("api.bitxor")
     def __xor__(self, other: "FheBool") -> "FheBool":
         return FheBool(_server_key().boolean_bitxor(self.inner, other.inner))
 
+    @spanned("api.bitnot")
     def __invert__(self) -> "FheBool":
         return FheBool(_server_key().boolean_bitnot(self.inner))
 
     def _conformance_check(self, params) -> None:
         self.inner._conformance_check(params)
 
+    @spanned("api.if_then_else")
     def if_then_else(self, then_v: "_FheUintBase", else_v: "_FheUintBase"):
         out = _server_key().if_then_else_parallelized(
             self.inner, then_v.inner, else_v.inner
@@ -189,6 +198,7 @@ class _FheUintBase:
     def decrypt(self, key: ClientKey) -> int:
         return key.radix.decrypt(self.inner)
 
+    @spanned("api.cast_into")
     def cast_into(self, target_cls):
         """Width/signedness cast, e.g. FheUint32 -> FheUint16 truncates and
         FheInt8 -> FheInt32 sign-extends (ref: high_level_api
@@ -211,6 +221,7 @@ class _FheUintBase:
             return other, True
         return NotImplemented, None
 
+    @spanned("api.add")
     def __add__(self, other):
         o, scalar = self._coerce(other)
         sk = _server_key()
@@ -220,6 +231,7 @@ class _FheUintBase:
 
     __radd__ = __add__
 
+    @spanned("api.sub")
     def __sub__(self, other):
         o, scalar = self._coerce(other)
         sk = _server_key()
@@ -227,6 +239,7 @@ class _FheUintBase:
             return self._wrap(sk.scalar_sub_parallelized(self.inner, o))
         return self._wrap(sk.sub_parallelized(self.inner, o))
 
+    @spanned("api.mul")
     def __mul__(self, other):
         o, scalar = self._coerce(other)
         sk = _server_key()
@@ -236,6 +249,7 @@ class _FheUintBase:
 
     __rmul__ = __mul__
 
+    @spanned("api.neg")
     def __neg__(self):
         return self._wrap(_server_key().neg_parallelized(self.inner))
 
@@ -248,18 +262,23 @@ class _FheUintBase:
             o = sk.create_trivial_radix(o, self.inner.num_blocks)
         return self._wrap(getattr(sk, op)(self.inner, o))
 
+    @spanned("api.bitand")
     def __and__(self, other):
         return self._bitop(other, "bitand_parallelized")
 
+    @spanned("api.bitor")
     def __or__(self, other):
         return self._bitop(other, "bitor_parallelized")
 
+    @spanned("api.bitxor")
     def __xor__(self, other):
         return self._bitop(other, "bitxor_parallelized")
 
+    @spanned("api.bitnot")
     def __invert__(self):
         return self._wrap(_server_key().bitnot(self.inner))
 
+    @spanned("api.shl")
     def __lshift__(self, shift):
         if isinstance(shift, _FheUintBase):
             return self._wrap(
@@ -267,6 +286,7 @@ class _FheUintBase:
         return self._wrap(
             _server_key().scalar_left_shift_parallelized(self.inner, shift))
 
+    @spanned("api.shr")
     def __rshift__(self, shift):
         if isinstance(shift, _FheUintBase):
             return self._wrap(
@@ -274,6 +294,7 @@ class _FheUintBase:
         return self._wrap(
             _server_key().scalar_right_shift_parallelized(self.inner, shift))
 
+    @spanned("api.rotate_left")
     def rotate_left(self, rot):
         if isinstance(rot, _FheUintBase):
             return self._wrap(
@@ -281,6 +302,7 @@ class _FheUintBase:
         return self._wrap(
             _server_key().scalar_rotate_left_parallelized(self.inner, rot))
 
+    @spanned("api.rotate_right")
     def rotate_right(self, rot):
         if isinstance(rot, _FheUintBase):
             return self._wrap(
@@ -291,6 +313,7 @@ class _FheUintBase:
     # -- division (ref: high_level_api Div/Rem impls; div by an encrypted
     # zero yields all-ones / the numerator like the reference) --
 
+    @spanned("api.div")
     def __floordiv__(self, other):
         o, scalar = self._coerce(other)
         sk = _server_key()
@@ -298,6 +321,7 @@ class _FheUintBase:
             return self._wrap(sk.scalar_div_parallelized(self.inner, o))
         return self._wrap(sk.div_parallelized(self.inner, o))
 
+    @spanned("api.rem")
     def __mod__(self, other):
         o, scalar = self._coerce(other)
         sk = _server_key()
@@ -305,6 +329,7 @@ class _FheUintBase:
             return self._wrap(sk.scalar_rem_parallelized(self.inner, o))
         return self._wrap(sk.rem_parallelized(self.inner, o))
 
+    @spanned("api.div_rem")
     def div_rem(self, other):
         o, scalar = self._coerce(other)
         sk = _server_key()
@@ -315,6 +340,7 @@ class _FheUintBase:
 
     # -- overflow-reporting ops --
 
+    @spanned("api.overflowing_add")
     def overflowing_add(self, other):
         o, scalar = self._coerce(other)
         sk = _server_key()
@@ -323,6 +349,7 @@ class _FheUintBase:
         s, ov = sk.overflowing_add_parallelized(self.inner, o)
         return self._wrap(s), FheBool(ov)
 
+    @spanned("api.overflowing_sub")
     def overflowing_sub(self, other):
         o, scalar = self._coerce(other)
         sk = _server_key()
@@ -341,21 +368,27 @@ class _FheUintBase:
             other = other.inner
         return FheBool(getattr(sk, f"{op}_parallelized")(self.inner, other))
 
+    @spanned("api.eq")
     def eq(self, other) -> FheBool:
         return self._cmp(other, "eq")
 
+    @spanned("api.ne")
     def ne(self, other) -> FheBool:
         return self._cmp(other, "ne")
 
+    @spanned("api.lt")
     def lt(self, other) -> FheBool:
         return self._cmp(other, "lt")
 
+    @spanned("api.le")
     def le(self, other) -> FheBool:
         return self._cmp(other, "le")
 
+    @spanned("api.gt")
     def gt(self, other) -> FheBool:
         return self._cmp(other, "gt")
 
+    @spanned("api.ge")
     def ge(self, other) -> FheBool:
         return self._cmp(other, "ge")
 
@@ -367,11 +400,13 @@ class _FheUintBase:
     __ge__ = ge
     __hash__ = None  # encrypted values are not hashable
 
+    @spanned("api.max")
     def max(self, other):
         o = other.inner if isinstance(other, _FheUintBase) else \
             _server_key().create_trivial_radix(other, self.inner.num_blocks)
         return self._wrap(_server_key().max_parallelized(self.inner, o))
 
+    @spanned("api.min")
     def min(self, other):
         o = other.inner if isinstance(other, _FheUintBase) else \
             _server_key().create_trivial_radix(other, self.inner.num_blocks)
@@ -394,9 +429,11 @@ class _FheIntBase(_FheUintBase):
 
     # -- sign-aware ops --
 
+    @spanned("api.abs")
     def abs(self) -> "_FheIntBase":
         return self._wrap(_server_key().abs_parallelized(self.inner))
 
+    @spanned("api.shr")
     def __rshift__(self, shift):
         sk = _server_key()
         if isinstance(shift, _FheUintBase):
@@ -405,12 +442,15 @@ class _FheIntBase(_FheUintBase):
         return self._wrap(sk.signed_scalar_right_shift_parallelized(
             self.inner, shift))
 
+    @spanned("api.div")
     def __floordiv__(self, other):
         return self.div_rem(other)[0]
 
+    @spanned("api.rem")
     def __mod__(self, other):
         return self.div_rem(other)[1]
 
+    @spanned("api.div_rem")
     def div_rem(self, other):
         """Truncating division like Rust (not Python floor division)."""
         o, scalar = self._coerce(other)
@@ -428,21 +468,27 @@ class _FheIntBase(_FheUintBase):
                 self.inner, other, op))
         return FheBool(sk.signed_cmp_parallelized(self.inner, other.inner, op))
 
+    @spanned("api.eq")
     def eq(self, other) -> FheBool:
         return self._cmp(other, "eq")
 
+    @spanned("api.ne")
     def ne(self, other) -> FheBool:
         return self._cmp(other, "ne")
 
+    @spanned("api.lt")
     def lt(self, other) -> FheBool:
         return self._cmp(other, "lt")
 
+    @spanned("api.le")
     def le(self, other) -> FheBool:
         return self._cmp(other, "le")
 
+    @spanned("api.gt")
     def gt(self, other) -> FheBool:
         return self._cmp(other, "gt")
 
+    @spanned("api.ge")
     def ge(self, other) -> FheBool:
         return self._cmp(other, "ge")
 
@@ -454,16 +500,19 @@ class _FheIntBase(_FheUintBase):
     __ge__ = ge
     __hash__ = None
 
+    @spanned("api.max")
     def max(self, other):
         o = other.inner if isinstance(other, _FheUintBase) else \
             _server_key().create_trivial_radix(other, self.inner.num_blocks)
         return self._wrap(_server_key().signed_max_parallelized(self.inner, o))
 
+    @spanned("api.min")
     def min(self, other):
         o = other.inner if isinstance(other, _FheUintBase) else \
             _server_key().create_trivial_radix(other, self.inner.num_blocks)
         return self._wrap(_server_key().signed_min_parallelized(self.inner, o))
 
+    @spanned("api.overflowing_add")
     def overflowing_add(self, other):
         o, scalar = self._coerce(other)
         sk = _server_key()
@@ -472,6 +521,7 @@ class _FheIntBase(_FheUintBase):
         s, ov = sk.signed_overflowing_add_parallelized(self.inner, o)
         return self._wrap(s), FheBool(ov)
 
+    @spanned("api.overflowing_sub")
     def overflowing_sub(self, other):
         o, scalar = self._coerce(other)
         sk = _server_key()

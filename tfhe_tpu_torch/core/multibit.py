@@ -43,9 +43,10 @@ from ..ops.polymul_ntt import (decompose_digits, digit_spectra,
                                residues_to_words)
 from ..ops.torus import to_tensor, wrap
 from ..prng.generators import EncryptionRandomGenerator
+from ..utils.profiling import annotate
 from .keygen import PreparedKsk, _np_udtype
 from .keyswitch import keyswitch
-from .pbs import NTT_MODE, modulus_switch, sample_extract
+from .pbs import NTT_MODE, count_pbs, modulus_switch, sample_extract
 
 # every multi-bit blind-rotation mode: the two TPU schedules on the kernels'
 # key layout, and the CRT-NTT layout's own
@@ -289,9 +290,13 @@ def keyswitch_then_multi_bit_pbs(ksk: PreparedKsk,
                                  | PreparedMultiBitBskNtt,
                                  lut: torch.Tensor, ct_big: torch.Tensor,
                                  mode: Optional[str] = None) -> torch.Tensor:
-    """The shortint multi-bit pipeline (PBSOrder::KeyswitchBootstrap)."""
-    return multi_bit_programmable_bootstrap(mbsk, lut, keyswitch(ksk, ct_big),
-                                            mode)
+    """The shortint multi-bit pipeline (PBSOrder::KeyswitchBootstrap).
+    One batch of `pbs.PBS_BATCHES`, in a `core.pbs` span."""
+    rows = ct_big.shape[0]
+    with annotate("core.pbs", rows=rows, mode=mode):
+        count_pbs(rows)
+        return multi_bit_programmable_bootstrap(mbsk, lut,
+                                                keyswitch(ksk, ct_big), mode)
 
 
 def multi_bit_pbs_then_keyswitch(ksk: PreparedKsk,
@@ -301,6 +306,10 @@ def multi_bit_pbs_then_keyswitch(ksk: PreparedKsk,
                                  mode: Optional[str] = None) -> torch.Tensor:
     """PBSOrder::BootstrapKeyswitch: the PBS on the small-key ciphertext,
     then the keyswitch of its big-key output back to the small key
-    (tfhe_tpu/core/multibit.py:312)."""
-    return keyswitch(ksk, multi_bit_programmable_bootstrap(mbsk, lut,
-                                                           ct_small, mode))
+    (tfhe_tpu/core/multibit.py:312).  One batch of `pbs.PBS_BATCHES`, in
+    a `core.pbs` span."""
+    rows = ct_small.shape[0]
+    with annotate("core.pbs", rows=rows, mode=mode):
+        count_pbs(rows)
+        return keyswitch(ksk, multi_bit_programmable_bootstrap(
+            mbsk, lut, ct_small, mode))

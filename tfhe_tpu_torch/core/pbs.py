@@ -27,6 +27,7 @@ from ..ops.fused_pbs import (MODES, PreparedBskCuda, blind_rotate_fused,
 from ..ops.polymul_ntt import (PreparedBskNtt, external_product_ntt,
                                prepare_bsk_ntt)
 from ..ops.torus import lsr, wrap
+from ..utils.profiling import annotate, counter
 from .keygen import PreparedKsk
 from .keyswitch import keyswitch
 
@@ -34,6 +35,18 @@ NTT_MODE = "ntt"
 # every classic blind-rotation mode: the six TPU schedules on the kernels'
 # key layout, and the CRT-NTT layout's own
 CLASSIC_MODES = MODES + (NTT_MODE,)
+
+# every keyswitch + PBS batch the program runs, classic or multi-bit, and
+# its ciphertexts: counted where the four pipelines below (and their
+# multi-bit counterparts) start, the one boundary every caller crosses
+PBS_BATCHES = counter("pbs.batches")
+PBS_ROWS = counter("pbs.rows")
+
+
+def count_pbs(rows: int) -> None:
+    """Counts one keyswitch + PBS batch of `rows` ciphertexts."""
+    PBS_BATCHES.value += 1
+    PBS_ROWS.value += rows
 
 
 def check_classic_mode(mode: str) -> None:
@@ -170,8 +183,12 @@ def keyswitch_then_pbs(ksk: PreparedKsk,
                        lut: torch.Tensor, ct_big: torch.Tensor,
                        mode: Optional[str] = None) -> torch.Tensor:
     """The shortint default pipeline (PBSOrder::KeyswitchBootstrap,
-    ref: shortint/server_key/mod.rs:783-857)."""
-    return programmable_bootstrap(bsk, lut, keyswitch(ksk, ct_big), mode)
+    ref: shortint/server_key/mod.rs:783-857).  One batch of
+    `PBS_BATCHES`, in a `core.pbs` span."""
+    rows = ct_big.shape[0]
+    with annotate("core.pbs", rows=rows, mode=mode):
+        count_pbs(rows)
+        return programmable_bootstrap(bsk, lut, keyswitch(ksk, ct_big), mode)
 
 
 def pbs_then_keyswitch(ksk: PreparedKsk,
@@ -179,5 +196,10 @@ def pbs_then_keyswitch(ksk: PreparedKsk,
                        lut: torch.Tensor, ct_small: torch.Tensor,
                        mode: Optional[str] = None) -> torch.Tensor:
     """PBSOrder::BootstrapKeyswitch, the boolean DEFAULT_PARAMETERS path
-    (tfhe_tpu/core/pbs.py:189)."""
-    return keyswitch(ksk, programmable_bootstrap(bsk, lut, ct_small, mode))
+    (tfhe_tpu/core/pbs.py:189).  One batch of `PBS_BATCHES`, in a
+    `core.pbs` span."""
+    rows = ct_small.shape[0]
+    with annotate("core.pbs", rows=rows, mode=mode):
+        count_pbs(rows)
+        return keyswitch(ksk, programmable_bootstrap(bsk, lut, ct_small,
+                                                     mode))

@@ -24,6 +24,9 @@ The carry schedule is an argument: "scan" or "ripple", anything else
 raises.  The reference reads it from TFHE_TPU_CARRY_MODE, falls back to the
 scan on an unknown value, and resolves "auto" with a TPU cost model; the
 port has no automatic choice until a card measurement can make one.
+
+Each public op is a span `schedule.batched.<op>` (`utils.profiling`), its
+waves `core.pbs` spans inside it.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.profiling import spanned
 from .fused import _const, _neg_correct, _shift_blocks_up
 
 CARRY_MODES = ("scan", "ripple")
@@ -130,6 +134,7 @@ class BatchedRadixOps:
 
     # -- public ops --------------------------------------------------------
 
+    @spanned("schedule.batched.add")
     def add(self, a, b):
         return self._propagate(a + b)
 
@@ -140,17 +145,21 @@ class BatchedRadixOps:
         return _neg_correct(b, message_modulus=self.msg,
                             carry_modulus=sks.carry_modulus, delta=sks.delta)
 
+    @spanned("schedule.batched.sub")
     def sub(self, a, b):
         return self._propagate(a + self._neg_correct(b))
 
+    @spanned("schedule.batched.neg")
     def neg(self, a):
         return self._propagate(self._neg_correct(a))
 
+    @spanned("schedule.batched.eq")
     def eq(self, a, b):
         """[B, nb, sz] x2 -> [B, sz] 0/1 boolean blocks, sum-packed."""
         beq = self._biv(a, b, "eq", lambda x, y: int(x == y))
         return self._all_ones(beq)
 
+    @spanned("schedule.batched.ne")
     def ne(self, a, b):
         return self._wave(self.eq(a, b), "not01", lambda v: int(v == 0))
 
@@ -194,18 +203,23 @@ class BatchedRadixOps:
     def _cmp(self, a, b, name, f):
         return self._wave(self._signs(a, b), ("cmp", name), f)
 
+    @spanned("schedule.batched.lt")
     def lt(self, a, b):
         return self._cmp(a, b, "lt", lambda s: int(s == 1))
 
+    @spanned("schedule.batched.le")
     def le(self, a, b):
         return self._cmp(a, b, "le", lambda s: int(s != 2))
 
+    @spanned("schedule.batched.gt")
     def gt(self, a, b):
         return self._cmp(a, b, "gt", lambda s: int(s == 2))
 
+    @spanned("schedule.batched.ge")
     def ge(self, a, b):
         return self._cmp(a, b, "ge", lambda s: int(s != 1))
 
+    @spanned("schedule.batched.mul")
     def mul(self, a, b):
         """Carry-save block-product multiplication (ref: radix_parallel/
         mul.rs:329-464 and the add.rs:789 sum trees)."""

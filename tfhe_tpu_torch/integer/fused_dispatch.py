@@ -19,6 +19,16 @@ The reference chooses this schedule by the environment variable
 TFHE_TPU_FUSED_INTEGER (on by default on a TPU); the port by the argument
 `IntegerServerKey(key, fused=True)`.  A capture or replay that fails raises:
 nothing drops back to eager launches.
+
+Counting (`utils.profiling`): the eager warm-up before a capture ran on the
+card and counts; the captured pass ran nothing, so its counters' change
+(PBS batches and rows, kernel launches) is taken back and kept with the
+graph, and every replay adds it again: a replayed op counts as its eager
+chain.  `schedule.graph_pool_bytes` grows by each capture's growth of the
+allocator's reserved bytes.  Spans: `schedule.fused.<op>` around an op,
+with `schedule.copy_in`, `schedule.replay` and `schedule.clone_out`;
+`schedule.capture` once a graph, with `schedule.capture.eager` and
+`schedule.capture.record`.
 """
 
 from __future__ import annotations
@@ -31,10 +41,13 @@ import torch
 
 from ..params import PBSOrder
 from ..shortint.ciphertext import ShortintBatch
+from ..utils import profiling
 from . import fused as F
 
 CMP_OPS = ("eq", "ne", "lt", "le", "gt", "ge")
 BIT_OPS = ("band", "bor", "bxor", "bnot")
+# bytes the allocator reserved over each capture: the graphs' memory pools
+GRAPH_POOL_BYTES = profiling.counter("schedule.graph_pool_bytes")
 
 
 class FusedIntegerOps:
@@ -53,6 +66,7 @@ class FusedIntegerOps:
         self._luts: dict = {}
         self._fns: dict = {}
         self._graphs: dict = {}
+        self._graph_counts: dict = {}  # key -> its captured pass's counts
 
     # -- lookup tables ---------------------------------------------------
 
@@ -176,17 +190,31 @@ class FusedIntegerOps:
     def _capture(self, key, fn, dev):
         """(static inputs, graph, static output) of fn over inputs shaped
         as dev: one eager warm-up on a side stream (it builds the kernels'
-        libraries and tables and cuBLAS's workspace), then the capture."""
+        libraries and tables and cuBLAS's workspace), then the capture.
+        The captured pass's counts are taken back and kept for the
+        replays."""
         static_in = [d.clone() for d in dev]
-        side = torch.cuda.Stream(device=dev[0].device)
-        side.wait_stream(torch.cuda.current_stream(dev[0].device))
+        device = dev[0].device
+        side = torch.cuda.Stream(device=device)
+        side.wait_stream(torch.cuda.current_stream(device))
         try:
-            with torch.cuda.stream(side):
-                fn(*static_in)
-            torch.cuda.current_stream(dev[0].device).wait_stream(side)
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
-                static_out = fn(*static_in)
+            with profiling.annotate("schedule.capture", op=key[0]):
+                with profiling.annotate("schedule.capture.eager"), \
+                        torch.cuda.stream(side):
+                    fn(*static_in)
+                torch.cuda.current_stream(device).wait_stream(side)
+                graph = torch.cuda.CUDAGraph()
+                with profiling.annotate("schedule.capture.record"):
+                    before = profiling.counters()
+                    with torch.cuda.graph(graph):
+                        # reserved after the capture's own emptying of
+                        # the cache: the growth is the graph's pool
+                        reserved = torch.cuda.memory_reserved(device)
+                        static_out = fn(*static_in)
+                    kept = profiling.changes_since(before)
+                    profiling.add_counts({k: -v for k, v in kept.items()})
+                GRAPH_POOL_BYTES.value += (torch.cuda.memory_reserved(device)
+                                           - reserved)
         except RuntimeError as e:  # torch's CUDA and capture errors
             raise RuntimeError(f"capturing the single-program radix op "
                                f"{key[0]!r} at shapes {key[1]} into a CUDA "
@@ -194,15 +222,21 @@ class FusedIntegerOps:
                                f"{self.sks.mode!r})") from e
         entry = (static_in, graph, static_out)
         self._graphs[key] = entry
+        self._graph_counts[key] = kept
         return entry
 
     def _replay(self, key, fn, dev) -> torch.Tensor:
         entry = self._graphs.get(key) or self._capture(key, fn, dev)
         static_in, graph, static_out = entry
-        for s, d in zip(static_in, dev):
-            s.copy_(d)
-        graph.replay()
-        return static_out.clone()  # the next replay overwrites static_out
+        with profiling.annotate("schedule.copy_in"):
+            for s, d in zip(static_in, dev):
+                s.copy_(d)
+        with profiling.annotate("schedule.replay"):
+            graph.replay()
+            profiling.add_counts(self._graph_counts[key])
+        with profiling.annotate("schedule.clone_out"):
+            # the next replay overwrites static_out
+            return static_out.clone()
 
     # -- block wrapping --------------------------------------------------
 
@@ -232,22 +266,24 @@ class FusedIntegerOps:
         msg = sks.message_modulus
         if msg < 4 or not self._clean(*args):
             return None
-        dev = [b.data[None] for b in args]  # [1, nb, sz]
-        if op == "select":
-            dev[0] = dev[0][:, 0, :]  # cond: [1, sz]
-        shape = tuple(tuple(d.shape) for d in dev)
-        fn = self._fn(op, shape)
-        if graph is None:
-            graph = sks.device.type == "cuda"
-        if graph:
-            out = self._replay((op, shape), fn, dev)
-        else:
-            out = fn(*dev)
-        if op in CMP_OPS:
-            degree = 1
-        elif op in BIT_OPS:
-            lut = self._lut(op)
-            degree = lut.degree if hasattr(lut, "degree") else lut.acc.degree
-        else:
-            degree = msg - 1
-        return self._wrap(out, args[-1], degree)
+        with profiling.annotate(f"schedule.fused.{op}"):
+            dev = [b.data[None] for b in args]  # [1, nb, sz]
+            if op == "select":
+                dev[0] = dev[0][:, 0, :]  # cond: [1, sz]
+            shape = tuple(tuple(d.shape) for d in dev)
+            fn = self._fn(op, shape)
+            if graph is None:
+                graph = sks.device.type == "cuda"
+            if graph:
+                out = self._replay((op, shape), fn, dev)
+            else:
+                out = fn(*dev)
+            if op in CMP_OPS:
+                degree = 1
+            elif op in BIT_OPS:
+                lut = self._lut(op)
+                degree = (lut.degree if hasattr(lut, "degree")
+                          else lut.acc.degree)
+            else:
+                degree = msg - 1
+            return self._wrap(out, args[-1], degree)

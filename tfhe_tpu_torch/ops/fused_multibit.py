@@ -34,7 +34,8 @@ the MAC (K9).  scan3 materialises the combined key and scan1 does not, so
 each checks the other.  Each wrapper takes its plain PyTorch version
 (`*_plain`) for CPU tensors, launches its kernel for CUDA tensors, and
 raises for anything else; each counts its launches in its `launches`
-attribute.  The wrappers check dtypes and shapes; the C entry points
+attribute (a counter of `utils.profiling`, which a CUDA graph's replay
+adds to).  The wrappers check dtypes and shapes; the C entry points
 reject a layout beyond the kernels' limits (subsets, outputs, the core's
 digit polynomials, shared memory), which `_check_launch` raises.
 
@@ -55,6 +56,7 @@ from dataclasses import dataclass
 import torch
 
 from .._native import build_shared_library
+from ..utils import profiling
 from . import ntt
 from .decomposition import signed_decompose
 from .fused_pbs import (_CORE_HEADERS, BUILD_TIMEOUT_S, NVCC_FLAGS, _check,
@@ -286,6 +288,7 @@ def multibit_step(acc: torch.Tensor, d: torch.Tensor, kspec: torch.Tensor,
 multibit_step.launches = 0
 
 KERNELS = (multibit_combine, multibit_external_product, multibit_step)
+profiling.register_launches("fused_multibit", KERNELS)
 
 
 def reset_launch_counts() -> None:

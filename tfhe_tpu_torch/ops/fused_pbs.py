@@ -47,7 +47,8 @@ package's `_build/` directory and called through ctypes.  K2-K5,
 `ntt.pass_tables_for`.  Each wrapper takes its plain PyTorch
 version (`*_plain`) for CPU tensors, launches its kernel for CUDA tensors,
 and raises for anything else: nothing falls back.  Each wrapper counts its
-launches in its `launches` attribute.
+launches in its `launches` attribute, registered in `utils.profiling`'s
+counters, where a CUDA graph's replay adds the launches its capture kept.
 
 The TPU's int8 limb planes and [R*ld, C*B] tiling are TPU scheduling; the
 port's layouts are its own (see the header of `csrc/pbs_kernels.cuh`), and
@@ -66,6 +67,7 @@ from dataclasses import dataclass
 import torch
 
 from .._native import build_shared_library
+from ..utils import profiling
 from . import ntt
 from .decomposition import signed_decompose
 from .polymul import monomial_mul
@@ -688,6 +690,7 @@ def pbs_step_single_cta_form(B: int, N: int, G: int, levels: int,
 KERNELS = (rotate_decompose, external_product_crt, pbs_step,
            blind_rotate_persistent, ntt_mac_prime, crt_accumulate,
            pbs_step_single_cta, blind_rotate_single_cta)
+profiling.register_launches("fused_pbs", KERNELS)
 
 
 def reset_launch_counts() -> None:

@@ -12,7 +12,7 @@ use into the package's `_build/` directory and called through ctypes):
 `shoup_mac`, one prime, the reference's call; and `shoup_mac_primes`, all
 the primes of a step in one launch, written in the layout the inverse NTT
 reads, which the CRT-NTT path runs.  Each counts its launches in its
-`launches` attribute.
+`launches` attribute (a counter of `utils.profiling`).
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ import os
 import torch
 
 from .._native import build_shared_library
+from ..utils import profiling
 from .fused_pbs import (_CSRC, BUILD_TIMEOUT_S, NVCC_FLAGS, _check,
                         _check_launch, _nvcc, _stream)
 
@@ -171,6 +172,7 @@ def shoup_mac_primes(a: torch.Tensor, ks: torch.Tensor, ksh: torch.Tensor,
 shoup_mac_primes.launches = 0
 
 KERNELS = (shoup_mac, shoup_mac_primes)
+profiling.register_launches("shoup_mac", KERNELS)
 
 
 def reset_launch_counts() -> None:

@@ -1,14 +1,26 @@
 """Utilities (port of `tfhe_tpu/utils`): the wire format with its size
-limit and conformance checks, the key cache, and the profiling helpers
-(`trace` and `annotate` on torch.profiler, `OpTimer`).  The reference's
+limit and conformance checks, the key cache, and profiling (the program's
+spans and counters, `trace` on torch.profiler, `OpTimer`).  The reference's
 JAX compilation cache has no counterpart: it exists only for JAX's
-compiles."""
+compiles.
 
-from .keycache import KEY_CACHE, KeyCache
+`profiling` is imported with the package: the kernels and the core count
+into it.  The wire format and the key cache are imported at first use of
+one of their names, since the wire format's adapters import the shortint
+and integer layers, which import the kernels."""
+
 from .profiling import OpTimer, annotate, trace
-from .serialization import (ConformanceError, DeserializationError,
-                            deserialize, safe_deserialize, safe_serialize,
-                            serialize)
+
+_LAZY = {
+    "KeyCache": "keycache",
+    "KEY_CACHE": "keycache",
+    "ConformanceError": "serialization",
+    "DeserializationError": "serialization",
+    "safe_serialize": "serialization",
+    "safe_deserialize": "serialization",
+    "serialize": "serialization",
+    "deserialize": "serialization",
+}
 
 __all__ = [
     "KeyCache",
@@ -23,3 +35,13 @@ __all__ = [
     "serialize",
     "deserialize",
 ]
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        import importlib
+
+        return getattr(importlib.import_module(f".{_LAZY[name]}", __name__),
+                       name)
+    raise AttributeError(
+        f"module 'tfhe_tpu_torch.utils' has no attribute {name!r}")
