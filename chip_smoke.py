@@ -332,13 +332,14 @@ def max_abs_err(got, want):
     return max(abs(int(a) - int(b)) for a, b in zip(g[bad], w[bad]))
 
 
-def classic_work(B, G, L, N, P, bits, steps=1):
+def classic_work(B, G, L, N, P, bits, steps=1, M=None):
     """Bytes (each input read once, each output written once) and
-    operations of one launch of each classic-schedule wrapper; M, the key
-    planes per torus word, follows the torus width.  A Shoup product counts
-    6 operations, a modular add 3, a butterfly 9; `steps` is the persistent
-    rotation's step count."""
-    M = 2 if bits == 64 else 1
+    operations of one launch of each classic-schedule wrapper with P
+    primes; M, the key planes per torus word, follows the torus width
+    unless given (a key's `planes`).  A Shoup product counts 6 operations,
+    a modular add 3, a butterfly 9; `steps` is the persistent rotation's
+    step count."""
+    M = (2 if bits == 64 else 1) if M is None else M
     LJ, OM = L * G, G * M
     log_n = N.bit_length() - 1
     acc = B * G * N * 8
@@ -367,13 +368,13 @@ def classic_work(B, G, L, N, P, bits, steps=1):
     return work
 
 
-def bounds_ms(B, G, L, N, P, bits=64, steps=1):
+def bounds_ms(B, G, L, N, P, bits=64, steps=1, M=None):
     """Least time for one launch of each classic-schedule wrapper at these
     shapes: the larger of (bytes read once + written once) / bandwidth and
     operations / peak, and which of the two it is."""
     out = {}
-    for name, (nbytes, ops) in classic_work(B, G, L, N, P, bits,
-                                            steps).items():
+    for name, (nbytes, ops) in classic_work(B, G, L, N, P, bits, steps,
+                                            M).items():
         tb = nbytes / PEAK_BYTES_PER_S * 1e3
         to = ops / PEAK_OPS_PER_S * 1e3
         out[name] = (max(tb, to), "bytes" if tb >= to else "operations")
@@ -720,13 +721,15 @@ def multibit_timing(card, dev, cks, sks, rng):
             gathered_powers(d, N)).items()})
 
 
-# per blind rotation, the launches of each classic-schedule wrapper
-def rotation_launches(mode, n, P=5):
+# per blind rotation, the launches of each classic-schedule wrapper; P, the
+# key's primes, counts scan3's per-prime launches
+def rotation_launches(mode, n, P=None):
+    if mode == "scan3":
+        return {"rotate_decompose": n, "ntt_mac_prime": n * P,
+                "crt_accumulate": n}
     return {"scan2": {"rotate_decompose": n, "external_product_crt": n},
             "scan1": {"pbs_step": n},
             "scan1w": {"pbs_step_single_cta": n},
-            "scan3": {"rotate_decompose": n, "ntt_mac_prime": n * P,
-                      "crt_accumulate": n},
             "grid": {"blind_rotate_persistent": 1},
             "mega": {"blind_rotate_single_cta": 1}}[mode]
 
@@ -754,19 +757,21 @@ def modes_kernels_phase(dev):
 
     t0 = time.time()
     rng = np.random.default_rng(SEED)
-    P, steps = 5, 4
+    steps = 4
     out = {}
     for p in (PARAM_MESSAGE_2_CARRY_2_KS_PBS, DEFAULT_PARAMETERS):
         N, G, L, bl, bits = (p.polynomial_size, p.glwe_size, p.pbs_level,
                              p.pbs_base_log, p.torus_bits)
-        M, n = (2 if bits == 64 else 1), p.lwe_dimension
+        n = p.lwe_dimension
 
         def words(*shape):
             return torch.from_numpy(rng.integers(
                 0, 2**bits - 1, shape, dtype=np.uint64, endpoint=True)
                 .view(np.int64)).to(dev)
 
+        # the key's primes and planes follow the parameter set's widths
         key = fp.prepare_bsk_cuda(words(steps, L, G, G, N), bl, bits)
+        P, M, ps = len(key.primes), key.planes, {"primes": key.primes}
         acc = words(B_MAIN, G, N)
         ahat = torch.from_numpy(rng.integers(0, 2 * N, (steps, B_MAIN),
                                              endpoint=True)
@@ -786,39 +791,45 @@ def modes_kernels_phase(dev):
         res_p = torch.empty(res_shape, dtype=torch.int32, device=dev)
         res_k = torch.empty(res_shape, dtype=torch.int32, device=dev)
         for pi in range(P):
-            fp.ntt_mac_prime_plain(dig, ks[pi], pi, res_p)
-            fp.ntt_mac_prime(dig, ks[pi], ksh[pi], pi, res_k)
+            fp.ntt_mac_prime_plain(dig, ks[pi], pi, res_p, **ps)
+            fp.ntt_mac_prime(dig, ks[pi], ksh[pi], pi, res_k, **ps)
         res_t = torch.empty_like(res_p)  # the plain one-prime timing's
         calls = {
             "rotate_decompose": (
                 lambda: fp.rotate_decompose(acc, ahat[0], bl, L, bits),
                 lambda: fp.rotate_decompose_plain(acc, ahat[0], bl, L, bits)),
             "external_product_crt": (
-                lambda: fp.external_product_crt(dig, ks, ksh, acc, bits),
-                lambda: fp.external_product_crt_plain(dig, ks, acc, bits)),
+                lambda: fp.external_product_crt(dig, ks, ksh, acc, bits,
+                                                **ps),
+                lambda: fp.external_product_crt_plain(dig, ks, acc, bits,
+                                                      **ps)),
             "ntt_mac_prime": (
-                lambda: fp.ntt_mac_prime(dig, ks[0], ksh[0], 0, res_k),
-                lambda: fp.ntt_mac_prime_plain(dig, ks[0], 0, res_t)),
+                lambda: fp.ntt_mac_prime(dig, ks[0], ksh[0], 0, res_k, **ps),
+                lambda: fp.ntt_mac_prime_plain(dig, ks[0], 0, res_t, **ps)),
             "crt_accumulate": (
-                lambda: fp.crt_accumulate(res_p, acc, bits),
-                lambda: fp.crt_accumulate_plain(res_p, acc, bits)),
+                lambda: fp.crt_accumulate(res_p, acc, bits, **ps),
+                lambda: fp.crt_accumulate_plain(res_p, acc, bits, **ps)),
             "pbs_step": (
-                lambda: fp.pbs_step(acc, ahat[0], ks, ksh, bl, L, bits),
-                lambda: fp.pbs_step_plain(acc, ahat[0], ks, bl, L, bits)),
+                lambda: fp.pbs_step(acc, ahat[0], ks, ksh, bl, L, bits, **ps),
+                lambda: fp.pbs_step_plain(acc, ahat[0], ks, bl, L, bits,
+                                          **ps)),
             "pbs_step_single_cta": (
                 lambda: fp.pbs_step_single_cta(acc, ahat[0], ks, ksh, bl, L,
-                                               bits),
-                lambda: fp.pbs_step_plain(acc, ahat[0], ks, bl, L, bits)),
+                                               bits, **ps),
+                lambda: fp.pbs_step_plain(acc, ahat[0], ks, bl, L, bits,
+                                          **ps)),
             "blind_rotate_persistent": (
                 lambda: fp.blind_rotate_persistent(acc, ahat_n, key_n.kspec,
-                                                   key_n.kshoup, bl, L, bits),
+                                                   key_n.kshoup, bl, L, bits,
+                                                   **ps),
                 lambda: fp.blind_rotate_persistent_plain(
-                    acc, ahat_n, key_n.kspec, bl, L, bits)),
+                    acc, ahat_n, key_n.kspec, bl, L, bits, **ps)),
             "blind_rotate_single_cta": (
                 lambda: fp.blind_rotate_single_cta(acc, ahat_n, key_n.kspec,
-                                                   key_n.kshoup, bl, L, bits),
+                                                   key_n.kshoup, bl, L, bits,
+                                                   **ps),
                 lambda: fp.blind_rotate_persistent_plain(
-                    acc, ahat_n, key_n.kspec, bl, L, bits)),
+                    acc, ahat_n, key_n.kspec, bl, L, bits, **ps)),
         }
         # the whole rotations (K5, K7) share one plain rotation: the same
         # function on the same inputs
@@ -828,7 +839,7 @@ def modes_kernels_phase(dev):
                for k, (kern, plain) in calls.items() if k != "ntt_mac_prime"}
         err["ntt_mac_prime"] = max_abs_err(res_k, res_p)
         want = fp.blind_rotate_persistent_plain(acc, ahat, key.kspec, bl, L,
-                                                bits)
+                                                bits, **ps)
         err_rot = {m: max_abs_err(fp.blind_rotate_fused(key, acc, ahat, m),
                                   want) for m in fp.MODES}
         # K5 and K7 at the main path's depth at both batch sizes of the
@@ -843,24 +854,27 @@ def modes_kernels_phase(dev):
         ahat_l = torch.from_numpy(rng_l.integers(0, 2 * N, (n, B_LARGE),
                                                  endpoint=True)
                                   .astype(np.int32)).to(dev)
-        k7_form = {B: fp.blind_rotate_single_cta_form(B, N, G, L, bits)
+        k7_form = {B: fp.blind_rotate_single_cta_form(B, N, G, L, planes=M,
+                                                      **ps)
                    for B in (B_MAIN, B_LARGE)}
         plain_l = fp.blind_rotate_persistent_plain(acc_l, ahat_l, key_n.kspec,
-                                                   bl, L, bits)
+                                                   bl, L, bits, **ps)
         k7_err = {B_MAIN: err["blind_rotate_single_cta"],
                   B_LARGE: max_abs_err(
                       fp.blind_rotate_single_cta(acc_l, ahat_l, key_n.kspec,
-                                                 key_n.kshoup, bl, L, bits),
+                                                 key_n.kshoup, bl, L, bits,
+                                                 **ps),
                       plain_l)}
         k7_checked = {f"B{B}": dict(kernel=k7_form[B], max_abs_err=k7_err[B])
                       for B in (B_MAIN, B_LARGE)}
         k5_err = {B_MAIN: err["blind_rotate_persistent"],
                   B_LARGE: max_abs_err(
                       fp.blind_rotate_persistent(acc_l, ahat_l, key_n.kspec,
-                                                 key_n.kshoup, bl, L, bits),
+                                                 key_n.kshoup, bl, L, bits,
+                                                 **ps),
                       plain_l)}
         k5_checked = {f"B{B}": dict(
-            fp.blind_rotate_persistent_waves(B, N, G, L, bits),
+            fp.blind_rotate_persistent_waves(B, N, G, L, planes=M, **ps),
             kernel="blind_rotate_stream_cluster_kernel",
             max_abs_err=k5_err[B]) for B in (B_MAIN, B_LARGE)}
         # K4 and K6's ntt_mac_prime at B = 256 too, on the same batch; K4
@@ -871,24 +885,25 @@ def modes_kernels_phase(dev):
                             device=dev)
         res_lp = torch.empty_like(res_l)
         for pi in range(P):
-            fp.ntt_mac_prime(dig_l, ks[pi], ksh[pi], pi, res_l)
-            fp.ntt_mac_prime_plain(dig_l, ks[pi], pi, res_lp)
-        step_l = fp.pbs_step_plain(acc_l, ahat_l[0], ks, bl, L, bits)
+            fp.ntt_mac_prime(dig_l, ks[pi], ksh[pi], pi, res_l, **ps)
+            fp.ntt_mac_prime_plain(dig_l, ks[pi], pi, res_lp, **ps)
+        step_l = fp.pbs_step_plain(acc_l, ahat_l[0], ks, bl, L, bits, **ps)
         err_l = {k: max_abs_err(getattr(fp, k)(acc_l, ahat_l[0], ks, ksh, bl,
-                                               L, bits), step_l)
+                                               L, bits, **ps), step_l)
                  for k in ("pbs_step", "pbs_step_single_cta")}
         err_l["ntt_mac_prime"] = max_abs_err(res_l, res_lp)
         # K6's crt_accumulate at B = 256 on those residues, and at B = 1
         # and 3 on the first ciphertexts of the B = 64 step's
         err_l["crt_accumulate"] = max_abs_err(
-            fp.crt_accumulate(res_lp, acc_l, bits),
-            fp.crt_accumulate_plain(res_lp, acc_l, bits))
+            fp.crt_accumulate(res_lp, acc_l, bits, **ps),
+            fp.crt_accumulate_plain(res_lp, acc_l, bits, **ps))
         crt_small = {f"B{B}": max_abs_err(
-            fp.crt_accumulate(res_p[:B], acc[:B], bits),
-            fp.crt_accumulate_plain(res_p[:B], acc[:B], bits))
+            fp.crt_accumulate(res_p[:B], acc[:B], bits, **ps),
+            fp.crt_accumulate_plain(res_p[:B], acc[:B], bits, **ps))
             for B in (1, 3)}
         # K3 and K4 run the same kernel, which this names for each batch
-        k4_form = {f"B{B}": fp.pbs_step_single_cta_form(B, N, G, L, bits)
+        k4_form = {f"B{B}": fp.pbs_step_single_cta_form(B, N, G, L, planes=M,
+                                                        **ps)
                    for B in (B_MAIN, B_LARGE)}
         if (any(err.values()) or any(err_rot.values())
                 or any(k7_err.values()) or any(k5_err.values())
@@ -912,9 +927,10 @@ def modes_kernels_phase(dev):
             plain_ms[k] = plain_whole
         rot_ms = {m: cuda_ms(lambda: fp.blind_rotate_fused(  # noqa: B023
             key, acc, ahat, m), 5) for m in fp.MODES}
-        bounds = bounds_ms(B_MAIN, G, L, N, P, bits, n)
+        bounds = bounds_ms(B_MAIN, G, L, N, P, bits, n, M)
         say("kernels_modes", t0, params=p.name,
-            shape=dict(B=B_MAIN, G=G, L=L, N=N, P=P, base_log=bl, bits=bits,
+            shape=dict(B=B_MAIN, G=G, L=L, N=N, P=P, M=M, base_log=bl,
+                       bits=bits,
                        persistent_steps=n, rotation_steps=steps),
             max_abs_err=err, rotation_max_abs_err=err_rot,
             blind_rotate_single_cta_at_depth=k7_checked,
@@ -987,7 +1003,8 @@ def boolean_main_path(dev):
     same = {m: all(torch.equal(outs[m][g], outs["scan2"][g])
                    for g in outs["scan2"]) for m in fp.MODES}
     expected = {m: {k: v * rotations for k, v in
-                    rotation_launches(m, bp.lwe_dimension).items()}
+                    rotation_launches(m, bp.lwe_dimension,
+                                      len(sks.bsk.primes)).items()}
                 for m in fp.MODES}
     say("main_path_boolean", t0, params=bp.name, batch=B_MAIN,
         steps=bp.lwe_dimension, keygen_s=t_keygen, gates_s=wall,
@@ -3196,7 +3213,7 @@ def kernels_wide_phase(dev):
 
     t0 = time.time()
     rng = np.random.default_rng([SEED, 18])
-    B, P, steps = 8, 5, 4
+    B, steps = 8, 4
     errs, wide, lut_ok, modes_same = {}, {}, {}, {}
     launches = {}
     for p in (wopbs_params.PARAM_4_BITS_5_BLOCKS,
@@ -3240,33 +3257,37 @@ def kernels_wide_phase(dev):
                                 .astype(np.int32)).to(dev)
         kspec, kshoup = sks.bsk.kspec[:steps], sks.bsk.kshoup[:steps]
         ks, ksh = kspec[0], kshoup[0]
+        P, M, ps = len(sks.bsk.primes), sks.bsk.planes, {
+            "primes": sks.bsk.primes}
         dig = fp.rotate_decompose_plain(acc, ahat[0], bl, L)
-        res_shape = (B, G, 2, P, N)
+        res_shape = (B, G, M, P, N)
         res_p = torch.empty(res_shape, dtype=torch.int32, device=dev)
         res_k = torch.empty(res_shape, dtype=torch.int32, device=dev)
         for pi in range(P):
-            fp.ntt_mac_prime_plain(dig, ks[pi], pi, res_p)
-            fp.ntt_mac_prime(dig, ks[pi], ksh[pi], pi, res_k)
-        step_plain = fp.pbs_step_plain(acc, ahat[0], ks, bl, L)
+            fp.ntt_mac_prime_plain(dig, ks[pi], pi, res_p, **ps)
+            fp.ntt_mac_prime(dig, ks[pi], ksh[pi], pi, res_k, **ps)
+        step_plain = fp.pbs_step_plain(acc, ahat[0], ks, bl, L, **ps)
         whole_plain = fp.blind_rotate_persistent_plain(acc, ahat, kspec, bl,
-                                                       L)
+                                                       L, **ps)
         errs[p.name] = dict(
             rotate_decompose=max_abs_err(
                 fp.rotate_decompose(acc, ahat[0], bl, L), dig),
             external_product_crt=max_abs_err(
-                fp.external_product_crt(dig, ks, ksh, acc),
-                fp.external_product_crt_plain(dig, ks, acc)),
+                fp.external_product_crt(dig, ks, ksh, acc, **ps),
+                fp.external_product_crt_plain(dig, ks, acc, **ps)),
             ntt_mac_prime=max_abs_err(res_k, res_p),
             pbs_step=max_abs_err(
-                fp.pbs_step(acc, ahat[0], ks, ksh, bl, L), step_plain),
+                fp.pbs_step(acc, ahat[0], ks, ksh, bl, L, **ps), step_plain),
             pbs_step_single_cta=max_abs_err(
-                fp.pbs_step_single_cta(acc, ahat[0], ks, ksh, bl, L),
+                fp.pbs_step_single_cta(acc, ahat[0], ks, ksh, bl, L, **ps),
                 step_plain),
             blind_rotate_persistent=max_abs_err(
-                fp.blind_rotate_persistent(acc, ahat, kspec, kshoup, bl, L),
+                fp.blind_rotate_persistent(acc, ahat, kspec, kshoup, bl, L,
+                                           **ps),
                 whole_plain),
             blind_rotate_single_cta=max_abs_err(
-                fp.blind_rotate_single_cta(acc, ahat, kspec, kshoup, bl, L),
+                fp.blind_rotate_single_cta(acc, ahat, kspec, kshoup, bl, L,
+                                           **ps),
                 whole_plain))
         if LJ == 18:
             acc64 = words(B_MAIN, G, N)
@@ -3275,13 +3296,15 @@ def kernels_wide_phase(dev):
                                       .astype(np.int32)).to(dev)
             dig64 = fp.rotate_decompose(acc64, ahat64, bl, L)
             ks, ksh = sks.bsk.kspec[0], sks.bsk.kshoup[0]
-            bound = bounds_ms(B_MAIN, G, L, N, P)["external_product_crt"]
+            bound = bounds_ms(B_MAIN, G, L, N, P, M=M)[
+                "external_product_crt"]
             wide = dict(
-                params=p.name, digit_polys=LJ, batch=B_MAIN,
+                params=p.name, digit_polys=LJ, batch=B_MAIN, primes=P,
+                planes=M,
                 ms=graph_ms(lambda: fp.external_product_crt(
-                    dig64, ks, ksh, acc64), 50),
+                    dig64, ks, ksh, acc64, **ps), 50),
                 plain_ms=cuda_ms(lambda: fp.external_product_crt_plain(
-                    dig64, ks, acc64), 2, warmup=1),
+                    dig64, ks, acc64, **ps), 2, warmup=1),
                 bound_ms=bound[0], bound_by=bound[1])
             # a WoPBS at this set, on every value of its 16
             wmsgs = np.arange(p.total_modulus)
@@ -3530,7 +3553,6 @@ def main():
     mb_err, mb_ms, mb_plain_ms, mb_bounds = multibit_kernels_phase(dev)
     p = PARAM_MESSAGE_2_CARRY_2_KS_PBS
     N, G, L, bl = p.polynomial_size, p.glwe_size, p.pbs_level, p.pbs_base_log
-    P = 5
     rng = np.random.default_rng(SEED)  # the timing phases' inputs
     modes_k = modes_kernels_phase(dev)
     ntt_k = ntt_kernels_phase(dev)
@@ -3588,7 +3610,7 @@ def main():
                for m, o in outs_m.items()}
     say("main_path_modes", t1, params=p.name, batch=B_MAIN,
         identical_to_scan2=same, correct=correct, launches=launches_m)
-    want_m = {m: rotation_launches(m, p.lwe_dimension)
+    want_m = {m: rotation_launches(m, p.lwe_dimension, len(sks.bsk.primes))
               for m in fused_pbs.MODES}
     if (not all(same.values()) or any(v != B_MAIN for v in correct.values())
             or launches_m != want_m):
@@ -3707,7 +3729,8 @@ def main():
     ms256_k1 = graph_ms(lambda: fused_pbs.rotate_decompose(acc, ahat, bl, L),
                         100)
     ms256_k2 = graph_ms(lambda: fused_pbs.external_product_crt(
-        dig, sks.bsk.kspec[0], sks.bsk.kshoup[0], acc), 100)
+        dig, sks.bsk.kspec[0], sks.bsk.kshoup[0], acc,
+        primes=sks.bsk.primes), 100)
     # the PBS_KS set (PBS then keyswitch, n = 1024) in scan2
     for B in (B_MAIN, B_LARGE):
         key = f"{pk_sks.params.name}_B{B}"
@@ -3726,7 +3749,8 @@ def main():
         batch_split_ms=split_ms, device_ms_per_launch_b256=dict(
             rotate_decompose=ms256_k1, external_product_crt=ms256_k2),
         bound_ms_b256={k: v[0] for k, v in
-                       bounds_ms(B_LARGE, G, L, N, P).items()
+                       bounds_ms(B_LARGE, G, L, N, len(sks.bsk.primes),
+                                 M=sks.bsk.planes).items()
                        if k in ("rotate_decompose", "external_product_crt")})
 
     del sks, cks, lut, acc, dig, data, small_ct, pk_sks, pk_cks, pk_lut

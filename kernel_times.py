@@ -37,9 +37,14 @@ five primes (whatever launches the tree makes for it), at the widths of
 the CRT-NTT layout's three paths (shortint, boolean, u128) and B = 64 and
 256, from default_rng([seed, 10, B]) (graphs of 100).  --no-rotations
 leaves out the whole rotations of K5 and K7, most of the run's time, to
-compare forms of the other kernels.  Only functions that both trees of
-the port have are called.  Prints one JSON line, with the
-card's name and power limit.
+compare forms of the other kernels.  Last, K2 at the shortint width and
+B = 1, 8, 32, 64, 366 and 512 (`external_product_crt_B<B>`, graphs of
+100, inputs from default_rng([seed, 2, B])): the latency-bound small
+batches of an API client's chains and the waves of a batched server.
+Only functions that both trees of the port have are called: a tree whose
+keys carry their prime set (`PreparedBskCuda.primes`) gets it passed, a
+tree whose keys are all on the reference's five primes does not.  Prints
+one JSON line, with the card's name and power limit.
 """
 
 import argparse
@@ -49,6 +54,16 @@ import os
 import sys
 
 from chip_smoke import B_LARGE, B_MAIN, SEED, card_line, cuda_ms, graph_ms
+
+# K2's batch sizes in `k2_batches`
+K2_BATCHES = (1, 8, 32, 64, 366, 512)
+
+
+def key_set(key):
+    """The keyword the tree's classic wrappers take for `key`'s primes:
+    none where its keys have no `primes` (all on the five primes)."""
+    primes = getattr(key, "primes", None)
+    return {} if primes is None else {"primes": primes}
 
 
 def times(seed, rotations=True):
@@ -103,7 +118,7 @@ def times(seed, rotations=True):
     calls = {
         "rotate_decompose": lambda: fp.rotate_decompose(acc, ahat[0], bl, L),
         "external_product_crt": lambda: fp.external_product_crt(
-            dig, key.kspec[0], key.kshoup[0], acc),
+            dig, key.kspec[0], key.kshoup[0], acc, **key_set(key)),
         "multibit_combine": lambda: fm.multibit_combine(d[0], ks),
         "multibit_external_product_from_acc": product_from_acc,
         "multibit_group_step": lambda: fm.multi_bit_blind_rotate_cuda(
@@ -124,6 +139,38 @@ def times(seed, rotations=True):
                 one_group, macc, d, mode=mode), 100)
     out.update(redesigned(seed, rotations))
     out.update(ntt_step(seed))
+    out.update(k2_batches(seed))
+    return out
+
+
+def k2_batches(seed):
+    """K2 at PARAM_MESSAGE_2_CARRY_2_KS_PBS's width and each B of
+    K2_BATCHES, one step's key, a graph of 100 launches."""
+    import numpy as np
+    import torch
+
+    from tfhe_tpu_torch.ops import fused_pbs as fp
+    from tfhe_tpu_torch.params import PARAM_MESSAGE_2_CARRY_2_KS_PBS as p
+
+    dev = torch.device("cuda")
+    N, G, L, bl = p.polynomial_size, p.glwe_size, p.pbs_level, p.pbs_base_log
+    out = {}
+    for B in K2_BATCHES:
+        rng = np.random.default_rng([seed, 2, B])
+
+        def words(*shape):
+            return torch.from_numpy(rng.integers(  # noqa: B023
+                0, 2**64 - 1, shape, dtype=np.uint64, endpoint=True)
+                .view(np.int64)).to(dev)
+
+        key = fp.prepare_bsk_cuda(words(1, L, G, G, N), bl)
+        acc = words(B, G, N)
+        ahat = torch.from_numpy(rng.integers(0, 2 * N, (B,), endpoint=True)
+                                .astype(np.int32)).to(dev)
+        dig = fp.rotate_decompose_plain(acc, ahat, bl, L)
+        out[f"external_product_crt_B{B}"] = graph_ms(
+            lambda: fp.external_product_crt(  # noqa: B023
+                dig, key.kspec[0], key.kshoup[0], acc, **key_set(key)), 100)
     return out
 
 
@@ -155,6 +202,7 @@ def redesigned(seed, rotations=True):
                 .view(np.int64)).to(dev)
 
         key = fp.prepare_bsk_cuda(words(n, L, G, G, N), bl, bits)
+        ks = key_set(key)
         for B in (B_MAIN, B_LARGE):
             acc = words(B, G, N)
             ahat = torch.from_numpy(rng.integers(0, 2 * N, (n, B),
@@ -167,42 +215,44 @@ def redesigned(seed, rotations=True):
                         acc, ahat[0], bl, L, bits), 100)
                 out[f"external_product_crt_{tag}_B{B}"] = graph_ms(
                     lambda: fp.external_product_crt(  # noqa: B023
-                        dig, key.kspec[0], key.kshoup[0], acc, bits), 100)
+                        dig, key.kspec[0], key.kshoup[0], acc, bits, **ks),
+                    100)
             # K3 and K4 (one step each), K7's form of one step (one CTA or
             # a cluster per ciphertext, as blind_rotate_single_cta_form
             # picks), and K6's ntt_mac_prime for prime 0
-            res = torch.empty((B, G, 2 if bits == 64 else 1, 5, N),
-                              dtype=torch.int32, device=dev)
+            _, P, _, _, M, _ = key.kspec.shape
+            res = torch.empty((B, G, M, P, N), dtype=torch.int32, device=dev)
             out[f"pbs_step_{tag}_B{B}"] = graph_ms(
                 lambda: fp.pbs_step(  # noqa: B023
-                    acc, ahat[0], key.kspec[0], key.kshoup[0], bl, L, bits),
-                100)
+                    acc, ahat[0], key.kspec[0], key.kshoup[0], bl, L, bits,
+                    **ks), 100)
             out[f"pbs_step_single_cta_{tag}_B{B}"] = graph_ms(
                 lambda: fp.pbs_step_single_cta(  # noqa: B023
-                    acc, ahat[0], key.kspec[0], key.kshoup[0], bl, L, bits),
-                100)
+                    acc, ahat[0], key.kspec[0], key.kshoup[0], bl, L, bits,
+                    **ks), 100)
             out[f"blind_rotate_single_cta_1step_{tag}_B{B}"] = cuda_ms(
                 lambda: fp.blind_rotate_single_cta(  # noqa: B023
                     acc, ahat[:1], key.kspec[:1], key.kshoup[:1], bl, L,
-                    bits), 100)
+                    bits, **ks), 100)
             out[f"ntt_mac_prime_{tag}_B{B}"] = graph_ms(
                 lambda: fp.ntt_mac_prime(  # noqa: B023
-                    dig, key.kspec[0, 0], key.kshoup[0, 0], 0, res), 100)
-            # K6's crt_accumulate on this step's residues, every prime's
-            for pi in range(5):
-                fp.ntt_mac_prime(dig, key.kspec[0, pi], key.kshoup[0, pi],
-                                 pi, res)
-            out[f"crt_accumulate_{tag}_B{B}"] = graph_ms(
-                lambda: fp.crt_accumulate(res, acc, bits),  # noqa: B023
+                    dig, key.kspec[0, 0], key.kshoup[0, 0], 0, res, **ks),
                 100)
+            # K6's crt_accumulate on this step's residues, every prime's
+            for pi in range(P):
+                fp.ntt_mac_prime(dig, key.kspec[0, pi], key.kshoup[0, pi],
+                                 pi, res, **ks)
+            out[f"crt_accumulate_{tag}_B{B}"] = graph_ms(
+                lambda: fp.crt_accumulate(res, acc, bits,  # noqa: B023
+                                          **ks), 100)
             if not rotations:
                 continue
             out[f"blind_rotate_single_cta_{tag}_B{B}"] = cuda_ms(
                 lambda: fp.blind_rotate_single_cta(  # noqa: B023
-                    acc, ahat, key.kspec, key.kshoup, bl, L, bits), 3)
+                    acc, ahat, key.kspec, key.kshoup, bl, L, bits, **ks), 3)
             out[f"blind_rotate_persistent_{tag}_B{B}"] = cuda_ms(
                 lambda: fp.blind_rotate_persistent(  # noqa: B023
-                    acc, ahat, key.kspec, key.kshoup, bl, L, bits), 3)
+                    acc, ahat, key.kspec, key.kshoup, bl, L, bits, **ks), 3)
         del key
         torch.cuda.empty_cache()
     return out

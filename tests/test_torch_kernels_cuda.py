@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from tfhe_tpu_torch.ops import fused_pbs
+from tfhe_tpu_torch.ops import fused_pbs, ntt
 from test_torch_cases import CASES, IDS
 
 pytestmark = pytest.mark.cuda
@@ -45,7 +45,7 @@ WIDTHS = [dict(L=1, G=2, N=2048, bl=23, bits=64),
 WIDTH_IDS = ["shortint", "boolean", "pbs_ks", "shortint_test",
              "boolean_test", "shortint_n1024", "boolean_165",
              "boolean_165_ks_pbs", "boolean_tfhe_lib"] + IDS
-BATCHES = [1, 63, 64, 65, 132, 133, 256]
+BATCHES = [1, 8, 63, 64, 65, 132, 133, 256, 512]
 
 
 @pytest.fixture
@@ -75,15 +75,17 @@ def test_kernels_match_plain(case, card):
     dig = fused_pbs.rotate_decompose(acc, ahat[0], bl, L, bits)
     assert torch.equal(dig, fused_pbs.rotate_decompose_plain(acc, ahat[0], bl,
                                                              L, bits))
+    ps = {"primes": key.primes}
     out = fused_pbs.external_product_crt(dig, key.kspec[0], key.kshoup[0], acc,
-                                         bits)
+                                         bits, **ps)
     assert torch.equal(out, fused_pbs.external_product_crt_plain(
-        dig, key.kspec[0], acc, bits))
+        dig, key.kspec[0], acc, bits, **ps))
     got = fused_pbs.blind_rotate_fused(key, acc, ahat)
     want = acc
     for i in range(steps):
         d = fused_pbs.rotate_decompose_plain(want, ahat[i], bl, L, bits)
-        want = fused_pbs.external_product_crt_plain(d, key.kspec[i], want, bits)
+        want = fused_pbs.external_product_crt_plain(d, key.kspec[i], want, bits,
+                                                    **ps)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
 
@@ -100,12 +102,48 @@ def test_external_product_on_the_core_matches_plain(width, B, card):
                             .astype(np.int32)).to(card)
     dig = fused_pbs.rotate_decompose_plain(acc, ahat, bl, L, bits)
     fused_pbs.reset_launch_counts()
+    ctas = fused_pbs.PRIME_CTAS.value
     out = fused_pbs.external_product_crt(dig, key.kspec[0], key.kshoup[0], acc,
-                                         bits)
+                                         bits, primes=key.primes)
     torch.cuda.synchronize()
     assert fused_pbs.external_product_crt.launches == 1
+    assert fused_pbs.PRIME_CTAS.value - ctas == B * len(key.primes)
     assert torch.equal(out, fused_pbs.external_product_crt_plain(
-        dig, key.kspec[0], acc, bits))
+        dig, key.kspec[0], acc, bits, primes=key.primes))
+
+
+@pytest.mark.parametrize("B", [1, 8, 64, 512])
+@pytest.mark.parametrize("width", WIDTHS[:2], ids=WIDTH_IDS[:2])
+def test_every_prime_set_gives_the_same_words(width, B, card):
+    # the classic key's set (four primes and one plane at the shortint
+    # width, two primes at boolean width) and the reference's five primes
+    # (two planes of a u64 word): K2 and every mode's blind rotation equal
+    # their plain versions and each other, word for word
+    rng = np.random.default_rng([31, B])
+    L, G, N, bl, bits = (width[k] for k in ("L", "G", "N", "bl", "bits"))
+    raw = _words(rng, (2, L, G, G, N), bits, card)
+    keys = [fused_pbs.prepare_bsk_cuda(raw, bl, bits),
+            fused_pbs.prepare_bsk_cuda(raw, bl, bits,
+                                       primes=ntt.PRIMES)]
+    assert len(keys[0].primes) == (4 if bits == 64 else 2)
+    assert (keys[0].planes, keys[1].planes) == (1, 2 if bits == 64 else 1)
+    acc = _words(rng, (B, G, N), bits, card)
+    ahat = torch.from_numpy(rng.integers(0, 2 * N, (2, B), endpoint=True)
+                            .astype(np.int32)).to(card)
+    dig = fused_pbs.rotate_decompose(acc, ahat[0], bl, L, bits)
+    words = []
+    for key in keys:
+        out = fused_pbs.external_product_crt(dig, key.kspec[0], key.kshoup[0],
+                                             acc, bits, primes=key.primes)
+        assert torch.equal(out, fused_pbs.external_product_crt_plain(
+            dig, key.kspec[0], acc, bits, primes=key.primes))
+        words.append(out)
+        rots = [fused_pbs.blind_rotate_fused(key, acc, ahat, mode)
+                for mode in fused_pbs.MODES]
+        torch.cuda.synchronize()
+        assert all(torch.equal(r, rots[0]) for r in rots)
+        words.append(rots[0])
+    assert torch.equal(words[0], words[2]) and torch.equal(words[1], words[3])
 
 
 @pytest.mark.parametrize("B", BATCHES)
@@ -138,11 +176,12 @@ def test_batch_beyond_a_grid_dimension_of_65535(card):
     ahat = torch.from_numpy(rng.integers(0, 2 * N, (B,)).astype(np.int32)
                             ).to(card)
     dig = fused_pbs.rotate_decompose(acc, ahat, bl, L)
-    out = fused_pbs.external_product_crt(dig, key.kspec[0], key.kshoup[0], acc)
+    out = fused_pbs.external_product_crt(dig, key.kspec[0], key.kshoup[0], acc,
+                                         primes=key.primes)
     rows = torch.cat([torch.arange(8), torch.arange(B - 16, B)]).to(card)
     want = fused_pbs.external_product_crt_plain(
         fused_pbs.rotate_decompose_plain(acc[rows], ahat[rows], bl, L),
-        key.kspec[0], acc[rows])
+        key.kspec[0], acc[rows], primes=key.primes)
     torch.cuda.synchronize()
     assert torch.equal(out[rows], want)
 
@@ -184,4 +223,5 @@ def test_wrappers_reject_bad_inputs(card):
         with pytest.raises(error, match=match):
             fused_pbs.external_product_crt(
                 dig, key.kspec[0], key.kshoup[0],
-                torch.zeros((1, G, N), dtype=torch.int64, device=card))
+                torch.zeros((1, G, N), dtype=torch.int64, device=card),
+                primes=key.primes)

@@ -47,7 +47,8 @@ def test_one_step_matches_reference(case):
     assert dig.shape == (B, L, G, N) and dig.dtype == torch.int32
     assert np.array_equal(dig.numpy(), want_dig.transpose(0, 3, 1, 2))
     key = fused_pbs.prepare_bsk_cuda(to_tensor(bsk_std, "cpu"), bl, bits)
-    got = fused_pbs.external_product_crt_plain(dig, key.kspec[0], acc_t, bits)
+    got = fused_pbs.external_product_crt_plain(dig, key.kspec[0], acc_t, bits,
+                                               primes=key.primes)
     assert np.array_equal(to_numpy(got, bits), want_acc)
 
 
@@ -59,23 +60,27 @@ def test_wrappers_take_the_plain_version_for_cpu_tensors_only():
     key = fused_pbs.prepare_bsk_cuda(
         to_tensor(rng.integers(0, 2**63, (1, L, G, G, N), dtype=np.uint64),
                   "cpu"), bl)
+    ps = {"primes": key.primes}
+    P, M = len(key.primes), key.planes
     fused_pbs.reset_launch_counts()
     dig = fused_pbs.rotate_decompose(acc, ahat, bl, L)
     assert torch.equal(dig, fused_pbs.rotate_decompose_plain(acc, ahat, bl, L))
-    out = fused_pbs.external_product_crt(dig, key.kspec[0], key.kshoup[0], acc)
+    out = fused_pbs.external_product_crt(dig, key.kspec[0], key.kshoup[0], acc,
+                                         **ps)
     assert torch.equal(out, fused_pbs.external_product_crt_plain(
-        dig, key.kspec[0], acc))
-    step = fused_pbs.pbs_step(acc, ahat, key.kspec[0], key.kshoup[0], bl, L)
+        dig, key.kspec[0], acc, **ps))
+    step = fused_pbs.pbs_step(acc, ahat, key.kspec[0], key.kshoup[0], bl, L,
+                              **ps)
     assert torch.equal(step, fused_pbs.pbs_step_plain(acc, ahat, key.kspec[0],
-                                                      bl, L))
+                                                      bl, L, **ps))
     rot = fused_pbs.blind_rotate_persistent(acc, ahat[None], key.kspec,
-                                            key.kshoup, bl, L)
+                                            key.kshoup, bl, L, **ps)
     assert torch.equal(rot, step)
-    res = torch.zeros((4, G, 2, 5, N), dtype=torch.int32)
-    for pi in range(5):
+    res = torch.zeros((4, G, M, P, N), dtype=torch.int32)
+    for pi in range(P):
         fused_pbs.ntt_mac_prime(dig, key.kspec[0, pi], key.kshoup[0, pi], pi,
-                                res)
-    assert torch.equal(fused_pbs.crt_accumulate(res, acc), out)
+                                res, **ps)
+    assert torch.equal(fused_pbs.crt_accumulate(res, acc, **ps), out)
     assert [k.launches for k in fused_pbs.KERNELS] == [0] * len(
         fused_pbs.KERNELS)
     with pytest.raises(ValueError):
@@ -83,16 +88,17 @@ def test_wrappers_take_the_plain_version_for_cpu_tensors_only():
     with pytest.raises(ValueError):
         fused_pbs.external_product_crt(dig.to("meta"), key.kspec[0].to("meta"),
                                        key.kshoup[0].to("meta"),
-                                       acc.to("meta"))
+                                       acc.to("meta"), **ps)
     meta_key = (key.kspec[0].to("meta"), key.kshoup[0].to("meta"))
     with pytest.raises(ValueError):
-        fused_pbs.pbs_step(acc.to("meta"), ahat.to("meta"), *meta_key, bl, L)
+        fused_pbs.pbs_step(acc.to("meta"), ahat.to("meta"), *meta_key, bl, L,
+                           **ps)
     with pytest.raises(ValueError):
         fused_pbs.blind_rotate_persistent(
             acc.to("meta"), ahat[None].to("meta"), key.kspec.to("meta"),
-            key.kshoup.to("meta"), bl, L)
+            key.kshoup.to("meta"), bl, L, **ps)
     with pytest.raises(ValueError):
         fused_pbs.ntt_mac_prime(dig.to("meta"), meta_key[0][0],
-                                meta_key[1][0], 0, res.to("meta"))
+                                meta_key[1][0], 0, res.to("meta"), **ps)
     with pytest.raises(ValueError):
-        fused_pbs.crt_accumulate(res.to("meta"), acc.to("meta"))
+        fused_pbs.crt_accumulate(res.to("meta"), acc.to("meta"), **ps)

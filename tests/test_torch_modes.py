@@ -5,6 +5,7 @@ for bit, at the tests/test_fused_pbs.py cases; and the pieces each schedule
 is made of agree with each other."""
 
 import functools
+import random
 
 import numpy as np
 import pytest
@@ -73,72 +74,140 @@ def test_schedule_pieces_agree(bits):
     bl, L = key.base_log, key.levels
     digits = fused_pbs.rotate_decompose(acc, ahat[0], bl, L, bits)
     B, _, G, N = digits.shape
-    M = 2 if bits == 64 else 1
-    residues = torch.full((B, G, M, len(ntt.PRIMES), N), -1,
+    ps = {"primes": key.primes}
+    residues = torch.full((B, G, key.planes, len(key.primes), N), -1,
                           dtype=torch.int32)
-    for pi in range(len(ntt.PRIMES)):
+    for pi in range(len(key.primes)):
         out = fused_pbs.ntt_mac_prime(digits, key.kspec[0, pi],
-                                      key.kshoup[0, pi], pi, residues)
+                                      key.kshoup[0, pi], pi, residues, **ps)
         assert out is residues
         assert bool((residues[:, :, :, pi] >= 0).all())
-        assert bool((residues[:, :, :, pi] < ntt.PRIMES[pi]).all())
+        assert bool((residues[:, :, :, pi] < key.primes[pi]).all())
     k2 = fused_pbs.external_product_crt(digits, key.kspec[0], key.kshoup[0],
-                                        acc, bits)
-    assert torch.equal(fused_pbs.crt_accumulate(residues, acc, bits), k2)
+                                        acc, bits, **ps)
+    assert torch.equal(fused_pbs.crt_accumulate(residues, acc, bits, **ps),
+                       k2)
     step = fused_pbs.pbs_step(acc, ahat[0], key.kspec[0], key.kshoup[0], bl,
-                              L, bits)
+                              L, bits, **ps)
     assert torch.equal(step, k2)
     step_w = fused_pbs.pbs_step_single_cta(acc, ahat[0], key.kspec[0],
-                                           key.kshoup[0], bl, L, bits)
+                                           key.kshoup[0], bl, L, bits, **ps)
     assert torch.equal(step_w, k2)
     rot = fused_pbs.blind_rotate_persistent(acc, ahat, key.kspec, key.kshoup,
-                                            bl, L, bits)
+                                            bl, L, bits, **ps)
     assert torch.equal(fused_pbs.blind_rotate_single_cta(
-        acc, ahat, key.kspec, key.kshoup, bl, L, bits), rot)
+        acc, ahat, key.kspec, key.kshoup, bl, L, bits, **ps), rot)
     for mode in fused_pbs.MODES:
         assert torch.equal(fused_pbs.blind_rotate_fused(key, acc, ahat, mode),
                            rot)
 
 
-@pytest.mark.parametrize("N", [256, 512, 2048])
-def test_explicit_crt_constants_reconstruct_the_convolution(N):
-    # the single-CTA kernels' CRT, in Python integers: from the unscaled
-    # inverse transforms r_i = N x mod p_i of a convolution x with
-    # |x| < 2^67, c_i = r_i w_i mod p_i, the u32 fraction sum_i c_i T_i,
-    # k = round(fraction / 2^28), and x = sum_i c_i Q_i - k Q mod 2^64
-    tab = ntt.tables_for(N, "cpu").xcrt.tolist()
-    rng = np.random.default_rng(N)
-    xs = [int(v) for v in rng.integers(-2**62, 2**62, 200)]
-    xs += [v * 32 + 7 for v in xs[:50]]
-    xs += [2**67 - 1, -(2**67 - 1), 0, 1, -1]
+def _explicit_crt_words(N, xs, primes):
+    """The kernels' explicit CRT in Python integers: from the unscaled
+    inverse transforms r_i = N x mod p_i of each convolution x,
+    c_i = r_i w_i mod p_i, the u32 fraction sum_i hi(c_i T_i) (`__umulhi`),
+    k = round(fraction / 2^F), and sum_i c_i Q_i - k Q mod 2^64."""
+    tab = ntt.tables_for(N, "cpu", primes).xcrt.tolist()
+    F = ntt.XCRT_FRAC_BITS
     u64 = lambda v: v % (1 << 64)  # noqa: E731
+    out = []
     for x in xs:
         acc, frac = 0, 0
         for p, w, wsh, q_i, t, q in tab:
             r = N * x % p
             c = r * w % p
             assert c == (r * w - (r * wsh >> 32) * p) % p  # the Shoup form
-            frac += c * t
+            assert c < 1 << 32 and t < 1 << 32  # __umulhi's operands
+            frac += c * t >> 32
             acc += c * u64(q_i)
         assert frac < 1 << 32
-        k = (frac + (1 << (ntt.XCRT_FRAC_BITS - 1))) >> ntt.XCRT_FRAC_BITS
-        assert u64(acc - k * u64(tab[0][5])) == u64(x), x
+        k = (frac + (1 << (F - 1))) >> F
+        out.append(u64(acc - k * u64(tab[0][5])))
+    return out
+
+
+@pytest.mark.parametrize("N", [256, 512, 2048])
+def test_explicit_crt_constants_reconstruct_the_convolution(N):
+    # the kernels' CRT on the five primes, for convolutions with |x| < 2^67
+    rng = np.random.default_rng(N)
+    xs = [int(v) for v in rng.integers(-2**62, 2**62, 200)]
+    xs += [v * 32 + 7 for v in xs[:50]]
+    xs += [2**67 - 1, -(2**67 - 1), 0, 1, -1]
+    u64 = lambda v: v % (1 << 64)  # noqa: E731
+    assert _explicit_crt_words(N, xs, ntt.PRIMES) == [u64(x) for x in xs]
+
+
+@pytest.mark.parametrize("P", [2, 3, 4, 8])
+@pytest.mark.parametrize("N", [256, 2048])
+def test_explicit_crt_constants_reconstruct_on_the_classic_primes(N, P):
+    # the same CRT on the first P of the classic key's primes, over the
+    # whole range `holds_product` admits: |x| < Q (1/2 - P 2^(1 - F)), F
+    # = 13, its two ends included, and at P = 4 the products of
+    # PARAM_MESSAGE_2_CARRY_2_KS_PBS's one-plane key (|x| <= 2^97)
+    primes = ntt.WIDE_PRIMES[:P]
+    Q, F = 1, ntt.XCRT_FRAC_BITS
+    for p in primes:
+        Q *= p
+    top = (Q * ((1 << (F - 1)) - 2 * P) - 1) >> F
+    assert ntt.holds_product(primes, top)
+    assert not ntt.holds_product(primes, top + 1)
+    rng = random.Random(N + P)
+    xs = [rng.randint(-top, top) for _ in range(200)]
+    xs += [rng.randint(-2**40, 2**40) for _ in range(50)]
+    xs += [top, -top, 0, 1, -1, top - 1, 1 - top]
+    if P == 4:
+        bound = ntt.product_bound(23, 2, 2048, 64, 1)
+        assert bound == 2**97 and ntt.holds_product(primes, bound)
+        xs += [bound, -bound, bound - 12345]
+    u64 = lambda v: v % (1 << 64)  # noqa: E731
+    assert _explicit_crt_words(N, xs, primes) == [u64(x) for x in xs]
+
+
+def test_explicit_crt_constants_of_the_classic_primes():
+    # F = 13: T_i = round(2^(32 + F) / p_i) fits a u32 for every prime of
+    # both sets (each above 2^13), each high word hi(c_i T_i) of a c_i <
+    # p_i is at most 2^F, so P <= 8 of them and the rounding's 2^(F - 1)
+    # sum in a u32; w_i is N^-1 (Q / p_i)^-1 mod p_i with its Shoup
+    # companion
+    F = ntt.XCRT_FRAC_BITS
+    assert min(ntt.PRIMES + ntt.WIDE_PRIMES) > 1 << F
+    for N in (1, 256, 2048):
+        tab = ntt._explicit_crt_host(N, ntt.WIDE_PRIMES)
+        if N > 1:
+            assert tab.tolist() == ntt.tables_for(
+                N, "cpu", ntt.WIDE_PRIMES).xcrt.tolist()
+        Q = 1
+        for p in ntt.WIDE_PRIMES:
+            Q *= p
+        for (p, w, wsh, q_i, t, q), pr in zip(tab.tolist(),
+                                             ntt.WIDE_PRIMES):
+            assert p == pr
+            assert w == pow(N, -1, p) * pow(Q // p, -1, p) % p
+            assert wsh == (w << 32) // p
+            assert q_i % (1 << 64) == (Q // p) % (1 << 64)
+            assert q % (1 << 64) == Q % (1 << 64)
+            assert t == ((1 << (32 + F)) + p // 2) // p < 1 << 32
+            assert (p - 1) * t >> 32 <= 1 << F
+        assert len(tab) * ((1 << F) + 1) + (1 << (F - 1)) < 1 << 32
+    assert ntt.residue_crt_for("cpu", ntt.WIDE_PRIMES[:4]).tolist() == \
+        ntt._explicit_crt_host(1, ntt.WIDE_PRIMES[:4]).tolist()
 
 
 def _residue_crt_word(r, consts):
     """crt_accumulate's kernel on one plane, in Python integers: canonical
-    residues r_i -> (c_i, the u32 fraction sum_i c_i T_i, k, the word
+    residues r_i -> (c_i, the u32 fraction sum_i hi(c_i T_i), k, the word
     sum_i c_i Q_i - k Q mod 2^64)."""
     u64 = lambda v: v % (1 << 64)  # noqa: E731
+    F = ntt.XCRT_FRAC_BITS
     cs, acc, frac = [], 0, 0
     for ri, (p, w, wsh, q_i, t, _) in zip(r, consts):
         c = ri * w % p
         assert c == (ri * w - (ri * wsh >> 32) * p) % p  # the Shoup form
         cs.append(c)
-        frac += c * t
+        frac += c * t >> 32
         acc += c * u64(q_i)
     assert frac < 1 << 32
-    k = (frac + (1 << (ntt.XCRT_FRAC_BITS - 1))) >> ntt.XCRT_FRAC_BITS
+    k = (frac + (1 << (F - 1))) >> F
     return cs, frac, k, u64(acc - k * u64(consts[0][5]))
 
 
@@ -147,7 +216,7 @@ def test_residue_crt_constants_match_garner_over_the_whole_range():
     # balanced reconstruction (ntt.crt_to_u64_centered, the plain version)
     # for residue tuples drawn over the whole 5-prime range: the c_i
     # recombine to Garner's integer exactly with the exact k = round(sum_i
-    # c_i / p_i); the kernel's 28-bit fraction gives that k wherever the
+    # c_i / p_i); the kernel's 13-bit fraction gives that k wherever the
     # exact fraction lies more than P 2^-12 from a half, which every
     # integer below 2^67 in magnitude does (|x| / Q < 2^-10)
     from fractions import Fraction
@@ -197,7 +266,8 @@ def test_residue_crt_reconstructs_convolutions_below_2_67(bits):
     acc = to_tensor(rng.integers(0, 2**bits - 1, (B, O, N),
                                  dtype=np.uint64, endpoint=True), "cpu")
     u64 = lambda v: v % (1 << 64)  # noqa: E731
-    want = to_numpy(fused_pbs.crt_accumulate_plain(res, acc, bits), bits)
+    want = to_numpy(fused_pbs.crt_accumulate_plain(res, acc, bits,
+                                                   primes=ntt.PRIMES), bits)
     a = to_numpy(acc, bits)
     for b in range(B):
         for o in range(O):
@@ -213,22 +283,24 @@ def test_single_cta_wrappers_take_the_plain_version_for_cpu_tensors_only():
     key, acc, ahat = _step_inputs(64)
     bl, L = key.base_log, key.levels
     fused_pbs.reset_launch_counts()
+    ps = {"primes": key.primes}
     step = fused_pbs.pbs_step_single_cta(acc, ahat[0], key.kspec[0],
-                                         key.kshoup[0], bl, L)
+                                         key.kshoup[0], bl, L, **ps)
     assert torch.equal(step, fused_pbs.pbs_step_plain(acc, ahat[0],
-                                                      key.kspec[0], bl, L))
+                                                      key.kspec[0], bl, L,
+                                                      **ps))
     rot = fused_pbs.blind_rotate_single_cta(acc, ahat, key.kspec, key.kshoup,
-                                            bl, L)
+                                            bl, L, **ps)
     assert torch.equal(rot, fused_pbs.blind_rotate_persistent_plain(
-        acc, ahat, key.kspec, bl, L))
+        acc, ahat, key.kspec, bl, L, **ps))
     assert (fused_pbs.pbs_step_single_cta.launches,
             fused_pbs.blind_rotate_single_cta.launches) == (0, 0)
     meta = [t.to("meta") for t in (acc, ahat, key.kspec, key.kshoup)]
     with pytest.raises(ValueError, match="unsupported device"):
         fused_pbs.pbs_step_single_cta(meta[0], meta[1][0], meta[2][0],
-                                      meta[3][0], bl, L)
+                                      meta[3][0], bl, L, **ps)
     with pytest.raises(ValueError, match="unsupported device"):
-        fused_pbs.blind_rotate_single_cta(*meta, bl, L)
+        fused_pbs.blind_rotate_single_cta(*meta, bl, L, **ps)
 
 
 def test_rotation_by_2n_is_the_identity_in_every_mode():

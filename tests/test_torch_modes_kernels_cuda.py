@@ -18,6 +18,8 @@ Marked `cuda`: they skip where there is no card; on one, run
 `python -m pytest -m cuda --noconftest tests/test_torch_modes_kernels_cuda.py`
 (tests/conftest.py imports JAX, which is not needed here)."""
 
+import random
+
 import numpy as np
 import pytest
 import torch
@@ -31,6 +33,7 @@ pytestmark = pytest.mark.cuda
 WIDTHS = [dict(n=3, L=1, G=2, N=2048, B=64, bl=23, bits=64),
           dict(n=3, L=3, G=3, N=512, B=64, bl=6, bits=32)]
 WIDTH_IDS = ["n3L1G2N2048", "n3L3G3N512u32"]
+# K6's CRT stage on the reference's five primes
 P = len(ntt.PRIMES)
 # K7's widths: PARAM_MESSAGE_2_CARRY_2_KS_PBS, boolean DEFAULT_PARAMETERS,
 # PARAM_MESSAGE_2_CARRY_2_COMPACT_PK_PBS_KS (base_log 21),
@@ -52,7 +55,7 @@ CORE_WIDTHS = [dict(L=1, G=2, N=2048, bl=23, bits=64),
 CORE_WIDTH_IDS = ["shortint", "boolean", "pbs_ks", "shortint_test",
                   "boolean_test", "shortint_n1024", "boolean_165",
                   "boolean_165_ks_pbs", "boolean_tfhe_lib"] + IDS
-BATCHES = [1, 63, 64, 65, 132, 133, 256]
+BATCHES = [1, 8, 63, 64, 65, 132, 133, 256, 512]
 
 
 def launched():
@@ -89,36 +92,38 @@ def test_kernels_match_plain(case, card):
     key, acc, ahat = _inputs(rng, case, card)
     bl, L, bits = key.base_log, key.levels, key.bits
     B, G, N = acc.shape
-    M = 2 if bits == 64 else 1
+    ps = {"primes": key.primes}
     dig = fused_pbs.rotate_decompose_plain(acc, ahat[0], bl, L, bits)
-    res = torch.empty((B, G, M, P, N), dtype=torch.int32, device=card)
+    res = torch.empty((B, G, key.planes, len(key.primes), N),
+                      dtype=torch.int32, device=card)
     res_p = torch.empty_like(res)
-    for pi in range(P):
+    for pi in range(len(key.primes)):
         fused_pbs.ntt_mac_prime(dig, key.kspec[0, pi], key.kshoup[0, pi], pi,
-                                res)
-        fused_pbs.ntt_mac_prime_plain(dig, key.kspec[0, pi], pi, res_p)
+                                res, **ps)
+        fused_pbs.ntt_mac_prime_plain(dig, key.kspec[0, pi], pi, res_p, **ps)
     torch.cuda.synchronize()
     assert torch.equal(res, res_p)
-    assert torch.equal(fused_pbs.crt_accumulate(res_p, acc, bits),
-                       fused_pbs.crt_accumulate_plain(res_p, acc, bits))
+    assert torch.equal(fused_pbs.crt_accumulate(res_p, acc, bits, **ps),
+                       fused_pbs.crt_accumulate_plain(res_p, acc, bits, **ps))
     step = fused_pbs.pbs_step(acc, ahat[0], key.kspec[0], key.kshoup[0], bl,
-                              L, bits)
+                              L, bits, **ps)
     assert torch.equal(step, fused_pbs.pbs_step_plain(acc, ahat[0],
                                                       key.kspec[0], bl, L,
-                                                      bits))
+                                                      bits, **ps))
     step_w = fused_pbs.pbs_step_single_cta(acc, ahat[0], key.kspec[0],
-                                           key.kshoup[0], bl, L, bits)
+                                           key.kshoup[0], bl, L, bits, **ps)
     torch.cuda.synchronize()
     assert torch.equal(step_w, fused_pbs.pbs_step_plain(
-        acc, ahat[0], key.kspec[0], bl, L, bits))
+        acc, ahat[0], key.kspec[0], bl, L, bits, **ps))
     want = fused_pbs.blind_rotate_persistent_plain(acc, ahat, key.kspec, bl,
-                                                   L, bits)
+                                                   L, bits, **ps)
     rot = fused_pbs.blind_rotate_persistent(acc, ahat, key.kspec, key.kshoup,
-                                            bl, L, bits)
+                                            bl, L, bits, **ps)
     torch.cuda.synchronize()
     assert torch.equal(rot, want)
     rot_single = fused_pbs.blind_rotate_single_cta(acc, ahat, key.kspec,
-                                                   key.kshoup, bl, L, bits)
+                                                   key.kshoup, bl, L, bits,
+                                                   **ps)
     torch.cuda.synchronize()
     assert torch.equal(rot_single, want)
 
@@ -131,7 +136,8 @@ def test_every_mode_gives_the_same_rotation_with_its_launches(case, card):
     n = key.input_dim
     want = {"scan2": dict(rotate_decompose=n, external_product_crt=n),
             "scan1": dict(pbs_step=n),
-            "scan3": dict(rotate_decompose=n, ntt_mac_prime=n * P,
+            "scan3": dict(rotate_decompose=n,
+                          ntt_mac_prime=n * len(key.primes),
                           crt_accumulate=n),
             "scan1w": dict(pbs_step_single_cta=n),
             "grid": dict(blind_rotate_persistent=1),
@@ -156,11 +162,11 @@ def test_single_cta_rotation_on_the_core_matches_plain(width, B, card):
     bl, L, bits = key.base_log, key.levels, key.bits
     fused_pbs.reset_launch_counts()
     got = fused_pbs.blind_rotate_single_cta(acc, ahat, key.kspec, key.kshoup,
-                                            bl, L, bits)
+                                            bl, L, bits, primes=key.primes)
     torch.cuda.synchronize()
     assert fused_pbs.blind_rotate_single_cta.launches == 1
     assert torch.equal(got, fused_pbs.blind_rotate_persistent_plain(
-        acc, ahat, key.kspec, bl, L, bits))
+        acc, ahat, key.kspec, bl, L, bits, primes=key.primes))
 
 
 @pytest.mark.parametrize("B", [64, 256])
@@ -174,13 +180,13 @@ def test_single_cta_rotation_on_the_core_at_the_main_paths_depth(width, n, B,
     rng = np.random.default_rng([37, B])
     key, acc, ahat = _inputs(rng, dict(width, n=n, B=B), card)
     bl, L, bits = key.base_log, key.levels, key.bits
-    form = fused_pbs.blind_rotate_single_cta_form(B, width["N"], width["G"],
-                                                  L, bits)
+    form = fused_pbs.blind_rotate_single_cta_form(
+        B, width["N"], width["G"], L, primes=key.primes, planes=key.planes)
     got = fused_pbs.blind_rotate_single_cta(acc, ahat, key.kspec, key.kshoup,
-                                            bl, L, bits)
+                                            bl, L, bits, primes=key.primes)
     torch.cuda.synchronize()
     assert torch.equal(got, fused_pbs.blind_rotate_persistent_plain(
-        acc, ahat, key.kspec, bl, L, bits)), form
+        acc, ahat, key.kspec, bl, L, bits, primes=key.primes)), form
 
 
 @pytest.mark.parametrize("B", BATCHES)
@@ -192,11 +198,11 @@ def test_persistent_rotation_on_the_core_matches_plain(width, B, card):
     bl, L, bits = key.base_log, key.levels, key.bits
     fused_pbs.reset_launch_counts()
     got = fused_pbs.blind_rotate_persistent(acc, ahat, key.kspec, key.kshoup,
-                                            bl, L, bits)
+                                            bl, L, bits, primes=key.primes)
     torch.cuda.synchronize()
     assert launched() == {"blind_rotate_persistent": 1}
     assert torch.equal(got, fused_pbs.blind_rotate_persistent_plain(
-        acc, ahat, key.kspec, bl, L, bits))
+        acc, ahat, key.kspec, bl, L, bits, primes=key.primes))
 
 
 @pytest.mark.parametrize("B", [64, 256])
@@ -209,14 +215,14 @@ def test_persistent_rotation_at_the_main_paths_depth(width, n, B, card):
     rng = np.random.default_rng([53, B])
     key, acc, ahat = _inputs(rng, dict(width, n=n, B=B), card)
     bl, L, bits = key.base_log, key.levels, key.bits
-    waves = fused_pbs.blind_rotate_persistent_waves(B, width["N"],
-                                                    width["G"], L, bits)
+    waves = fused_pbs.blind_rotate_persistent_waves(
+        B, width["N"], width["G"], L, primes=key.primes, planes=key.planes)
     assert waves["waves"] == -(-B // waves["clusters"]) >= 1
     got = fused_pbs.blind_rotate_persistent(acc, ahat, key.kspec, key.kshoup,
-                                            bl, L, bits)
+                                            bl, L, bits, primes=key.primes)
     torch.cuda.synchronize()
     assert torch.equal(got, fused_pbs.blind_rotate_persistent_plain(
-        acc, ahat, key.kspec, bl, L, bits)), waves
+        acc, ahat, key.kspec, bl, L, bits, primes=key.primes)), waves
 
 
 @pytest.mark.parametrize("B", BATCHES)
@@ -228,10 +234,12 @@ def test_step_on_the_core_matches_plain(width, B, card):
     rng = np.random.default_rng([41, B])
     key, acc, ahat = _inputs(rng, dict(width, n=1, B=B), card)
     bl, L, bits = key.base_log, key.levels, key.bits
-    want = fused_pbs.pbs_step_plain(acc, ahat[0], key.kspec[0], bl, L, bits)
+    want = fused_pbs.pbs_step_plain(acc, ahat[0], key.kspec[0], bl, L, bits,
+                                    primes=key.primes)
     for wrapper in (fused_pbs.pbs_step_single_cta, fused_pbs.pbs_step):
         fused_pbs.reset_launch_counts()
-        got = wrapper(acc, ahat[0], key.kspec[0], key.kshoup[0], bl, L, bits)
+        got = wrapper(acc, ahat[0], key.kspec[0], key.kshoup[0], bl, L, bits,
+                      primes=key.primes)
         torch.cuda.synchronize()
         assert launched() == {wrapper.__name__: 1}
         assert torch.equal(got, want), wrapper.__name__
@@ -245,18 +253,19 @@ def test_prime_stage_on_the_core_matches_plain(width, B, card):
     key, acc, ahat = _inputs(rng, dict(width, n=1, B=B), card)
     bl, L, bits = key.base_log, key.levels, key.bits
     G, N = width["G"], width["N"]
-    M = 2 if bits == 64 else 1
+    KP, ps = len(key.primes), {"primes": key.primes}
     dig = fused_pbs.rotate_decompose_plain(acc, ahat[0], bl, L, bits)
-    got = torch.full((B, G, M, P, N), -1, dtype=torch.int32, device=card)
+    got = torch.full((B, G, key.planes, KP, N), -1, dtype=torch.int32,
+                     device=card)
     want = torch.full_like(got, -1)
     fused_pbs.reset_launch_counts()
-    for pi in range(P):
+    for pi in range(KP):
         fused_pbs.ntt_mac_prime(dig, key.kspec[0, pi], key.kshoup[0, pi], pi,
-                                got)
-        fused_pbs.ntt_mac_prime_plain(dig, key.kspec[0, pi], pi, want)
+                                got, **ps)
+        fused_pbs.ntt_mac_prime_plain(dig, key.kspec[0, pi], pi, want, **ps)
         torch.cuda.synchronize()
         assert torch.equal(got, want), pi
-    assert fused_pbs.ntt_mac_prime.launches == P
+    assert fused_pbs.ntt_mac_prime.launches == KP
 
 
 def _residues_below_2_67(rng, B, O, M, N):
@@ -288,10 +297,42 @@ def test_crt_stage_matches_plain(bits, N, B, card):
                                         dtype=np.uint64, endpoint=True)
                            .view(np.int64)).to(card)
     fused_pbs.reset_launch_counts()
-    got = fused_pbs.crt_accumulate(res, acc, bits)
+    ps = {"primes": ntt.PRIMES}
+    got = fused_pbs.crt_accumulate(res, acc, bits, **ps)
     torch.cuda.synchronize()
     assert launched() == {"crt_accumulate": 1}
-    assert torch.equal(got, fused_pbs.crt_accumulate_plain(res, acc, bits))
+    assert torch.equal(got, fused_pbs.crt_accumulate_plain(res, acc, bits,
+                                                           **ps))
+
+
+@pytest.mark.parametrize("B", [1, 64])
+@pytest.mark.parametrize("N", [256, 2048])
+@pytest.mark.parametrize("KP", [2, 4])
+def test_crt_stage_matches_plain_on_the_classic_primes(KP, N, B, card):
+    # K6's crt_accumulate on the first KP classic primes and one plane:
+    # residues of integers over the whole range the set holds (|x| < Q (1/2
+    # - KP 2^(1 - F))), both ends among them
+    rng = np.random.default_rng([59, KP, N, B])
+    primes = ntt.WIDE_PRIMES[:KP]
+    Q, F = 1, ntt.XCRT_FRAC_BITS
+    for p in primes:
+        Q *= p
+    top = (Q * ((1 << (F - 1)) - 2 * KP) - 1) >> F
+    assert ntt.holds_product(primes, top)
+    O = 2
+    draw = random.Random(int(rng.integers(2**32)))
+    xs = [draw.randint(-top, top) for _ in range(B * O * N)]
+    xs[:4] = [top, -top, 0, -1]
+    res = torch.tensor([[x % p for p in primes] for x in xs],
+                       dtype=torch.int64).reshape(B, O, 1, N, KP)
+    res = res.permute(0, 1, 2, 4, 3).contiguous().to(torch.int32).to(card)
+    acc = torch.from_numpy(rng.integers(0, 2**64 - 1, (B, O, N),
+                                        dtype=np.uint64, endpoint=True)
+                           .view(np.int64)).to(card)
+    got = fused_pbs.crt_accumulate(res, acc, primes=primes)
+    torch.cuda.synchronize()
+    assert torch.equal(got, fused_pbs.crt_accumulate_plain(res, acc,
+                                                           primes=primes))
 
 
 def test_crt_stage_refuses_misaligned_inputs(card):
@@ -303,10 +344,11 @@ def test_crt_stage_refuses_misaligned_inputs(card):
     fused_pbs.reset_launch_counts()
     with pytest.raises(ValueError, match="aligned"):
         fused_pbs.crt_accumulate(res[1:1 + B * O * M * P * N].view(
-            B, O, M, P, N), acc[:B * O * N].view(B, O, N))
+            B, O, M, P, N), acc[:B * O * N].view(B, O, N), primes=ntt.PRIMES)
     with pytest.raises(ValueError, match="aligned"):
         fused_pbs.crt_accumulate(res[:B * O * M * P * N].view(
-            B, O, M, P, N), acc[1:1 + B * O * N].view(B, O, N))
+            B, O, M, P, N), acc[1:1 + B * O * N].view(B, O, N),
+            primes=ntt.PRIMES)
     assert launched() == {}
 
 
@@ -330,11 +372,12 @@ def test_persistent_batch_beyond_65535(card):
     case = dict(n=2, L=1, G=2, N=256, B=65536 + 8, bl=23, bits=64)
     key, acc, ahat = _inputs(rng, case, card)
     out = fused_pbs.blind_rotate_persistent(acc, ahat, key.kspec, key.kshoup,
-                                            23, 1)
+                                            23, 1, primes=key.primes)
     rows = torch.cat([torch.arange(8), torch.arange(case["B"] - 16,
                                                     case["B"])]).to(card)
     want = fused_pbs.blind_rotate_persistent_plain(
-        acc[rows], ahat[:, rows].contiguous(), key.kspec, 23, 1)
+        acc[rows], ahat[:, rows].contiguous(), key.kspec, 23, 1,
+        primes=key.primes)
     torch.cuda.synchronize()
     assert torch.equal(out[rows], want)
 
@@ -345,11 +388,12 @@ def test_single_cta_batch_beyond_65535(card):
     case = dict(n=2, L=1, G=2, N=256, B=65536 + 8, bl=23, bits=64)
     key, acc, ahat = _inputs(rng, case, card)
     out = fused_pbs.blind_rotate_single_cta(acc, ahat, key.kspec, key.kshoup,
-                                            23, 1)
+                                            23, 1, primes=key.primes)
     rows = torch.cat([torch.arange(8), torch.arange(case["B"] - 16,
                                                     case["B"])]).to(card)
     want = fused_pbs.blind_rotate_persistent_plain(
-        acc[rows], ahat[:, rows].contiguous(), key.kspec, 23, 1)
+        acc[rows], ahat[:, rows].contiguous(), key.kspec, 23, 1,
+        primes=key.primes)
     torch.cuda.synchronize()
     assert torch.equal(out[rows], want)
 
@@ -360,19 +404,24 @@ def test_layouts_beyond_the_kernels_limits_are_refused(card):
     key = fused_pbs.prepare_bsk_cuda(
         torch.zeros((1, 1, 2, 2, 256), dtype=torch.int64, device=card), 23)
     ahat = torch.zeros((1, 2), dtype=torch.int32, device=card)
+    ps, KP = {"primes": key.primes}, len(key.primes)
     with pytest.raises(ValueError):
         fused_pbs.pbs_step(acc, ahat[0].long(), key.kspec[0], key.kshoup[0],
-                           23, 1)
+                           23, 1, **ps)
     with pytest.raises(ValueError):
         fused_pbs.blind_rotate_persistent(acc, ahat, key.kspec[:, :3],
-                                          key.kshoup, 23, 1)
-    res = torch.zeros((2, 2, 2, P, 256), dtype=torch.int32, device=card)
+                                          key.kshoup, 23, 1, **ps)
+    # a key with another set than the one named
+    with pytest.raises(ValueError, match="primes"):
+        fused_pbs.blind_rotate_persistent(acc, ahat, key.kspec, key.kshoup,
+                                          23, 1, primes=ntt.PRIMES)
+    res = torch.zeros((2, 2, 2, KP, 256), dtype=torch.int32, device=card)
     dig = torch.zeros((2, 1, 2, 256), dtype=torch.int32, device=card)
     with pytest.raises(ValueError):
-        fused_pbs.ntt_mac_prime(dig, key.kspec[0, 0], key.kshoup[0, 0], P,
-                                res)
+        fused_pbs.ntt_mac_prime(dig, key.kspec[0, 0], key.kshoup[0, 0], KP,
+                                res, **ps)
     with pytest.raises(ValueError):
-        fused_pbs.crt_accumulate(res, acc, bits=32)
+        fused_pbs.crt_accumulate(res, acc, bits=32, **ps)
     # a whole rotation (K5) on the register-resident core with L*G = 20
     # digit polynomials (G = 4, L = 5 at N = 2048), beyond the core's 18,
     # is refused by the C entry point, under K5's name
@@ -384,7 +433,7 @@ def test_layouts_beyond_the_kernels_limits_are_refused(card):
                        ".*cudaErrorInvalidValue"):
         fused_pbs.blind_rotate_persistent(
             acc, torch.zeros((1, 1), dtype=torch.int32, device=card),
-            big.kspec, big.kshoup, 8, L)
+            big.kspec, big.kshoup, 8, L, primes=big.primes)
     # and so are a whole step (K4, and K3, on K4's kernel) and one prime's
     # stage (K6) on the register-resident core at that layout
     ahat1 = torch.zeros((1, 1), dtype=torch.int32, device=card)
@@ -392,34 +441,38 @@ def test_layouts_beyond_the_kernels_limits_are_refused(card):
     with pytest.raises(RuntimeError,
                        match="^pbs_step_single_cta: .*cudaErrorInvalidValue"):
         fused_pbs.pbs_step_single_cta(acc, ahat1[0], big.kspec[0],
-                                      big.kshoup[0], 8, L)
+                                      big.kshoup[0], 8, L, primes=big.primes)
     with pytest.raises(RuntimeError,
                        match="^pbs_step: .*cudaErrorInvalidValue"):
-        fused_pbs.pbs_step(acc, ahat1[0], big.kspec[0], big.kshoup[0], 8, L)
+        fused_pbs.pbs_step(acc, ahat1[0], big.kspec[0], big.kshoup[0], 8, L,
+                           primes=big.primes)
     with pytest.raises(RuntimeError, match="cudaErrorInvalidValue"):
         fused_pbs.blind_rotate_single_cta(acc, ahat1, big.kspec, big.kshoup,
-                                          8, L)
+                                          8, L, primes=big.primes)
     dig20 = torch.zeros((1, L, G, N), dtype=torch.int32, device=card)
-    res20 = torch.zeros((1, G, 2, P, N), dtype=torch.int32, device=card)
+    res20 = torch.zeros((1, G, big.planes, len(big.primes), N),
+                        dtype=torch.int32, device=card)
     with pytest.raises(RuntimeError, match="cudaErrorInvalidValue"):
         fused_pbs.ntt_mac_prime(dig20, big.kspec[0, 0], big.kshoup[0, 0], 0,
-                                res20)
+                                res20, primes=big.primes)
     # and an N outside 256 ... 2048, by the core's tables
     small = fused_pbs.prepare_bsk_cuda(
         torch.zeros((1, 1, 2, 2, 128), dtype=torch.int64, device=card), 23)
     for step in (fused_pbs.pbs_step_single_cta, fused_pbs.pbs_step):
         with pytest.raises(ValueError):
             step(torch.zeros((1, 2, 128), dtype=torch.int64, device=card),
-                 ahat1[0], small.kspec[0], small.kshoup[0], 23, 1)
+                 ahat1[0], small.kspec[0], small.kshoup[0], 23, 1,
+                 primes=small.primes)
     with pytest.raises(ValueError, match="^blind_rotate_persistent: N = 128 "):
         fused_pbs.blind_rotate_persistent(
             torch.zeros((1, 2, 128), dtype=torch.int64, device=card), ahat1,
-            small.kspec, small.kshoup, 23, 1)
+            small.kspec, small.kshoup, 23, 1, primes=small.primes)
     with pytest.raises(ValueError):
         fused_pbs.ntt_mac_prime(
             torch.zeros((1, 1, 2, 128), dtype=torch.int32, device=card),
             small.kspec[0, 0], small.kshoup[0, 0], 0,
-            torch.zeros((1, 2, 2, P, 128), dtype=torch.int32, device=card))
+            torch.zeros((1, 2, small.planes, len(small.primes), 128),
+                        dtype=torch.int32, device=card), primes=small.primes)
     with pytest.raises(ValueError):
         fused_pbs.blind_rotate_single_cta(acc, ahat1.long(), big.kspec,
-                                          big.kshoup, 8, L)
+                                          big.kshoup, 8, L, primes=big.primes)

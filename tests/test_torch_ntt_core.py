@@ -59,10 +59,12 @@ def swz(j):
 
 
 class Core:
-    """One prime's tables as the kernel reads them."""
+    """One prime's tables as the kernel reads them: prime index `prime` of
+    the set `primes`."""
 
-    def __init__(self, N, prime):
-        tab = ntt.pass_tables_for(N, "cpu")[prime].to(torch.int64) & M32
+    def __init__(self, N, prime, primes=ntt.PRIMES):
+        tab = ntt.pass_tables_for(N, "cpu", primes)[prime].to(
+            torch.int64) & M32
         self.N, self.T = N, N // r
         self.p, self.p2, self.one_sh, self.off = (int(v) for v in tab[:4])
         self.words = (tab.numel() - ntt.PASS_HEADER) // 2
@@ -147,19 +149,21 @@ class Core:
         return umin(y, y - self.p)
 
 
-def explicit_crt(c, acc, bits):
-    """c [B, O, M, P, N] (c_i = r_i N^-1 (Q/p_i)^-1 mod p_i), acc [B, O, N]
-    -> acc + the product, as the kernel's `crt_word` computes each word:
-    per plane, sum_i c_i Q/p_i - round(sum_i c_i t_i / 2^28) Q, shifted by
-    32 m bits, with 64-bit (and, for the fraction, 32-bit) wrap."""
-    x = ntt.tables_for(c.shape[-1], "cpu").xcrt  # [P, 6] int64
+def explicit_crt(c, acc, bits, primes=ntt.PRIMES):
+    """c [B, O, M, P, N] (c_i = r_i N^-1 (Q/p_i)^-1 mod p_i over `primes`),
+    acc [B, O, N] -> acc + the product, as the kernel's `crt_word` computes
+    each word: per plane, sum_i c_i Q/p_i - round(sum_i hi(c_i t_i) / 2^F)
+    Q (hi: `__umulhi`, the high word of the product), shifted by 32 m bits,
+    with 64-bit (and, for the fraction, 32-bit) wrap."""
+    x = ntt.tables_for(c.shape[-1], "cpu", primes).xcrt  # [P, 6] int64
+    F = ntt.XCRT_FRAC_BITS
     c = c.to(torch.int64)
     total = acc.clone()
     for m in range(c.shape[2]):
         cm = c[:, :, m]  # [B, O, P, N]
         s = (cm * x[:, 3].view(1, 1, -1, 1)).sum(dim=2)  # wraps mod 2^64
-        frac = (cm * x[:, 4].view(1, 1, -1, 1)).sum(dim=2) & M32
-        k = (frac + (1 << (ntt.XCRT_FRAC_BITS - 1))) >> ntt.XCRT_FRAC_BITS
+        frac = ((cm * x[:, 4].view(1, 1, -1, 1)) >> 32).sum(dim=2) & M32
+        k = (frac + (1 << (F - 1))) >> F
         total = total + ((s - k * x[0, 5]) << (32 * m))
     return total & M32 if bits == 32 else total
 
@@ -184,44 +188,58 @@ def prime_product(c, digits, kspec_p, kshoup_p):
     return c.inverse(shoup_lazy(o, 1, c.one_sh, c.p))
 
 
-def model_external_product(digits, kspec, kshoup, acc, bits):
-    """K2 as the kernel computes it: per prime (a CTA of the cluster),
-    `prime_product`, then c_i = r_i w_i mod p_i; then the explicit CRT over
-    the primes' values."""
+def model_external_product(digits, kspec, kshoup, acc, bits,
+                           primes=ntt.PRIMES):
+    """K2 as the kernel computes it, on a key over `primes`: per prime (a
+    CTA of the cluster), `prime_product`, then c_i = r_i w_i mod p_i; then
+    the explicit CRT over the primes' values."""
     B, L, G, N = digits.shape
     P, LJ, O, M, _ = kspec.shape
-    xcrt = ntt.tables_for(N, "cpu").xcrt
+    assert P == len(primes)
+    xcrt = ntt.tables_for(N, "cpu", primes).xcrt
     res = torch.empty((B, O, M, P, N), dtype=torch.int64)
     for pi in range(P):
-        c = Core(N, pi)
+        c = Core(N, pi, primes)
         out = prime_product(c, digits, kspec[pi], kshoup[pi])  # [B, OM, N]
         res[:, :, :, pi] = c.canonical(out, int(xcrt[pi, 1]),
                                        int(xcrt[pi, 2])).reshape(B, O, M, N)
-    return explicit_crt(res, acc, bits)
+    return explicit_crt(res, acc, bits, primes)
 
 
-@pytest.mark.parametrize("N", SIZES)
-def test_transforms_equal_the_plain_ntt_for_every_prime(N):
+def _transforms_equal_the_plain_ntt(N, primes):
     rng = np.random.default_rng(N)
     # signed digits of every magnitude the decompositions give, and the
     # int32 extremes
     d = torch.from_numpy(rng.integers(-2**22, 2**22, (3, N), endpoint=True)
                          .astype(np.int32))
     d[0, :4] = torch.tensor([-2**31, 2**31 - 1, 0, -1], dtype=torch.int32)
-    want = ntt.forward_ntt(d.to(torch.int64))  # [3, P, N]
-    spec = torch.from_numpy(rng.integers(0, 2**31, (3, len(ntt.PRIMES), N)))
-    spec = spec % ntt.tables_for(N, "cpu").primes[:, None]
-    want_inv = ntt.inverse_ntt(spec)
+    want = ntt.forward_ntt(d.to(torch.int64), primes=primes)  # [3, P, N]
+    spec = torch.from_numpy(rng.integers(0, 2**31, (3, len(primes), N)))
+    spec = spec % ntt.tables_for(N, "cpu", primes).primes[:, None]
+    want_inv = ntt.inverse_ntt(spec, primes=primes)
     pos = elem(N // r, 0).reshape(-1)
-    for pi in range(len(ntt.PRIMES)):
-        c = Core(N, pi)
+    for pi in range(len(primes)):
+        c = Core(N, pi, primes)
         got = torch.empty((3, N), dtype=torch.int64)
         got[:, pos] = c.canonical(c.forward(c.digit_mod(d))).reshape(3, N)
         assert torch.equal(got, want[:, pi])
         x = spec[:, pi, pos].reshape(3, N // r, r)
-        ninv = int(ntt.tables_for(N, "cpu").n_inv[pi])
+        ninv = int(ntt.tables_for(N, "cpu", primes).n_inv[pi])
         out = c.canonical(c.inverse(x), ninv, (ninv << 32) // c.p)
         assert torch.equal(out, want_inv[:, pi])
+
+
+@pytest.mark.parametrize("N", SIZES)
+def test_transforms_equal_the_plain_ntt_for_every_prime(N):
+    _transforms_equal_the_plain_ntt(N, ntt.PRIMES)
+
+
+@pytest.mark.parametrize("N", SIZES)
+def test_transforms_equal_the_plain_ntt_on_the_classic_primes(N):
+    # the classic key's primes (below 2^26.83) through the same lazy
+    # arithmetic: every word stays below 2^32 (the model wraps as the card
+    # would, so an overflow would show as a wrong spectrum)
+    _transforms_equal_the_plain_ntt(N, ntt.WIDE_PRIMES)
 
 
 @pytest.mark.parametrize("case", CASES, ids=IDS)
@@ -236,13 +254,16 @@ def test_external_product_equals_plain_and_the_reference(case, monkeypatch):
     ahat = torch.from_numpy(rng.integers(0, 2 * N, (3,)).astype(np.int32))
     dig = fused_pbs.rotate_decompose_plain(acc, ahat, bl, L, bits)
     assert torch.equal(
-        model_external_product(dig, key.kspec[0], key.kshoup[0], acc, bits),
-        fused_pbs.external_product_crt_plain(dig, key.kspec[0], acc, bits))
+        model_external_product(dig, key.kspec[0], key.kshoup[0], acc, bits,
+                               key.primes),
+        fused_pbs.external_product_crt_plain(dig, key.kspec[0], acc, bits,
+                                             primes=key.primes))
 
     # a blind rotation in scan2 whose every K2 step is the model, against
     # the reference's scan2 Pallas kernels in interpret mode
-    def model_k2(digits, kspec, kshoup, acc, bits=64):
-        return model_external_product(digits, kspec, kshoup, acc, bits)
+    def model_k2(digits, kspec, kshoup, acc, bits=64, *, primes):
+        return model_external_product(digits, kspec, kshoup, acc, bits,
+                                      primes)
 
     monkeypatch.setattr(fused_pbs, "external_product_crt", model_k2)
     got = core.blind_rotate(key, to_tensor(lut, "cpu"), to_tensor(lwe, "cpu"),
@@ -279,13 +300,12 @@ def test_swizzle_is_a_bijection_without_bank_conflicts(N):
                     assert banks.unique().numel() == banks.numel()
 
 
-@pytest.mark.parametrize("N", SIZES)
-def test_pass_tables_hold_the_twiddles_of_the_passes(N):
+def _pass_tables_hold_the_twiddles(N, primes):
     # every twiddle a pass reads is psi^bitrev / psi^-bitrev at the index of
     # its butterfly group, and the companions are Shoup's
-    tab = ntt.tables_for(N, "cpu")
-    for pi in (0, len(ntt.PRIMES) - 1):
-        c = Core(N, pi)
+    tab = ntt.tables_for(N, "cpu", primes)
+    for pi in (0, len(primes) - 1):
+        c = Core(N, pi, primes)
         used = {False: set(), True: set()}
         for inverse, table, psi in ((False, c.fwd, tab.psi_rev[pi]),
                                     (True, c.inv, tab.psi_inv_rev[pi])):
@@ -317,3 +337,148 @@ def test_pass_tables_hold_the_twiddles_of_the_passes(N):
             assert off == c.words
         if N == 256:  # every thread sampled: every twiddle index is read
             assert used[False] == used[True] == set(range(1, N))
+
+
+@pytest.mark.parametrize("N", SIZES)
+def test_pass_tables_hold_the_twiddles_of_the_passes(N):
+    _pass_tables_hold_the_twiddles(N, ntt.PRIMES)
+
+
+@pytest.mark.parametrize("N", SIZES)
+def test_pass_tables_hold_the_twiddles_on_the_classic_primes(N):
+    _pass_tables_hold_the_twiddles(N, ntt.WIDE_PRIMES)
+    # the header: p, 2p, floor(2^32 / p), p - 2^31 mod p, N^-1, companion
+    head = ntt.pass_tables_for(N, "cpu", ntt.WIDE_PRIMES)[
+        :, :ntt.PASS_HEADER].to(torch.int64) & M32
+    for row, p in zip(head.tolist(), ntt.WIDE_PRIMES):
+        assert row[:4] == [p, 2 * p, (1 << 32) // p, p - (1 << 31) % p]
+        assert row[4] * N % p == 1 and row[5] == (row[4] << 32) // p
+        assert row[6:] == [0, 0]
+
+
+def test_classic_primes_are_primes_with_the_cores_headroom():
+    # the eight largest primes == 1 mod 8192 below 2^32 / 36, largest
+    # first: 25p < 2^32 (the forward transform's words) and 36p < 2^32 (the
+    # MAC's sum at 18 digit polynomials), so the core's lazy arithmetic
+    # holds for each; the reference's five hold it too
+    assert len(ntt.WIDE_PRIMES) == ntt.MAX_PRIMES
+    assert list(ntt.WIDE_PRIMES) == sorted(ntt.WIDE_PRIMES, reverse=True)
+    for p in ntt.WIDE_PRIMES + ntt.PRIMES:
+        assert all(p % d for d in range(2, int(p**0.5) + 1)), p
+        assert 25 * p < 2**32 and 2 * 18 * p < 2**32
+    limit = (2**32 - 1) // 36
+    found = [p for p in range(limit - (limit - 1) % 8192, ntt.WIDE_PRIMES[-1]
+                              - 1, -8192)
+             if all(p % d for d in range(2, int(p**0.5) + 1))]
+    assert tuple(found) == ntt.WIDE_PRIMES
+    assert all(p % 8192 == 1 for p in ntt.WIDE_PRIMES)
+    # a prime that breaks the MAC's headroom, or a composite, is refused
+    big = next(p for p in range(limit + 1, limit + 10**4)
+               if all(p % d for d in range(2, int(p**0.5) + 1)))
+    with pytest.raises(ValueError, match="headroom"):
+        ntt.check_headroom((big,))
+    with pytest.raises(ValueError, match="not a prime"):
+        ntt.check_headroom((119259137 * 3,))
+    ntt.check_headroom(ntt.WIDE_PRIMES)
+
+
+def test_classic_plan_follows_the_parameter_sets_widths():
+    from tfhe_tpu_torch import params
+
+    def plan(p, bits=64):
+        return ntt.classic_plan(p.pbs_base_log, p.pbs_level,
+                                p.glwe_dimension + 1, p.polynomial_size,
+                                bits)
+
+    # the benchmark's set: |x| <= 2 * 2048 * 2^22 * 2^63 = 2^97, so four
+    # primes (2^107.3) and the key word whole
+    assert plan(params.PARAM_MESSAGE_2_CARRY_2_KS_PBS) == (
+        ntt.WIDE_PRIMES[:4], 1)
+    assert ntt.product_bound(23, 2, 2048, 64, 1) == 2**97
+    # the boolean default (u32) and the 18-digit WoPBS set: each plan holds
+    # its product with the fewest primes, and no plan does less work
+    for p, bits in ((params.DEFAULT_PARAMETERS, 32),
+                    (params.PARAM_MESSAGE_2_CARRY_2_KS_PBS, 64),
+                    (params.wopbs_params.PARAM_4_BITS_5_BLOCKS, 64),
+                    (params.WOPBS_PARAM_MESSAGE_2_CARRY_2_KS_PBS, 64)):
+        primes, M = plan(p, bits)
+        LJ, G = p.pbs_level * (p.glwe_dimension + 1), p.glwe_dimension + 1
+        bound = ntt.product_bound(p.pbs_base_log, LJ, p.polynomial_size,
+                                  bits, M)
+        assert ntt.holds_product(primes, bound)
+        assert not ntt.holds_product(primes[:-1], bound)
+        for M2 in ((1, 2) if bits == 64 else (1,)):
+            b2 = ntt.product_bound(p.pbs_base_log, LJ, p.polynomial_size,
+                                   bits, M2)
+            P2 = next(k for k in range(1, 9)
+                      if ntt.holds_product(ntt.WIDE_PRIMES[:k], b2))
+            assert len(primes) * (LJ + G * M) <= P2 * (LJ + G * M2)
+    assert plan(params.DEFAULT_PARAMETERS, 32) == (ntt.WIDE_PRIMES[:2], 1)
+    assert plan(params.wopbs_params.PARAM_4_BITS_5_BLOCKS) == (
+        ntt.WIDE_PRIMES[:2], 2)
+    # the reference's five primes hold every classic product in two planes
+    # of a u64 word, never in one
+    assert ntt.planes_for(ntt.PRIMES, 23, 1, 2, 2048, 64) == 2
+    assert ntt.planes_for(ntt.PRIMES, 6, 3, 3, 512, 32) == 1
+    with pytest.raises(ValueError, match="do not hold"):
+        ntt.planes_for(ntt.WIDE_PRIMES[:1], 23, 1, 2, 2048, 64)
+
+
+def _negacyclic_exact(d, k):
+    """d [LJ, N] (|d| < 2^31), k [LJ, O, N] signed int64 -> [O, N] Python
+    ints: sum_lj d_lj (x) k_lj, exact (16-bit limbs of k in int64
+    convolutions, joined in Python integers)."""
+    LJ, O, N = k.shape
+    out = [[0] * N for _ in range(O)]
+    for lj in range(LJ):
+        for o in range(O):
+            full = [0] * (2 * N - 1)
+            kk = k[lj, o].astype(object)
+            for limb in range(4):
+                part = (kk >> (16 * limb)) & 0xFFFF if limb < 3 else \
+                    kk >> 48  # the top limb keeps the sign
+                conv = np.convolve(d[lj].astype(np.int64),
+                                   part.astype(np.int64))
+                for n, v in enumerate(conv.tolist()):
+                    full[n] += v << (16 * limb)
+            for n in range(N):
+                out[o][n] += full[n] - (full[n + N] if n + N < 2 * N - 1
+                                        else 0)
+    return out
+
+
+@pytest.mark.parametrize("extreme", ["all_same_sign", "mixed_signs"])
+def test_exact_product_at_its_bound_on_the_classic_primes(extreme):
+    # PARAM_MESSAGE_2_CARRY_2_KS_PBS's widths (base_log 23, L 1, G 2,
+    # N 2048): digits at +-2^22, key words at 2^64 - 1 and -2^63 (int64 -1
+    # and -2^63).  All of one sign, coefficient N - 1 of each output
+    # reaches the bound 2^97.  The plain product on the classic key's four
+    # primes and one plane, and the kernel's model of it, equal exact
+    # integer arithmetic mod 2^64 and the five-prime, two-plane product
+    rng = np.random.default_rng(2024)
+    bl, L, G, N = 23, 1, 2, 2048
+    if extreme == "all_same_sign":
+        d = np.full((L * G, N), 2**(bl - 1), np.int64)
+        k = np.full((1, L, G, G, N), -2**63, np.int64)
+    else:
+        d = rng.choice([-2**(bl - 1), 2**(bl - 1)], (L * G, N))
+        k = rng.choice(np.array([-1, -2**63], np.int64), (1, L, G, G, N))
+    exact = _negacyclic_exact(d, k[0].reshape(L * G, G, N))
+    if extreme == "all_same_sign":
+        assert max(abs(v) for row in exact for v in row) == 2**97
+    want = torch.tensor([[v % 2**64 - (2**64 if v % 2**64 >= 2**63 else 0)
+                          for v in row] for row in exact], dtype=torch.int64)
+    digits = torch.from_numpy(d.astype(np.int32)).reshape(1, L, G, N)
+    acc = torch.zeros((1, G, N), dtype=torch.int64)
+    raw = torch.from_numpy(k)
+    wide = core.prepare_bsk_cuda(raw, bl)
+    five = core.prepare_bsk_cuda(raw, bl, primes=ntt.PRIMES)
+    assert (wide.primes, wide.planes) == (ntt.WIDE_PRIMES[:4], 1)
+    assert (five.primes, five.planes) == (ntt.PRIMES, 2)
+    got = fused_pbs.external_product_crt_plain(digits, wide.kspec[0], acc,
+                                               primes=wide.primes)
+    assert torch.equal(got[0], want)
+    assert torch.equal(got, fused_pbs.external_product_crt_plain(
+        digits, five.kspec[0], acc, primes=five.primes))
+    assert torch.equal(got, model_external_product(
+        digits, wide.kspec[0], wide.kshoup[0], acc, 64, wide.primes))

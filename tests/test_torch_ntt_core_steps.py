@@ -78,22 +78,25 @@ def model_digits(acc, ahat, base_log, levels, bits):
     return torch.from_numpy(np.ascontiguousarray(dig.transpose(1, 0, 2, 3)))
 
 
-def model_step(acc, ahat, kspec, kshoup, base_log, levels, bits=64):
+def model_step(acc, ahat, kspec, kshoup, base_log, levels, bits=64, *,
+               primes):
     """K4 as the kernel computes it: the digits of the thread's own words,
     then K2's cluster (every prime's product, the explicit CRT)."""
     return model_external_product(
         model_digits(acc, ahat, base_log, levels, bits), kspec, kshoup, acc,
-        bits)
+        bits, primes)
 
 
-def model_prime(digits, kspec_p, kshoup_p, prime_index, residues):
+def model_prime(digits, kspec_p, kshoup_p, prime_index, residues, *,
+                primes):
     """K6's per-prime stage as the kernel computes it: one prime's product,
     scaled by N^-1 (the pass table's header words 4 and 5), canonical, into
     that prime's rows of residues [B, O, M, P, N]."""
     B, L, G, N = digits.shape
     LJ, O, M, _ = kspec_p.shape
-    c = Core(N, prime_index)
-    head = ntt.pass_tables_for(N, "cpu")[prime_index].to(torch.int64) & M32
+    c = Core(N, prime_index, primes)
+    head = ntt.pass_tables_for(N, "cpu", primes)[prime_index].to(
+        torch.int64) & M32
     ninv, ninv_sh = int(head[4]), int(head[5])
     out = prime_product(c, digits, kspec_p, kshoup_p)  # [B, OM, N]
     residues[:, :, :, prime_index] = c.canonical(out, ninv, ninv_sh).reshape(
@@ -118,11 +121,12 @@ def _step_inputs(case):
 @pytest.mark.parametrize("case", CASES, ids=IDS)
 def test_pass_table_header_holds_n_inverse(case):
     N = case["N"]
-    head = ntt.pass_tables_for(N, "cpu")[:, :ntt.PASS_HEADER].to(
-        torch.int64) & M32
-    p = ntt.tables_for(N, "cpu").primes
-    assert torch.equal(head[:, 4] * N % p, torch.ones_like(p))
-    assert torch.equal(head[:, 5], (head[:, 4] << 32) // p)
+    for primes in (ntt.PRIMES, ntt.WIDE_PRIMES):
+        head = ntt.pass_tables_for(N, "cpu", primes)[:, :ntt.PASS_HEADER].to(
+            torch.int64) & M32
+        p = ntt.tables_for(N, "cpu", primes).primes
+        assert torch.equal(head[:, 4] * N % p, torch.ones_like(p))
+        assert torch.equal(head[:, 5], (head[:, 4] << 32) // p)
 
 
 # the schedules whose every step is K4's kernel on the card: scan1w (K4)
@@ -140,8 +144,10 @@ def test_step_model_equals_plain_and_the_reference(case, mode, monkeypatch):
         model_digits(acc, ahat, bl, L, bits),
         fused_pbs.rotate_decompose_plain(acc, ahat, bl, L, bits))
     assert torch.equal(
-        model_step(acc, ahat, key.kspec[0], key.kshoup[0], bl, L, bits),
-        fused_pbs.pbs_step_plain(acc, ahat, key.kspec[0], bl, L, bits))
+        model_step(acc, ahat, key.kspec[0], key.kshoup[0], bl, L, bits,
+                   primes=key.primes),
+        fused_pbs.pbs_step_plain(acc, ahat, key.kspec[0], bl, L, bits,
+                                 primes=key.primes))
 
     # a blind rotation in the mode whose every step is the model, against
     # the reference's Pallas kernel of that mode in interpret mode
@@ -158,13 +164,13 @@ def test_step_model_equals_plain_and_the_reference(case, mode, monkeypatch):
 def test_prime_stage_model_equals_plain_and_the_reference(case, monkeypatch):
     key, acc, ahat, (bsk_std, lut, lwe) = _step_inputs(case)
     bl, L, G, N, bits = (case[k] for k in ("bl", "L", "G", "N", "bits"))
-    M, P = (2 if bits == 64 else 1), len(ntt.PRIMES)
+    M, P, ps = key.planes, len(key.primes), {"primes": key.primes}
     dig = fused_pbs.rotate_decompose_plain(acc, ahat, bl, L, bits)
     got = torch.full((acc.shape[0], G, M, P, N), -1, dtype=torch.int32)
     want = torch.full_like(got, -1)
     for pi in range(P):
-        model_prime(dig, key.kspec[0, pi], key.kshoup[0, pi], pi, got)
-        fused_pbs.ntt_mac_prime_plain(dig, key.kspec[0, pi], pi, want)
+        model_prime(dig, key.kspec[0, pi], key.kshoup[0, pi], pi, got, **ps)
+        fused_pbs.ntt_mac_prime_plain(dig, key.kspec[0, pi], pi, want, **ps)
         assert torch.equal(got, want), pi
 
     # a blind rotation in scan3 whose every per-prime stage is the model,

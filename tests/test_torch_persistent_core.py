@@ -49,7 +49,8 @@ def digit_words(N, P, pi):
     return (tid[:, None] + torch.arange(RADIX)[None, :] * T).reshape(-1)
 
 
-def model_rotation(acc, ahat, kspec, kshoup, base_log, levels, bits=64):
+def model_rotation(acc, ahat, kspec, kshoup, base_log, levels, bits=64, *,
+                   primes):
     """K5 as its kernel computes it: acc [B, G, N], ahat [n, B], kspec /
     kshoup [n, P, LJ, O, M, N] -> the accumulator after n steps."""
     B, G, N = acc.shape
@@ -71,7 +72,7 @@ def model_rotation(acc, ahat, kspec, kshoup, base_log, levels, bits=64):
             j = digit_words(N, P, pi)
             dig[..., j] = made[..., j]
         new = model_external_product(dig, kspec[s], kshoup[s], cur,
-                                     bits).reshape(B, G * N)
+                                     bits, primes).reshape(B, G * N)
         # each CTA writes its own share, in place; last CTA first
         for pi in reversed(range(P)):
             lo, hi = bounds[pi]
@@ -81,13 +82,14 @@ def model_rotation(acc, ahat, kspec, kshoup, base_log, levels, bits=64):
 
 @pytest.mark.parametrize("N", [256, 512, 1024, 2048])
 def test_shares_partition_the_words(N):
-    P = len(ntt.PRIMES)
-    for G in (2, 3, 4):
-        _, bounds = crt_shares(G, N, P)
-        assert bounds[0][0] == 0 and bounds[-1][1] == G * N
-        assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
-    made = torch.cat([digit_words(N, P, pi) for pi in range(P)])
-    assert torch.equal(torch.sort(made).values, torch.arange(N))
+    # every cluster size a key's set gives: 2 ... 8 CTAs
+    for P in range(2, ntt.MAX_PRIMES + 1):
+        for G in (2, 3, 4):
+            _, bounds = crt_shares(G, N, P)
+            assert bounds[0][0] == 0 and bounds[-1][1] == G * N
+            assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+        made = torch.cat([digit_words(N, P, pi) for pi in range(P)])
+        assert torch.equal(torch.sort(made).values, torch.arange(N))
 
 
 @pytest.mark.parametrize("case", CASES, ids=IDS)
@@ -102,9 +104,10 @@ def test_rotation_model_equals_plain_and_the_reference(case, monkeypatch):
                                          endpoint=True).astype(np.int32))
     ahat[0, 0] = 2 * N  # rotates as 0
     assert torch.equal(
-        model_rotation(acc, ahat, key.kspec, key.kshoup, bl, L, bits),
+        model_rotation(acc, ahat, key.kspec, key.kshoup, bl, L, bits,
+                       primes=key.primes),
         fused_pbs.blind_rotate_persistent_plain(acc, ahat, key.kspec, bl, L,
-                                                bits))
+                                                bits, primes=key.primes))
 
     # a blind rotation in mode "grid" whose rotation is the model, against
     # the reference's Pallas grid kernel in interpret mode

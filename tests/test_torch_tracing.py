@@ -165,6 +165,31 @@ def test_a_capture_counts_nothing_and_each_replay_adds_its_counts(
     assert out.shape == (1, 3, data.shape[-1])
 
 
+def test_k2s_prime_cta_counter_replays_and_is_no_launch_count(monkeypatch):
+    # K2's CTAs a prime and ciphertext are a counter of their own: not a
+    # `.launches` name (kernels.launches_per_op sums those), and a graph's
+    # replay adds what its capture kept, as for the launch counters
+    name = "fused_pbs.external_product_crt.prime_ctas"
+    assert name in profiling.counters() and not name.endswith(".launches")
+    assert fused_pbs.PRIME_CTAS.value == profiling.counters()[name]
+    cks, sks = shortint.gen_keys(P, seed=SEED, device="cpu")
+    data = cks.encrypt_batch([0, 1]).data
+
+    def chain(x):  # a chain that "launches" K2 twice over 2 rows
+        fused_pbs.PRIME_CTAS.value += 2 * 2 * len(sks.bsk.primes)
+        return x[0][None]
+
+    _stub_cuda(monkeypatch)
+    fops = FusedIntegerOps(types.SimpleNamespace(key=sks))
+    key, dev = ("stub_k2", ((1, 2, data.shape[-1]),)), [data[None]]
+    fops._capture(key, chain, dev)
+    want = {name: 4 * len(sks.bsk.primes)}
+    assert fops._graph_counts[key] == want
+    before = profiling.counters()
+    fops._replay(key, chain, dev)
+    assert profiling.changes_since(before) == want
+
+
 OPS = {"add": lambda k, a, b: k.add_parallelized(a, b),
        "mul": lambda k, a, b: k.mul_parallelized(a, b)}
 
@@ -198,3 +223,6 @@ def test_replays_count_as_eager_runs_on_the_card(op):
     assert eager["fused_pbs.rotate_decompose.launches"] == \
         eager["fused_pbs.external_product_crt.launches"] == \
         P.lwe_dimension * eager["pbs.batches"]
+    # one CTA a prime of the key's set and a ciphertext, every K2 launch
+    assert eager["fused_pbs.external_product_crt.prime_ctas"] == \
+        P.lwe_dimension * eager["pbs.rows"] * len(sks.key.bsk.primes)

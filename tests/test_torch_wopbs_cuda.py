@@ -16,6 +16,7 @@ import torch
 
 from tfhe_tpu_torch import shortint
 from tfhe_tpu_torch.ops import fused_pbs as fp
+from tfhe_tpu_torch.ops import ntt
 from tfhe_tpu_torch.params import (PARAM_MESSAGE_2_CARRY_2_TEST,
                                    WOPBS_PARAM_MESSAGE_2_CARRY_2_TEST,
                                    wopbs_params)
@@ -39,8 +40,8 @@ def _card():
 def test_wide_kernels_equal_their_plain_versions(name):
     dev = _card()
     p = getattr(wopbs_params, name)
-    N, G, L, bl, P, B, steps = (p.polynomial_size, p.glwe_size, p.pbs_level,
-                                p.pbs_base_log, 5, 8, 3)
+    N, G, L, bl, B, steps = (p.polynomial_size, p.glwe_size, p.pbs_level,
+                             p.pbs_base_log, 8, 3)
     assert L * G in (12, 18)
     rng = np.random.default_rng(SEED)
 
@@ -49,30 +50,41 @@ def test_wide_kernels_equal_their_plain_versions(name):
             0, 2**64 - 1, shape, dtype=np.uint64, endpoint=True)
             .view(np.int64)).to(dev)
 
-    key = fp.prepare_bsk_cuda(words(steps, L, G, G, N), bl)
+    raw = words(steps, L, G, G, N)
     acc = words(B, G, N)
     ahat = torch.from_numpy(rng.integers(0, 2 * N, (steps, B), endpoint=True)
                             .astype(np.int32)).to(dev)
-    ks, ksh = key.kspec[0], key.kshoup[0]
     dig = fp.rotate_decompose_plain(acc, ahat[0], bl, L)
     assert torch.equal(fp.rotate_decompose(acc, ahat[0], bl, L), dig)
-    assert torch.equal(fp.external_product_crt(dig, ks, ksh, acc),
-                       fp.external_product_crt_plain(dig, ks, acc))
-    res_p = torch.empty((B, G, 2, P, N), dtype=torch.int32, device=dev)
-    res_k = torch.empty_like(res_p)
-    for pi in range(P):
-        fp.ntt_mac_prime_plain(dig, ks[pi], pi, res_p)
-        fp.ntt_mac_prime(dig, ks[pi], ksh[pi], pi, res_k)
-    assert torch.equal(res_k, res_p)
-    step = fp.pbs_step_plain(acc, ahat[0], ks, bl, L)
-    assert torch.equal(fp.pbs_step(acc, ahat[0], ks, ksh, bl, L), step)
-    assert torch.equal(fp.pbs_step_single_cta(acc, ahat[0], ks, ksh, bl, L),
-                       step)
-    whole = fp.blind_rotate_persistent_plain(acc, ahat, key.kspec, bl, L)
-    assert torch.equal(fp.blind_rotate_persistent(
-        acc, ahat, key.kspec, key.kshoup, bl, L), whole)
-    assert torch.equal(fp.blind_rotate_single_cta(
-        acc, ahat, key.kspec, key.kshoup, bl, L), whole)
+    # the set the widths give, then the reference's five primes: the same
+    # words on both
+    wholes = []
+    for key in (fp.prepare_bsk_cuda(raw, bl),
+                fp.prepare_bsk_cuda(raw, bl, primes=ntt.PRIMES)):
+        ks, ksh, P = key.kspec[0], key.kshoup[0], len(key.primes)
+        ps = {"primes": key.primes}
+        assert torch.equal(fp.external_product_crt(dig, ks, ksh, acc, **ps),
+                           fp.external_product_crt_plain(dig, ks, acc, **ps))
+        res_p = torch.empty((B, G, key.planes, P, N), dtype=torch.int32,
+                            device=dev)
+        res_k = torch.empty_like(res_p)
+        for pi in range(P):
+            fp.ntt_mac_prime_plain(dig, ks[pi], pi, res_p, **ps)
+            fp.ntt_mac_prime(dig, ks[pi], ksh[pi], pi, res_k, **ps)
+        assert torch.equal(res_k, res_p)
+        step = fp.pbs_step_plain(acc, ahat[0], ks, bl, L, **ps)
+        assert torch.equal(fp.pbs_step(acc, ahat[0], ks, ksh, bl, L, **ps),
+                           step)
+        assert torch.equal(fp.pbs_step_single_cta(acc, ahat[0], ks, ksh, bl,
+                                                  L, **ps), step)
+        whole = fp.blind_rotate_persistent_plain(acc, ahat, key.kspec, bl, L,
+                                                 **ps)
+        assert torch.equal(fp.blind_rotate_persistent(
+            acc, ahat, key.kspec, key.kshoup, bl, L, **ps), whole)
+        assert torch.equal(fp.blind_rotate_single_cta(
+            acc, ahat, key.kspec, key.kshoup, bl, L, **ps), whole)
+        wholes.append(whole)
+    assert torch.equal(wholes[0], wholes[1])
 
 
 @pytest.mark.parametrize("layout", LAYOUTS,
@@ -95,8 +107,10 @@ def test_catalog_layouts_run_k1_and_k2(layout):
     dig = fp.rotate_decompose_plain(acc, ahat, bl, L)
     assert torch.equal(fp.rotate_decompose(acc, ahat, bl, L), dig)
     assert torch.equal(
-        fp.external_product_crt(dig, key.kspec[0], key.kshoup[0], acc),
-        fp.external_product_crt_plain(dig, key.kspec[0], acc))
+        fp.external_product_crt(dig, key.kspec[0], key.kshoup[0], acc,
+                                primes=key.primes),
+        fp.external_product_crt_plain(dig, key.kspec[0], acc,
+                                      primes=key.primes))
 
 
 def test_wide_lut_batch_card_equals_cpu():

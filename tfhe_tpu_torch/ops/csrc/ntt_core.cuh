@@ -31,11 +31,18 @@
 //     the key and the first inverse pass run in registers with no barrier
 //     between them; the key and its Shoup companions arrive as 16-byte
 //     loads, coalesced across the warp;
-//   - lazy reduction: words stay below 2^32 unreduced (every prime is below
-//     2^17) and Shoup products accept any 32-bit operand, so a forward
-//     butterfly is three multiplies and two adds, an inverse one three
-//     multiplies, two adds and a min; digits are reduced with one Shoup
-//     product after an offset of 2^31, without a runtime `%`.
+//   - lazy reduction: words stay below 2^32 unreduced and Shoup products
+//     accept any 32-bit operand, so a forward butterfly is three
+//     multiplies and two adds, an inverse one three multiplies, two adds
+//     and a min; digits are reduced with one Shoup product after an offset
+//     of 2^31, without a runtime `%`.  Two conditions on each prime p keep
+//     every word below 2^32 (ntt.check_headroom refuses a set that breaks
+//     them): the forward transform's, 25p < 2^32 (a digit enters in
+//     [0, 3p), each of at most 11 stages adds less than 2p, and the last
+//     stage's input, below 23p, must stay below 2^32 - 2p); and the MAC's,
+//     36p < 2^32 (its sum of LJ lazy products is below 2 LJ p, LJ <= 18).
+//     Both hold for every p < 2^32 / 36 = 2^26.83: the reference's five
+//     primes below 2^17 and the classic key's ntt.WIDE_PRIMES.
 // Every result is canonical at the end, so the words equal the old core's.
 //
 // Layout of a polynomial in shared memory: word j at swz(j), a bijection of

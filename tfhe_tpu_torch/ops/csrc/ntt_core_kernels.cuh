@@ -26,12 +26,13 @@
 // All take LJ = L*G <= kMaxDigitPolys (18; the WoPBS catalog's widest
 // set) and 256 <= N <= 2048; their launchers (core_launch.cuh) refuse anything
 // else.  Registers from `nvcc -Xptxas -v` (sm_90a, the card's toolkit),
-// none spilled unless said, for LJ <= 2 / 4 / 9: external_product_cluster
-// 80 / 110 / 150, pbs_step_cluster 79 / 110 / 154,
-// blind_rotate_stream_cluster 80 / 128 (4 bytes spilled) / 168 (capped),
-// ntt_mac_prime 80 / 96 / 148 (one CTA) and 78 / 104 / 146 (a pair),
-// blind_rotate_core 102 / 120 / 162, blind_rotate_cluster_core 128 / 182 /
-// 226.
+// none spilled unless said, for LJ <= 2 / 4 / 9 / 18:
+// external_product_cluster 79 / 112 / 150 / 224, pbs_step_cluster 79 / 110
+// / 154 / 224, blind_rotate_stream_cluster 80 / 128 / 168 (capped) / 255
+// (4 bytes spilled in each but the first), ntt_mac_prime 80 / 96 / 148 /
+// 224 (one CTA) and 78 / 104 / 146 / 252 (a pair), blind_rotate_core 102 /
+// 120 / 162 / 255, blind_rotate_cluster_core 128 / 186 / 226 / 255 (4
+// bytes spilled in the first and the last).
 //
 // K2, first design: one CTA of 512 threads per (ciphertext, prime)
 // on the shared-memory core, 22 stage barriers and 48 KB at
@@ -48,6 +49,16 @@
 // (128 KB, from L2).  On an H100: 0.0280 ms a step at B = 64 (3.3x
 // faster), 6.3x its bound; what binds it now is latency, hidden only by
 // the other CTAs of the SM (3 of them at 80 registers).
+// Then the key's primes: the reference's five below 2^17, with two 32-bit
+// planes of each u64 key word, made 30 transforms and 40 spectral
+// products a ciphertext and step (a CTA 2 forward and 4 inverse).  On the
+// classic key's set (ntt.classic_plan: four primes below 2^26.83 and the
+// key word whole at PARAM_MESSAGE_2_CARRY_2_KS_PBS) it is 16 and 16, a
+// cluster of 4 CTAs each making 2 and 2, 16 KB of shared memory a CTA.  On
+// an H100 (ms a step, five primes -> four): B = 1 0.0159 -> 0.0111, B = 8
+// 0.0162 -> 0.0112, B = 64 0.0283 -> 0.0197, B = 366 0.1347 -> 0.0722, B
+// = 512 0.1875 -> 0.1019; at B >= 366 1.46x the least work's bound at the
+// card's integer peak, at B = 64 2.29x, at B <= 8 latency alone.
 //
 // K7, first design: one CTA of 512 threads per ciphertext for all n
 // steps, each output polynomial through its own shared-memory transform,
@@ -143,7 +154,7 @@ namespace cg = cooperative_groups;
 constexpr int kMaxDigitPolys = 18;
 
 // The explicit CRT's constants of every prime (ntt._explicit_crt_host):
-// Q/p_i mod 2^64, round(2^28 / p_i), Q mod 2^64.
+// Q/p_i mod 2^64, round(2^(32 + kFracBits) / p_i), Q mod 2^64.
 struct Xcrt {
   uint64_t q[tfhe_pbs::kMaxPrimes];
   uint32_t t[tfhe_pbs::kMaxPrimes];
@@ -165,10 +176,10 @@ __device__ __forceinline__ Xcrt load_xcrt(const int64_t* __restrict__ xcrt,
 // total + the word (o, n) of the product, from the P primes' values
 // c_i = r_i N^-1 (Q/p_i)^-1 mod p_i, value(i, w) giving word w of prime i's
 // [OM, N] (swizzled) in its CTA's shared memory, and consts(i, q_i, t_i)
-// prime i's Q/p_i mod 2^64 and round(2^28 / p_i): per plane m, sum_i c_i
-// q_i minus round(sum_i c_i t_i / 2^28) Q, shifted by 32 m bits, all mod
-// 2^64 (Q = Q mod 2^64).  The same words as blind_rotate_core_kernel's
-// running sums and correction.
+// prime i's Q/p_i mod 2^64 and round(2^(32 + kFracBits) / p_i): per plane
+// m, sum_i c_i q_i minus crt_round(sum_i hi(c_i t_i)) Q, shifted by 32 m
+// bits, all mod 2^64 (Q = Q mod 2^64).  The same words as
+// blind_rotate_core_kernel's running sums and correction.
 template <typename Value, typename Consts>
 __device__ __forceinline__ uint64_t crt_word(Value value, Consts consts,
                                              uint64_t Q, int P, int o, int M,
@@ -185,12 +196,10 @@ __device__ __forceinline__ uint64_t crt_word(Value value, Consts consts,
         uint32_t t;
         consts(i, q, t);
         sum += (uint64_t)c * q;
-        frac += c * t;
+        frac += __umulhi(c, t);
       }
     }
-    const uint64_t k = (frac + (1u << (tfhe_pbs::kFracBits - 1))) >>
-                       tfhe_pbs::kFracBits;
-    total += (sum - k * Q) << (32 * m);
+    total += (sum - tfhe_pbs::crt_round(frac) * Q) << (32 * m);
   }
   return total;
 }
@@ -217,8 +226,10 @@ constexpr int min_ctas() {
 // words, each by the same thread, so old and store may name one buffer.
 // kLeanCrt reads each prime's value window and constants as the CRT needs
 // them, where P window pointers and the P primes' constants held in
-// registers (some 40) would make K4 spill at the 80 registers of its
-// LJ <= 2 variant; held, they keep K2 faster.
+// registers (some 40) make K2 and K4 spill at the 80 registers of their
+// LJ <= 2 variants (K2 since its fraction takes the high word of a
+// product); lean, K2 at four primes is 1% faster at B >= 256 on an H100,
+// and the same below.  The wider variants hold them.
 template <int LJ_MAX, bool kLeanCrt, typename Digit, typename Old,
           typename Store>
 __device__ __forceinline__ void cluster_external_product(
@@ -307,7 +318,7 @@ __global__ void __launch_bounds__(256, min_ctas<LJ_MAX>())
   const long long b = blockIdx.x / cg::this_cluster().num_blocks();
   const int stride = N >> kLogRadix;
   const int32_t* dig = digits + b * LJ * N + threadIdx.x;
-  cluster_external_product<LJ_MAX, false>(
+  cluster_external_product<LJ_MAX, (LJ_MAX <= 2)>(
       buf, [&](int lj, int k) { return dig[lj * N + k * stride]; }, kspec,
       kshoup, tables, xcrt, old_from(acc), store_to(out), LJ, G, M, N, log_n,
       bits);
@@ -638,8 +649,8 @@ __global__ void __launch_bounds__(256, min_ctas<LJ_MAX>() > 2 ? 2 : 1)
       }
     }
     // 2. each prime's external product and its share of the explicit CRT:
-    //    c = r N^-1 (Q/p)^-1 mod p, acc += c (Q/p) in plane m, frac += c
-    //    round(2^28 / p) (ntt._explicit_crt_host)
+    //    c = r N^-1 (Q/p)^-1 mod p, acc += c (Q/p) in plane m, frac +=
+    //    hi(c round(2^(32 + kFracBits) / p)) (ntt._explicit_crt_host)
     const uint32_t* ks = kspec + s * P * kblock;
     const uint32_t* ksh = kshoup + s * P * kblock;
     for (int pi = 0; pi < P; ++pi) {
@@ -656,7 +667,7 @@ __global__ void __launch_bounds__(256, min_ctas<LJ_MAX>() > 2 ? 2 : 1)
           [&](int om, int k, uint32_t x) {
             const int n = tid + k * stride;
             const uint32_t cc = shoup_canonical(x, w, wsh, p);
-            frac[om * N + n] += cc * t;
+            frac[om * N + n] += __umulhi(cc, t);
             const int m = M == 2 ? (om & 1) : 0;
             acc[(om / M) * N + n] += ((uint64_t)cc * q_i) << (32 * m);
           });
@@ -669,9 +680,7 @@ __global__ void __launch_bounds__(256, min_ctas<LJ_MAX>() > 2 ? 2 : 1)
         uint64_t v = acc[o * N + n];
         for (int m = 0; m < M; ++m) {
           uint32_t* f = frac + (o * M + m) * N + n;
-          const uint64_t kq =
-              (*f + (1u << (tfhe_pbs::kFracBits - 1))) >> tfhe_pbs::kFracBits;
-          v -= (kq * q) << (32 * m);
+          v -= (tfhe_pbs::crt_round(*f) * q) << (32 * m);
           *f = 0;
         }
         acc[o * N + n] = v & mask;

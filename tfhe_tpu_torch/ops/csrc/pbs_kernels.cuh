@@ -57,10 +57,10 @@
 // Shoup product a prime (the residues are canonical, already scaled by
 // N^-1), then P independent 64-bit multiply-adds and one rounding a plane.
 // Exact on its inputs for the reason K2's CRT is (ntt._explicit_crt_host):
-// the residues are those of a convolution below 2^67 in magnitude; P
-// residues drawn at random name an integer up to Q/2 ~ 2^76, where the
-// 28-bit fraction may round the wrong way.  72 registers, no spill; blocks
-// of 128 threads (2-4% faster than 256).  On an H100: 0.00565 ms at
+// the residues are those of a convolution within the set's range
+// (ntt.holds_product); P residues drawn at random name an integer up to
+// Q/2, where the 13-bit fraction may round the wrong way.  72 registers, no
+// spill; blocks of 128 threads (2-4% faster than 256).  On an H100: 0.00565 ms at
 // shortint width and 0.00330 at boolean width (B = 64; 1.3x and 3.1x the
 // bound, the latter near a launch's floor), 0.0281 and 0.0048 at B = 256
 // (first design 0.0575 and 0.0123).
@@ -72,14 +72,23 @@ namespace tfhe_pbs {
 
 constexpr int kMaxPrimes = 8;
 // the explicit CRT's constants per prime (ntt._explicit_crt_host): p, w,
-// w's Shoup companion, Q/p mod 2^64, round(2^kFracBits / p), Q mod 2^64
+// w's Shoup companion, Q/p mod 2^64, t = round(2^(32 + kFracBits) / p), Q
+// mod 2^64
 constexpr int kXcrtWidth = 6;
-constexpr int kFracBits = 28;
+constexpr int kFracBits = 13;
 // coefficients a K1 thread owns
 constexpr int kRotWords = 4;
 // coefficients a crt_accumulate thread owns: one 16-byte load of each
 // (plane, prime) residue quad
 constexpr int kCrtWords = 4;
+
+// The explicit CRT's rounding: k = round(sum_i c_i / p_i) from the u32
+// fixed-point sum of hi(c_i t_i) = floor(c_i t_i / 2^32), t_i = round(2^(32
+// + kFracBits) / p_i) < 2^32, each within 1 + 2^-5 of 2^kFracBits c_i / p_i
+// (ntt._explicit_crt_host)
+__device__ __forceinline__ uint64_t crt_round(uint32_t frac) {
+  return (frac + (1u << (kFracBits - 1))) >> kFracBits;
+}
 
 // a * w mod p for any 32-bit a and 0 <= w < p < 2^31, with
 // wsh = floor(w * 2^32 / p): the quotient estimate is off by at most one, so
@@ -251,14 +260,13 @@ __global__ void crt_accumulate_kernel(const uint32_t* __restrict__ residues,
         for (int k = 0; k < kCrtWords; ++k) {
           const uint32_t c = mul_shoup(rv[k], w[i], wsh[i], p[i]);
           sum[k] += (uint64_t)c * q[i];
-          frac[k] += c * t[i];
+          frac[k] += __umulhi(c, t[i]);
         }
       }
     }
 #pragma unroll
     for (int k = 0; k < kCrtWords; ++k) {
-      const uint64_t kq = (frac[k] + (1u << (kFracBits - 1))) >> kFracBits;
-      total[k] += (sum[k] - kq * Q) << (32 * m);
+      total[k] += (sum[k] - crt_round(frac[k]) * Q) << (32 * m);
     }
   }
   const uint64_t mask = bits == 64 ? ~0ull : 0xFFFFFFFFull;

@@ -53,7 +53,16 @@ counters, where a CUDA graph's replay adds the launches its capture kept.
 The TPU's int8 limb planes and [R*ld, C*B] tiling are TPU scheduling; the
 port's layouts are its own (see the header of `csrc/pbs_kernels.cuh`), and
 the key spectra are prepared once by `prepare_bsk_cuda`, the counterpart of
-`prepare_bsk_fused` (:1717).
+`prepare_bsk_fused` (:1717).  The reference's spectra are over its five
+primes below 2^17 with two 32-bit planes of a u64 key word; the port's
+are over the fewest of `ntt.WIDE_PRIMES` (below 2^26.83) that hold the
+exact product, the key word whole where that is least work
+(`ntt.classic_plan`, from the parameter set's widths): at
+PARAM_MESSAGE_2_CARRY_2_KS_PBS four primes and one plane, 16 transforms a
+ciphertext and step where five primes and two planes take 30.  The product
+is exact either way, so every word is the same.  Each kernel wrapper and
+plain version takes the key's set as `primes` (`PreparedBskCuda.primes`),
+and every mode runs on any set of at most `ntt.MAX_PRIMES` primes.
 """
 
 from __future__ import annotations
@@ -239,61 +248,87 @@ rotate_decompose.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def digit_spectra(digits: torch.Tensor) -> torch.Tensor:
+def digit_spectra(digits: torch.Tensor,
+                  primes: tuple[int, ...] = ntt.PRIMES) -> torch.Tensor:
     """digits [B, L, G, N] int32 -> [B, P, L*G, N] canonical spectra."""
     B, L, G, N = digits.shape
-    dspec = ntt.forward_ntt(digits.reshape(B, L * G, N).to(torch.int64))
+    dspec = ntt.forward_ntt(digits.reshape(B, L * G, N).to(torch.int64),
+                            primes=primes)
     return dspec.transpose(1, 2)
 
 
-def spectral_mac(dspec: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
+def spectral_mac(dspec: torch.Tensor, key: torch.Tensor,
+                 primes: tuple[int, ...] = ntt.PRIMES) -> torch.Tensor:
     """dspec [B, P, LJ, N], key [B or 1, P, LJ, O, M, N] (canonical
     residues) -> [B, P, O, M, N]: sum_lj dspec_lj * key_lj mod p."""
     P, N = key.shape[1], key.shape[-1]
-    p = ntt.tables_for(N, dspec.device).primes.view(1, P, 1, 1, 1)
+    p = ntt.tables_for(N, dspec.device, primes).primes.view(1, P, 1, 1, 1)
     prod = dspec[:, :, :, None, None, :] * key.to(torch.int64)
     return (prod % p.unsqueeze(-1)).sum(dim=2) % p
 
 
-def residues_to_torus(res: torch.Tensor, bits: int = 64) -> torch.Tensor:
+def residues_to_torus(res: torch.Tensor, bits: int = 64,
+                      primes: tuple[int, ...] = ntt.PRIMES) -> torch.Tensor:
     """[B, O, M, P, N] canonical residues of the convolutions -> [B, O, N]
-    int64: the CRT, and the M 32-bit planes joined into one torus word."""
-    conv = ntt.crt_to_u64_centered(res.to(torch.int64))  # [B, O, M, N]
+    int64: the CRT, and the M planes joined into one torus word (one plane
+    is the word itself, two its 32-bit halves)."""
+    conv = ntt.crt_to_u64_centered(res.to(torch.int64), primes)  # [B,O,M,N]
     out = conv[:, :, 0]
     if res.shape[2] == 2:
         out = out + (conv[:, :, 1] << 32)
     return wrap(out, bits)
 
 
-def spectra_to_u64(spec: torch.Tensor, bits: int = 64) -> torch.Tensor:
+def spectra_to_u64(spec: torch.Tensor, bits: int = 64,
+                   primes: tuple[int, ...] = ntt.PRIMES) -> torch.Tensor:
     """[B, P, O, M, N] canonical spectra -> [B, O, N] int64: the inverse
     NTT, then `residues_to_torus`."""
-    return residues_to_torus(ntt.inverse_ntt(spec.permute(0, 2, 3, 1, 4)),
-                             bits)
+    return residues_to_torus(
+        ntt.inverse_ntt(spec.permute(0, 2, 3, 1, 4), primes=primes), bits,
+        primes)
 
 
 def external_product_crt_plain(digits: torch.Tensor, kspec: torch.Tensor,
-                               acc: torch.Tensor,
-                               bits: int = 64) -> torch.Tensor:
-    """digits [B, L, G, N] int32, kspec [P, LJ, O, M, N] (canonical residues),
-    acc [B, O, N] int64 -> acc + sum_lj digits_lj (x) key_lj (mod 2^bits)."""
-    spec = spectral_mac(digit_spectra(digits), kspec[None])
-    return wrap(acc + spectra_to_u64(spec, bits), bits)
+                               acc: torch.Tensor, bits: int = 64, *,
+                               primes: tuple[int, ...]) -> torch.Tensor:
+    """digits [B, L, G, N] int32, kspec [P, LJ, O, M, N] (canonical residues
+    over `primes`), acc [B, O, N] int64 -> acc + sum_lj digits_lj (x) key_lj
+    (mod 2^bits)."""
+    spec = spectral_mac(digit_spectra(digits, primes), kspec[None], primes)
+    return wrap(acc + spectra_to_u64(spec, bits, primes), bits)
+
+
+def _check_key_set(name: str, P: int, M: int, bits: int,
+                   primes: tuple[int, ...]) -> None:
+    """Raises unless a key of P primes and M planes is one over `primes`
+    for a torus of `bits`."""
+    if P != len(primes) or not 0 < P <= ntt.MAX_PRIMES or M not in (
+            (1, 2) if bits == 64 else (1,)):
+        raise ValueError(f"{name}: key layout P={P}, M={M} does not match "
+                         f"its {len(primes)} primes and bits={bits}")
+
+
+# CTAs of K2's launches, one per prime and ciphertext: B * P a launch,
+# a CUDA graph's replay adding its capture's (utils.profiling)
+PRIME_CTAS = profiling.counter("fused_pbs.external_product_crt.prime_ctas")
 
 
 def external_product_crt(digits: torch.Tensor, kspec: torch.Tensor,
                          kshoup: torch.Tensor, acc: torch.Tensor,
-                         bits: int = 64) -> torch.Tensor:
+                         bits: int = 64, *,
+                         primes: tuple[int, ...]) -> torch.Tensor:
     """K2 (replaces pc_kernel, tfhe_tpu/ops/fused_pbs.py:1244).  Returns a
     new accumulator, from one launch of `external_product_cluster_kernel`:
-    a cluster of one CTA per prime and ciphertext on the register-resident
-    NTT core, the explicit CRT in the same launch.  The core takes
-    256 <= N <= 2048 (`ntt.pass_tables_for` raises otherwise) and L*G <=
+    a cluster of one CTA per prime of the key's set `primes` and
+    ciphertext on the register-resident NTT core, the explicit CRT in the
+    same launch; each adds to `PRIME_CTAS`.  The core takes 256 <= N <=
+    2048 (`ntt.pass_tables_for` raises otherwise) and L*G <=
     MAX_DIGIT_POLYS (18) digit polynomials, in the 9-digit variant up to 9
     and an 18-digit one above (the launch is refused otherwise), as every
     kernel on the core."""
     if digits.device.type == "cpu":
-        return external_product_crt_plain(digits, kspec, acc, bits)
+        return external_product_crt_plain(digits, kspec, acc, bits,
+                                          primes=primes)
     if digits.device.type != "cuda":
         raise ValueError(
             f"external_product_crt: unsupported device {digits.device}")
@@ -304,10 +339,9 @@ def external_product_crt(digits: torch.Tensor, kspec: torch.Tensor,
     _check("kspec", kspec, torch.int32, (P, L * G, G, M, N), dev)
     _check("kshoup", kshoup, torch.int32, (P, L * G, G, M, N), dev)
     _check("acc", acc, torch.int64, (B, G, N), dev)
-    if P != len(ntt.PRIMES) or M != (2 if bits == 64 else 1):
-        raise ValueError(f"key layout P={P}, M={M} does not match bits={bits}")
-    twiddles = ntt.pass_tables_for(N, dev)
-    tab = ntt.tables_for(N, dev)
+    _check_key_set("external_product_crt", P, M, bits, primes)
+    twiddles = ntt.pass_tables_for(N, dev, primes)
+    tab = ntt.tables_for(N, dev, primes)
     out = torch.empty_like(acc)
     if B == 0:  # a grid of zero blocks is an invalid launch
         return out
@@ -318,6 +352,7 @@ def external_product_crt(digits: torch.Tensor, kspec: torch.Tensor,
         _stream(dev))
     _check_launch(err, "external_product_crt")
     external_product_crt.launches += 1
+    PRIME_CTAS.value += B * P
     return out
 
 
@@ -330,26 +365,29 @@ external_product_crt.launches = 0
 
 
 def ntt_mac_prime_plain(digits: torch.Tensor, kspec_p: torch.Tensor,
-                        prime_index: int,
-                        residues: torch.Tensor) -> torch.Tensor:
+                        prime_index: int, residues: torch.Tensor, *,
+                        primes: tuple[int, ...]) -> torch.Tensor:
     """digits [B, L, G, N] int32, kspec_p [LJ, O, M, N] (prime prime_index's
-    canonical key spectra) -> writes that prime's residues of the O*M
-    convolutions into residues [B, O, M, P, N] int32 and returns it.  Only
-    that prime's transforms and products are computed."""
+    canonical key spectra, of the set `primes`) -> writes that prime's
+    residues of the O*M convolutions into residues [B, O, M, P, N] int32
+    and returns it.  Only that prime's transforms and products are
+    computed."""
     B, L, G, N = digits.shape
-    p = int(ntt.PRIMES[prime_index])
+    p = int(primes[prime_index])
     dspec = ntt.forward_ntt(digits.reshape(B, L * G, N).to(torch.int64),
-                            prime_index)[:, :, 0]  # [B, LJ, N]
+                            prime_index, primes)[:, :, 0]  # [B, LJ, N]
     prod = dspec[:, :, None, None, :] * kspec_p.to(torch.int64)
     spec = (prod % p).sum(dim=1) % p  # [B, O, M, N]
-    coef = ntt.inverse_ntt(spec[..., None, :], prime_index)  # [B, O, M, 1, N]
+    coef = ntt.inverse_ntt(spec[..., None, :], prime_index,
+                           primes)  # [B, O, M, 1, N]
     residues[:, :, :, prime_index] = coef[:, :, :, 0].to(torch.int32)
     return residues
 
 
 def ntt_mac_prime(digits: torch.Tensor, kspec_p: torch.Tensor,
                   kshoup_p: torch.Tensor, prime_index: int,
-                  residues: torch.Tensor) -> torch.Tensor:
+                  residues: torch.Tensor, *,
+                  primes: tuple[int, ...]) -> torch.Tensor:
     """K6's per-prime stage (replaces prime_kernel -> _prime_block,
     tfhe_tpu/ops/fused_pbs.py:1503, :672): one launch of
     `ntt_mac_prime_kernel` on the register-resident NTT core, a cluster of
@@ -359,13 +397,14 @@ def ntt_mac_prime(digits: torch.Tensor, kspec_p: torch.Tensor,
     (`ntt.pass_tables_for` raises otherwise) and L*G <= 18, or the launch is
     refused."""
     if digits.device.type == "cpu":
-        return ntt_mac_prime_plain(digits, kspec_p, prime_index, residues)
+        return ntt_mac_prime_plain(digits, kspec_p, prime_index, residues,
+                                   primes=primes)
     if digits.device.type != "cuda":
         raise ValueError(f"ntt_mac_prime: unsupported device {digits.device}")
     dev = digits.device
     B, L, G, N = digits.shape
     LJ, O, M, _ = kspec_p.shape
-    P = len(ntt.PRIMES)
+    P = len(primes)
     _check("digits", digits, torch.int32, (B, L, G, N), dev)
     _check("kspec_p", kspec_p, torch.int32, (L * G, G, M, N), dev)
     _check("kshoup_p", kshoup_p, torch.int32, (L * G, G, M, N), dev)
@@ -376,7 +415,8 @@ def ntt_mac_prime(digits: torch.Tensor, kspec_p: torch.Tensor,
         return residues
     err = cuda_library().tfhe_ntt_mac_prime(
         digits.data_ptr(), kspec_p.data_ptr(), kshoup_p.data_ptr(),
-        ntt.pass_tables_for(N, dev).data_ptr(), residues.data_ptr(), B, LJ,
+        ntt.pass_tables_for(N, dev, primes).data_ptr(), residues.data_ptr(),
+        B, LJ,
         O, M, P, N, prime_index, _stream(dev))
     _check_launch(err, "ntt_mac_prime")
     ntt_mac_prime.launches += 1
@@ -387,40 +427,41 @@ ntt_mac_prime.launches = 0
 
 
 def crt_accumulate_plain(residues: torch.Tensor, acc: torch.Tensor,
-                         bits: int = 64) -> torch.Tensor:
-    """residues [B, O, M, P, N] int32, acc [B, O, N] int64 ->
+                         bits: int = 64, *,
+                         primes: tuple[int, ...]) -> torch.Tensor:
+    """residues [B, O, M, P, N] int32 over `primes`, acc [B, O, N] int64 ->
     acc + the reconstructed convolutions (mod 2^bits)."""
-    return wrap(acc + residues_to_torus(residues, bits), bits)
+    return wrap(acc + residues_to_torus(residues, bits, primes), bits)
 
 
 def crt_accumulate(residues: torch.Tensor, acc: torch.Tensor,
-                   bits: int = 64) -> torch.Tensor:
+                   bits: int = 64, *,
+                   primes: tuple[int, ...]) -> torch.Tensor:
     """K6's last stage (replaces crt_kernel -> _crt_accumulate,
     tfhe_tpu/ops/fused_pbs.py:1520, :709): `crt_accumulate_kernel`, the
-    explicit CRT on `ntt.residue_crt_for`, 4 coefficients a thread.
-    Returns a new accumulator.  The residues are those of convolutions
-    below 2^67 in magnitude, as `ntt_mac_prime` writes them (the explicit
-    CRT's range, `ntt._explicit_crt_host`); residues and acc 16-byte
-    aligned, N a power of two of at least 4."""
+    explicit CRT on `ntt.residue_crt_for(primes)`, 4 coefficients a
+    thread.  Returns a new accumulator.  The residues are those of the
+    convolutions of a key over `primes`, as `ntt_mac_prime` writes them,
+    within the explicit CRT's range (`ntt.holds_product`); residues and acc
+    16-byte aligned, N a power of two of at least 4."""
     if residues.device.type == "cpu":
-        return crt_accumulate_plain(residues, acc, bits)
+        return crt_accumulate_plain(residues, acc, bits, primes=primes)
     if residues.device.type != "cuda":
         raise ValueError(
             f"crt_accumulate: unsupported device {residues.device}")
     dev = residues.device
     B, O, M, P, N = residues.shape
-    _check("residues", residues, torch.int32, (B, O, M, len(ntt.PRIMES), N),
+    _check("residues", residues, torch.int32, (B, O, M, len(primes), N),
            dev)
     _check("acc", acc, torch.int64, (B, O, N), dev)
-    if M != (2 if bits == 64 else 1):
-        raise ValueError(f"{M} residue planes do not match bits={bits}")
+    _check_key_set("crt_accumulate", P, M, bits, primes)
     _check_aligned("residues", residues)
     _check_aligned("acc", acc)
     out = torch.empty_like(acc)
     if B == 0:  # a grid of zero blocks is an invalid launch
         return out
     err = cuda_library().tfhe_crt_accumulate(
-        residues.data_ptr(), ntt.residue_crt_for(dev).data_ptr(),
+        residues.data_ptr(), ntt.residue_crt_for(dev, primes).data_ptr(),
         acc.data_ptr(), out.data_ptr(), B, O, M, P, N, bits, _stream(dev))
     _check_launch(err, "crt_accumulate")
     crt_accumulate.launches += 1
@@ -436,34 +477,38 @@ crt_accumulate.launches = 0
 
 
 def pbs_step_plain(acc: torch.Tensor, ahat: torch.Tensor, kspec: torch.Tensor,
-                   base_log: int, levels: int,
-                   bits: int = 64) -> torch.Tensor:
+                   base_log: int, levels: int, bits: int = 64, *,
+                   primes: tuple[int, ...]) -> torch.Tensor:
     """One blind-rotation step: acc + GGSW (x) (acc * X^ahat - acc), with
-    acc [B, G, N] int64, ahat [B] int32, kspec [P, LJ, O, M, N]."""
+    acc [B, G, N] int64, ahat [B] int32, kspec [P, LJ, O, M, N] over
+    `primes`."""
     digits = rotate_decompose_plain(acc, ahat, base_log, levels, bits)
-    return external_product_crt_plain(digits, kspec, acc, bits)
+    return external_product_crt_plain(digits, kspec, acc, bits,
+                                      primes=primes)
 
 
 def blind_rotate_persistent_plain(acc: torch.Tensor, ahat: torch.Tensor,
                                   kspec: torch.Tensor, base_log: int,
-                                  levels: int,
-                                  bits: int = 64) -> torch.Tensor:
+                                  levels: int, bits: int = 64, *,
+                                  primes: tuple[int, ...]) -> torch.Tensor:
     """All steps: ahat [n, B], kspec [n, P, LJ, O, M, N]."""
     for i in range(ahat.shape[0]):
-        acc = pbs_step_plain(acc, ahat[i], kspec[i], base_log, levels, bits)
+        acc = pbs_step_plain(acc, ahat[i], kspec[i], base_log, levels, bits,
+                             primes=primes)
     return acc
 
 
 def _check_rotation(acc: torch.Tensor, ahat: torch.Tensor,
                     kspec: torch.Tensor, kshoup: torch.Tensor, base_log: int,
-                    levels: int, bits: int) -> tuple:
+                    levels: int, bits: int, primes: tuple[int, ...]) -> tuple:
     """Checks the inputs of a launch over ahat.shape[0] steps: acc [B, G, N]
-    int64, ahat [n, B] int32, kspec / kshoup [n, P, LJ, O, M, N] int32.
-    Returns (B, n, G, M, P, N)."""
+    int64, ahat [n, B] int32, kspec / kshoup [n, P, LJ, O, M, N] int32 over
+    `primes`.  Returns (B, n, G, M, P, N)."""
     dev = acc.device
     B, G, N = acc.shape
     n = ahat.shape[0]
-    P, M = len(ntt.PRIMES), (2 if bits == 64 else 1)
+    P, M = len(primes), kspec.shape[-2]
+    _check_key_set("the blind rotation", kspec.shape[1], M, bits, primes)
     _check("acc", acc, torch.int64, (B, G, N), dev)
     _check("ahat", ahat, torch.int32, (n, B), dev)
     for key_name, key in (("kspec", kspec), ("kshoup", kshoup)):
@@ -476,7 +521,7 @@ def _check_rotation(acc: torch.Tensor, ahat: torch.Tensor,
 
 def pbs_step(acc: torch.Tensor, ahat: torch.Tensor, kspec: torch.Tensor,
              kshoup: torch.Tensor, base_log: int, levels: int,
-             bits: int = 64) -> torch.Tensor:
+             bits: int = 64, *, primes: tuple[int, ...]) -> torch.Tensor:
     """K3 (replaces step_kernel, tfhe_tpu/ops/fused_pbs.py:1304 ->
     `_step_math_onekernel` :809): one whole step in one launch, through K4's
     C entry point (`pbs_step_cluster_kernel`, or K7's
@@ -490,7 +535,7 @@ def pbs_step(acc: torch.Tensor, ahat: torch.Tensor, kspec: torch.Tensor,
     (`ntt.pass_tables_for` raises otherwise) and L*G <= 18, or the launch is
     refused."""
     return _step_on_core(pbs_step, acc, ahat, kspec, kshoup, base_log, levels,
-                         bits)
+                         bits, primes)
 
 
 pbs_step.launches = 0
@@ -498,8 +543,8 @@ pbs_step.launches = 0
 
 def blind_rotate_persistent(acc: torch.Tensor, ahat: torch.Tensor,
                             kspec: torch.Tensor, kshoup: torch.Tensor,
-                            base_log: int, levels: int,
-                            bits: int = 64) -> torch.Tensor:
+                            base_log: int, levels: int, bits: int = 64, *,
+                            primes: tuple[int, ...]) -> torch.Tensor:
     """K5 (replaces _make_grid_kernel, tfhe_tpu/ops/fused_pbs.py:1020): all
     n steps in one launch of `blind_rotate_stream_cluster_kernel` on the
     register-resident NTT core, K4's cluster step looped on chip: a cluster
@@ -511,12 +556,12 @@ def blind_rotate_persistent(acc: torch.Tensor, ahat: torch.Tensor,
     returns a new accumulator."""
     if acc.device.type == "cpu":
         return blind_rotate_persistent_plain(acc, ahat, kspec, base_log,
-                                             levels, bits)
+                                             levels, bits, primes=primes)
     if acc.device.type != "cuda":
         raise ValueError(
             f"blind_rotate_persistent: unsupported device {acc.device}")
     out = _launch_on_core("blind_rotate_persistent", acc, ahat, kspec,
-                          kshoup, base_log, levels, bits,
+                          kshoup, base_log, levels, bits, primes,
                           whole_rotation=True)
     if acc.shape[0]:
         blind_rotate_persistent.launches += 1
@@ -528,7 +573,8 @@ blind_rotate_persistent.launches = 0
 
 def _launch_on_core(name: str, acc: torch.Tensor, ahat: torch.Tensor,
                     kspec: torch.Tensor, kshoup: torch.Tensor, base_log: int,
-                    levels: int, bits: int, whole_rotation: bool,
+                    levels: int, bits: int, primes: tuple[int, ...],
+                    whole_rotation: bool,
                     caller: str | None = None) -> torch.Tensor:
     """Checks, then one launch through the C entry point tfhe_<name> of
     single_cta_kernels.cu over ahat.shape[0] steps (one step unless
@@ -536,7 +582,7 @@ def _launch_on_core(name: str, acc: torch.Tensor, ahat: torch.Tensor,
     outside the core's 256 ... 2048 raises ValueError, a refused launch
     RuntimeError, both under `caller` (default: name)."""
     B, n, G, M, P, N = _check_rotation(acc, ahat, kspec, kshoup, base_log,
-                                       levels, bits)
+                                       levels, bits, primes)
     if not 256 <= N <= 2048:
         raise ValueError(f"{caller or name}: N = {N} is outside the NTT "
                          f"core's 256 ... 2048")
@@ -544,10 +590,11 @@ def _launch_on_core(name: str, acc: torch.Tensor, ahat: torch.Tensor,
     if B == 0:  # a grid of zero blocks is an invalid launch
         return out
     steps = (n,) if whole_rotation else ()
-    tables = ntt.pass_tables_for(N, acc.device)
+    tables = ntt.pass_tables_for(N, acc.device, primes)
     err = getattr(single_cta_library(), f"tfhe_{name}")(
         acc.data_ptr(), ahat.data_ptr(), kspec.data_ptr(), kshoup.data_ptr(),
-        tables.data_ptr(), ntt.tables_for(N, acc.device).xcrt.data_ptr(),
+        tables.data_ptr(),
+        ntt.tables_for(N, acc.device, primes).xcrt.data_ptr(),
         out.data_ptr(), B, *steps, G, M, P, N, base_log, levels, bits,
         _stream(acc.device))
     _check_launch(err, caller or name)
@@ -556,19 +603,21 @@ def _launch_on_core(name: str, acc: torch.Tensor, ahat: torch.Tensor,
 
 def _step_on_core(wrapper, acc: torch.Tensor, ahat: torch.Tensor,
                   kspec: torch.Tensor, kshoup: torch.Tensor, base_log: int,
-                  levels: int, bits: int) -> torch.Tensor:
+                  levels: int, bits: int,
+                  primes: tuple[int, ...]) -> torch.Tensor:
     """The body of K3 and K4, one kernel on Hopper: one whole step through
     the C entry point tfhe_pbs_step_single_cta, counted in
     `wrapper.launches` and reported under the wrapper's name; the plain
     version on a CPU tensor."""
     name = wrapper.__name__
     if acc.device.type == "cpu":
-        return pbs_step_plain(acc, ahat, kspec, base_log, levels, bits)
+        return pbs_step_plain(acc, ahat, kspec, base_log, levels, bits,
+                              primes=primes)
     if acc.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {acc.device}")
     out = _launch_on_core("pbs_step_single_cta", acc, ahat[None],
                           kspec[None], kshoup[None], base_log, levels, bits,
-                          whole_rotation=False, caller=name)
+                          primes, whole_rotation=False, caller=name)
     if acc.shape[0]:
         wrapper.launches += 1
     return out
@@ -581,8 +630,8 @@ def _step_on_core(wrapper, acc: torch.Tensor, ahat: torch.Tensor,
 
 def pbs_step_single_cta(acc: torch.Tensor, ahat: torch.Tensor,
                         kspec: torch.Tensor, kshoup: torch.Tensor,
-                        base_log: int, levels: int,
-                        bits: int = 64) -> torch.Tensor:
+                        base_log: int, levels: int, bits: int = 64, *,
+                        primes: tuple[int, ...]) -> torch.Tensor:
     """K4 (replaces step_kernel, tfhe_tpu/ops/fused_pbs.py:983): one whole
     step in one launch on the register-resident NTT core:
     `pbs_step_cluster_kernel` (a cluster of one CTA per prime and
@@ -596,7 +645,7 @@ def pbs_step_single_cta(acc: torch.Tensor, ahat: torch.Tensor,
     and L*G <= 18, or the launch is refused.  Its plain version is
     `pbs_step_plain`."""
     return _step_on_core(pbs_step_single_cta, acc, ahat, kspec, kshoup,
-                         base_log, levels, bits)
+                         base_log, levels, bits, primes)
 
 
 pbs_step_single_cta.launches = 0
@@ -608,8 +657,8 @@ pbs_step_single_cta.launches = 0
 
 def blind_rotate_single_cta(acc: torch.Tensor, ahat: torch.Tensor,
                             kspec: torch.Tensor, kshoup: torch.Tensor,
-                            base_log: int, levels: int,
-                            bits: int = 64) -> torch.Tensor:
+                            base_log: int, levels: int, bits: int = 64, *,
+                            primes: tuple[int, ...]) -> torch.Tensor:
     """K7 (replaces _make_kernel, tfhe_tpu/ops/fused_pbs.py:1403): all n
     steps in one launch on the register-resident NTT core, the accumulator
     held in shared memory throughout: `blind_rotate_core_kernel` (one CTA
@@ -623,12 +672,12 @@ def blind_rotate_single_cta(acc: torch.Tensor, ahat: torch.Tensor,
     plain version is `blind_rotate_persistent_plain`."""
     if acc.device.type == "cpu":
         return blind_rotate_persistent_plain(acc, ahat, kspec, base_log,
-                                             levels, bits)
+                                             levels, bits, primes=primes)
     if acc.device.type != "cuda":
         raise ValueError(f"blind_rotate_single_cta: unsupported device "
                          f"{acc.device}")
     out = _launch_on_core("blind_rotate_single_cta", acc, ahat, kspec,
-                          kshoup, base_log, levels, bits,
+                          kshoup, base_log, levels, bits, primes,
                           whole_rotation=True)
     if acc.shape[0]:
         blind_rotate_single_cta.launches += 1
@@ -638,38 +687,41 @@ def blind_rotate_single_cta(acc: torch.Tensor, ahat: torch.Tensor,
 blind_rotate_single_cta.launches = 0
 
 
-def _form(entry, name: str, B: int, N: int, G: int, levels: int, bits: int,
+def _form(entry, name: str, B: int, N: int, G: int, levels: int,
+          primes: tuple[int, ...], planes: int,
           kernels: tuple[str, str]) -> str:
     """kernels[1] if the C entry point `entry` says a batch of B runs as
     clusters, else kernels[0].  Launches nothing."""
     cluster = ctypes.c_int(0)
-    err = entry(B, G, 2 if bits == 64 else 1, len(ntt.PRIMES), N, levels,
-                ctypes.byref(cluster))
+    err = entry(B, G, planes, len(primes), N, levels, ctypes.byref(cluster))
     _check_launch(err, name)
     return kernels[cluster.value]
 
 
-def blind_rotate_single_cta_form(B: int, N: int, G: int, levels: int,
-                                 bits: int = 64) -> str:
+def blind_rotate_single_cta_form(B: int, N: int, G: int, levels: int, *,
+                                 primes: tuple[int, ...],
+                                 planes: int) -> str:
     """The kernel that `blind_rotate_single_cta` launches for a batch of B
-    on the current card: "blind_rotate_core_kernel" or
-    "blind_rotate_cluster_core_kernel".  Launches nothing."""
+    on the current card, for a key over `primes` with `planes` planes a
+    word: "blind_rotate_core_kernel" or "blind_rotate_cluster_core_kernel".
+    Launches nothing."""
     return _form(single_cta_library().tfhe_blind_rotate_single_cta_form,
-                 "blind_rotate_single_cta_form", B, N, G, levels, bits,
+                 "blind_rotate_single_cta_form", B, N, G, levels, primes,
+                 planes,
                  ("blind_rotate_core_kernel",
                   "blind_rotate_cluster_core_kernel"))
 
 
-def blind_rotate_persistent_waves(B: int, N: int, G: int, levels: int,
-                                  bits: int = 64) -> dict:
-    """How `blind_rotate_persistent` runs a batch of B on the current card:
-    the clusters the card holds at once (cudaOccupancyMaxActiveClusters)
-    and the waves of whole rotations, ceil(B / clusters).  Launches
-    nothing."""
+def blind_rotate_persistent_waves(B: int, N: int, G: int, levels: int, *,
+                                  primes: tuple[int, ...],
+                                  planes: int) -> dict:
+    """How `blind_rotate_persistent` runs a batch of B on the current card
+    for a key over `primes` with `planes` planes a word: the clusters the
+    card holds at once (cudaOccupancyMaxActiveClusters) and the waves of
+    whole rotations, ceil(B / clusters).  Launches nothing."""
     clusters = ctypes.c_int(0)
     err = single_cta_library().tfhe_blind_rotate_persistent_clusters(
-        B, G, 2 if bits == 64 else 1, len(ntt.PRIMES), N, levels,
-        ctypes.byref(clusters))
+        B, G, planes, len(primes), N, levels, ctypes.byref(clusters))
     _check_launch(err, "blind_rotate_persistent_waves")
     if clusters.value < 1:
         raise RuntimeError(f"blind_rotate_persistent_waves: the card holds "
@@ -678,13 +730,14 @@ def blind_rotate_persistent_waves(B: int, N: int, G: int, levels: int,
             "waves": -(-B // clusters.value)}
 
 
-def pbs_step_single_cta_form(B: int, N: int, G: int, levels: int,
-                             bits: int = 64) -> str:
+def pbs_step_single_cta_form(B: int, N: int, G: int, levels: int, *,
+                             primes: tuple[int, ...], planes: int) -> str:
     """The kernel that `pbs_step_single_cta` launches for a batch of B on
-    the current card: "pbs_step_cluster_kernel" or
-    "blind_rotate_core_kernel" (over one step).  Launches nothing."""
+    the current card, for a key over `primes` with `planes` planes a word:
+    "pbs_step_cluster_kernel" or "blind_rotate_core_kernel" (over one
+    step).  Launches nothing."""
     return _form(single_cta_library().tfhe_pbs_step_single_cta_form,
-                 "pbs_step_single_cta_form", B, N, G, levels, bits,
+                 "pbs_step_single_cta_form", B, N, G, levels, primes, planes,
                  ("blind_rotate_core_kernel", "pbs_step_cluster_kernel"))
 
 KERNELS = (rotate_decompose, external_product_crt, pbs_step,
@@ -706,8 +759,9 @@ def reset_launch_counts() -> None:
 @dataclass
 class PreparedBskCuda:
     """BSK as NTT spectra in the kernels' layout: kspec / kshoup
-    [n, P, L*G, G, M, N] int32 (bit patterns of uint32 residues and their
-    Shoup companions)."""
+    [n, P, L*G, G, M, N] int32 (bit patterns of uint32 residues over the P
+    primes of `primes` and their Shoup companions; M planes a torus
+    word)."""
 
     kspec: torch.Tensor
     kshoup: torch.Tensor
@@ -716,7 +770,12 @@ class PreparedBskCuda:
     glwe_size: int
     polynomial_size: int
     input_dim: int
+    primes: tuple[int, ...]
     bits: int = 64
+
+    @property
+    def planes(self) -> int:
+        return self.kspec.shape[-2]
 
 
 def _u32_bits(v: torch.Tensor) -> torch.Tensor:
@@ -728,44 +787,58 @@ def _u32_bits(v: torch.Tensor) -> torch.Tensor:
 _PREPARE_CHUNK = 64
 
 
-def bsk_spectra(raw_bsk: torch.Tensor, bits: int = 64) -> torch.Tensor:
+def bsk_spectra(raw_bsk: torch.Tensor, bits: int = 64,
+                primes: tuple[int, ...] = ntt.PRIMES,
+                planes: int | None = None) -> torch.Tensor:
     """Standard-domain BSK [n, L, G (row), G (poly), N] int64 -> the
-    spectra of its 32-bit planes, [n, P, L*G, G, M, N] int32 canonical
-    residues, computed on the key's device in chunks of steps."""
+    spectra over `primes` of its M planes (default: 2 for the u64 torus,
+    its 32-bit halves; 1, the word itself), [n, P, L*G, G, M, N] int32
+    canonical residues, computed on the key's device in chunks of steps."""
     n, L, J, O, N = raw_bsk.shape
-    P = len(ntt.PRIMES)
-    M = 2 if bits == 64 else 1
+    P = len(primes)
+    M = (2 if bits == 64 else 1) if planes is None else planes
     kspec = torch.empty((n, P, L * J, O, M, N), dtype=torch.int32,
                         device=raw_bsk.device)
     for s in range(0, n, _PREPARE_CHUNK):
         x = raw_bsk[s:s + _PREPARE_CHUNK]
-        if bits == 64:
-            planes = torch.stack([x & MASK32, lsr(x, 32)], dim=-2)
+        if M == 2:
+            x = torch.stack([x & MASK32, lsr(x, 32)], dim=-2)
         else:
-            planes = x.unsqueeze(-2)  # [c, L, J, O, 1, N]
-        spec = ntt.forward_ntt(planes)  # [c, L, J, O, M, P, N]
+            x = x.unsqueeze(-2)  # [c, L, J, O, 1, N]
+        spec = ntt.forward_ntt(x, primes=primes)  # [c, L, J, O, M, P, N]
         spec = spec.permute(0, 5, 1, 2, 3, 4, 6).reshape(-1, P, L * J, O, M, N)
         kspec[s:s + _PREPARE_CHUNK] = spec.to(torch.int32)
     return kspec
 
 
-def prepare_bsk_cuda(raw_bsk: torch.Tensor, base_log: int,
-                     bits: int = 64) -> PreparedBskCuda:
+def prepare_bsk_cuda(raw_bsk: torch.Tensor, base_log: int, bits: int = 64,
+                     primes: tuple[int, ...] | None = None
+                     ) -> PreparedBskCuda:
     """Standard-domain BSK [n, L, G (row), G (poly), N] int64 -> spectra of
-    its 32-bit planes and their Shoup companions, computed on the key's
-    device (counterpart of prepare_bsk_fused,
-    tfhe_tpu/ops/fused_pbs.py:1717)."""
+    its planes and their Shoup companions, computed on the key's device
+    (counterpart of prepare_bsk_fused, tfhe_tpu/ops/fused_pbs.py:1717).
+    The set of primes and the planes a word follow from the parameter
+    set's widths (`ntt.classic_plan`); `primes` names another set (the
+    reference's `ntt.PRIMES`, to compare spectra with it), on which the
+    key takes the fewest planes that hold the product
+    (`ntt.planes_for`)."""
     n, L, J, O, N = raw_bsk.shape
-    P = len(ntt.PRIMES)
-    p = ntt.tables_for(N, raw_bsk.device).primes.view(1, P, 1, 1, 1, 1)
-    kspec = bsk_spectra(raw_bsk, bits)
+    if primes is None:
+        primes, M = ntt.classic_plan(base_log, L, J, N, bits)
+    else:
+        primes = tuple(primes)
+        M = ntt.planes_for(primes, base_log, L, J, N, bits)
+    P = len(primes)
+    p = ntt.tables_for(N, raw_bsk.device, primes).primes.view(
+        1, P, 1, 1, 1, 1)
+    kspec = bsk_spectra(raw_bsk, bits, primes, M)
     kshoup = torch.empty_like(kspec)
     for s in range(0, n, _PREPARE_CHUNK):
-        spec = kspec[s:s + _PREPARE_CHUNK].to(torch.int64)  # below 2^17
+        spec = kspec[s:s + _PREPARE_CHUNK].to(torch.int64)  # below 2^27
         kshoup[s:s + _PREPARE_CHUNK] = _u32_bits((spec << 32) // p)
     return PreparedBskCuda(kspec=kspec, kshoup=kshoup, base_log=base_log,
                            levels=L, glwe_size=J, polynomial_size=N,
-                           input_dim=n, bits=bits)
+                           input_dim=n, primes=primes, bits=bits)
 
 
 MODES = ("scan2", "scan1", "scan1w", "scan3", "grid", "mega")
@@ -788,30 +861,33 @@ def blind_rotate_fused(bsk: PreparedBskCuda, acc: torch.Tensor,
     check_mode(mode)
     acc = acc.contiguous()
     shape = (bsk.base_log, bsk.levels, bsk.bits)
+    primes = bsk.primes
     if mode == "grid":
         return blind_rotate_persistent(acc, ahat, bsk.kspec, bsk.kshoup,
-                                       *shape)
+                                       *shape, primes=primes)
     if mode == "mega":
         return blind_rotate_single_cta(acc, ahat, bsk.kspec, bsk.kshoup,
-                                       *shape)
+                                       *shape, primes=primes)
     if mode == "scan3":
         B, G, N = acc.shape
-        P, M = bsk.kspec.shape[1], bsk.kspec.shape[-2]
-        residues = torch.empty((B, G, M, P, N), dtype=torch.int32,
-                               device=acc.device)
+        residues = torch.empty((B, G, bsk.planes, len(primes), N),
+                               dtype=torch.int32, device=acc.device)
     for i in range(bsk.input_dim):
         ks, ksh = bsk.kspec[i], bsk.kshoup[i]
         if mode == "scan1":
-            acc = pbs_step(acc, ahat[i], ks, ksh, *shape)
+            acc = pbs_step(acc, ahat[i], ks, ksh, *shape, primes=primes)
             continue
         if mode == "scan1w":
-            acc = pbs_step_single_cta(acc, ahat[i], ks, ksh, *shape)
+            acc = pbs_step_single_cta(acc, ahat[i], ks, ksh, *shape,
+                                      primes=primes)
             continue
         digits = rotate_decompose(acc, ahat[i], *shape)
         if mode == "scan2":
-            acc = external_product_crt(digits, ks, ksh, acc, bsk.bits)
+            acc = external_product_crt(digits, ks, ksh, acc, bsk.bits,
+                                       primes=primes)
             continue
-        for pi in range(P):
-            ntt_mac_prime(digits, ks[pi], ksh[pi], pi, residues)
-        acc = crt_accumulate(residues, acc, bsk.bits)
+        for pi in range(len(primes)):
+            ntt_mac_prime(digits, ks[pi], ksh[pi], pi, residues,
+                          primes=primes)
+        acc = crt_accumulate(residues, acc, bsk.bits, primes=primes)
     return acc

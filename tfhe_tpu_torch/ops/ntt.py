@@ -1,4 +1,4 @@
-"""Exact negacyclic NTTs over five primes, and CRT back to the u64 torus.
+"""Exact negacyclic NTTs over a set of primes, and CRT back to the u64 torus.
 
 Port of the arithmetic in `tfhe_tpu/ops/ntt.py` (`PRIMES` at :40,
 `crt_to_u64_centered` at :496).  The TPU version is a four-step transform
@@ -15,8 +15,14 @@ the stages.  Inverse: Gentleman-Sande butterflies with the inverse powers,
 then a scale by N^-1 (Longa & Naehrig, "Speeding up the Number Theoretic
 Transform for Faster Ideal Lattice-Based Cryptography", 2016, Alg. 1-2).
 
-Residues are canonical, in [0, p).  p < 2^17, so a product of two residues
-fits easily in int64 and in the 32-bit Shoup form the kernel uses.
+Residues are canonical, in [0, p).  Two sets of primes: `PRIMES`, the
+reference's five below 2^17 (multi-bit, the "ntt" layout, the u128 path and
+comparisons with the reference's spectra), and `WIDE_PRIMES`, eight below
+2^32 / 36, of which the classic key's spectra take the fewest that hold
+the exact external product (`classic_plan`).  p < 2^27, so a product of
+two residues fits easily in int64 and in the 32-bit Shoup form the kernels
+use.  Every table is built per (set, N) and cached; a function that takes
+`primes` defaults to `PRIMES`.
 
 Position i of a forward spectrum is the polynomial's value at psi^e(i) for
 an odd exponent e(i), so the spectrum of the monomial X^d is
@@ -38,7 +44,125 @@ from . import u128
 
 # NTT-friendly primes == 1 mod 4096, so 2N-th roots exist for N <= 2048.
 PRIMES: tuple[int, ...] = (12289, 40961, 61441, 65537, 86017)
-CRT_MODULUS = int(np.prod([int(p) for p in PRIMES], dtype=object))
+
+
+def _modulus(primes: tuple[int, ...]) -> int:
+    out = 1
+    for p in primes:
+        out *= int(p)
+    return out
+
+
+CRT_MODULUS = _modulus(PRIMES)
+
+# The NTT core's lazy arithmetic (csrc/ntt_core.cuh) holds for a prime p
+# when (1) a forward transform's words stay below 2^32: a digit enters in
+# [0, 3p), each of at most 11 stages adds less than 2p, and the last
+# stage's input (below 23p) must stay below 2^32 - 2p, so 25p < 2^32; and
+# (2) the MAC's sum of LJ lazy products, each below 2p, stays below 2^32
+# at the widest variant, LJ = HEADROOM_DIGIT_POLYS: 36p < 2^32.
+HEADROOM_DIGIT_POLYS = 18
+FORWARD_HEADROOM = 25
+
+# The classic key's primes: the eight largest primes == 1 mod 8192 (2N-th
+# roots for N <= 4096) below 2^32 / 36 = 2^26.83, largest first; a key takes
+# the first P of them (`classic_plan`).  Their product is 2^107.3 at P = 4.
+WIDE_PRIMES: tuple[int, ...] = (119259137, 119234561, 118996993, 118988801,
+                                118972417, 118947841, 118939649, 118915073)
+# the most primes a kernel on the core takes (csrc/pbs_kernels.cuh
+# kMaxPrimes), one CTA of a cluster each
+MAX_PRIMES = 8
+
+
+def _is_prime(n: int) -> bool:
+    if n < 2:
+        return False
+    d = 2
+    while d * d <= n:
+        if n % d == 0:
+            return False
+        d += 1
+    return True
+
+
+def check_headroom(primes: tuple[int, ...]) -> None:
+    """Raises ValueError unless every p of `primes` is a prime that the
+    core's lazy arithmetic holds: 25p < 2^32 and 2 * 18 p < 2^32."""
+    for p in primes:
+        if not _is_prime(p):
+            raise ValueError(f"{p} is not a prime")
+        if (FORWARD_HEADROOM * p >= 1 << 32
+                or 2 * HEADROOM_DIGIT_POLYS * p >= 1 << 32):
+            raise ValueError(f"{p} breaks the NTT core's headroom: 25p and "
+                             f"36p must stay below 2^32")
+
+
+check_headroom(PRIMES)
+check_headroom(WIDE_PRIMES)
+
+
+def product_bound(base_log: int, digit_polys: int, N: int, bits: int,
+                  planes: int) -> int:
+    """The largest |x| of an external product's exact convolution: L*G*N
+    terms, each a balanced digit (|d| <= 2^(base_log - 1)) times a key
+    plane; one plane is the torus word as a signed integer (|k| <= 2^63 for
+    the u64 torus; a u32 word is held in [0, 2^32)), two planes its 32-bit
+    halves in [0, 2^32)."""
+    key = (1 << 63) if bits == 64 and planes == 1 else (1 << (bits // planes))
+    return digit_polys * N * (1 << (base_log - 1)) * key
+
+
+# the explicit CRT's fraction bits F: the most for which every T_i =
+# round(2^(32 + F) / p_i) of both sets fits a u32 (p_i > 2^13)
+XCRT_FRAC_BITS = 13
+
+
+def holds_product(primes: tuple[int, ...], bound: int) -> bool:
+    """True if the CRT over `primes` gives back every x with |x| <= bound:
+    Garner's centered range needs Q > 2 bound, and the explicit CRT's
+    rounding (`_explicit_crt_host`: its fraction is within P 2^(1 - F) of
+    x / Q + k) needs |x| / Q < 1/2 - P 2^(1 - F)."""
+    P, F = len(primes), XCRT_FRAC_BITS
+    return bound << F < _modulus(primes) * ((1 << (F - 1)) - 2 * P)
+
+
+def classic_plan(base_log: int, levels: int, glwe_size: int, N: int,
+                 bits: int) -> tuple[tuple[int, ...], int]:
+    """(primes, M): the classic key's prime set, the first P of
+    `WIDE_PRIMES`, and its planes a torus word (1, or 2 for the u64
+    torus), from the parameter set's widths alone.  For each M the fewest
+    primes that hold the exact product (`holds_product`); of those, the
+    plan with the fewest transforms a step, P (L G + G M), then the fewest
+    spectral products, P L G G M.  PARAM_MESSAGE_2_CARRY_2_KS_PBS (base_log
+    23, L 1, G 2, N 2048, u64): |x| <= 2^97, so P = 4 and M = 1."""
+    LJ = levels * glwe_size
+    best = None
+    for M in ((1, 2) if bits == 64 else (1,)):
+        bound = product_bound(base_log, LJ, N, bits, M)
+        for P in range(1, MAX_PRIMES + 1):
+            if holds_product(WIDE_PRIMES[:P], bound):
+                cost = (P * (LJ + glwe_size * M), P * LJ * glwe_size * M, M)
+                if best is None or cost < best[0]:
+                    best = (cost, P, M)
+                break
+    if best is None:
+        raise ValueError(f"no plan of at most {MAX_PRIMES} primes holds the "
+                         f"product at base_log {base_log}, {levels} levels, "
+                         f"G {glwe_size}, N {N}, {bits} bits")
+    return WIDE_PRIMES[:best[1]], best[2]
+
+
+def planes_for(primes: tuple[int, ...], base_log: int, levels: int,
+               glwe_size: int, N: int, bits: int) -> int:
+    """The fewest planes a torus word (1, or 2 for the u64 torus) whose
+    product `primes` holds; ValueError if none."""
+    for M in ((1, 2) if bits == 64 else (1,)):
+        if holds_product(primes, product_bound(base_log, levels * glwe_size,
+                                               N, bits, M)):
+            return M
+    raise ValueError(f"the primes {primes} do not hold the product at "
+                     f"base_log {base_log}, {levels} levels, G {glwe_size}, "
+                     f"N {N}, {bits} bits")
 
 
 def _find_generator(p: int) -> int:
@@ -67,13 +191,13 @@ def _bitrev(N: int) -> np.ndarray:
 
 
 @functools.cache
-def _host_tables(N: int):
+def _host_tables(N: int, primes: tuple[int, ...] = PRIMES):
     """Per prime: psi^bitrev(k), psi^-bitrev(k) (int64 [P, N]) and N^-1."""
     if N & (N - 1) or N < 2:
         raise ValueError(f"polynomial size {N} is not a power of two")
     rev = _bitrev(N)
     fwd, inv, ninv = [], [], []
-    for p in PRIMES:
+    for p in primes:
         if (p - 1) % (2 * N):
             raise ValueError(f"{p} has no primitive {2 * N}-th root")
         psi = pow(_find_generator(p), (p - 1) // (2 * N), p)
@@ -118,16 +242,16 @@ def _as_i32_bits(u: np.ndarray) -> np.ndarray:
 
 
 @functools.cache
-def _garner_host() -> np.ndarray:
-    P = len(PRIMES)
+def _garner_host(primes: tuple[int, ...] = PRIMES) -> np.ndarray:
+    P = len(primes)
     out = np.zeros((P, 2 * P + 4), dtype=np.int64)
-    for i, p in enumerate(PRIMES):
+    for i, p in enumerate(primes):
         q = 1
         for j in range(P):
             out[i, j] = q % p
             out[i, P + j] = _shoup(np.array([q % p]), p)[0]
-            q *= PRIMES[j]
-        q_i = int(np.prod([int(v) for v in PRIMES[:i]], dtype=object))
+            q *= primes[j]
+        q_i = _modulus(primes[:i])
         inv = pow(q_i % p, p - 2, p)
         out[i, 2 * P] = inv
         out[i, 2 * P + 1] = _shoup(np.array([inv]), p)[0]
@@ -137,9 +261,7 @@ def _garner_host() -> np.ndarray:
     return out
 
 
-# the explicit CRT's fraction sum_i c_i / p_i, as a u32 fixed-point number
-# with XCRT_FRAC_BITS fraction bits
-XCRT_FRAC_BITS = 28
+# the explicit CRT's constants a prime (`_explicit_crt_host`)
 XCRT_WIDTH = 6
 
 
@@ -149,31 +271,39 @@ def _int64_bits(v: int) -> int:
 
 
 @functools.cache
-def _explicit_crt_host(N: int) -> np.ndarray:
-    """Constants of the explicit CRT (the single-CTA kernels', after the
-    reference's `_crt_accumulate`, tfhe_tpu/ops/fused_pbs.py:709), per prime
-    i with Q = prod p and Q_i = Q / p_i: p_i; w_i = N^-1 (Q_i)^-1 mod p_i
-    and its Shoup companion; Q_i mod 2^64; T_i = round(2^28 / p_i); Q mod
-    2^64 (the last two as int64 bits).
+def _explicit_crt_host(N: int, primes: tuple[int, ...] = PRIMES
+                       ) -> np.ndarray:
+    """Constants of the explicit CRT (the kernels', after the reference's
+    `_crt_accumulate`, tfhe_tpu/ops/fused_pbs.py:709), per prime i with
+    Q = prod p and Q_i = Q / p_i: p_i; w_i = N^-1 (Q_i)^-1 mod p_i and its
+    Shoup companion; Q_i mod 2^64; T_i = round(2^(32 + F) / p_i), F =
+    XCRT_FRAC_BITS; Q mod 2^64 (as int64 bits).
 
     For the unscaled inverse transform r_i of a convolution x,
     c_i = r_i w_i mod p_i gives x = sum_i c_i Q_i - k Q with
-    k = round(sum_i c_i / p_i).  The kernel sums c_i T_i in a u32 (below
-    P (2^28 + 2^16) < 2^32 for P <= 8) and takes k = (sum + 2^27) >> 28:
-    each term is off by at most c_i / 2 < 2^16 units of 2^-28, so the sum
-    is within P 2^-12 of sum_i c_i / p_i, which is within |x| / Q of the
-    integer k.  For |x| < 2^67 and these five primes (Q > 2^77) the two
-    errors add to below 0.003, far from the 1/2 at which k could round
-    the wrong way: x is exact.  N = 1 gives the constants for residues
-    already scaled by N^-1 (`residue_crt_for`)."""
-    P = len(PRIMES)
-    Q = int(CRT_MODULUS)
+    k = round(sum_i c_i / p_i).  The kernels sum the P terms
+    hi(c_i T_i) = floor(c_i T_i / 2^32) in a u32, a fixed-point fraction
+    with F bits (each term at most 2^F, so the sum stays below P (2^F + 1)
+    + 2^(F - 1) < 2^32), and take k = (sum + 2^(F - 1)) >> F.  A term is off from
+    2^F c_i / p_i by less than 1 (the dropped low word) plus c_i / 2^33 <
+    2^-5 (T_i's rounding, p_i < 2^28), so the sum is within P 2^(1 - F) of
+    sum_i c_i / p_i, which is within |x| / Q of the integer k.
+    `holds_product` asks |x| / Q < 1/2 - P 2^(1 - F) of a set, so k is
+    right and x exact: on `WIDE_PRIMES[:4]` (Q ~ 2^107.3) the products of
+    PARAM_MESSAGE_2_CARRY_2_KS_PBS's one-plane key are below 2^97, so
+    |x| / Q < 2^-10; on the five `PRIMES` (Q ~ 2^77), two planes, below
+    2^67.  N = 1 gives the constants for residues already scaled by N^-1
+    (`residue_crt_for`)."""
+    P, F = len(primes), XCRT_FRAC_BITS
+    Q = _modulus(primes)
     out = np.zeros((P, XCRT_WIDTH), np.int64)
-    for i, p in enumerate(PRIMES):
+    for i, p in enumerate(primes):
         q_i = Q // p
         w = pow(N, p - 2, p) * pow(q_i % p, p - 2, p) % p
-        out[i] = (p, w, (w << 32) // p, _int64_bits(q_i),
-                  ((1 << XCRT_FRAC_BITS) + p // 2) // p, _int64_bits(Q))
+        t = ((1 << (32 + F)) + p // 2) // p
+        if t >> 32:
+            raise ValueError(f"{p} is below the explicit CRT's 2^{F}")
+        out[i] = (p, w, (w << 32) // p, _int64_bits(q_i), t, _int64_bits(Q))
     return out
 
 
@@ -243,16 +373,16 @@ def _pass_records(N: int, psi: np.ndarray, p: int, inverse: bool
 
 
 @functools.cache
-def _host_pass_tables(N: int) -> np.ndarray:
+def _host_pass_tables(N: int, primes: tuple[int, ...] = PRIMES) -> np.ndarray:
     """[P, PASS_HEADER + 2 W] int64 (uint32 values): per prime the header
     (p, 2p, floor(2^32 / p), p - 2^31 mod p, N^-1 mod p, its Shoup
     companion, 0, 0), then the forward records, then the inverse records
     (W words each)."""
     if not 256 <= N <= 2048 or N & (N - 1):
         raise ValueError(f"the NTT core takes N in 256 ... 2048, not {N}")
-    fwd, inv, ninv = _host_tables(N)
+    fwd, inv, ninv = _host_tables(N, primes)
     rows = []
-    for i, p in enumerate(PRIMES):
+    for i, p in enumerate(primes):
         n_inv = int(ninv[i])
         head = np.array([p, 2 * p, (1 << 32) // p, p - (1 << 31) % p, n_inv,
                          (n_inv << 32) // p, 0, 0], np.int64)
@@ -262,12 +392,12 @@ def _host_pass_tables(N: int) -> np.ndarray:
 
 
 @functools.cache
-def ntt_tables(N: int, device: str) -> NttTables:
-    fwd, inv, ninv = _host_tables(N)
-    P = len(PRIMES)
-    primes = np.array(PRIMES, np.int64)
+def ntt_tables(N: int, device: str, primes: tuple[int, ...] = PRIMES
+               ) -> NttTables:
+    fwd, inv, ninv = _host_tables(N, primes)
+    P = len(primes)
     kern = np.zeros((P, 5, N), np.int32)
-    for i, p in enumerate(PRIMES):
+    for i, p in enumerate(primes):
         kern[i, 0] = _as_i32_bits(fwd[i])
         kern[i, 1] = _as_i32_bits(_shoup(fwd[i], p))
         kern[i, 2] = _as_i32_bits(inv[i])
@@ -278,8 +408,9 @@ def ntt_tables(N: int, device: str) -> NttTables:
         kern[i, 4, 3] = (1 << 34) // p
     dev = torch.device(device)
     t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
-    return NttTables(t(primes), t(fwd), t(inv), t(ninv), t(kern),
-                     t(_garner_host()), t(_explicit_crt_host(N)))
+    return NttTables(t(np.array(primes, np.int64)), t(fwd), t(inv), t(ninv),
+                     t(kern), t(_garner_host(primes)),
+                     t(_explicit_crt_host(N, primes)))
 
 
 @functools.cache
@@ -350,48 +481,55 @@ def monomial_spectra(d: torch.Tensor, N: int) -> torch.Tensor:
     return pw[:, idx].movedim(0, -2)
 
 
-def tables_for(N: int, device: torch.device) -> NttTables:
-    return ntt_tables(N, str(torch.device(device)))
+def tables_for(N: int, device: torch.device,
+               primes: tuple[int, ...] = PRIMES) -> NttTables:
+    return ntt_tables(N, str(torch.device(device)), tuple(primes))
 
 
 @functools.cache
-def _pass_tables(N: int, device: str) -> torch.Tensor:
-    return torch.from_numpy(_as_i32_bits(_host_pass_tables(N))).to(
+def _pass_tables(N: int, device: str, primes: tuple[int, ...]
+                 ) -> torch.Tensor:
+    return torch.from_numpy(_as_i32_bits(_host_pass_tables(N, primes))).to(
         torch.device(device))
 
 
 @functools.cache
-def _residue_crt(device: str) -> torch.Tensor:
-    return torch.from_numpy(_explicit_crt_host(1)).to(torch.device(device))
+def _residue_crt(device: str, primes: tuple[int, ...]) -> torch.Tensor:
+    return torch.from_numpy(_explicit_crt_host(1, primes)).to(
+        torch.device(device))
 
 
-def residue_crt_for(device: torch.device) -> torch.Tensor:
+def residue_crt_for(device: torch.device,
+                    primes: tuple[int, ...] = PRIMES) -> torch.Tensor:
     """[P, XCRT_WIDTH] int64: the explicit CRT's constants for canonical
     residues r_i of a convolution (no N^-1 to fold in): w_i = (Q/p_i)^-1
     mod p_i, so c_i = r_i w_i mod p_i (`crt_accumulate`'s kernel)."""
-    return _residue_crt(str(torch.device(device)))
+    return _residue_crt(str(torch.device(device)), tuple(primes))
 
 
-def pass_tables_for(N: int, device: torch.device) -> torch.Tensor:
+def pass_tables_for(N: int, device: torch.device,
+                    primes: tuple[int, ...] = PRIMES) -> torch.Tensor:
     """The NTT core's tables on `device`: [P, PASS_HEADER + 2 W] int32 bit
-    patterns of `_host_pass_tables(N)`."""
-    return _pass_tables(N, str(torch.device(device)))
+    patterns of `_host_pass_tables(N, primes)`."""
+    return _pass_tables(N, str(torch.device(device)), tuple(primes))
 
 
-def _rows(N: int, device: torch.device, prime: int | None):
+def _rows(N: int, device: torch.device, prime: int | None,
+          primes: tuple[int, ...]):
     """The NTT tables of every prime, or of prime `prime` alone."""
-    tab = tables_for(N, device)
+    tab = tables_for(N, device, primes)
     rows = slice(None) if prime is None else slice(prime, prime + 1)
     return (tab.primes[rows], tab.psi_rev[rows], tab.psi_inv_rev[rows],
             tab.n_inv[rows])
 
 
-def forward_ntt(x: torch.Tensor, prime: int | None = None) -> torch.Tensor:
+def forward_ntt(x: torch.Tensor, prime: int | None = None,
+                primes: tuple[int, ...] = PRIMES) -> torch.Tensor:
     """x [..., N] int64 (any sign) -> [..., P, N] canonical spectra,
-    bit-reversed order, one per prime (or [..., 1, N] for prime `prime`
-    alone)."""
+    bit-reversed order, one per prime of `primes` (or [..., 1, N] for prime
+    index `prime` alone)."""
     N = x.shape[-1]
-    primes, psi_rev, _, _ = _rows(N, x.device, prime)
+    primes, psi_rev, _, _ = _rows(N, x.device, prime, primes)
     P = primes.numel()
     lead = x.shape[:-1]
     p = primes.view(-1, 1, 1)
@@ -408,12 +546,13 @@ def forward_ntt(x: torch.Tensor, prime: int | None = None) -> torch.Tensor:
     return a.reshape(*lead, P, N)
 
 
-def inverse_ntt(spec: torch.Tensor, prime: int | None = None) -> torch.Tensor:
+def inverse_ntt(spec: torch.Tensor, prime: int | None = None,
+                primes: tuple[int, ...] = PRIMES) -> torch.Tensor:
     """[..., P, N] canonical bit-reversed spectra -> [..., P, N] canonical
     coefficients (negacyclic convolution residues); [..., 1, N] for prime
-    `prime` alone."""
+    index `prime` alone."""
     N = spec.shape[-1]
-    primes, _, psi_inv_rev, n_inv = _rows(N, spec.device, prime)
+    primes, _, psi_inv_rev, n_inv = _rows(N, spec.device, prime, primes)
     P = primes.numel()
     lead = spec.shape[:-2]
     p = primes.view(-1, 1, 1)
@@ -432,13 +571,14 @@ def inverse_ntt(spec: torch.Tensor, prime: int | None = None) -> torch.Tensor:
     return a * n_inv.view(-1, 1) % primes.view(-1, 1)
 
 
-def _garner_digits(res: torch.Tensor) -> list[torch.Tensor]:
+def _garner_digits(res: torch.Tensor, primes: tuple[int, ...] = PRIMES
+                   ) -> list[torch.Tensor]:
     """[..., P, N] canonical residues -> the balanced mixed-radix digits
     b_i in [-(p_i-1)/2, (p_i-1)/2], int64 [..., N] each, with
     x = sum_i b_i p_0...p_{i-1}."""
-    tab = tables_for(res.shape[-1], res.device)
-    primes = [int(p) for p in PRIMES]
-    inv = tab.crt[:, 2 * len(PRIMES)]
+    tab = tables_for(res.shape[-1], res.device, primes)
+    primes = [int(p) for p in primes]
+    inv = tab.crt[:, 2 * len(primes)]
     bs = []
     for i, p in enumerate(primes):
         partial = torch.zeros_like(res[..., 0, :])
@@ -451,19 +591,23 @@ def _garner_digits(res: torch.Tensor) -> list[torch.Tensor]:
     return bs
 
 
-def crt_to_u64_centered(res: torch.Tensor) -> torch.Tensor:
-    """[..., P, N] canonical residues -> [..., N] int64: the integer x with
-    |x| <= (M-1)/2 (M = prod p) congruent to them, as a u64 torus word.
+def crt_to_u64_centered(res: torch.Tensor,
+                        primes: tuple[int, ...] = PRIMES) -> torch.Tensor:
+    """[..., P, N] canonical residues over `primes` -> [..., N] int64: the
+    integer x with |x| <= (M-1)/2 (M = prod p) congruent to them, as a u64
+    torus word.
 
     Balanced Garner: mixed-radix digits b_i in [-(p_i-1)/2, (p_i-1)/2] give
     x = sum_i b_i p_0...p_{i-1}, which spans exactly the centered range.  The
-    convolutions reconstructed here are below 2^67 << M/2 ~ 2^76, so x is
-    the true integer; its value mod 2^64 needs only wrapping int64 products.
+    convolutions reconstructed here are within it (five primes: below 2^67
+    << M/2 ~ 2^76; a classic key's set: `holds_product`), so x is the true
+    integer; its value mod 2^64 needs only wrapping int64 products.
     """
-    pp = tables_for(res.shape[-1], res.device).crt[:, 2 * len(PRIMES) + 3]
-    bs = _garner_digits(res.to(torch.int64))
+    P = len(primes)
+    pp = tables_for(res.shape[-1], res.device, primes).crt[:, 2 * P + 3]
+    bs = _garner_digits(res.to(torch.int64), primes)
     x = torch.zeros_like(bs[0])
-    for i in range(len(PRIMES)):
+    for i in range(P):
         x = x + bs[i] * pp[i]
     return x
 
