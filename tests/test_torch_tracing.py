@@ -226,3 +226,46 @@ def test_replays_count_as_eager_runs_on_the_card(op):
     # one CTA a prime of the key's set and a ciphertext, every K2 launch
     assert eager["fused_pbs.external_product_crt.prime_ctas"] == \
         P.lwe_dimension * eager["pbs.rows"] * len(sks.key.bsk.primes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", sorted(OPS))
+def test_multi_bit_replays_count_as_eager_runs_on_the_card(op):
+    """The same on a multi-bit key: K8's two kernels a group step, and the
+    multi-bit counters, which a replay adds as the eager chain does."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from tfhe_tpu_torch.params import (
+        PARAM_MULTI_BIT_MESSAGE_2_CARRY_2_GROUP_2_TEST as MB)
+
+    cks, sks = integer.gen_keys_radix(MB, 4, seed=SEED, device="cuda")
+    key = integer.IntegerServerKey(sks.key, fused=True)
+    a, b = cks.encrypt(X), cks.encrypt(Y)
+
+    def moved(run):
+        torch.cuda.synchronize()
+        before = profiling.counters()
+        out = run()
+        torch.cuda.synchronize()
+        changes = profiling.changes_since(before)
+        changes.pop("schedule.graph_pool_bytes", None)
+        return changes, out
+
+    first, _ = moved(lambda: OPS[op](key, a, b))  # warm-up, capture, replay
+    assert any(k[0] == op for k in key._fused_ops._graphs)
+    replays, out = moved(lambda: OPS[op](key, a, b))
+    eager, _ = moved(lambda: key._fused_ops.try_op(op, a.blocks, b.blocks,
+                                                   graph=False))
+    assert replays == eager and first == {k: 2 * v for k, v in eager.items()}
+    want = {"add": (X + Y) % 256, "mul": (X * Y) % 256}[op]
+    assert cks.decrypt(out) == want
+    batches = eager["pbs.batches"]
+    steps = MB.lwe_dimension // MB.grouping_factor
+    kspec = sks.key.bsk.kspec
+    assert batches > 1 and eager["pbs.multibit.batches"] == batches
+    assert eager["pbs.multibit.rows"] == eager["pbs.rows"]
+    assert eager["fused_multibit.multibit_combine.launches"] == \
+        eager["fused_multibit.multibit_external_product.launches"] == \
+        steps * batches
+    assert eager["fused_multibit.multibit_combine.key_bytes"] == \
+        steps * batches * kspec[0].numel() * kspec.element_size()

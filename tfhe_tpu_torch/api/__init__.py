@@ -30,7 +30,8 @@ from typing import Optional
 
 import numpy as np
 
-from ..params import ClassicPBSParameters, PARAM_MESSAGE_2_CARRY_2_KS_PBS
+from ..params import (ClassicPBSParameters, MultiBitPBSParameters,
+                      PARAM_MESSAGE_2_CARRY_2_KS_PBS)
 from ..integer import (
     BooleanBlock,
     IntegerServerKey,
@@ -45,7 +46,11 @@ from ..utils.profiling import spanned
 
 @dataclass
 class Config:
-    parameters: ClassicPBSParameters
+    """The keys' shortint parameter set: classic, whose server key runs the
+    classic PBS, or multi-bit, whose server key runs the multi-bit PBS
+    (`shortint.ServerKey`); every type and operator takes either."""
+
+    parameters: ClassicPBSParameters | MultiBitPBSParameters
 
 
 class ConfigBuilder:
@@ -58,7 +63,12 @@ class ConfigBuilder:
     def default() -> "ConfigBuilder":
         return ConfigBuilder()
 
-    def use_custom_parameters(self, params: ClassicPBSParameters) -> "ConfigBuilder":
+    def use_custom_parameters(
+            self, params: ClassicPBSParameters | MultiBitPBSParameters
+    ) -> "ConfigBuilder":
+        """A classic or a multi-bit parameter set in place of the default
+        `PARAM_MESSAGE_2_CARRY_2_KS_PBS` (ref: config.rs
+        use_custom_parameters, which takes either PBS kind)."""
         self._params = params
         return self
 
@@ -123,7 +133,10 @@ def _server_key() -> IntegerServerKey:
     return sk.integer_key
 
 
-def _blocks_for_bits(params: ClassicPBSParameters, bits: int) -> int:
+def _blocks_for_bits(params: ClassicPBSParameters | MultiBitPBSParameters,
+                     bits: int) -> int:
+    """Radix blocks of a `bits`-bit integer: the message bits a block holds
+    depend on the set's message modulus alone, whatever its PBS kind."""
     bpb = params.message_modulus.bit_length() - 1
     return -(-bits // bpb)
 

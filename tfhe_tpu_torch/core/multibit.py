@@ -43,7 +43,7 @@ from ..ops.polymul_ntt import (decompose_digits, digit_spectra,
                                residues_to_words)
 from ..ops.torus import to_tensor, wrap
 from ..prng.generators import EncryptionRandomGenerator
-from ..utils.profiling import annotate
+from ..utils.profiling import annotate, counter
 from .keygen import PreparedKsk, _np_udtype
 from .keyswitch import keyswitch
 from .pbs import NTT_MODE, count_pbs, modulus_switch, sample_extract
@@ -55,6 +55,11 @@ MULTI_BIT_MODES = fused_multibit.MODES + (NTT_MODE,)
 # temporaries
 _PREPARE_GROUPS = 8
 from .secret import GlweSecretKey, LweSecretKey, glwe_phase
+
+# the multi-bit share of `pbs.batches` and `pbs.rows` (which count both
+# kinds): every multi-bit keyswitch + PBS batch and its ciphertexts
+PBS_MULTIBIT_BATCHES = counter("pbs.multibit.batches")
+PBS_MULTIBIT_ROWS = counter("pbs.multibit.rows")
 
 
 def combine_key_bits(bit_selector: int, key_bits) -> int:
@@ -285,16 +290,26 @@ def multi_bit_programmable_bootstrap(mbsk: PreparedMultiBitBskCuda
     return sample_extract(multi_bit_blind_rotate(mbsk, lut, lwe, mode))
 
 
+def _count_multi_bit_pbs(rows: int) -> None:
+    """Counts one multi-bit keyswitch + PBS batch of `rows` ciphertexts,
+    in `pbs.*` and in `pbs.multibit.*`."""
+    count_pbs(rows)
+    PBS_MULTIBIT_BATCHES.value += 1
+    PBS_MULTIBIT_ROWS.value += rows
+
+
 def keyswitch_then_multi_bit_pbs(ksk: PreparedKsk,
                                  mbsk: PreparedMultiBitBskCuda
                                  | PreparedMultiBitBskNtt,
                                  lut: torch.Tensor, ct_big: torch.Tensor,
                                  mode: Optional[str] = None) -> torch.Tensor:
     """The shortint multi-bit pipeline (PBSOrder::KeyswitchBootstrap).
-    One batch of `pbs.PBS_BATCHES`, in a `core.pbs` span."""
+    One batch of `pbs.PBS_BATCHES` and of `PBS_MULTIBIT_BATCHES`, in a
+    `core.pbs` span."""
     rows = ct_big.shape[0]
-    with annotate("core.pbs", rows=rows, mode=mode):
-        count_pbs(rows)
+    with annotate("core.pbs", rows=rows, mode=mode,
+                  grouping_factor=mbsk.grouping_factor):
+        _count_multi_bit_pbs(rows)
         return multi_bit_programmable_bootstrap(mbsk, lut,
                                                 keyswitch(ksk, ct_big), mode)
 
@@ -306,10 +321,11 @@ def multi_bit_pbs_then_keyswitch(ksk: PreparedKsk,
                                  mode: Optional[str] = None) -> torch.Tensor:
     """PBSOrder::BootstrapKeyswitch: the PBS on the small-key ciphertext,
     then the keyswitch of its big-key output back to the small key
-    (tfhe_tpu/core/multibit.py:312).  One batch of `pbs.PBS_BATCHES`, in
-    a `core.pbs` span."""
+    (tfhe_tpu/core/multibit.py:312).  One batch of `pbs.PBS_BATCHES` and
+    of `PBS_MULTIBIT_BATCHES`, in a `core.pbs` span."""
     rows = ct_small.shape[0]
-    with annotate("core.pbs", rows=rows, mode=mode):
-        count_pbs(rows)
+    with annotate("core.pbs", rows=rows, mode=mode,
+                  grouping_factor=mbsk.grouping_factor):
+        _count_multi_bit_pbs(rows)
         return keyswitch(ksk, multi_bit_programmable_bootstrap(
             mbsk, lut, ct_small, mode))

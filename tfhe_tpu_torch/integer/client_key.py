@@ -11,7 +11,7 @@ from typing import Optional
 
 import numpy as np
 
-from ..params import ClassicPBSParameters
+from ..params import ClassicPBSParameters, MultiBitPBSParameters
 from ..shortint import ClientKey as ShortintClientKey
 from .ciphertext import BooleanBlock, RadixCiphertext
 from .signed import SignedRadixCiphertext
@@ -21,7 +21,8 @@ class RadixClientKey:
     """A shortint client key and a default block count; on `device` (the
     card unless the caller passes "cpu")."""
 
-    def __init__(self, params: ClassicPBSParameters, num_blocks: int,
+    def __init__(self, params: ClassicPBSParameters | MultiBitPBSParameters,
+                 num_blocks: int,
                  seed: Optional[int] = None, device="cuda", _key=None):
         self.key = _key if _key is not None else ShortintClientKey(
             params, seed=seed, device=device)

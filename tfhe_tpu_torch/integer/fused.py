@@ -28,9 +28,10 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..core import (PreparedMultiBitBskNtt, keyswitch_then_multi_bit_pbs,
-                    keyswitch_then_pbs)
+from .. import core
 from ..ops.fused_multibit import PreparedMultiBitBskCuda
+
+MULTI_BIT_KEYS = (PreparedMultiBitBskCuda, core.PreparedMultiBitBskNtt)
 
 
 @functools.cache
@@ -48,21 +49,27 @@ def _const(values, device: torch.device) -> torch.Tensor:
     return _index(tuple(arr.ravel().tolist()), str(device)).reshape(arr.shape)
 
 
+def keyswitch_then_pbs(ksk, bsk, lut: torch.Tensor, ct_big: torch.Tensor,
+                       mode: Optional[str] = None) -> torch.Tensor:
+    """One keyswitch + PBS batch [B, n+1] of the chains, the one call site
+    of every chain: a multi-bit prepared key takes the multi-bit PBS, any
+    other the classic one (tfhe_tpu/parallel/fused.py:35-42)."""
+    fn = (core.keyswitch_then_multi_bit_pbs
+          if isinstance(bsk, MULTI_BIT_KEYS) else core.keyswitch_then_pbs)
+    return fn(ksk, bsk, lut, ct_big, mode)
+
+
 def fused_ks_pbs(ksk, bsk, acc: torch.Tensor, cts: torch.Tensor, *,
                  mode: Optional[str] = None) -> torch.Tensor:
     """Batched keyswitch + PBS over any leading axes: [..., n+1].
 
     acc is one [G, N] accumulator or one per ciphertext with the same
-    leading axes as cts ([..., G, N]).  A multi-bit prepared key takes the
-    multi-bit PBS (tfhe_tpu/parallel/fused.py:35-42)."""
+    leading axes as cts ([..., G, N])."""
     lead = cts.shape[:-1]
     flat = cts.reshape(-1, cts.shape[-1])
     if acc.dim() > 3:
         acc = acc.reshape(-1, *acc.shape[-2:])
-    if isinstance(bsk, (PreparedMultiBitBskCuda, PreparedMultiBitBskNtt)):
-        out = keyswitch_then_multi_bit_pbs(ksk, bsk, acc, flat, mode)
-    else:
-        out = keyswitch_then_pbs(ksk, bsk, acc, flat, mode)
+    out = keyswitch_then_pbs(ksk, bsk, acc, flat, mode)
     return out.reshape(*lead, out.shape[-1])
 
 

@@ -150,7 +150,11 @@ def multibit_combine(d: torch.Tensor, kspec: torch.Tensor) -> torch.Tensor:
     `multibit_combine_kernel`, a block holding a tile of the subset keys
     in shared memory for 8 ciphertexts, a thread owning one ciphertext's 8
     consecutive words of each key row.  The launch is refused past
-    2^gf = 16 subsets or below N = 256."""
+    2^gf = 16 subsets or below N = 256.  Every call on a non-empty batch,
+    launch or plain version, adds the bytes of the subset spectra it is
+    handed to `COMBINE_KEY_BYTES`."""
+    if d.shape[0]:
+        COMBINE_KEY_BYTES.value += kspec.numel() * kspec.element_size()
     if _device_of("multibit_combine", d) == "cpu":
         return multibit_combine_plain(d, kspec)
     dev = d.device
@@ -173,6 +177,9 @@ def multibit_combine(d: torch.Tensor, kspec: torch.Tensor) -> torch.Tensor:
 
 
 multibit_combine.launches = 0
+# the subset-spectra bytes handed to the combine, every call
+COMBINE_KEY_BYTES = profiling.counter(
+    "fused_multibit.multibit_combine.key_bytes")
 
 
 def multibit_external_product_plain(acc: torch.Tensor,

@@ -15,10 +15,14 @@ attrs; ci/benchmark_parser.py schema).  The card's equivalents:
   `schedule.fused.<op>` (with `schedule.copy_in`, `schedule.replay`,
   `schedule.clone_out`, and once a graph `schedule.capture`) and
   `schedule.batched.<op>` in the radix schedules, `core.pbs` around every
-  keyswitch + PBS batch; none below a batch;
+  keyswitch + PBS batch (its `rows` and `mode`, and a multi-bit batch's
+  `grouping_factor`); none below a batch;
 - counters, always on: each kernel wrapper's `launches` (registered from
   its module's `KERNELS`), `pbs.batches` and `pbs.rows` (every keyswitch +
-  PBS batch and its ciphertexts, classic or multi-bit), and
+  PBS batch and its ciphertexts, classic or multi-bit),
+  `pbs.multibit.batches` and `pbs.multibit.rows` (the multi-bit ones
+  alone), `fused_multibit.multibit_combine.key_bytes` (the subset-key
+  spectra each multi-bit combine is handed), and
   `schedule.graph_pool_bytes` (the growth of the allocator's reserved
   bytes over each CUDA graph capture).  A CUDA graph's replay adds the
   change its capture kept, so a replayed op counts as its eager chain;
