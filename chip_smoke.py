@@ -393,7 +393,7 @@ def gathered_powers(d, N):
     return int(torch.unique(t).numel())
 
 
-def multibit_bounds_ms(B, G, L, N, P, gf, powers):
+def multibit_bounds_ms(B, G, L, N, P, M, gf, powers):
     """Least time for one launch of each multi-bit kernel, as bounds_ms,
     with each kernel charged only what the function needs (K9's
     `multibit_step`, and `scan3_group_step`, K8's two launches: a whole
@@ -410,7 +410,7 @@ def multibit_bounds_ms(B, G, L, N, P, gf, powers):
     summed lazily into 64 bits, 2 a product (the multiply-adds of its low
     and high words) and 14 a sum (brought into [0, 2p) by two Shoup
     products and a multiply-add)."""
-    M, LJ, per = 2, L * G, 1 << gf
+    LJ, per = L * G, 1 << gf
     OM = G * M
     W = LJ * OM * N  # one subset key, one prime
     log_n = N.bit_length() - 1
@@ -487,20 +487,20 @@ def multibit_kernels_phase(dev):
     d = torch.from_numpy(rng.integers(0, 2 * N, (groups, B_MAIN, per))
                          .astype(np.int32)).to(dev)
     d[:, :, 0] = 0  # the empty subset's sum switches to 0
-    ks = key.kspec[0]
+    ks, ps = key.kspec[0], key.primes
 
     def stage_errors(acc, d):
         """Each kernel against its plain twin on one group step's inputs."""
-        comb = fm.multibit_combine(d, ks)
-        comb_p = fm.multibit_combine_plain(d, ks)
+        comb = fm.multibit_combine(d, ks, primes=ps)
+        comb_p = fm.multibit_combine_plain(d, ks, ps)
         return comb_p, {
             "multibit_combine": max_abs_err(comb, comb_p),
             "multibit_external_product": max_abs_err(
-                fm.multibit_external_product(acc, comb_p, bl, L),
-                fm.multibit_external_product_plain(acc, comb_p, bl, L)),
+                fm.multibit_external_product(acc, comb_p, bl, L, primes=ps),
+                fm.multibit_external_product_plain(acc, comb_p, bl, L, ps)),
             "multibit_step": max_abs_err(
-                fm.multibit_step(acc, d, ks, bl, L),
-                fm.multibit_step_plain(acc, d, ks, bl, L))}
+                fm.multibit_step(acc, d, ks, bl, L, primes=ps),
+                fm.multibit_step_plain(acc, d, ks, bl, L, ps))}
 
     comb_p, err = stage_errors(acc, d[0])
     # at B = 256 too, from a generator of its own
@@ -515,7 +515,8 @@ def multibit_kernels_phase(dev):
     rot_p = acc
     for g in range(groups):
         rot_p = fm.multibit_external_product_plain(
-            rot_p, fm.multibit_combine_plain(d[g], key.kspec[g]), bl, L)
+            rot_p, fm.multibit_combine_plain(d[g], key.kspec[g], ps), bl, L,
+            ps)
     rot = {m: fm.multi_bit_blind_rotate_cuda(key, acc, d, mode=m)
            for m in fm.MODES}
     torch.cuda.synchronize()
@@ -526,22 +527,27 @@ def multibit_kernels_phase(dev):
                              f"at B = {B_LARGE} {err_l}")
 
     calls = {
-        "multibit_combine": (lambda: fm.multibit_combine(d[0], ks),
-                             lambda: fm.multibit_combine_plain(d[0], ks)),
+        "multibit_combine": (
+            lambda: fm.multibit_combine(d[0], ks, primes=ps),
+            lambda: fm.multibit_combine_plain(d[0], ks, ps)),
         "multibit_external_product": (
-            lambda: fm.multibit_external_product(acc, comb_p, bl, L),
-            lambda: fm.multibit_external_product_plain(acc, comb_p, bl, L)),
+            lambda: fm.multibit_external_product(acc, comb_p, bl, L,
+                                                 primes=ps),
+            lambda: fm.multibit_external_product_plain(acc, comb_p, bl, L,
+                                                       ps)),
         "multibit_step": (
-            lambda: fm.multibit_step(acc, d[0], ks, bl, L),
-            lambda: fm.multibit_step_plain(acc, d[0], ks, bl, L)),
+            lambda: fm.multibit_step(acc, d[0], ks, bl, L, primes=ps),
+            lambda: fm.multibit_step_plain(acc, d[0], ks, bl, L, ps)),
     }
     ms = {k: graph_ms(kern, 100) for k, (kern, _) in calls.items()}
     plain_ms = {k: graph_ms(plain, 3) for k, (_, plain) in calls.items()}
     eager = {k: cuda_ms(kern, 100) for k, (kern, _) in calls.items()}
     powers = gathered_powers(d[0], N)
-    bounds = multibit_bounds_ms(B_MAIN, G, L, N, 5, gf, powers)
+    bounds = multibit_bounds_ms(B_MAIN, G, L, N, len(ps), key.planes, gf,
+                                powers)
     say("kernels_multibit", t0,
-        shape=dict(B=B_MAIN, G=G, L=L, N=N, P=5, base_log=bl, gf=gf),
+        shape=dict(B=B_MAIN, G=G, L=L, N=N, P=len(ps), M=key.planes,
+                   base_log=bl, gf=gf),
         max_abs_err=err, blind_rotation_2_groups_max_abs_err=err_rot,
         max_abs_err_b256=err_l,
         device_ms_per_launch=ms, eager_ms_per_launch=eager,
@@ -700,16 +706,17 @@ def multibit_timing(card, dev, cks, sks, rng):
     per = 1 << p.grouping_factor
     d = torch.from_numpy(rng.integers(0, 2 * N, (B_LARGE, per))
                          .astype(np.int32)).to(dev)
-    ks = sks.bsk.kspec[0]
-    comb = fm.multibit_combine(d, ks)
+    ks, ps = sks.bsk.kspec[0], sks.bsk.primes
+    comb = fm.multibit_combine(d, ks, primes=ps)
     one_group = dataclasses.replace(sks.bsk, input_dim=p.grouping_factor)
     ms256 = dict(
-        multibit_combine=graph_ms(lambda: fm.multibit_combine(d, ks),
-                                  50),
+        multibit_combine=graph_ms(
+            lambda: fm.multibit_combine(d, ks, primes=ps), 50),
         multibit_external_product=graph_ms(
-            lambda: fm.multibit_external_product(acc, comb, bl, L), 50),
-        multibit_step=graph_ms(lambda: fm.multibit_step(acc, d, ks, bl, L),
-                               50),
+            lambda: fm.multibit_external_product(acc, comb, bl, L,
+                                                 primes=ps), 50),
+        multibit_step=graph_ms(
+            lambda: fm.multibit_step(acc, d, ks, bl, L, primes=ps), 50),
         # a whole group step in each schedule (scan1's is multibit_step)
         scan3_group_step=graph_ms(lambda: fm.multi_bit_blind_rotate_cuda(
             one_group, acc, d[None], mode="scan3"), 50))
@@ -717,7 +724,7 @@ def multibit_timing(card, dev, cks, sks, rng):
         batch_ms=batch_ms, batch_split_ms=split_ms,
         device_ms_per_launch_b256=ms256,
         bound_ms_b256={k: v[0] for k, v in multibit_bounds_ms(
-            B_LARGE, G, L, N, 5, p.grouping_factor,
+            B_LARGE, G, L, N, len(ps), sks.bsk.planes, p.grouping_factor,
             gathered_powers(d, N)).items()})
 
 

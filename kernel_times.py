@@ -42,8 +42,9 @@ B = 1, 8, 32, 64, 366 and 512 (`external_product_crt_B<B>`, graphs of
 100, inputs from default_rng([seed, 2, B])): the latency-bound small
 batches of an API client's chains and the waves of a batched server.
 Only functions that both trees of the port have are called: a tree whose
-keys carry their prime set (`PreparedBskCuda.primes`) gets it passed, a
-tree whose keys are all on the reference's five primes does not.  Prints
+keys carry their prime set (`PreparedBskCuda.primes`,
+`PreparedMultiBitBskCuda.primes`) gets it passed, a tree whose keys of
+that kind are all on the reference's five primes does not.  Prints
 one JSON line, with the card's name and power limit.
 """
 
@@ -60,8 +61,8 @@ K2_BATCHES = (1, 8, 32, 64, 366, 512)
 
 
 def key_set(key):
-    """The keyword the tree's classic wrappers take for `key`'s primes:
-    none where its keys have no `primes` (all on the five primes)."""
+    """The keyword the tree's wrappers take for `key`'s primes: none where
+    its keys of that kind have no `primes` (all on the five primes)."""
     primes = getattr(key, "primes", None)
     return {} if primes is None else {"primes": primes}
 
@@ -94,8 +95,8 @@ def times(seed, rotations=True):
     d = torch.from_numpy(rng.integers(0, 2 * N, (2, B_MAIN, per))
                          .astype(np.int32)).to(dev)
     d[:, :, 0] = 0
-    ks = mkey.kspec[0]
-    comb = fm.multibit_combine_plain(d[0], ks)
+    ks, mkw = mkey.kspec[0], key_set(mkey)
+    comb = fm.multibit_combine_plain(d[0], ks, **mkw)
     mbl, mL = bl, L
     one_group = dataclasses.replace(mkey, input_dim=gf)
     if hasattr(fm, "decompose"):  # a tree whose product takes digits
@@ -104,7 +105,7 @@ def times(seed, rotations=True):
                                                 comb)
     else:
         def product_from_acc():
-            return fm.multibit_external_product(macc, comb, mbl, mL)
+            return fm.multibit_external_product(macc, comb, mbl, mL, **mkw)
 
     rng = np.random.default_rng(seed)
     N, G, L, bl = (cp.polynomial_size, cp.glwe_size, cp.pbs_level,
@@ -119,7 +120,7 @@ def times(seed, rotations=True):
         "rotate_decompose": lambda: fp.rotate_decompose(acc, ahat[0], bl, L),
         "external_product_crt": lambda: fp.external_product_crt(
             dig, key.kspec[0], key.kshoup[0], acc, **key_set(key)),
-        "multibit_combine": lambda: fm.multibit_combine(d[0], ks),
+        "multibit_combine": lambda: fm.multibit_combine(d[0], ks, **mkw),
         "multibit_external_product_from_acc": product_from_acc,
         "multibit_group_step": lambda: fm.multi_bit_blind_rotate_cuda(
             one_group, macc, d[:1], mode="scan1"),

@@ -16,17 +16,23 @@ gather psi^(d_j e(tid * 8)) (with its Shoup companion) and, for k > 0, the
 product by w^(m mod 4) unless that is 1 and a negation 2p - y for m >= 4,
 each product a lazy Shoup product on uint32 words; the products with the
 canonical key words summed exactly (in 64 bits on the card); one
-reduction of each sum into [0, 2p); the inverse transforms; and the
-explicit CRT from zero.  K8's external product is the same model with one
+reduction of each sum into [0, 2p) (the core's `reduce_u64`); the inverse
+transforms; and the explicit CRT from zero.  K8's external product is the same model with one
 subset, no monomial, and each ciphertext's own combined key.  K8's combine
 is modelled per thread: a thread owns one ciphertext's 8 words n0 ... n0 +
 7 of each key row (n0 a multiple of 8), gathers psi^(d_j e(n0)) with its
 companion once per subset, makes the four values psi^(d_j e(n0)) w^s
 (s < 4), picks and signs one per word as above, and sums the products
-with the canonical key words exactly, reduced canonical once.  Checked: the split of e(n) the kernel relies on, for
-every N the core takes; the models against `multibit_step_plain`,
-`multibit_combine_plain` and `multibit_external_product_plain` at N = 256
-and 512, gf = 2 and 3; and, through a whole multi-bit blind rotation whose
+with the canonical key words exactly, reduced canonical once.  Every model
+runs on the key's prime set: the reference's five primes below 2^17 in two
+planes, or the set `ntt.classic_plan` gives the widths (four primes below
+2^26.83, one plane).  Checked: the split of e(n) the kernel relies on, for
+every N the core takes and both sets; the models against
+`multibit_step_plain`, `multibit_combine_plain` and
+`multibit_external_product_plain` at N = 256 and 512, gf = 2 and 3, on
+both sets, and at the sums' extremes (every key word p - 1, every
+monomial p - 1; 16 subsets at L*G = 18); and, through a whole multi-bit
+blind rotation whose
 every group step is the model (both schedules), against the reference's
 `fused_multibit_rotate_scan1` and `fused_multibit_rotate_scan`
 (tfhe_tpu/ops/fused_multibit.py:508, :702), interpreted on the CPU as
@@ -59,28 +65,30 @@ def root_power(y, m, pw, pwsh, N, p):
     return torch.where(m >= 4, 2 * p - y, y)
 
 
-def model_multibit_step(acc, d, kspec, base_log, levels, combined=False):
+def model_multibit_step(acc, d, kspec, base_log, levels, combined=False,
+                        primes=ntt.PRIMES):
     """K9 as the kernel computes it: acc [B, G, N] int64, d [B, 2^gf] int32,
-    kspec [2^gf, P, LJ, G, 2, N] -> the new accumulator [B, G, N] int64.
-    With `combined`, K8's external product on the same kernel: kspec the
-    combined keys [B, P, LJ, G, 2, N], one subset, no monomial (d is not
-    read)."""
+    kspec [2^gf, P, LJ, G, M, N] over `primes` -> the new accumulator [B,
+    G, N] int64.  With `combined`, K8's external product on the same
+    kernel: kspec the combined keys [B, P, LJ, G, M, N], one subset, no
+    monomial (d is not read)."""
     B, G, N = acc.shape
     per, P, LJ, O, M, _ = kspec.shape
+    assert P == len(primes)
     per = 1 if combined else per
     T = N // ntt.PASS_RADIX
     dig = decompose_word(to_numpy(acc).astype(np.uint64), base_log, levels,
                          64)  # [L, B, G, N], level-major
     digits = torch.from_numpy(np.ascontiguousarray(
         dig.transpose(1, 0, 2, 3))).reshape(B, LJ, N)
-    mono = ntt.monomial_tables_for(N, "cpu")
+    mono = ntt.monomial_tables_for(N, "cpu", primes)
     e0 = mono.exponents.to(torch.int64)[torch.arange(T) * ntt.PASS_RADIX]
     dj = None if combined else d.to(torch.int64)
     pos = elem(T, 0)
-    xcrt = ntt.tables_for(N, "cpu").xcrt
+    xcrt = ntt.tables_for(N, "cpu", primes).xcrt
     res = torch.empty((B, O, M, P, N), dtype=torch.int64)
     for pi in range(P):
-        c = Core(N, pi)
+        c = Core(N, pi, primes)
         pw = mono.powers[pi, 0].to(torch.int64) & M32
         pwsh = mono.powers[pi, 1].to(torch.int64) & M32
         spec = shoup_lazy(c.forward(c.digit_mod(digits)), 1, c.one_sh,
@@ -104,40 +112,39 @@ def model_multibit_step(acc, d, kspec, base_log, levels, combined=False):
                 key = kspec[j, pi].to(torch.int64).reshape(
                     LJ, O * M, N)[..., pos][None]
             o = o + (dm[:, :, None] * key).sum(dim=1)
-        # the kernel's 64-bit sums' bound: 2^gf LJ terms below 2^35, or
-        # (K8) LJ terms
-        assert int(o.max()) < 1 << (39 if combined else 43)
-        c32 = (1 << 32) % c.p
-        low = shoup_lazy(o & M32, 1, c.one_sh, c.p) + (o >> 32) * c32
-        x = shoup_lazy(low, 1, c.one_sh, c.p)  # [0, 2p)
+        # the kernel's 64-bit sums: 2^gf LJ <= 288 terms (K8: LJ <= 18),
+        # each a word at most 2p times one below p
+        assert int(o.max()) <= (1 if combined else per) * LJ * 2 * c.p * (
+            c.p - 1) < 1 << 63
+        x = c.reduce_u64(o)  # [0, 2p)
         out = c.canonical(c.inverse(x), int(xcrt[pi, 1]), int(xcrt[pi, 2]))
         res[:, :, :, pi] = out.reshape(B, O, M, N)
-    return explicit_crt(res, torch.zeros_like(acc), 64)
+    return explicit_crt(res, torch.zeros_like(acc), 64, primes)
 
 
-def model_combine(d, kspec):
+def model_combine(d, kspec, primes=ntt.PRIMES):
     """K8's combine as its threads compute it: d [B, 2^gf] int32, kspec
-    [2^gf, P, LJ, O, M, N] canonical -> combined [B, P, LJ, O, M, N]
-    int32.  A thread owns one ciphertext's words n0 ... n0 + 7 (n0 a
+    [2^gf, P, LJ, O, M, N] canonical over `primes` -> combined [B, P, LJ,
+    O, M, N] int32.  A thread owns one ciphertext's words n0 ... n0 + 7 (n0 a
     multiple of 8) of every key row; per subset j >= 1 it gathers
     psi^(d_j e(n0)) and its companion, makes the four canonical values
     V_s = psi^(d_j e(n0)) w^s (s < 4) by Shoup products, takes mon_j(n0 +
     k) = V_(m mod 4), negated for m >= 4 (m = d_j bitrev3(k) mod 8), and
     sums K_0 + sum_j mon_j K_j exactly (64 bits on the card), reduced
-    canonical once.  The kernel's tiles of rows only schedule this."""
+    canonical once (the core's `reduce_u64`, then a subtraction of p).
+    The kernel's tiles of rows only schedule this."""
     per, P, LJ, O, M, N = kspec.shape
     B, T, R = d.shape[0], N // ntt.PASS_RADIX, LJ * O * M
-    mono = ntt.monomial_tables_for(N, "cpu")
+    mono = ntt.monomial_tables_for(N, "cpu", primes)
     e0 = mono.exponents.to(torch.int64)[torch.arange(T) * ntt.PASS_RADIX]
     dj = d.to(torch.int64)
     key = (kspec.to(torch.int64) & M32).reshape(per, P, R, T,
                                                 ntt.PASS_RADIX)
     rows = torch.arange(B)
     out = torch.empty((B, P, R, T, ntt.PASS_RADIX), dtype=torch.int64)
-    for pi, p in enumerate(ntt.PRIMES):
+    for pi, p in enumerate(primes):
         pw = mono.powers[pi, 0].to(torch.int64) & M32
         pwsh = mono.powers[pi, 1].to(torch.int64) & M32
-        one_sh = int(pwsh[0])  # the companion of psi^0 = 1
         o = key[0, pi].expand(B, -1, -1, -1).clone()
         for j in range(1, per):
             t = (dj[:, j, None] * e0) & (2 * N - 1)  # [B, T]
@@ -152,23 +159,45 @@ def model_combine(d, kspec):
                 v = vals[m & 3, rows]
                 mon = torch.where((m >= 4)[:, None], p - v, v)
                 o[..., k] += key[j, pi][None, ..., k] * mon[:, None, :]
-        assert int(o.max()) < 1 << 38  # K_0 + 15 products below p^2
-        c32 = (1 << 32) % p
-        r = shoup_lazy(shoup_lazy(o & M32, 1, one_sh, p) + (o >> 32) * c32,
-                       1, one_sh, p)
+        # K_0 + 2^gf - 1 products of canonical words
+        assert int(o.max()) <= (p - 1) + (per - 1) * (p - 1)**2 < 1 << 58
+        r = Core(N, pi, primes).reduce_u64(o)  # [0, 2p)
         out[:, pi] = torch.where(r >= p, r - p, r)
     return out.reshape(B, P, LJ, O, M, N).to(torch.int32)
 
 
+# the key's prime sets: the reference's five primes (two planes), and the
+# one the widths give (`ntt.classic_plan` for 2^gf summed words: four wide
+# primes and one plane, or at base_log 8, L 2 two primes and two planes)
+KEY_SETS = [ntt.PRIMES, None]
+KEY_IDS = ["five", "plan"]
+
+
+def _prepare(raw, bl, gf, primes):
+    key = core.prepare_multi_bit_bsk_cuda(raw, bl, gf, primes)
+    _, per, L, G, _, N = raw.shape
+    if primes is None:
+        assert (key.primes, key.planes) == ntt.classic_plan(bl, L, G, N, 64,
+                                                            per)
+        assert key.primes == ntt.WIDE_PRIMES[:len(key.primes)]
+    else:
+        assert (key.primes, key.planes) == (ntt.PRIMES, 2)
+    return key
+
+
+@pytest.mark.parametrize("primes", [ntt.PRIMES, ntt.WIDE_PRIMES],
+                         ids=["five", "wide"])
 @pytest.mark.parametrize("N", [256, 512, 1024, 2048])
-def test_exponents_split_at_a_threads_first_word(N):
+def test_exponents_split_at_a_threads_first_word(N, primes):
     # e(tid * 8 + k) = e(tid * 8) + bitrev3(k) N/4 mod 2N, and psi^(N/4)
-    # is an 8th root of unity, for every prime
-    mono = ntt.monomial_tables_for(N, "cpu")
+    # is an 8th root of unity, for every prime of either set
+    mono = ntt.monomial_tables_for(N, "cpu", primes)
     e = mono.exponents.to(torch.int64).reshape(-1, ntt.PASS_RADIX)
     want = torch.tensor(BITREV3) * (N // 4)
     assert torch.equal((e - e[:, :1]) % (2 * N), want.expand_as(e))
-    for pi, p in enumerate(ntt.PRIMES):
+    assert torch.equal(mono.exponents,
+                       ntt.monomial_tables_for(N, "cpu").exponents)
+    for pi, p in enumerate(primes):
         w = int(mono.powers[pi, 0, N // 4]) & M32
         assert pow(w, 4, int(p)) == int(p) - 1
 
@@ -180,42 +209,91 @@ STEP_CASES = [(2, 256, 2, 8, 2), (3, 256, 1, 15, 2), (2, 512, 1, 18, 4),
 STEP_IDS = ["gf2N256L2", "gf3N256L1", "gf2N512G4", "gf3N512G4"]
 
 
+@pytest.mark.parametrize("primes", KEY_SETS, ids=KEY_IDS)
 @pytest.mark.parametrize("case", STEP_CASES, ids=STEP_IDS)
-def test_step_model_equals_plain(case):
+def test_step_model_equals_plain(case, primes):
     gf, N, L, bl, G = case
     rng = np.random.default_rng(list(case))
-    key = core.prepare_multi_bit_bsk_cuda(to_tensor(rng.integers(
-        0, 1 << 64, (1, 1 << gf, L, G, G, N), dtype=np.uint64), "cpu"), bl, gf)
+    key = _prepare(to_tensor(rng.integers(
+        0, 1 << 64, (1, 1 << gf, L, G, G, N), dtype=np.uint64), "cpu"), bl, gf,
+        primes)
     acc = to_tensor(rng.integers(0, 1 << 64, (3, G, N), dtype=np.uint64),
                     "cpu")
     d = torch.from_numpy(rng.integers(0, 2 * N, (3, 1 << gf))
                          .astype(np.int32))
-    got = model_multibit_step(acc, d, key.kspec[0], bl, L)
+    ks, ps = key.kspec[0], key.primes
+    got = model_multibit_step(acc, d, ks, bl, L, primes=ps)
     assert torch.equal(got, fused_multibit.multibit_step_plain(
-        acc, d, key.kspec[0], bl, L))
+        acc, d, ks, bl, L, ps))
     assert torch.equal(got, fused_multibit.multibit_external_product_plain(
-        acc, fused_multibit.multibit_combine_plain(d, key.kspec[0]), bl, L))
+        acc, fused_multibit.multibit_combine_plain(d, ks, ps), bl, L, ps))
 
 
+@pytest.mark.parametrize("primes", KEY_SETS, ids=KEY_IDS)
 @pytest.mark.parametrize("case", STEP_CASES, ids=STEP_IDS)
-def test_scan3_stage_models_equal_plain(case):
+def test_scan3_stage_models_equal_plain(case, primes):
     # K8's combine thread and its external product (K9's kernel at one
     # subset, the key per ciphertext), each against its plain twin
     gf, N, L, bl, G = case
     rng = np.random.default_rng([13] + list(case))
-    key = core.prepare_multi_bit_bsk_cuda(to_tensor(rng.integers(
-        0, 1 << 64, (1, 1 << gf, L, G, G, N), dtype=np.uint64), "cpu"), bl, gf)
+    key = _prepare(to_tensor(rng.integers(
+        0, 1 << 64, (1, 1 << gf, L, G, G, N), dtype=np.uint64), "cpu"), bl, gf,
+        primes)
     acc = to_tensor(rng.integers(0, 1 << 64, (3, G, N), dtype=np.uint64),
                     "cpu")
     d = torch.from_numpy(rng.integers(0, 2 * N, (3, 1 << gf))
                          .astype(np.int32))
     d[0] = torch.tensor([0, N, 2 * N - 1, 1] * (1 << gf))[:1 << gf]
-    comb = model_combine(d, key.kspec[0])
-    assert torch.equal(comb, fused_multibit.multibit_combine_plain(
-        d, key.kspec[0]))
-    got = model_multibit_step(acc, None, comb, bl, L, combined=True)
+    ks, ps = key.kspec[0], key.primes
+    comb = model_combine(d, ks, ps)
+    assert torch.equal(comb, fused_multibit.multibit_combine_plain(d, ks, ps))
+    got = model_multibit_step(acc, None, comb, bl, L, combined=True,
+                              primes=ps)
     assert torch.equal(got, fused_multibit.multibit_external_product_plain(
-        acc, comb, bl, L))
+        acc, comb, bl, L, ps))
+
+
+def full_key(primes, per, LJ, G, M, N):
+    """kspec [per, P, LJ, G, M, N] with every word p - 1, the largest
+    canonical residue of its prime."""
+    p = torch.tensor(primes, dtype=torch.int64).view(1, -1, 1, 1, 1, 1)
+    return (p - 1).expand(per, -1, LJ, G, M, N).to(torch.int32).contiguous()
+
+
+@pytest.mark.parametrize("primes", [ntt.PRIMES, ntt.WIDE_PRIMES[:4]],
+                         ids=["five", "wide"])
+def test_models_at_the_sums_extremes(primes):
+    # the combine: every key word p - 1 and every monomial p - 1 (d_j = N:
+    # X^N = -1 at every spectral word), so each of its sums reaches K_0 +
+    # 7 (p - 1)^2; K9's MAC at 16 subsets and L*G = 18, 288 terms a sum,
+    # every key word p - 1; K8's external product on the combined keys
+    M = 2 if primes == ntt.PRIMES else 1
+    rng = np.random.default_rng(17)
+    N, G = 256, 2
+    ks = full_key(primes, 8, 2, G, M, N)
+    d = torch.full((3, 8), N, dtype=torch.int32)
+    d[1, 1:] = torch.from_numpy(rng.integers(0, 2 * N, 7).astype(np.int32))
+    mon = ntt.monomial_spectra(d, N, primes)
+    assert torch.equal(mon[0, 1:], (torch.tensor(primes) - 1).view(1, -1, 1)
+                       .expand(7, -1, N))
+    comb = model_combine(d, ks, primes)
+    assert torch.equal(comb, fused_multibit.multibit_combine_plain(
+        d, ks, primes))
+    acc = to_tensor(rng.integers(0, 1 << 64, (3, G, N), dtype=np.uint64),
+                    "cpu")
+    assert torch.equal(
+        model_multibit_step(acc, None, comb, 15, 1, combined=True,
+                            primes=primes),
+        fused_multibit.multibit_external_product_plain(acc, comb, 15, 1,
+                                                       primes))
+    L, bl = 9, 7  # L*G = 18
+    ks = full_key(primes, 16, L * G, G, M, N)
+    d = torch.from_numpy(rng.integers(0, 2 * N, (3, 16)).astype(np.int32))
+    acc = to_tensor(rng.integers(0, 1 << 64, (3, G, N), dtype=np.uint64),
+                    "cpu")
+    assert torch.equal(
+        model_multibit_step(acc, d, ks, bl, L, primes=primes),
+        fused_multibit.multibit_step_plain(acc, d, ks, bl, L, primes))
 
 
 # (gf, N, L, base_log, groups, B): tests/test_fused_multibit.py's cases
@@ -233,20 +311,21 @@ def rotate_with_the_models(case, mode, monkeypatch):
                         dtype=np.uint64)
     lwe = rng.integers(0, 1 << 64, (B, groups * gf + 1), dtype=np.uint64)
     lut = rng.integers(0, 1 << 64, (B, G, N), dtype=np.uint64)
-    key = core.prepare_multi_bit_bsk_cuda(to_tensor(mbsk, "cpu"), bl, gf)
+    key = _prepare(to_tensor(mbsk, "cpu"), bl, gf, None)
     steps = []
 
-    def model(acc, d, kspec, base_log, levels):
+    def model(acc, d, kspec, base_log, levels, *, primes):
         steps.append(d.shape)
-        return model_multibit_step(acc, d, kspec, base_log, levels)
+        return model_multibit_step(acc, d, kspec, base_log, levels,
+                                   primes=primes)
 
-    def combine(d, kspec):
+    def combine(d, kspec, *, primes):
         steps.append(d.shape)
-        return model_combine(d, kspec)
+        return model_combine(d, kspec, primes)
 
-    def product(acc, combined, base_log, levels):
+    def product(acc, combined, base_log, levels, *, primes):
         return model_multibit_step(acc, None, combined, base_log, levels,
-                                   combined=True)
+                                   combined=True, primes=primes)
 
     monkeypatch.setattr(fused_multibit, "multibit_step", model)
     monkeypatch.setattr(fused_multibit, "multibit_combine", combine)

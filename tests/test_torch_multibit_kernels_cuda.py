@@ -5,8 +5,12 @@ PARAM_MULTI_BIT_MESSAGE_2_CARRY_2_GROUP_3_KS_PBS, a short blind rotation in
 both schedules, and the two schedules against each other; K8's two stages
 (the combine, and the external product from the accumulator on the
 register-resident core) and K9's one-launch step on the core at gf = 2, 3
-and 4, N = 256 ... 2048 and B = 1, 3, 64 and 256; the layouts beyond the
-kernels' limits, refused.
+and 4, N = 256 ... 2048 and B = 1, 3, 64 and 256; each on the
+reference's five primes in two planes and on the set the widths give
+(`ntt.classic_plan` for 2^gf summed words: four wide primes and one plane
+at GROUP_3); every sum at its extreme (every key word p - 1, every
+monomial p - 1; 16 subsets at L*G = 18); the layouts beyond the kernels'
+limits, refused.
 Marked `cuda`: they skip where there is no card; on one, run
 `python -m pytest -m cuda --noconftest tests/test_torch_multibit_kernels_cuda.py`
 (tests/conftest.py imports JAX, which is not needed here)."""
@@ -16,6 +20,7 @@ import pytest
 import torch
 
 from tfhe_tpu_torch.ops import fused_multibit as fm
+from tfhe_tpu_torch.ops import ntt
 
 pytestmark = pytest.mark.cuda
 
@@ -24,6 +29,9 @@ pytestmark = pytest.mark.cuda
 CASES = [(2, 256, 2, 8, 4, 3), (3, 256, 1, 15, 4, 3), (3, 2048, 1, 21, 64, 2)]
 IDS = ["gf2N256L2", "gf3N256L1", "gf3N2048L1B64"]
 G = 2
+# the key's prime set: the reference's five primes, or the plan's (None)
+KEY_SETS = [ntt.PRIMES, None]
+KEY_IDS = ["five", "plan"]
 
 
 @pytest.fixture
@@ -38,11 +46,11 @@ def _words(rng, shape, dev):
     return torch.from_numpy(x.view(np.int64)).to(dev)
 
 
-def _inputs(case, dev, seed=7):
+def _inputs(case, dev, seed=7, primes=None):
     gf, N, L, bl, B, groups = case
     rng = np.random.default_rng(seed)
     key = fm.prepare_multi_bit_bsk_cuda(
-        _words(rng, (groups, 1 << gf, L, G, G, N), dev), bl, gf)
+        _words(rng, (groups, 1 << gf, L, G, G, N), dev), bl, gf, primes)
     acc = _words(rng, (B, G, N), dev)
     d = torch.from_numpy(rng.integers(0, 2 * N, (groups, B, 1 << gf))
                          .astype(np.int32)).to(dev)
@@ -50,21 +58,26 @@ def _inputs(case, dev, seed=7):
     return key, acc, d
 
 
+@pytest.mark.parametrize("primes", KEY_SETS, ids=KEY_IDS)
 @pytest.mark.parametrize("case", CASES, ids=IDS)
-def test_kernels_match_plain(case, card):
+def test_kernels_match_plain(case, primes, card):
     gf, N, L, bl, B, groups = case
-    key, acc, d = _inputs(case, card)
-    comb = fm.multibit_combine(d[0], key.kspec[0])
-    assert torch.equal(comb, fm.multibit_combine_plain(d[0], key.kspec[0]))
-    want = fm.multibit_external_product_plain(acc, comb, bl, L)
-    assert torch.equal(fm.multibit_external_product(acc, comb, bl, L), want)
-    assert torch.equal(fm.multibit_step_plain(acc, d[0], key.kspec[0], bl, L),
+    key, acc, d = _inputs(case, card, primes=primes)
+    ks, ps = key.kspec[0], key.primes
+    comb = fm.multibit_combine(d[0], ks, primes=ps)
+    assert torch.equal(comb, fm.multibit_combine_plain(d[0], ks, ps))
+    want = fm.multibit_external_product_plain(acc, comb, bl, L, ps)
+    assert torch.equal(fm.multibit_external_product(acc, comb, bl, L,
+                                                    primes=ps), want)
+    assert torch.equal(fm.multibit_step_plain(acc, d[0], ks, bl, L, ps),
                        want)
-    assert torch.equal(fm.multibit_step(acc, d[0], key.kspec[0], bl, L), want)
+    assert torch.equal(fm.multibit_step(acc, d[0], ks, bl, L, primes=ps),
+                       want)
     plain = acc
     for g in range(groups):
         plain = fm.multibit_external_product_plain(
-            plain, fm.multibit_combine_plain(d[g], key.kspec[g]), bl, L)
+            plain, fm.multibit_combine_plain(d[g], key.kspec[g], ps), bl, L,
+            ps)
     for mode in fm.MODES:
         got = fm.multi_bit_blind_rotate_cuda(key, acc, d, mode=mode)
         torch.cuda.synchronize()
@@ -75,9 +88,12 @@ def test_schedules_agree_and_count_their_launches(card):
     # scan3: combine, then the external product from the accumulator, a
     # group step; scan1: one launch a group step
     key, acc, d = _inputs(CASES[1], card, seed=3)
+    assert (key.primes, key.planes) == (ntt.WIDE_PRIMES[:4], 1)
     fm.reset_launch_counts()
+    ctas = fm.PRIME_CTAS.value
     scan3 = fm.multi_bit_blind_rotate_cuda(key, acc, d, mode="scan3")
     assert [k.launches for k in fm.KERNELS] == [3, 3, 0]
+    assert fm.PRIME_CTAS.value - ctas == 3 * 4 * 4  # groups * B * P
     fm.reset_launch_counts()
     scan1 = fm.multi_bit_blind_rotate_cuda(key, acc, d, mode="scan1")
     torch.cuda.synchronize()
@@ -95,44 +111,83 @@ STEP_IDS = ["gf2N256L2", "gf3N512G4", "gf4N1024", "gf3N2048", "gf2N2048",
             "gf4N2048", "gf2N1024LG12", "gf4N2048LG18"]
 
 
+@pytest.mark.parametrize("primes", KEY_SETS, ids=KEY_IDS)
 @pytest.mark.parametrize("B", [1, 3, 64, 256])
 @pytest.mark.parametrize("width", STEP_WIDTHS, ids=STEP_IDS)
-def test_step_on_the_core_matches_plain(width, B, card):
+def test_step_on_the_core_matches_plain(width, B, primes, card):
     gf, N, L, bl, G = width
     rng = np.random.default_rng([29, B])
     key = fm.prepare_multi_bit_bsk_cuda(
-        _words(rng, (1, 1 << gf, L, G, G, N), card), bl, gf)
+        _words(rng, (1, 1 << gf, L, G, G, N), card), bl, gf, primes)
     acc = _words(rng, (B, G, N), card)
     d = torch.from_numpy(rng.integers(0, 2 * N, (B, 1 << gf))
                          .astype(np.int32)).to(card)
+    ks, ps = key.kspec[0], key.primes
     fm.reset_launch_counts()
-    got = fm.multibit_step(acc, d, key.kspec[0], bl, L)
+    got = fm.multibit_step(acc, d, ks, bl, L, primes=ps)
     torch.cuda.synchronize()
     assert [k.launches for k in fm.KERNELS] == [0, 0, 1]
-    assert torch.equal(got, fm.multibit_step_plain(acc, d, key.kspec[0], bl,
-                                                   L))
+    assert torch.equal(got, fm.multibit_step_plain(acc, d, ks, bl, L, ps))
 
 
+@pytest.mark.parametrize("primes", KEY_SETS, ids=KEY_IDS)
 @pytest.mark.parametrize("B", [1, 3, 64, 256])
 @pytest.mark.parametrize("width", STEP_WIDTHS, ids=STEP_IDS)
-def test_scan3_stages_match_plain(width, B, card):
+def test_scan3_stages_match_plain(width, B, primes, card):
     # K8's two stages, each against its plain twin, one launch each
     gf, N, L, bl, G = width
     rng = np.random.default_rng([31, B])
     key = fm.prepare_multi_bit_bsk_cuda(
-        _words(rng, (1, 1 << gf, L, G, G, N), card), bl, gf)
+        _words(rng, (1, 1 << gf, L, G, G, N), card), bl, gf, primes)
     acc = _words(rng, (B, G, N), card)
     d = torch.from_numpy(rng.integers(0, 2 * N, (B, 1 << gf))
                          .astype(np.int32)).to(card)
+    ks, ps = key.kspec[0], key.primes
     fm.reset_launch_counts()
-    comb = fm.multibit_combine(d, key.kspec[0])
-    got = fm.multibit_external_product(acc, comb, bl, L)
+    comb = fm.multibit_combine(d, ks, primes=ps)
+    got = fm.multibit_external_product(acc, comb, bl, L, primes=ps)
     torch.cuda.synchronize()
     assert [k.launches for k in fm.KERNELS] == [1, 1, 0]
-    comb_p = fm.multibit_combine_plain(d, key.kspec[0])
+    comb_p = fm.multibit_combine_plain(d, ks, ps)
     assert torch.equal(comb, comb_p)
     assert torch.equal(got, fm.multibit_external_product_plain(acc, comb_p,
-                                                               bl, L))
+                                                               bl, L, ps))
+
+
+def _full_key(primes, per, LJ, G, M, N, dev):
+    """kspec [per, P, LJ, G, M, N]: every word p - 1."""
+    p = torch.tensor(primes, dtype=torch.int64).view(1, -1, 1, 1, 1, 1)
+    return (p - 1).expand(per, -1, LJ, G, M, N).to(torch.int32).contiguous(
+        ).to(dev)
+
+
+@pytest.mark.parametrize("primes", [ntt.PRIMES, ntt.WIDE_PRIMES[:4]],
+                         ids=["five", "wide"])
+def test_sums_at_their_extremes_match_plain(primes, card):
+    # the combine: every key word p - 1 and every monomial p - 1 (d_j = N),
+    # at GROUP_3's width (gf 3, N 2048, L*G 2); K8's external product on
+    # those keys; K9 at 16 subsets and L*G = 18, 288 terms a sum, every key
+    # word p - 1.  Bit for bit against the plain versions
+    M = 2 if primes == ntt.PRIMES else 1
+    rng = np.random.default_rng(41)
+    N, B = 2048, 64
+    ks = _full_key(primes, 8, 2, 2, M, N, card)
+    d = torch.full((B, 8), N, dtype=torch.int32, device=card)
+    d[1::2, 1:] = torch.from_numpy(rng.integers(0, 2 * N, (B // 2, 7))
+                                   .astype(np.int32)).to(card)
+    comb = fm.multibit_combine(d, ks, primes=primes)
+    assert torch.equal(comb, fm.multibit_combine_plain(d, ks, primes))
+    acc = _words(rng, (B, 2, N), card)
+    assert torch.equal(
+        fm.multibit_external_product(acc, comb, 21, 1, primes=primes),
+        fm.multibit_external_product_plain(acc, comb, 21, 1, primes))
+    L, bl, G3 = 6, 7, 3  # L*G = 18
+    ks = _full_key(primes, 16, L * G3, G3, M, N, card)
+    d = torch.from_numpy(rng.integers(0, 2 * N, (B, 16)).astype(np.int32)
+                         ).to(card)
+    acc = _words(rng, (B, G3, N), card)
+    assert torch.equal(fm.multibit_step(acc, d, ks, bl, L, primes=primes),
+                       fm.multibit_step_plain(acc, d, ks, bl, L, primes))
 
 
 def test_empty_batch_launches_nothing(card):
@@ -147,25 +202,29 @@ def test_empty_batch_launches_nothing(card):
 
 def test_wrappers_reject_bad_inputs(card):
     key, acc, d = _inputs(CASES[1], card)
+    ps = key.primes
     with pytest.raises(ValueError):
-        fm.multibit_combine(d[0].long(), key.kspec[0])
+        fm.multibit_combine(d[0].long(), key.kspec[0], primes=ps)
     with pytest.raises(ValueError):
-        fm.multibit_combine(d[0], key.kspec[0][:, :3])
-    comb = fm.multibit_combine(d[0], key.kspec[0])
+        fm.multibit_combine(d[0], key.kspec[0][:, :3], primes=ps[:3])
+    comb = fm.multibit_combine(d[0], key.kspec[0], primes=ps)
     with pytest.raises(ValueError):
-        fm.multibit_external_product(acc[:, :, ::2], comb, 15, 1)
+        fm.multibit_external_product(acc[:, :, ::2], comb, 15, 1, primes=ps)
     with pytest.raises(ValueError):  # levels 2: comb holds L*G = 2 rows
-        fm.multibit_external_product(acc, comb, 15, 2)
+        fm.multibit_external_product(acc, comb, 15, 2, primes=ps)
     # a contiguous copy that starts 4 bytes into its buffer
     shifted = torch.empty(comb.numel() + 1, dtype=comb.dtype, device=card)
     shifted = shifted[1:].view(comb.shape)
     shifted.copy_(comb)
     with pytest.raises(ValueError, match="aligned"):
-        fm.multibit_external_product(acc, shifted, 15, 1)
+        fm.multibit_external_product(acc, shifted, 15, 1, primes=ps)
     with pytest.raises(ValueError):
-        fm.multibit_step(acc, d[0][:, :4], key.kspec[0], 15, 1)
+        fm.multibit_step(acc, d[0][:, :4], key.kspec[0], 15, 1, primes=ps)
+    with pytest.raises(ValueError, match="does not match"):  # another set
+        fm.multibit_combine(d[0], key.kspec[0])
     with pytest.raises(ValueError):
-        fm.multibit_step(acc[:, :, :128], d[0], key.kspec[0], 15, 1)
+        fm.multibit_step(acc[:, :, :128], d[0], key.kspec[0], 15, 1,
+                         primes=ps)
 
 
 def test_kernels_reject_layouts_beyond_their_limits(card):

@@ -114,13 +114,20 @@ def _case(i):
     return mbsk, lwe, lut, want
 
 
+@pytest.mark.parametrize("primes", [ntt.PRIMES, None], ids=["five", "plan"])
 @pytest.mark.parametrize("mode", fused_multibit.MODES)
 @pytest.mark.parametrize("i", range(len(CASES)), ids=IDS)
-def test_blind_rotate_matches_reference(i, mode):
+def test_blind_rotate_matches_reference(i, mode, primes):
+    # on the reference's five primes (two planes) and on the set the widths
+    # give: two wide primes and two planes at base_log 8, L 2; four and one
+    # plane at base_log 15, L 1
     gf, N, L, bl = CASES[i]
     mbsk, lwe, lut, want = _case(i)
-    key = core.prepare_multi_bit_bsk_cuda(to_tensor(mbsk, "cpu"), bl, gf)
-    assert key.kspec.shape == (NG, 1 << gf, len(ntt.PRIMES), L * G, G, 2, N)
+    key = core.prepare_multi_bit_bsk_cuda(to_tensor(mbsk, "cpu"), bl, gf,
+                                          primes)
+    P, M = (5, 2) if primes else ((2, 2), (4, 1))[i]
+    assert key.kspec.shape == (NG, 1 << gf, P, L * G, G, M, N)
+    assert key.primes == (ntt.PRIMES if primes else ntt.WIDE_PRIMES[:P])
     got = core.multi_bit_blind_rotate(key, to_tensor(lut, "cpu"),
                                       to_tensor(lwe, "cpu"), mode=mode)
     assert np.array_equal(to_numpy(got), want)
@@ -137,9 +144,15 @@ def test_one_step_schedules_agree():
                     "cpu")
     d = torch.from_numpy(rng.integers(0, 2 * N, (3, 1 << gf)).astype(np.int32))
     d[:, 0] = 0
-    comb = fused_multibit.multibit_combine(d, key.kspec[0])
-    scan3 = fused_multibit.multibit_external_product(acc, comb, bl, L)
-    scan1 = fused_multibit.multibit_step(acc, d, key.kspec[0], bl, L)
+    ps = key.primes
+    comb = fused_multibit.multibit_combine(d, key.kspec[0], primes=ps)
+    scan3 = fused_multibit.multibit_external_product(acc, comb, bl, L,
+                                                     primes=ps)
+    scan1 = fused_multibit.multibit_step(acc, d, key.kspec[0], bl, L,
+                                         primes=ps)
+    # a key handed with another set's primes is refused
+    with pytest.raises(ValueError, match="does not match"):
+        fused_multibit.multibit_combine(d, key.kspec[0])
     assert torch.equal(scan3, scan1)
     whole = fused_multibit.multi_bit_blind_rotate_cuda(key, acc, d[None])
     assert torch.equal(whole, scan3)

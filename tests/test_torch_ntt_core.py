@@ -67,6 +67,7 @@ class Core:
             torch.int64) & M32
         self.N, self.T = N, N // r
         self.p, self.p2, self.one_sh, self.off = (int(v) for v in tab[:4])
+        self.c32, self.c32sh = (int(v) for v in tab[6:8])
         self.words = (tab.numel() - ntt.PASS_HEADER) // 2
         self.fwd = tab[ntt.PASS_HEADER:ntt.PASS_HEADER + self.words]
         self.inv = tab[ntt.PASS_HEADER + self.words:]
@@ -142,6 +143,15 @@ class Core:
                                 else range(R))
             buf[..., idx] = v
         return buf
+
+    def reduce_u64(self, x):
+        """x int64 >= 0 (a 64-bit sum) -> a word in [0, 2p) congruent to
+        it, as `reduce_u64` of the core: its low word times 1 and its high
+        word times 2^32 mod p by Shoup products, their sum less 2p unless
+        it is below 2p."""
+        s = (shoup_lazy(x & M32, 1, self.one_sh, self.p)
+             + shoup_lazy(x >> 32, self.c32, self.c32sh, self.p))
+        return umin(s, s - self.p2)
 
     def canonical(self, x, w=1, wsh=None):
         wsh = self.one_sh if wsh is None else wsh
@@ -347,13 +357,14 @@ def test_pass_tables_hold_the_twiddles_of_the_passes(N):
 @pytest.mark.parametrize("N", SIZES)
 def test_pass_tables_hold_the_twiddles_on_the_classic_primes(N):
     _pass_tables_hold_the_twiddles(N, ntt.WIDE_PRIMES)
-    # the header: p, 2p, floor(2^32 / p), p - 2^31 mod p, N^-1, companion
+    # the header: p, 2p, floor(2^32 / p), p - 2^31 mod p, N^-1, companion,
+    # 2^32 mod p, companion
     head = ntt.pass_tables_for(N, "cpu", ntt.WIDE_PRIMES)[
         :, :ntt.PASS_HEADER].to(torch.int64) & M32
     for row, p in zip(head.tolist(), ntt.WIDE_PRIMES):
         assert row[:4] == [p, 2 * p, (1 << 32) // p, p - (1 << 31) % p]
         assert row[4] * N % p == 1 and row[5] == (row[4] << 32) // p
-        assert row[6:] == [0, 0]
+        assert row[6:] == [(1 << 32) % p, ((1 << 32) % p << 32) // p]
 
 
 def test_classic_primes_are_primes_with_the_cores_headroom():
@@ -422,6 +433,54 @@ def test_classic_plan_follows_the_parameter_sets_widths():
     assert ntt.planes_for(ntt.PRIMES, 6, 3, 3, 512, 32) == 1
     with pytest.raises(ValueError, match="do not hold"):
         ntt.planes_for(ntt.WIDE_PRIMES[:1], 23, 1, 2, 2048, 64)
+
+
+def test_multi_bit_plan_counts_the_summed_key_words():
+    # a multi-bit key word is a sum of 2^gf words (K_0 + sum_{j>=1} X^{d_j}
+    # K_j), so its bound is 2^gf times a classic key's: every copied
+    # multi-bit set with N <= 2048 still takes four primes and one plane
+    from tfhe_tpu_torch.params import multi_bit_params as mbp
+
+    sets = [p for p in mbp.ALL if p.polynomial_size <= 2048]
+    assert len(sets) == 4
+    for p in sets:
+        G, per = p.glwe_dimension + 1, 1 << p.grouping_factor
+        args = (p.pbs_base_log, p.pbs_level, G, p.polynomial_size, 64)
+        assert ntt.classic_plan(*args, per) == (ntt.WIDE_PRIMES[:4], 1)
+        bound = ntt.product_bound(p.pbs_base_log, p.pbs_level * G,
+                                  p.polynomial_size, 64, 1, per)
+        assert bound == per * ntt.product_bound(
+            p.pbs_base_log, p.pbs_level * G, p.polynomial_size, 64, 1)
+        assert ntt.holds_product(ntt.WIDE_PRIMES[:4], bound)
+        assert not ntt.holds_product(ntt.WIDE_PRIMES[:3], bound)
+        # the reference's five primes hold it in two planes, never in one
+        assert ntt.planes_for(ntt.PRIMES, *args, per) == 2
+    # GROUP_3 (base_log 21, L 1, G 2, N 2048): 8 * 2 * 2048 * 2^20 * 2^63
+    assert ntt.product_bound(21, 2, 2048, 64, 1, 8) == 2**98
+    # a width at which the factor changes the plan: base_log 10, L 1, G 2,
+    # N 512 holds a classic product (2^82 in one plane, 2^51 in two) on two
+    # primes in two planes, but 2^gf = 4 words (2^53 in two planes) need
+    # three primes there, so one plane on four does fewer transforms
+    assert ntt.classic_plan(10, 1, 2, 512, 64) == (ntt.WIDE_PRIMES[:2], 2)
+    assert ntt.classic_plan(10, 1, 2, 512, 64, 4) == (ntt.WIDE_PRIMES[:4], 1)
+    assert ntt.planes_for(ntt.WIDE_PRIMES[:2], 10, 1, 2, 512, 64) == 2
+    with pytest.raises(ValueError, match="do not hold"):
+        ntt.planes_for(ntt.WIDE_PRIMES[:2], 10, 1, 2, 512, 64, 4)
+
+
+@pytest.mark.parametrize("primes", [ntt.PRIMES, ntt.WIDE_PRIMES],
+                         ids=["five", "wide"])
+def test_64_bit_reduction_lands_below_2p(primes):
+    # the core's reduce_u64 of the multi-bit kernels' exact sums: any word
+    # below 2^63 (the sums stay below 2^62.9) -> [0, 2p), congruent
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.integers(0, 2**63 - 1, 4096, dtype=np.int64,
+                                      endpoint=True))
+    x[:6] = torch.tensor([0, 1, 2**32 - 1, 2**32, 2**63 - 1, 2**62 + 7])
+    for pi, p in enumerate(primes):
+        got = Core(256, pi, primes).reduce_u64(x)
+        assert int(got.max()) < 2 * p
+        assert torch.equal(got % p, x % p)
 
 
 def _negacyclic_exact(d, k):

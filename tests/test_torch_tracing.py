@@ -17,7 +17,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from tfhe_tpu_torch import api, core, integer, shortint
 from tfhe_tpu_torch.integer.fused_dispatch import FusedIntegerOps
-from tfhe_tpu_torch.ops import fused_pbs
+from tfhe_tpu_torch.ops import fused_multibit, fused_pbs
 from tfhe_tpu_torch.params import PARAM_MESSAGE_2_CARRY_2_COMPACT_TEST as P
 from tfhe_tpu_torch.utils import profiling
 
@@ -190,6 +190,25 @@ def test_k2s_prime_cta_counter_replays_and_is_no_launch_count(monkeypatch):
     assert profiling.changes_since(before) == want
 
 
+def test_k8s_prime_cta_counter_is_registered_and_no_launch_count():
+    # K8's external product's CTAs, the twin of K2's: registered, not a
+    # `.launches` name, and counted by the wrapper at each launch only (the
+    # plain version on the CPU adds nothing)
+    name = "fused_multibit.multibit_external_product.prime_ctas"
+    assert name in profiling.counters() and not name.endswith(".launches")
+    assert fused_multibit.PRIME_CTAS.value == profiling.counters()[name]
+    from tfhe_tpu_torch.params import (
+        PARAM_MULTI_BIT_MESSAGE_2_CARRY_2_GROUP_2_TEST as MB)
+
+    cks, sks = shortint.gen_keys(MB, seed=SEED, device="cpu")
+    before = profiling.counters()
+    sks.apply_lookup_table_batch(cks.encrypt_batch([0, 1]),
+                                 sks.generate_lookup_table(lambda x: x))
+    moved = profiling.changes_since(before)
+    assert moved.get(name, 0) == 0
+    assert moved["fused_multibit.multibit_combine.key_bytes"] > 0
+
+
 OPS = {"add": lambda k, a, b: k.add_parallelized(a, b),
        "mul": lambda k, a, b: k.mul_parallelized(a, b)}
 
@@ -269,3 +288,8 @@ def test_multi_bit_replays_count_as_eager_runs_on_the_card(op):
         steps * batches
     assert eager["fused_multibit.multibit_combine.key_bytes"] == \
         steps * batches * kspec[0].numel() * kspec.element_size()
+    # K8's external product: one CTA a prime of the key's set (four wide
+    # primes at this set's widths) and a ciphertext, every launch
+    assert len(sks.key.bsk.primes) == 4
+    assert eager["fused_multibit.multibit_external_product.prime_ctas"] == \
+        steps * eager["pbs.rows"] * len(sks.key.bsk.primes)

@@ -14,11 +14,13 @@ its external product with the accumulator: n/gf sequential steps instead of
 n.  The subset keys are transformed once, into one of two layouts, as the
 reference does (`prepare_multi_bit_bsk_auto`, tfhe_tpu/core/multibit.py:
 198-213):
-  * `PreparedMultiBitBskCuda` (`prepare_multi_bit_bsk_cuda`): the step runs
-    on the kernels of `ops/fused_multibit.py`, in the schedule `mode` names
-    ("scan3", the default, or "scan1");
+  * `PreparedMultiBitBskCuda` (`prepare_multi_bit_bsk_cuda`, on the primes
+    and planes of `ntt.classic_plan`): the step runs on the kernels of
+    `ops/fused_multibit.py`, in the schedule `mode` names ("scan3", the
+    default, or "scan1");
   * `PreparedMultiBitBskNtt` (`prepare_multi_bit_bsk_ntt`, mode "ntt"): the
-    reference's CRT-NTT layout, its layout whenever it is not on a TPU; the
+    reference's CRT-NTT layout (its five primes, two planes), its layout
+    whenever it is not on a TPU; the
     step is torch ops, as the reference's is jnp ops with no Pallas kernel
     (:216-294).
 Execution is always deterministic: every sum has a fixed order, and the

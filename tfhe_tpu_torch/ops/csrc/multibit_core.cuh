@@ -50,24 +50,34 @@
 // not the outputs:
 //     sum_j sum_lj (mon_j D_lj) K_j,lj,om,
 // LJ products a subset instead of O*M.  Each product of a word at most 2p
-// by a key word below p is below 2^35, and is summed exactly in 64 bits
-// (one 32 x 32 + 64 multiply-add each): at most 2^gf LJ <= 16 * 18 = 288
-// terms, below 2^44.  One reduction per output word brings the sum into
-// [0, 2p) for the inverse transform, so the MAC reads no key companions.
+// by a key word below p < 2^26.83 is below 2^54.66, and is summed exactly
+// in 64 bits (one 32 x 32 + 64 multiply-add each): at most 2^gf LJ <= 16 *
+// 18 = 288 terms, below 2^62.83.  One reduction per output word
+// (ntt_core.cuh reduce_u64: the low word and the high word times 2^32 mod
+// p, a Shoup product each) brings the whole sum into [0, 2p) for the
+// inverse transform, so the MAC reads no key companions.
 //
 // K8's MAC (kCombined): the same kernel with one subset, no monomial, and
 // the key of the ciphertext's own combined GGSW (multibit_combine,
 // multibit_kernels.cuh) in place of the subset keys; its sums hold LJ <= 18
-// terms below 2^35, below 2^40.  It replaces the first port's two launches:
+// terms, below 2^58.83.  It replaces the first port's two launches:
 // a MAC kernel of one CTA of 512 threads per (ciphertext, prime) on the old
 // shared-memory core (a barrier a radix-2 stage, Barrett products of the
 // combined key) over digits read from device memory, then a CRT launch from
 // zero over residues in device memory; 0.0925 ms with the digits' launch
 // at GROUP_3 width and B = 64 on an H100, against 0.0310 for this form
 // (kernel_times.py; 4 outputs a chunk instead of kMbChunk's 2: 0.0404).
-// Registers (-Xptxas -v, sm_90a) for LJ <= 2 / 4 / 9: 80 / 103 / 149, no
-// spill; K9's form 80 (12 bytes spilled) / 128 / 182, as before it shared
-// the kernel.
+// Registers (-Xptxas -v, sm_90a) for LJ <= 2 / 4 / 9 / 18: 76 / 105 /
+// 151 / 235, no spill; K9's form 80 (16 bytes spilled) / 126 / 182 / 254.
+//
+// The key's primes and planes.  P (the cluster's CTAs) and M come from the
+// key: ntt.classic_plan's rule for a key word summed from 2^gf words, four
+// of ntt.WIDE_PRIMES and one plane at every copied set with N <= 2048,
+// where the reference's five primes below 2^17 took two planes (which the
+// kernel still takes).  At GROUP_3 width that is 16 transforms and 16
+// spectral products a ciphertext and step instead of 30 and 40, a cluster
+// of 4 CTAs, (2 + 2) N 4 = 32 KB of shared memory a CTA instead of 48, and
+// a 128-KB combined key a ciphertext instead of 320.
 //
 // What bounds it, measured on an H100 with kernel_times.py (PERF.md
 // section 6): latency and issue in the MAC, not key traffic.  Every CTA
@@ -86,12 +96,12 @@
 //
 // Layouts: acc, out [B, G, N] int64 (u64 torus words); d [B, 2^gf] int32
 // in [0, 2N) (d_0 is not read: subset 0 is empty); kspec [2^gf, P, LJ, G,
-// 2, N] uint32 canonical (K8: [B, P, LJ, G, 2, N]); powers [P, 2, 2N]
+// M, N] uint32 canonical (K8: [B, P, LJ, G, M, N]); powers [P, 2, 2N]
 // uint32 psi^t and companions (ntt.monomial_tables_for); exps [N] int32
-// e(n); tables ntt.pass_tables_for(N); xcrt ntt._explicit_crt_host.
-// Limits (the launcher refuses anything else): those of the core (LJ <= 18,
-// 256 <= N <= 2048, P <= 8), 2^gf <= kMaxSubsets, G * 2 <= kMaxOutputs
-// (multibit_kernels.cuh).
+// e(n); tables ntt.pass_tables_for(N); xcrt ntt._explicit_crt_host; all
+// over the key's set of P primes.  Limits (the launcher refuses anything
+// else): those of the core (LJ <= 18, 256 <= N <= 2048, P <= 8), 2^gf <=
+// kMaxSubsets, M in {1, 2}, G * M <= kMaxOutputs (multibit_kernels.cuh).
 #pragma once
 
 #include <cooperative_groups.h>
@@ -128,8 +138,9 @@ __device__ __forceinline__ int32_t digit_at(uint64_t word, int base_log,
 // One group step: cluster b = blockIdx.x / P owns ciphertext b, CTA rank pi
 // prime pi; grid B * P, N/8 threads.  Shared memory: multibit_step_smem.
 // kCombined is K8's MAC: one subset (per = 1), kspec the per-ciphertext
-// combined keys [B, P, LJ, G, 2, N], and deg, powers and exps not read (may
-// be null).
+// combined keys [B, P, LJ, G, M, N], and deg, powers and exps not read (may
+// be null).  M is the key's planes a torus word (1 or 2), P the cluster's
+// CTAs, one per prime of the key's set.
 template <int LJ_MAX, bool kCombined>
 __global__ void __launch_bounds__(256, min_ctas<LJ_MAX>())
     multibit_step_cluster_kernel(const int64_t* __restrict__ acc,
@@ -140,9 +151,8 @@ __global__ void __launch_bounds__(256, min_ctas<LJ_MAX>())
                                  const uint32_t* __restrict__ tables,
                                  const int64_t* __restrict__ xcrt,
                                  int64_t* __restrict__ out, int per, int G,
-                                 int N, int log_n, int base_log,
+                                 int M, int N, int log_n, int base_log,
                                  int levels) {
-  constexpr int M = 2;  // every multi-bit set is on the 64-bit torus
   extern __shared__ uint4 core_smem[];
   uint32_t* buf = reinterpret_cast<uint32_t*>(core_smem);
   cg::cluster_group cluster = cg::this_cluster();
@@ -203,7 +213,7 @@ __global__ void __launch_bounds__(256, min_ctas<LJ_MAX>())
     w2sh = __ldg(pw + 2 * N + (N >> 1));
     w3sh = __ldg(pw + 2 * N + 3 * (N >> 2));
   }
-  const uint32_t c32 = 0u - c.one_sh * c.p;  // 2^32 mod p
+  const WideConsts wc = load_wide_consts(tab);
   const long long W = (long long)LJ * OM * N;  // a subset key, one prime
   // K9: subset j's key at kspec[j, pi]; K8: the ciphertext's at kspec[b, pi]
   const uint32_t* key =
@@ -268,14 +278,7 @@ __global__ void __launch_bounds__(256, min_ctas<LJ_MAX>())
       if (om0 + q < OM) {
         uint32_t x[kRadix];
 #pragma unroll
-        for (int k = 0; k < kRadix; ++k) {
-          // o < 2^44 (K8: < 2^40): its high word is below 2^12, and
-          // times 2^32 mod p (< 2^17) below 2^29
-          const uint32_t r =
-              shoup_lazy((uint32_t)o[q][k], 1u, c.one_sh, c.p) +
-              (uint32_t)(o[q][k] >> 32) * c32;
-          x[k] = shoup_lazy(r, 1u, c.one_sh, c.p);
-        }
+        for (int k = 0; k < kRadix; ++k) x[k] = reduce_u64(o[q][k], c, wc);
         inverse_stages(x, w, wsh, 0, c.p, c.p2);
         store_words(buf + (om0 + q) * N, 0, offs, x);
       }
@@ -285,12 +288,12 @@ __global__ void __launch_bounds__(256, min_ctas<LJ_MAX>())
   // 3. the inverse transforms; the values c_i = r_i N^-1 (Q/p_i)^-1 mod
   //    p_i at the thread's own words
   const int64_t* row = xcrt + pi * tfhe_pbs::kXcrtWidth;
-  const uint32_t wc = (uint32_t)row[1];
-  const uint32_t wcsh = (uint32_t)row[2];
+  const uint32_t wi = (uint32_t)row[1];
+  const uint32_t wish = (uint32_t)row[2];
   inverse_transforms(buf, OM, 0, 1, N, pl, inv, c,
                      [&](int om, int k, uint32_t x) {
                        buf[om * N + swz(tid + k * T)] =
-                           shoup_canonical(x, wc, wcsh, c.p);
+                           shoup_canonical(x, wi, wish, c.p);
                      });
   cluster.sync();  // every prime's values are in its CTA's buf
 

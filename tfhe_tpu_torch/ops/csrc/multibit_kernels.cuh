@@ -26,14 +26,16 @@
 //   kspec     [per, P, LJ, O, M, N] uint32 one group's subset key spectra
 //   powers    [P, 2, 2N]            uint32 psi^k and Shoup companions
 //   exps      [N]                   int32  e(n)
-//   tables    [P, 5, N]             uint32 ntt.tables_for(N).kernel: p at
-//                                          [pi, 4, 2]
+//   tables    [P, kHeader + 2 W]    uint32 ntt.pass_tables_for(N): the
+//                                          header of prime pi (p, its
+//                                          companions, 2^32 mod p)
 //   combined  [B, P, LJ, O, M, N]   uint32 per-ciphertext combined key
 //
 // What bounds it on the card: by bytes, the write of the combined key, B P
-// LJ O M N 4 bytes (320 KiB a ciphertext at
-// PARAM_MULTI_BIT_MESSAGE_2_CARRY_2_GROUP_3_KS_PBS width); in fact the
-// integer issue of its (2^gf - 1) products a word.
+// LJ O M N 4 bytes (128 KiB a ciphertext at
+// PARAM_MULTI_BIT_MESSAGE_2_CARRY_2_GROUP_3_KS_PBS width on the key's four
+// primes and one plane, 320 KiB on five and two); in fact its integer
+// instruction rate, (2^gf - 1) products a word.
 //
 // First design: one thread per key word and 16 ciphertexts, every block
 // first copying its prime's padded power table and companions (2 (2N + 32)
@@ -59,7 +61,12 @@
 // monomials made) ran 0.0393, of 8 rows (212 registers, one block an SM)
 // 0.0320; capped at 80 registers for three blocks an SM, 0.0361 (100 bytes
 // spilled) and, with tiles of 3 rows, 0.0327.  All at GROUP_3 width, B =
-// 64, measured with kernel_times.py.
+// 64, measured with kernel_times.py.  Then the key's primes: on its four
+// below 2^26.83 and one plane (ntt.classic_plan for 2^gf summed words) a
+// GROUP_3 key has R = 4 rows, one tile, and the sums need the core's
+// 64-bit reduction (reduce_u64); 0.0116 ms at B = 64, 0.0390 at B = 256,
+// against 0.0307 and 0.0880 on five primes and two planes (119
+// registers).
 #pragma once
 
 #include <stdint.h>
@@ -84,18 +91,14 @@ inline size_t combine_smem(int per) {
          sizeof(uint32_t);
 }
 
-// one prime's p, floor(2^32 / p) (the companion of 1), and w^1, w^2, w^3
-// (w = psi^(N/4))
+// one prime's w^1, w^2, w^3 (w = psi^(N/4))
 struct MonoConsts {
-  uint32_t p, one_sh, w1, w2, w3;
+  uint32_t w1, w2, w3;
 };
 
 __device__ __forceinline__ MonoConsts load_mono_consts(
-    const uint32_t* __restrict__ pw, const uint32_t* __restrict__ tables,
-    int pi, int N) {
+    const uint32_t* __restrict__ pw, int N) {
   MonoConsts r;
-  r.p = __ldg(tables + (long long)pi * 5 * N + 4 * N + 2);
-  r.one_sh = __ldg(pw + 2 * N);  // the companion of psi^0 = 1
   r.w1 = __ldg(pw + (N >> 2));
   r.w2 = __ldg(pw + (N >> 1));
   r.w3 = __ldg(pw + 3 * (N >> 2));
@@ -116,8 +119,10 @@ __device__ __forceinline__ int tile_slot(int v) { return v ^ ((v >> 3) & 1); }
 // 8, from one gather (value and companion) and three Shoup products (the
 // values psi^t w^s, s < 4; w^(s + 4) = -w^s), then sums K_0 + sum_j mon_j
 // K_j over the tile's rows exactly in 64 bits, one multiply-add a product
-// (canonical words below p < 2^17: at most p + 15 p^2 < 2^38), and brings
-// each word canonical once.  R = LJ O M rows of N words.
+// (canonical words below p < 2^26.83: at most p + 15 p^2 < 2^58), and
+// brings each word canonical once (tfhe_core::reduce_u64, then one
+// subtraction).  R = LJ O M rows of N words; of the core's tables
+// (ntt.pass_tables_for) only each prime's header is read.
 __global__ void __launch_bounds__(kCombineCols * kCombineBatch)
     multibit_combine_kernel(const int32_t* __restrict__ d,
                             const uint32_t* __restrict__ kspec,
@@ -135,8 +140,12 @@ __global__ void __launch_bounds__(kCombineCols * kCombineBatch)
   const int n0 = (blockIdx.x * kCombineCols + tx) * kRadix;
   const int b = blockIdx.z * kCombineBatch + threadIdx.y;
   const uint32_t* pw = powers + (long long)pi * 4 * N;
-  const MonoConsts r = load_mono_consts(pw, tables, pi, N);
-  const uint32_t c32 = 0u - r.one_sh * r.p;  // 2^32 mod p
+  const MonoConsts r = load_mono_consts(pw, N);
+  const uint32_t* tab =
+      tables + (long long)pi * (tfhe_core::kHeader +
+                                2 * tfhe_core::make_plan(__ffs(N) - 1).words);
+  const tfhe_core::PrimeConsts pc = tfhe_core::load_consts(tab);
+  const tfhe_core::WideConsts wc = tfhe_core::load_wide_consts(tab);
   const int e0 = __ldg(exps + n0);
   const long long W = (long long)R * N;  // one subset key, one prime
   const uint32_t* kp = kspec + (long long)pi * W +
@@ -170,15 +179,15 @@ __global__ void __launch_bounds__(kCombineCols * kCombineBatch)
       const int dj = __ldg(d + (long long)b * per + j);
       const int t = (dj * e0) & (2 * N - 1);
       const uint32_t v0 = __ldg(pw + t), v0sh = __ldg(pw + 2 * N + t);
-      const uint32_t v1 = tfhe_core::shoup_canonical(r.w1, v0, v0sh, r.p);
-      const uint32_t v2 = tfhe_core::shoup_canonical(r.w2, v0, v0sh, r.p);
-      const uint32_t v3 = tfhe_core::shoup_canonical(r.w3, v0, v0sh, r.p);
+      const uint32_t v1 = tfhe_core::shoup_canonical(r.w1, v0, v0sh, pc.p);
+      const uint32_t v2 = tfhe_core::shoup_canonical(r.w2, v0, v0sh, pc.p);
+      const uint32_t v3 = tfhe_core::shoup_canonical(r.w3, v0, v0sh, pc.p);
       uint32_t mon[kRadix];
 #pragma unroll
       for (int k = 0; k < kRadix; ++k) {
         const int m = (dj * tfhe_core::bitrev3(k)) & 7;
         const uint32_t v = (m & 2) ? ((m & 1) ? v3 : v2) : ((m & 1) ? v1 : v0);
-        mon[k] = m & 4 ? r.p - v : v;  // psi^t is never 0
+        mon[k] = m & 4 ? pc.p - v : v;  // psi^t is never 0
       }
       const int at = j * kCombineRows * kVecs;
 #pragma unroll
@@ -196,11 +205,8 @@ __global__ void __launch_bounds__(kCombineCols * kCombineBatch)
         uint32_t c[kRadix];
 #pragma unroll
         for (int k = 0; k < kRadix; ++k) {
-          // o < 2^38: its high word is below 2^6
-          const uint32_t x =
-              tfhe_core::shoup_lazy((uint32_t)o[q][k], 1u, r.one_sh, r.p) +
-              (uint32_t)(o[q][k] >> 32) * c32;
-          c[k] = tfhe_core::shoup_canonical(x, 1u, r.one_sh, r.p);
+          const uint32_t x = tfhe_core::reduce_u64(o[q][k], pc, wc);
+          c[k] = min(x, x - pc.p);
         }
         const uint4 lo = make_uint4(c[0], c[1], c[2], c[3]);
         const uint4 hi = make_uint4(c[4], c[5], c[6], c[7]);

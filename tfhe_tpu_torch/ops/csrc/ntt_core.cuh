@@ -61,7 +61,8 @@ constexpr int kLogRadix = 3;
 constexpr int kRadix = 1 << kLogRadix;  // words of a polynomial a thread holds
 constexpr int kRecord = 2 * kRadix;     // one twiddle record, in words
 constexpr int kHeader = 8;  // per-prime constants before the records:
-                            // PrimeConsts, N^-1 and its companion, 0, 0
+                            // PrimeConsts, N^-1 and its companion,
+                            // WideConsts
 constexpr int kMinLogN = 8;             // the swizzle's and the plan's range
 constexpr int kMaxLogN = 11;            // (the primes' 2N-th roots)
 
@@ -86,6 +87,31 @@ __device__ __forceinline__ uint32_t shoup_canonical(uint32_t a, uint32_t w,
                                                     uint32_t wsh, uint32_t p) {
   const uint32_t r = shoup_lazy(a, w, wsh, p);
   return min(r, r - p);
+}
+
+// 2^32 mod p and its Shoup companion, words 6 and 7 of the header: what
+// brings the high word of a 64-bit sum under 2p
+struct WideConsts {
+  uint32_t c32, c32sh;
+};
+
+__device__ __forceinline__ WideConsts load_wide_consts(const uint32_t* tab) {
+  const uint2 a = __ldg(reinterpret_cast<const uint2*>(tab + 6));
+  return WideConsts{a.x, a.y};
+}
+
+// Any 64-bit x -> a word in [0, 2p) congruent to it: its low word by a
+// Shoup product with 1 and its high word by one with 2^32 mod p, each in
+// [0, 2p), their sum (below 4p < 2^32) less 2p if it is not below 2p.  The
+// multi-bit kernels' MACs and their combine sum exact 64-bit products of
+// canonical key words with words below 2p, which no 32-bit sum holds at
+// primes above 2^17.
+__device__ __forceinline__ uint32_t reduce_u64(uint64_t x,
+                                               const PrimeConsts& c,
+                                               const WideConsts& w) {
+  const uint32_t r = shoup_lazy((uint32_t)x, 1u, c.one_sh, c.p) +
+                     shoup_lazy((uint32_t)(x >> 32), w.c32, w.c32sh, c.p);
+  return min(r, r - c.p2);
 }
 
 // a signed digit -> a word in [0, 3p) congruent to it: (d + 2^31) mod p by

@@ -16,10 +16,11 @@ then a scale by N^-1 (Longa & Naehrig, "Speeding up the Number Theoretic
 Transform for Faster Ideal Lattice-Based Cryptography", 2016, Alg. 1-2).
 
 Residues are canonical, in [0, p).  Two sets of primes: `PRIMES`, the
-reference's five below 2^17 (multi-bit, the "ntt" layout, the u128 path and
-comparisons with the reference's spectra), and `WIDE_PRIMES`, eight below
-2^32 / 36, of which the classic key's spectra take the fewest that hold
-the exact external product (`classic_plan`).  p < 2^27, so a product of
+reference's five below 2^17 (the "ntt" layouts, classic and multi-bit, the
+u128 path and comparisons with the reference's spectra), and
+`WIDE_PRIMES`, eight below 2^32 / 36, of which the kernels' keys, classic
+and multi-bit, take the fewest that hold the exact external product
+(`classic_plan`).  p < 2^27, so a product of
 two residues fits easily in int64 and in the 32-bit Shoup form the kernels
 use.  Every table is built per (set, N) and cached; a function that takes
 `primes` defaults to `PRIMES`.
@@ -102,14 +103,16 @@ check_headroom(WIDE_PRIMES)
 
 
 def product_bound(base_log: int, digit_polys: int, N: int, bits: int,
-                  planes: int) -> int:
+                  planes: int, key_terms: int = 1) -> int:
     """The largest |x| of an external product's exact convolution: L*G*N
     terms, each a balanced digit (|d| <= 2^(base_log - 1)) times a key
     plane; one plane is the torus word as a signed integer (|k| <= 2^63 for
     the u64 torus; a u32 word is held in [0, 2^32)), two planes its 32-bit
-    halves in [0, 2^32)."""
+    halves in [0, 2^32).  A key word that is a sum of `key_terms` such
+    words (2^gf for a multi-bit key's combined GGSW, K_0 + sum_{j>=1}
+    X^{d_j} K_j; 1 for a classic key) takes `key_terms` times as much."""
     key = (1 << 63) if bits == 64 and planes == 1 else (1 << (bits // planes))
-    return digit_polys * N * (1 << (base_log - 1)) * key
+    return key_terms * digit_polys * N * (1 << (base_log - 1)) * key
 
 
 # the explicit CRT's fraction bits F: the most for which every T_i =
@@ -127,18 +130,22 @@ def holds_product(primes: tuple[int, ...], bound: int) -> bool:
 
 
 def classic_plan(base_log: int, levels: int, glwe_size: int, N: int,
-                 bits: int) -> tuple[tuple[int, ...], int]:
-    """(primes, M): the classic key's prime set, the first P of
-    `WIDE_PRIMES`, and its planes a torus word (1, or 2 for the u64
-    torus), from the parameter set's widths alone.  For each M the fewest
-    primes that hold the exact product (`holds_product`); of those, the
-    plan with the fewest transforms a step, P (L G + G M), then the fewest
-    spectral products, P L G G M.  PARAM_MESSAGE_2_CARRY_2_KS_PBS (base_log
-    23, L 1, G 2, N 2048, u64): |x| <= 2^97, so P = 4 and M = 1."""
+                 bits: int, key_terms: int = 1
+                 ) -> tuple[tuple[int, ...], int]:
+    """(primes, M): a key's prime set, the first P of `WIDE_PRIMES`, and
+    its planes a torus word (1, or 2 for the u64 torus), from the
+    parameter set's widths alone; `key_terms` words summed into one key
+    word (`product_bound`: 1 for a classic key, 2^gf for a multi-bit
+    key).  For each M the fewest primes that hold the exact product
+    (`holds_product`); of those, the plan with the fewest transforms a
+    step, P (L G + G M), then the fewest spectral products, P L G G M.
+    PARAM_MESSAGE_2_CARRY_2_KS_PBS (base_log 23, L 1, G 2, N 2048, u64):
+    |x| <= 2^97, so P = 4 and M = 1; PARAM_MULTI_BIT_MESSAGE_2_CARRY_2_
+    GROUP_3_KS_PBS (base_log 21, 2^3 terms): 2^98, so P = 4 and M = 1."""
     LJ = levels * glwe_size
     best = None
     for M in ((1, 2) if bits == 64 else (1,)):
-        bound = product_bound(base_log, LJ, N, bits, M)
+        bound = product_bound(base_log, LJ, N, bits, M, key_terms)
         for P in range(1, MAX_PRIMES + 1):
             if holds_product(WIDE_PRIMES[:P], bound):
                 cost = (P * (LJ + glwe_size * M), P * LJ * glwe_size * M, M)
@@ -153,12 +160,13 @@ def classic_plan(base_log: int, levels: int, glwe_size: int, N: int,
 
 
 def planes_for(primes: tuple[int, ...], base_log: int, levels: int,
-               glwe_size: int, N: int, bits: int) -> int:
+               glwe_size: int, N: int, bits: int, key_terms: int = 1) -> int:
     """The fewest planes a torus word (1, or 2 for the u64 torus) whose
-    product `primes` holds; ValueError if none."""
+    product `primes` holds, for a key word of `key_terms` words
+    (`product_bound`); ValueError if none."""
     for M in ((1, 2) if bits == 64 else (1,)):
         if holds_product(primes, product_bound(base_log, levels * glwe_size,
-                                               N, bits, M)):
+                                               N, bits, M, key_terms)):
             return M
     raise ValueError(f"the primes {primes} do not hold the product at "
                      f"base_log {base_log}, {levels} levels, G {glwe_size}, "
@@ -216,14 +224,12 @@ def _shoup(w: np.ndarray, p) -> np.ndarray:
 
 @dataclass(frozen=True)
 class NttTables:
-    """Device copies of the twiddles, for the plain version and the kernel.
+    """Device copies of the twiddles and the CRT's constants, for the plain
+    versions and the kernels.
 
     primes [P]; psi_rev / psi_inv_rev [P, N]; n_inv [P] (all int64);
-    kernel [P, 5, N] int32 bit patterns of uint32: psi_rev, its Shoup
-    companion, psi_inv_rev, its companion, and (N^-1, companion, p,
-    floor(2^34 / p)) at the start of row 4 (the last is the Barrett
-    constant of a product of two residues);  crt [P, 2P + 4] int64,
-    Garner's constants for prime i with Q_j = p_0...p_{j-1}: Q_j mod p_i
+    crt [P, 2P + 4] int64, Garner's constants for prime i with
+    Q_j = p_0...p_{j-1}: Q_j mod p_i
     (j < P), their Shoup companions, Q_i^-1 mod p_i, its companion, p_i,
     Q_i mod 2^64 (as int64 bits);  xcrt [P, XCRT_WIDTH] int64, the
     explicit CRT's constants (`_explicit_crt_host`)."""
@@ -232,7 +238,6 @@ class NttTables:
     psi_rev: torch.Tensor
     psi_inv_rev: torch.Tensor
     n_inv: torch.Tensor
-    kernel: torch.Tensor
     crt: torch.Tensor
     xcrt: torch.Tensor
 
@@ -318,7 +323,7 @@ PASS_LOG_RADIX = 3
 PASS_RADIX = 1 << PASS_LOG_RADIX
 PASS_RECORD = 2 * PASS_RADIX  # twiddles, then their Shoup companions
 PASS_HEADER = 8  # p, 2p, floor(2^32 / p), p - 2^31 mod p, N^-1, its companion,
-#                 then zeros
+#                 2^32 mod p, its companion
 
 
 def pass_plan(N: int) -> tuple[int, list[int]]:
@@ -376,16 +381,17 @@ def _pass_records(N: int, psi: np.ndarray, p: int, inverse: bool
 def _host_pass_tables(N: int, primes: tuple[int, ...] = PRIMES) -> np.ndarray:
     """[P, PASS_HEADER + 2 W] int64 (uint32 values): per prime the header
     (p, 2p, floor(2^32 / p), p - 2^31 mod p, N^-1 mod p, its Shoup
-    companion, 0, 0), then the forward records, then the inverse records
-    (W words each)."""
+    companion, 2^32 mod p, its Shoup companion: the last two reduce a
+    64-bit sum's high word), then the forward records, then the inverse
+    records (W words each)."""
     if not 256 <= N <= 2048 or N & (N - 1):
         raise ValueError(f"the NTT core takes N in 256 ... 2048, not {N}")
     fwd, inv, ninv = _host_tables(N, primes)
     rows = []
     for i, p in enumerate(primes):
-        n_inv = int(ninv[i])
+        n_inv, c32 = int(ninv[i]), (1 << 32) % p
         head = np.array([p, 2 * p, (1 << 32) // p, p - (1 << 31) % p, n_inv,
-                         (n_inv << 32) // p, 0, 0], np.int64)
+                         (n_inv << 32) // p, c32, (c32 << 32) // p], np.int64)
         rows.append(np.concatenate([head, _pass_records(N, fwd[i], p, False),
                                     _pass_records(N, inv[i], p, True)]))
     return np.stack(rows)
@@ -395,36 +401,25 @@ def _host_pass_tables(N: int, primes: tuple[int, ...] = PRIMES) -> np.ndarray:
 def ntt_tables(N: int, device: str, primes: tuple[int, ...] = PRIMES
                ) -> NttTables:
     fwd, inv, ninv = _host_tables(N, primes)
-    P = len(primes)
-    kern = np.zeros((P, 5, N), np.int32)
-    for i, p in enumerate(primes):
-        kern[i, 0] = _as_i32_bits(fwd[i])
-        kern[i, 1] = _as_i32_bits(_shoup(fwd[i], p))
-        kern[i, 2] = _as_i32_bits(inv[i])
-        kern[i, 3] = _as_i32_bits(_shoup(inv[i], p))
-        kern[i, 4, 0] = ninv[i]
-        kern[i, 4, 1] = _as_i32_bits(_shoup(ninv[i:i + 1], p))[0]
-        kern[i, 4, 2] = p
-        kern[i, 4, 3] = (1 << 34) // p
     dev = torch.device(device)
     t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
     return NttTables(t(np.array(primes, np.int64)), t(fwd), t(inv), t(ninv),
-                     t(kern), t(_garner_host(primes)),
-                     t(_explicit_crt_host(N, primes)))
+                     t(_garner_host(primes)), t(_explicit_crt_host(N, primes)))
 
 
 @functools.cache
-def _host_monomial_tables(N: int):
-    """psi^k for k in [0, 2N) per prime (int64 [P, 2N]), and e [N] int64:
-    the odd exponent with spectrum position i = value at psi^e(i).
+def _host_monomial_tables(N: int, primes: tuple[int, ...] = PRIMES):
+    """psi^k for k in [0, 2N) per prime of `primes` (int64 [P, 2N]), and
+    e [N] int64: the odd exponent with spectrum position i = value at
+    psi^e(i).
 
     psi itself is psi^bitrev(N/2) = psi^1, an entry of the forward twiddle
     table.  e is read off the forward transform of X (position i holds
     psi^e(i)) by the discrete log over the powers of psi, and checked to
-    be the same for every prime."""
-    fwd, _, _ = _host_tables(N)
-    powers = np.empty((len(PRIMES), 2 * N), np.int64)
-    for i, p in enumerate(PRIMES):
+    be the same for every prime of the set."""
+    fwd, _, _ = _host_tables(N, primes)
+    powers = np.empty((len(primes), 2 * N), np.int64)
+    for i, p in enumerate(primes):
         psi = int(fwd[i, N // 2])
         acc = 1
         for k in range(2 * N):
@@ -432,9 +427,9 @@ def _host_monomial_tables(N: int):
             acc = acc * psi % p
     x = torch.zeros(N, dtype=torch.int64)
     x[1] = 1
-    spec = forward_ntt(x).numpy()  # [P, N]
+    spec = forward_ntt(x, primes=primes).numpy()  # [P, N]
     exps = None
-    for i in range(len(PRIMES)):
+    for i in range(len(primes)):
         log = {int(v): k for k, v in enumerate(powers[i])}
         e = np.array([log[int(v)] for v in spec[i]], np.int64)
         if exps is not None and not np.array_equal(e, exps):
@@ -456,10 +451,11 @@ class MonomialTables:
 
 
 @functools.cache
-def _monomial_tables(N: int, device: str) -> MonomialTables:
-    powers, exps = _host_monomial_tables(N)
-    out = np.zeros((len(PRIMES), 2, 2 * N), np.int32)
-    for i, p in enumerate(PRIMES):
+def _monomial_tables(N: int, device: str, primes: tuple[int, ...]
+                     ) -> MonomialTables:
+    powers, exps = _host_monomial_tables(N, primes)
+    out = np.zeros((len(primes), 2, 2 * N), np.int32)
+    for i, p in enumerate(primes):
         out[i, 0] = powers[i]
         out[i, 1] = _as_i32_bits(_shoup(powers[i], p))
     dev = torch.device(device)
@@ -467,14 +463,17 @@ def _monomial_tables(N: int, device: str) -> MonomialTables:
                           torch.from_numpy(exps.astype(np.int32)).to(dev))
 
 
-def monomial_tables_for(N: int, device: torch.device) -> MonomialTables:
-    return _monomial_tables(N, str(torch.device(device)))
+def monomial_tables_for(N: int, device: torch.device,
+                        primes: tuple[int, ...] = PRIMES) -> MonomialTables:
+    return _monomial_tables(N, str(torch.device(device)), tuple(primes))
 
 
-def monomial_spectra(d: torch.Tensor, N: int) -> torch.Tensor:
-    """Forward spectra of the monomials X^d, d [...] int in [0, 2N) ->
-    [..., P, N] int64 canonical residues: psi^(d * e(i) mod 2N) at i."""
-    tab = monomial_tables_for(N, d.device)
+def monomial_spectra(d: torch.Tensor, N: int,
+                     primes: tuple[int, ...] = PRIMES) -> torch.Tensor:
+    """Forward spectra over `primes` of the monomials X^d, d [...] int in
+    [0, 2N) -> [..., P, N] int64 canonical residues: psi^(d * e(i) mod 2N)
+    at i."""
+    tab = monomial_tables_for(N, d.device, primes)
     idx = (d.to(torch.int64)[..., None] * tab.exponents.to(torch.int64)
            ) % (2 * N)  # [..., N]
     pw = tab.powers[:, 0].to(torch.int64)  # [P, 2N]
