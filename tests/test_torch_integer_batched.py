@@ -16,6 +16,7 @@ from tfhe_tpu.integer.batched import encrypt_batch_radix as ref_encrypt
 from tfhe_tpu.params import PARAM_MESSAGE_2_CARRY_2_COMPACT_TEST as REF_P
 
 from tfhe_tpu_torch import integer
+from tfhe_tpu_torch.integer import fused as F
 from tfhe_tpu_torch.integer.batched import (BatchedRadixOps,
                                             decrypt_batch_radix,
                                             encrypt_batch_radix)
@@ -86,7 +87,8 @@ def test_ripple_propagate(keys):
     """The ripple chain alone on sums of two clean blocks (its invariant)."""
     (rc, rsks), (pc, psks) = keys
     (ra, rb), (pa, pb) = _pair(keys, AV, BV)
-    got = BatchedRadixOps(psks, "ripple")._propagate_ripple(pa + pb)
+    got = F._propagate_ripple(psks._pbs_device,
+                              *F._accs(psks, ("rcarry", "msgext")), pa + pb)
     want = RefOps(rsks)._propagate_ripple(ra + rb)
     assert np.array_equal(np.asarray(want), to_numpy(got))
     assert decrypt_batch_radix(pc, got) == [(x + y) % MOD

@@ -1,12 +1,13 @@
 """The port's single-program radix ops (tfhe_tpu_torch.integer.fused, on
 the CPU) == tfhe_tpu.parallel.fused's functions of the same name, word for
 word (tolerance 0), at PARAM_MESSAGE_2_CARRY_2_COMPACT_TEST with 4 blocks
-and two ciphertexts a batch, each fed the reference's own LUT accumulators
-(its FusedIntegerOps table).  The reference runs outside its whole-op
-`jax.jit`, each PBS batch through its per-shape PBS program (the same exact
-math); fused_ks_pbs on a classic key (a multi-bit one in
-test_torch_integer_fused_multibit.py).  Every result
-decrypts to the clear one and leaves its inputs unchanged."""
+and two ciphertexts a batch, each package fed its own LUT accumulators
+(the reference's FusedIntegerOps table, the port's `integer.fused.lut`),
+the port's batches through `pbs_on`.  The reference runs outside its
+whole-op `jax.jit`, each PBS batch through its per-shape PBS program (the
+same exact math); fused_ks_pbs on a classic key (a multi-bit one in
+test_torch_integer_fused_multibit.py).  Every result decrypts to the clear
+one and leaves its inputs unchanged."""
 
 import numpy as np
 import pytest
@@ -19,7 +20,6 @@ from tfhe_tpu.params import PARAM_MESSAGE_2_CARRY_2_COMPACT_TEST as REF_P
 
 from tfhe_tpu_torch import integer, shortint
 from tfhe_tpu_torch.integer import fused as F
-from tfhe_tpu_torch.integer.fused_dispatch import FusedIntegerOps
 from tfhe_tpu_torch.ops.torus import to_numpy
 from tfhe_tpu_torch.params import PARAM_MESSAGE_2_CARRY_2_COMPACT_TEST as P
 from torch_integer_pair import host_path_one_thread  # noqa: F401
@@ -44,8 +44,7 @@ def env():
                b=np.stack([c.blocks.data for c in rb]),
                cond=np.stack([rc.encrypt_bool(x % 2 == 0).block.data[0]
                               for x in XS]))
-    port = dict(ops=FusedIntegerOps(pk),
-                a=torch.stack([c.blocks.data for c in pa]),
+    port = dict(a=torch.stack([c.blocks.data for c in pa]),
                 b=torch.stack([c.blocks.data for c in pb]),
                 cond=torch.stack([pc.encrypt_bool(x % 2 == 0).block.data[0]
                                   for x in XS]))
@@ -69,10 +68,10 @@ def _check(env, ref_fn, port_fn, names, inputs, kw, want=None,
     accs = [_acc(ref["ops"], n) for n in names]
     r_out = ref_fn(rk.key.ksk, rk.key.bsk, *accs, *[ref[i] for i in inputs],
                    **kw)
-    p_accs = [_acc(port["ops"], n) for n in names]
+    p_accs = F._accs(pk.key, names)
     args = [port[i] for i in inputs]
     before = [a.clone() for a in args]
-    p_out = port_fn(pk.key.ksk, pk.key.bsk, *p_accs, *args, **kw)
+    p_out = port_fn(F._pbs_on(pk.key.ksk, pk.key.bsk), *p_accs, *args, **kw)
     assert all(a.equal(b) for a, b in zip(args, before))
     assert np.array_equal(np.asarray(r_out), to_numpy(p_out))
     if want is not None:
@@ -87,7 +86,7 @@ def _check(env, ref_fn, port_fn, names, inputs, kw, want=None,
 
 
 def _acc(ops, name):
-    """The accumulator `name` of a FusedIntegerOps table."""
+    """The accumulator `name` of the reference's FusedIntegerOps table."""
     return ops._acc(name)
 
 
@@ -117,25 +116,26 @@ def test_mul(env):
 def test_eq_ne(env, negate):
     rk, pk, pc, ref, port = env
     cap = (4 * 4 - 1) // 3
+    assert pk.key.max_noise_level == cap
     widths = F.eq_chunk_widths(NB, cap)
     assert widths == RF.eq_chunk_widths(NB, cap)
     r_and = {c: rk.key.generate_lookup_table(lambda v, c=c: int(v == c)).acc
              for c in widths}
     r_and["not"] = rk.key.generate_lookup_table(lambda v: int(v == 0)).acc
-    p_and = {c: pk.key.generate_lookup_table(lambda v, c=c: int(v == c)).acc
-             for c in widths}
-    p_and["not"] = pk.key.generate_lookup_table(lambda v: int(v == 0)).acc
-    beq = lambda k: k.generate_lookup_table_bivariate(  # noqa: E731
-        lambda x, y: int(x == y)).acc.acc
-    kw = dict(NEG, negate=negate)
+    p_and = {c: F._lut(pk.key, ("and_sum", c)).acc for c in widths}
+    p_and["not"] = F._lut(pk.key, "not").acc
     b_r = ref["a"].copy()
     b_r[1] = ref["b"][1]  # the first pair equal, the second not
     b_p = port["a"].clone()
     b_p[1] = port["b"][1]
-    want = RF.fused_radix_eq(rk.key.ksk, rk.key.bsk, beq(rk.key), r_and,
-                             ref["a"], b_r, **kw)
-    got = F.fused_radix_eq(pk.key.ksk, pk.key.bsk, beq(pk.key), p_and,
-                           port["a"], b_p, **kw)
+    want = RF.fused_radix_eq(
+        rk.key.ksk, rk.key.bsk, rk.key.generate_lookup_table_bivariate(
+            lambda x, y: int(x == y)).acc.acc, r_and, ref["a"], b_r,
+        **NEG, negate=negate)
+    got = F.fused_radix_eq(F._pbs_on(pk.key.ksk, pk.key.bsk),
+                           F._lut(pk.key, "beq_01").acc, p_and, port["a"],
+                           b_p, message_modulus=4, cap=cap, delta=P.delta,
+                           negate=negate)
     assert np.array_equal(np.asarray(want), to_numpy(got))
     assert pc.key.decrypt_batch(got).tolist() == (
         [0, 1] if negate else [1, 0])
@@ -177,12 +177,12 @@ def test_minmax(env, op, f):
 def test_fused_ks_pbs_classic(env):
     """Any leading axes, a shared accumulator and one per ciphertext."""
     rk, pk, pc, ref, port = env
-    r_acc, p_acc = _acc(ref["ops"], "msgext"), _acc(port["ops"], "msgext")
+    r_acc, p_acc = _acc(ref["ops"], "msgext"), F._lut(pk.key, "msgext").acc
     want = RF.fused_ks_pbs(rk.key.ksk, rk.key.bsk, r_acc, ref["a"])
     got = F.fused_ks_pbs(pk.key.ksk, pk.key.bsk, p_acc, port["a"])
     assert got.shape == port["a"].shape
     assert np.array_equal(np.asarray(want), to_numpy(got))
-    per = torch.stack([_acc(port["ops"], n) for n in ("msgext", "carry")])
+    per = torch.stack(F._accs(pk.key, ("msgext", "carry")))
     got = F.fused_ks_pbs(pk.key.ksk, pk.key.bsk,
                          per[:, None].expand(2, NB, *per.shape[1:]),
                          port["a"])

@@ -102,12 +102,10 @@ def test_external_product_on_the_core_matches_plain(width, B, card):
                             .astype(np.int32)).to(card)
     dig = fused_pbs.rotate_decompose_plain(acc, ahat, bl, L, bits)
     fused_pbs.reset_launch_counts()
-    ctas = fused_pbs.PRIME_CTAS.value
     out = fused_pbs.external_product_crt(dig, key.kspec[0], key.kshoup[0], acc,
                                          bits, primes=key.primes)
     torch.cuda.synchronize()
     assert fused_pbs.external_product_crt.launches == 1
-    assert fused_pbs.PRIME_CTAS.value - ctas == B * len(key.primes)
     assert torch.equal(out, fused_pbs.external_product_crt_plain(
         dig, key.kspec[0], acc, bits, primes=key.primes))
 

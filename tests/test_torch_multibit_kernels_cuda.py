@@ -90,10 +90,8 @@ def test_schedules_agree_and_count_their_launches(card):
     key, acc, d = _inputs(CASES[1], card, seed=3)
     assert (key.primes, key.planes) == (ntt.WIDE_PRIMES[:4], 1)
     fm.reset_launch_counts()
-    ctas = fm.PRIME_CTAS.value
     scan3 = fm.multi_bit_blind_rotate_cuda(key, acc, d, mode="scan3")
     assert [k.launches for k in fm.KERNELS] == [3, 3, 0]
-    assert fm.PRIME_CTAS.value - ctas == 3 * 4 * 4  # groups * B * P
     fm.reset_launch_counts()
     scan1 = fm.multi_bit_blind_rotate_cuda(key, acc, d, mode="scan1")
     torch.cuda.synchronize()

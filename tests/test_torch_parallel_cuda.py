@@ -17,6 +17,7 @@ import torch
 import torch.distributed as dist
 
 from tfhe_tpu_torch import parallel, shortint
+from tfhe_tpu_torch.integer import fused as F
 from tfhe_tpu_torch.ops.torus import to_numpy
 from tfhe_tpu_torch.parallel import fused as PF
 from tfhe_tpu_torch.parallel.sharding import batch_spec
@@ -51,8 +52,8 @@ def cpu_words():
     ct = cks.encrypt_batch(np.arange(16) % 4)
     lut = sks.generate_lookup_table(lambda x: (x * 3 + 2) % 4)
     a, b, clear = _inputs(cks)
-    accs = PF._carry_accs(sks, torch.device("cpu"))
-    add = PF.fused_radix_add(sks.ksk, sks.bsk, *accs, a, b,
+    add = PF.fused_radix_add(F._pbs_on(sks.ksk, sks.bsk),
+                             *F._accs(sks, F._CARRY_LUTS), a, b,
                              message_modulus=MSG)
     return dict(
         cts=to_numpy(ct.data),

@@ -25,6 +25,7 @@ from tfhe_tpu.params import PARAM_MESSAGE_2_CARRY_2_COMPACT_TEST as REF_P
 
 from tfhe_tpu_torch import parallel, shortint
 from tfhe_tpu_torch.core import keyswitch_then_pbs
+from tfhe_tpu_torch.integer import fused as F
 from tfhe_tpu_torch.ops.torus import to_numpy
 from tfhe_tpu_torch.parallel import fused as PF
 from tfhe_tpu_torch.parallel import mesh as mesh_mod
@@ -146,8 +147,8 @@ def test_blockshard_add_at_one_rank(keys):
     PF.reset_p2p_counts()
     out = step(place(a), place(b)).full_tensor()
     assert PF._shift_up_collective.p2p_ops == 0  # every shift stays local
-    accs = PF._carry_accs(sks, torch.device("cpu"))
-    want = PF.fused_radix_add(sks.ksk, sks.bsk, *accs, a, b,
+    want = PF.fused_radix_add(F._pbs_on(sks.ksk, sks.bsk),
+                              *F._accs(sks, F._CARRY_LUTS), a, b,
                               message_modulus=msg)
     assert torch.equal(out, want)
     got = [sum(int(d) * msg**j for j, d in enumerate(cks.decrypt_batch(r)))

@@ -16,6 +16,7 @@ from tfhe_tpu.strings.batched import BatchedStringOps as RefOps
 from tfhe_tpu.strings.batched import encrypt_batch_strings as ref_encrypt
 
 from tfhe_tpu_torch import strings
+from tfhe_tpu_torch.integer import fused as F
 from tfhe_tpu_torch.integer.fused import fused_strings_contains
 from tfhe_tpu_torch.ops.torus import to_numpy
 from tfhe_tpu_torch.strings.batched import (BatchedStringOps,
@@ -83,18 +84,18 @@ def test_fused_strings_contains(env, monkeypatch):
         "resolve": lambda high, low: min(low if high == 0 else high, 2),
         "and": lambda a, b: int(bool(a) and bool(b)),
         "or": lambda a, b: int(bool(a) or bool(b))}
-
-    def accs(sks):
-        biv = {k: sks.generate_lookup_table_bivariate(f).acc.acc
-               for k, f in funcs.items()}
-        eq0 = sks.generate_lookup_table(lambda s: int(s == 0)).acc
-        return biv["sign"], biv["resolve"], eq0, biv["and"], biv["or"]
+    biv = {k: rsks.generate_lookup_table_bivariate(f).acc.acc
+           for k, f in funcs.items()}
+    eq0 = rsks.generate_lookup_table(lambda s: int(s == 0)).acc
 
     kw = dict(pat_digits=digits, message_modulus=msg, delta=psks.delta)
-    want = ref_fused.fused_strings_contains(rsks.ksk, rsks.bsk, *accs(rsks),
-                                            rb, **kw)
+    want = ref_fused.fused_strings_contains(
+        rsks.ksk, rsks.bsk, biv["sign"], biv["resolve"], eq0, biv["and"],
+        biv["or"], rb, **kw)
     before = pb.clone()
-    got = fused_strings_contains(psks.ksk, psks.bsk, *accs(psks), pb, **kw)
+    got = fused_strings_contains(F._pbs_on(psks.ksk, psks.bsk),
+                                 *F._accs(psks, F._CONTAINS_LUTS), pb,
+                                 **kw)
     assert pb.equal(before)
     assert np.array_equal(np.asarray(want), to_numpy(got))
     assert pc.integer_key.key.decrypt_batch(got).tolist() == [

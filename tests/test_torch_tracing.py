@@ -17,7 +17,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from tfhe_tpu_torch import api, core, integer, shortint
 from tfhe_tpu_torch.integer.fused_dispatch import FusedIntegerOps
-from tfhe_tpu_torch.ops import fused_multibit, fused_pbs
+from tfhe_tpu_torch.ops import fused_pbs
 from tfhe_tpu_torch.params import PARAM_MESSAGE_2_CARRY_2_COMPACT_TEST as P
 from tfhe_tpu_torch.utils import profiling
 
@@ -165,50 +165,6 @@ def test_a_capture_counts_nothing_and_each_replay_adds_its_counts(
     assert out.shape == (1, 3, data.shape[-1])
 
 
-def test_k2s_prime_cta_counter_replays_and_is_no_launch_count(monkeypatch):
-    # K2's CTAs a prime and ciphertext are a counter of their own: not a
-    # `.launches` name (kernels.launches_per_op sums those), and a graph's
-    # replay adds what its capture kept, as for the launch counters
-    name = "fused_pbs.external_product_crt.prime_ctas"
-    assert name in profiling.counters() and not name.endswith(".launches")
-    assert fused_pbs.PRIME_CTAS.value == profiling.counters()[name]
-    cks, sks = shortint.gen_keys(P, seed=SEED, device="cpu")
-    data = cks.encrypt_batch([0, 1]).data
-
-    def chain(x):  # a chain that "launches" K2 twice over 2 rows
-        fused_pbs.PRIME_CTAS.value += 2 * 2 * len(sks.bsk.primes)
-        return x[0][None]
-
-    _stub_cuda(monkeypatch)
-    fops = FusedIntegerOps(types.SimpleNamespace(key=sks))
-    key, dev = ("stub_k2", ((1, 2, data.shape[-1]),)), [data[None]]
-    fops._capture(key, chain, dev)
-    want = {name: 4 * len(sks.bsk.primes)}
-    assert fops._graph_counts[key] == want
-    before = profiling.counters()
-    fops._replay(key, chain, dev)
-    assert profiling.changes_since(before) == want
-
-
-def test_k8s_prime_cta_counter_is_registered_and_no_launch_count():
-    # K8's external product's CTAs, the twin of K2's: registered, not a
-    # `.launches` name, and counted by the wrapper at each launch only (the
-    # plain version on the CPU adds nothing)
-    name = "fused_multibit.multibit_external_product.prime_ctas"
-    assert name in profiling.counters() and not name.endswith(".launches")
-    assert fused_multibit.PRIME_CTAS.value == profiling.counters()[name]
-    from tfhe_tpu_torch.params import (
-        PARAM_MULTI_BIT_MESSAGE_2_CARRY_2_GROUP_2_TEST as MB)
-
-    cks, sks = shortint.gen_keys(MB, seed=SEED, device="cpu")
-    before = profiling.counters()
-    sks.apply_lookup_table_batch(cks.encrypt_batch([0, 1]),
-                                 sks.generate_lookup_table(lambda x: x))
-    moved = profiling.changes_since(before)
-    assert moved.get(name, 0) == 0
-    assert moved["fused_multibit.multibit_combine.key_bytes"] > 0
-
-
 OPS = {"add": lambda k, a, b: k.add_parallelized(a, b),
        "mul": lambda k, a, b: k.mul_parallelized(a, b)}
 
@@ -242,9 +198,6 @@ def test_replays_count_as_eager_runs_on_the_card(op):
     assert eager["fused_pbs.rotate_decompose.launches"] == \
         eager["fused_pbs.external_product_crt.launches"] == \
         P.lwe_dimension * eager["pbs.batches"]
-    # one CTA a prime of the key's set and a ciphertext, every K2 launch
-    assert eager["fused_pbs.external_product_crt.prime_ctas"] == \
-        P.lwe_dimension * eager["pbs.rows"] * len(sks.key.bsk.primes)
 
 
 @pytest.mark.cuda
@@ -288,8 +241,3 @@ def test_multi_bit_replays_count_as_eager_runs_on_the_card(op):
         steps * batches
     assert eager["fused_multibit.multibit_combine.key_bytes"] == \
         steps * batches * kspec[0].numel() * kspec.element_size()
-    # K8's external product: one CTA a prime of the key's set (four wide
-    # primes at this set's widths) and a ciphertext, every launch
-    assert len(sks.key.bsk.primes) == 4
-    assert eager["fused_multibit.multibit_external_product.prime_ctas"] == \
-        steps * eager["pbs.rows"] * len(sks.key.bsk.primes)

@@ -3,7 +3,8 @@
 schedule (every op a sequence of shortint batch calls, the same batches as
 the reference's), the single-program ops of `fused_dispatch` for clean
 inputs (`IntegerServerKey(key, fused=True)`: one CUDA graph replay per op
-on a card), and `batched.BatchedRadixOps`, B integers per wave.
+on a card), and `batched.BatchedRadixOps`, B integers per wave (the same
+chains of `integer.fused`, run eagerly).
 
 `IntegerWopbsKey` evaluates any function of a radix integer by WoPBS
 (`integer.wopbs`)."""

@@ -33,7 +33,6 @@ with `schedule.copy_in`, `schedule.replay` and `schedule.clone_out`;
 
 from __future__ import annotations
 
-import functools
 from typing import Optional
 
 import numpy as np
@@ -51,9 +50,9 @@ GRAPH_POOL_BYTES = profiling.counter("schedule.graph_pool_bytes")
 
 
 class FusedIntegerOps:
-    """The single-program radix ops bound to one integer server key: the
-    LUT accumulators built once, each (op, shapes) program built once and,
-    on a card, captured once into a CUDA graph."""
+    """The single-program radix ops bound to one integer server key: each
+    (op, shapes) chain of `integer.fused` bound once (`_radix_op`) and, on
+    a card, captured once into a CUDA graph."""
 
     def __init__(self, isk):
         self.isk = isk
@@ -63,127 +62,19 @@ class FusedIntegerOps:
             # fused.py:24); a small-key ciphertext cannot enter them
             raise ValueError("the single-program radix ops need a "
                              "keyswitch-then-bootstrap parameter set")
-        self._luts: dict = {}
+        self._pbs = F._pbs_on(self.sks.ksk, self.sks.bsk, self.sks.mode)
         self._fns: dict = {}
         self._graphs: dict = {}
         self._graph_counts: dict = {}  # key -> its captured pass's counts
-
-    # -- lookup tables ---------------------------------------------------
-
-    def _lut(self, name):
-        if name in self._luts:
-            return self._luts[name]
-        sks = self.sks
-        msg = sks.message_modulus
-        uni = sks.generate_lookup_table
-        biv = sks.generate_lookup_table_bivariate
-        if isinstance(name, tuple):  # ("and_sum", c): sum == c
-            lut = uni(lambda v, c=name[1]: int(v == c))
-        else:
-            lut = {
-                # carry propagation (ref: radix_parallel/add.rs:518-603)
-                "state": lambda: uni(
-                    lambda v: 2 if v >= msg else (1 if v == msg - 1 else 0)),
-                "resolve": lambda: biv(
-                    lambda cur, prev: min(prev if cur == 1 else cur, 2)),
-                "carry": lambda: uni(lambda x: 1 if x == 2 else 0),
-                "msgext": lambda: uni(lambda x: x % msg),
-                "carryext": lambda: uni(lambda x: x // msg),
-                # comparator (ref: integer/server_key/comparator.rs:31-60)
-                "sign": lambda: biv(
-                    lambda x, y: 0 if x == y else (1 if x < y else 2)),
-                "sresolve": lambda: biv(
-                    lambda high, low: min(low if high == 0 else high, 2)),
-                "beq_01": lambda: biv(lambda x, y: int(x == y)),
-                "not": lambda: uni(lambda v: int(v == 0)),
-                "eq": lambda: uni(lambda s: int(s == 0)),
-                "ne": lambda: uni(lambda s: int(s != 0)),
-                "lt": lambda: uni(lambda s: int(s == 1)),
-                "le": lambda: uni(lambda s: int(s != 2)),
-                "gt": lambda: uni(lambda s: int(s == 2)),
-                "ge": lambda: uni(lambda s: int(s != 1)),
-                # bitwise (ref: radix_parallel/bitwise_op.rs)
-                "band": lambda: biv(lambda x, y: x & y),
-                "bor": lambda: biv(lambda x, y: x | y),
-                "bxor": lambda: biv(lambda x, y: x ^ y),
-                "bnot": lambda: uni(lambda x: (msg - 1) - (x % msg)),
-                # cmux (ref: radix_parallel/cmux.rs:27)
-                "cthen": lambda: biv(lambda c, x: x if c else 0),
-                "celse": lambda: biv(lambda c, x: 0 if c else x),
-                # sign-driven cmux for max/min (s == 1: lhs < rhs)
-                "maxthen": lambda: biv(lambda s, x: x if s != 1 else 0),
-                "maxelse": lambda: biv(lambda s, x: x if s == 1 else 0),
-                "minthen": lambda: biv(lambda s, x: x if s != 2 else 0),
-                "minelse": lambda: biv(lambda s, x: x if s == 2 else 0),
-                # multiplication (ref: radix_parallel/mul.rs:329-464)
-                "mlsb": lambda: biv(lambda x, y: (x * y) % msg),
-                "mmsb": lambda: biv(lambda x, y: (x * y) // msg),
-            }[name]()
-        self._luts[name] = lut
-        return lut
-
-    def _acc(self, name) -> torch.Tensor:
-        lut = self._lut(name)
-        return lut.acc.acc if hasattr(lut.acc, "acc") else lut.acc
-
-    # -- the per-op programs ---------------------------------------------
 
     def _fn(self, op: str, shape: tuple):
         """The chain of `op` over inputs of `shape`, every accumulator
         built now (before any capture)."""
         key = (op, shape)
-        if key in self._fns:
-            return self._fns[key]
-        sks = self.sks
-        msg, carry, delta = sks.message_modulus, sks.carry_modulus, sks.delta
-        kw = dict(message_modulus=msg, mode=sks.mode)
-        neg_kw = dict(kw, carry_modulus=carry, delta=delta)
-        if op in ("add", "sub", "neg"):
-            accs = [self._acc(n)
-                    for n in ("state", "resolve", "carry", "msgext")]
-            base = {"add": functools.partial(F.fused_radix_add, **kw),
-                    "sub": functools.partial(F.fused_radix_sub, **neg_kw),
-                    "neg": functools.partial(F.fused_radix_neg, **neg_kw)}[op]
-        elif op == "mul":
-            accs = [self._acc(n) for n in ("mlsb", "mmsb", "msgext",
-                                           "carryext", "state", "resolve",
-                                           "carry")]
-            base = functools.partial(F.fused_radix_mul, carry_modulus=carry,
-                                     **kw)
-        elif op in ("eq", "ne"):
-            cap = (carry * msg - 1) // (msg - 1)
-            and_accs = {c: self._acc(("and_sum", c))
-                        for c in F.eq_chunk_widths(shape[0][1], cap)}
-            and_accs["not"] = self._acc("not")
-            accs = [self._acc("beq_01"), and_accs]
-            base = functools.partial(F.fused_radix_eq, negate=op == "ne",
-                                     **neg_kw)
-        elif op in ("lt", "le", "gt", "ge"):
-            accs = [self._acc("sign"), self._acc("sresolve"), self._acc(op)]
-            base = functools.partial(F.fused_radix_cmp, **kw)
-        elif op in ("band", "bor", "bxor"):
-            accs = [self._acc(op)]
-            base = functools.partial(F.fused_radix_bitop, **kw)
-        elif op == "bnot":
-            accs = [self._acc(op)]
-            base = functools.partial(F.fused_radix_univariate, mode=sks.mode)
-        elif op == "select":
-            accs = [self._acc("cthen"), self._acc("celse"),
-                    self._acc("msgext")]
-            base = functools.partial(F.fused_radix_select, **kw)
-        elif op in ("max", "min"):
-            accs = [self._acc("sign"), self._acc("sresolve"),
-                    self._acc(op + "then"), self._acc(op + "else"),
-                    self._acc("msgext")]
-            base = functools.partial(F.fused_radix_minmax, **kw)
-        else:
-            raise KeyError(op)
-
-        def fn(*args):
-            return base(sks.ksk, sks.bsk, *accs, *args)
-
-        self._fns[key] = fn
-        return fn
+        if key not in self._fns:
+            self._fns[key] = F._radix_op(self.sks, op, shape[-1][1],
+                                         self._pbs)
+        return self._fns[key]
 
     # -- CUDA graphs -------------------------------------------------------
 
@@ -281,9 +172,7 @@ class FusedIntegerOps:
             if op in CMP_OPS:
                 degree = 1
             elif op in BIT_OPS:
-                lut = self._lut(op)
-                degree = (lut.degree if hasattr(lut, "degree")
-                          else lut.acc.degree)
+                degree = F._lut(sks, op).degree
             else:
                 degree = msg - 1
             return self._wrap(out, args[-1], degree)

@@ -30,6 +30,8 @@ import torch
 
 from ..shortint import ServerKey as ShortintServerKey
 from ..shortint.ciphertext import ShortintBatch
+from ..shortint.server_key import BivariateLookupTable
+from . import fused as F
 from .ciphertext import BooleanBlock, RadixCiphertext
 from .signed import SignedOps, SignedRadixCiphertext
 
@@ -155,18 +157,14 @@ class IntegerServerKey(SignedOps):
             return self._sequential_propagate(b, num=num)
         sks = self.key
         nb = len(b) // num
-        state_lut = sks.generate_lookup_table(
-            lambda v: 2 if v >= msg else (1 if v == msg - 1 else 0))
-        state = sks.apply_lookup_table_batch(b, state_lut)
-        resolve = sks.generate_lookup_table_bivariate(
-            lambda cur, prev: min(prev if cur == 1 else cur, 2))
+        state = sks.apply_lookup_table_batch(b, F._lut(sks, "state"))
+        resolve = BivariateLookupTable(acc=F._lut(sks, "resolve"), factor=msg)
         d = 1
         while d < nb:
             prev = self._shift_blocks_up(state, d, num=num)
             state = sks.unchecked_bivariate_batch(state, prev, resolve)
             d *= 2
-        carry_lut = sks.generate_lookup_table(lambda x: 1 if x == 2 else 0)
-        carries = sks.apply_lookup_table_batch(state, carry_lut)
+        carries = sks.apply_lookup_table_batch(state, F._lut(sks, "carry"))
         carry_in = self._shift_blocks_up(carries, 1, num=num)
         s = sks.unchecked_add_batch(b, carry_in)
         clean = sks.message_extract_batch(s)

@@ -204,12 +204,6 @@ def multibit_external_product_plain(acc: torch.Tensor,
         acc, base_log, levels), primes), combined, primes), BITS, primes)
 
 
-# CTAs of K8's external products, one per prime and ciphertext: B * P a
-# launch, a CUDA graph's replay adding its capture's (utils.profiling)
-PRIME_CTAS = profiling.counter(
-    "fused_multibit.multibit_external_product.prime_ctas")
-
-
 def multibit_external_product(acc: torch.Tensor, combined: torch.Tensor,
                               base_log: int, levels: int, *,
                               primes: tuple[int, ...] = ntt.PRIMES
@@ -219,8 +213,7 @@ def multibit_external_product(acc: torch.Tensor, combined: torch.Tensor,
     mac_kernel, tfhe_tpu/ops/fused_multibit.py:823, which takes the
     accumulator and makes its digits inside, :828): K9's kernel
     `multibit_step_cluster_kernel` with one subset and the combined key,
-    one launch, a cluster of one CTA per prime and ciphertext; each adds
-    to `PRIME_CTAS`.  The core takes 256 <= N <= 2048
+    one launch, a cluster of one CTA per prime and ciphertext.  The core takes 256 <= N <= 2048
     (`ntt.pass_tables_for` raises otherwise) and L*G <= 18, the kernel
     G * M <= 8: the launch is refused otherwise."""
     P, M = combined.shape[1], combined.shape[-2]
@@ -246,7 +239,6 @@ def multibit_external_product(acc: torch.Tensor, combined: torch.Tensor,
         G, M, P, N, base_log, levels, _stream(dev))
     _check_launch(err, "multibit_external_product")
     multibit_external_product.launches += 1
-    PRIME_CTAS.value += B * P
     return out
 
 

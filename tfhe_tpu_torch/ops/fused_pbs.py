@@ -308,11 +308,6 @@ def _check_key_set(name: str, P: int, M: int, bits: int,
                          f"its {len(primes)} primes and bits={bits}")
 
 
-# CTAs of K2's launches, one per prime and ciphertext: B * P a launch,
-# a CUDA graph's replay adding its capture's (utils.profiling)
-PRIME_CTAS = profiling.counter("fused_pbs.external_product_crt.prime_ctas")
-
-
 def external_product_crt(digits: torch.Tensor, kspec: torch.Tensor,
                          kshoup: torch.Tensor, acc: torch.Tensor,
                          bits: int = 64, *,
@@ -321,7 +316,7 @@ def external_product_crt(digits: torch.Tensor, kspec: torch.Tensor,
     new accumulator, from one launch of `external_product_cluster_kernel`:
     a cluster of one CTA per prime of the key's set `primes` and
     ciphertext on the register-resident NTT core, the explicit CRT in the
-    same launch; each adds to `PRIME_CTAS`.  The core takes 256 <= N <=
+    same launch.  The core takes 256 <= N <=
     2048 (`ntt.pass_tables_for` raises otherwise) and L*G <=
     MAX_DIGIT_POLYS (18) digit polynomials, in the 9-digit variant up to 9
     and an 18-digit one above (the launch is refused otherwise), as every
@@ -352,7 +347,6 @@ def external_product_crt(digits: torch.Tensor, kspec: torch.Tensor,
         _stream(dev))
     _check_launch(err, "external_product_crt")
     external_product_crt.launches += 1
-    PRIME_CTAS.value += B * P
     return out
 
 

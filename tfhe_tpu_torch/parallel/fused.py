@@ -2,8 +2,10 @@
 `tfhe_tpu/parallel/fused.py`, `:408-631`).
 
 The single-program chains themselves (fused_ks_pbs, fused_radix_add,
-fused_radix_mul, fused_strings_contains, ...) live in `integer/fused.py`
-and are re-exported here.  This module binds them to a mesh:
+fused_radix_mul, fused_strings_contains, ...) and their LUTs live in
+`integer/fused.py` and are re-exported here.  This module binds them to a
+mesh, each batch through `integer.fused.keyswitch_then_pbs` on the
+replicated keys (`_pbs_on`):
 
 - the batch-sharded steps (`make_sharded_radix_add`, `_mul`,
   `make_sharded_strings_contains`) run a chain on each rank's shard of the
@@ -34,6 +36,7 @@ from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import (DTensor, Placement, Replicate, Shard,
                                       distribute_tensor)
 
+from ..integer import fused as F
 from ..integer.fused import (eq_chunk_widths, fused_ks_pbs,  # noqa: F401
                              fused_radix_add, fused_radix_bitop,
                              fused_radix_cmp, fused_radix_eq,
@@ -96,30 +99,29 @@ def reset_p2p_counts() -> None:
     _shift_up_collective.p2p_ops = 0
 
 
-def fused_radix_add_blockshard(ksk, bsk, state_acc, resolve_acc, carry_acc,
+def fused_radix_add_blockshard(pbs, state_acc, resolve_acc, carry_acc,
                                msgext_acc, a, b, *, message_modulus: int,
-                               num_blocks: int, ndev: int, axis,
-                               mode=None):
+                               num_blocks: int, ndev: int, axis):
     """Radix add with the BLOCK axis sharded over the ranks of `axis` (the
     mesh axis's process group): the collective Hillis-Steele carry scan,
     every scan round's block shift crossing rank boundaries while the PBS
-    batches stay local.  a, b are this rank's shards [B, nb/ndev, sz]
-    (ref: radix_parallel/add.rs:518-603, here spanning devices for radix
-    widths past one device's batch budget)."""
+    batches (`pbs(rows, acc)`, as the chains') stay local.  a, b are this
+    rank's shards [B, nb/ndev, sz] (ref: radix_parallel/add.rs:518-603,
+    here spanning devices for radix widths past one device's batch
+    budget)."""
     if dist.get_world_size(axis) != ndev:
         raise ValueError(f"the axis holds {dist.get_world_size(axis)} "
                          f"ranks, not {ndev}")
     s = a + b
-    state = fused_ks_pbs(ksk, bsk, state_acc, s, mode=mode)
+    state = F._batch(pbs, state_acc, s)
     d = 1
     while d < num_blocks:
         prev = _shift_up_collective(state, d, axis)
-        state = fused_ks_pbs(ksk, bsk, resolve_acc,
-                             state * message_modulus + prev, mode=mode)
+        state = F._batch(pbs, resolve_acc, state * message_modulus + prev)
         d *= 2
-    carries = fused_ks_pbs(ksk, bsk, carry_acc, state, mode=mode)
+    carries = F._batch(pbs, carry_acc, state)
     carry_in = _shift_up_collective(carries, 1, axis)
-    return fused_ks_pbs(ksk, bsk, msgext_acc, s + carry_in, mode=mode)
+    return F._batch(pbs, msgext_acc, s + carry_in)
 
 
 def _global_shape(local: torch.Tensor, like: DTensor, placements):
@@ -166,18 +168,6 @@ def bind_to_mesh(mesh: DeviceMesh, placements: Sequence[Placement], fn):
     return step, place
 
 
-def _carry_accs(sks, dev):
-    """The carry propagation's four LUTs (ref: parallel/fused.py:473-478)."""
-    msg = sks.message_modulus
-    return tuple(acc.to(dev) for acc in (
-        sks.generate_lookup_table(
-            lambda v: 2 if v >= msg else (1 if v == msg - 1 else 0)).acc,
-        sks.generate_lookup_table_bivariate(
-            lambda cur, prev: min(prev if cur == 1 else cur, 2)).acc.acc,
-        sks.generate_lookup_table(lambda x: 1 if x == 2 else 0).acc,
-        sks.generate_lookup_table(lambda x: x % msg).acc))
-
-
 def make_blockshard_radix_add(mesh: DeviceMesh, sks, num_blocks: int,
                               axis: str = "batch"):
     """Bind a shortint ServerKey and a mesh into a radix add whose BLOCK
@@ -191,15 +181,14 @@ def make_blockshard_radix_add(mesh: DeviceMesh, sks, num_blocks: int,
     if num_blocks % ndev:
         raise ValueError(f"num_blocks {num_blocks} not divisible by "
                          f"mesh axis {axis}={ndev}")
-    dev = mesh_device(mesh)
-    accs = _carry_accs(sks, dev)
+    accs = F._accs(sks, F._CARRY_LUTS, device=mesh_device(mesh))
     bsk, ksk = shard_server_key(mesh, sks.bsk, sks.ksk)
     placements = tuple(Shard(1) if name == axis else Replicate()
                        for name in mesh.mesh_dim_names)
     body = functools.partial(
-        fused_radix_add_blockshard, ksk, bsk, *accs,
+        fused_radix_add_blockshard, F._pbs_on(ksk, bsk, sks.mode), *accs,
         message_modulus=sks.message_modulus, num_blocks=num_blocks,
-        ndev=ndev, axis=mesh.get_group(axis), mode=sks.mode)
+        ndev=ndev, axis=mesh.get_group(axis))
     return bind_to_mesh(mesh, placements, body)
 
 
@@ -210,12 +199,9 @@ def make_sharded_radix_add(mesh: DeviceMesh, sks, num_blocks: int):
     lwe_size] DTensors sharded on the mesh's ``batch`` axis; place(x) puts
     a global batch onto the mesh.  `num_blocks` is the radix width, as the
     reference's signature has it; the chain reads it from the blocks."""
-    dev = mesh_device(mesh)
-    accs = _carry_accs(sks, dev)
     bsk, ksk = shard_server_key(mesh, sks.bsk, sks.ksk)
-    body = functools.partial(fused_radix_add, ksk, bsk, *accs,
-                             message_modulus=sks.message_modulus,
-                             mode=sks.mode)
+    body = F._radix_op(sks, "add", num_blocks,
+                       F._pbs_on(ksk, bsk, sks.mode), device=mesh_device(mesh))
     return bind_to_mesh(mesh, batch_spec(3, "batch",
                                          mesh.mesh_dim_names), body)
 
@@ -223,25 +209,9 @@ def make_sharded_radix_add(mesh: DeviceMesh, sks, num_blocks: int):
 def make_sharded_radix_mul(mesh: DeviceMesh, sks, num_blocks: int):
     """Bind a shortint ServerKey and a mesh into a batch-sharded radix mul
     (the contract of make_sharded_radix_add)."""
-    msg = sks.message_modulus
-    dev = mesh_device(mesh)
-    # (ref: parallel/fused.py:511-523)
-    accs = tuple(acc.to(dev) for acc in (
-        sks.generate_lookup_table_bivariate(
-            lambda x, y: (x * y) % msg).acc.acc,
-        sks.generate_lookup_table_bivariate(
-            lambda x, y: (x * y) // msg).acc.acc,
-        sks.generate_lookup_table(lambda x: x % msg).acc,
-        sks.generate_lookup_table(lambda x: x // msg).acc,
-        sks.generate_lookup_table(
-            lambda v: 2 if v >= msg else (1 if v == msg - 1 else 0)).acc,
-        sks.generate_lookup_table_bivariate(
-            lambda cur, prev: min(prev if cur == 1 else cur, 2)).acc.acc,
-        sks.generate_lookup_table(lambda x: 1 if x == 2 else 0).acc))
     bsk, ksk = shard_server_key(mesh, sks.bsk, sks.ksk)
-    body = functools.partial(fused_radix_mul, ksk, bsk, *accs,
-                             message_modulus=msg,
-                             carry_modulus=sks.carry_modulus, mode=sks.mode)
+    body = F._radix_op(sks, "mul", num_blocks,
+                       F._pbs_on(ksk, bsk, sks.mode), device=mesh_device(mesh))
     return bind_to_mesh(mesh, batch_spec(3, "batch",
                                          mesh.mesh_dim_names), body)
 
@@ -256,21 +226,11 @@ def make_sharded_strings_contains(mesh: DeviceMesh, sks, pattern: str):
     nb = NUMBER_BLOCKS
     pat_digits = tuple(
         tuple((ord(c) // msg**d) % msg for d in range(nb)) for c in pattern)
-    dev = mesh_device(mesh)
-    # (ref: parallel/fused.py:556-568)
-    accs = tuple(acc.to(dev) for acc in (
-        sks.generate_lookup_table_bivariate(
-            lambda x, y: 0 if x == y else (1 if x < y else 2)).acc.acc,
-        sks.generate_lookup_table_bivariate(
-            lambda high, low: min(low if high == 0 else high, 2)).acc.acc,
-        sks.generate_lookup_table(lambda v: int(v == 0)).acc,
-        sks.generate_lookup_table_bivariate(
-            lambda x, y: int(bool(x) and bool(y))).acc.acc,
-        sks.generate_lookup_table_bivariate(
-            lambda x, y: int(bool(x) or bool(y))).acc.acc))
+    accs = F._accs(sks, F._CONTAINS_LUTS, device=mesh_device(mesh))
     bsk, ksk = shard_server_key(mesh, sks.bsk, sks.ksk)
-    body = functools.partial(fused_strings_contains, ksk, bsk, *accs,
+    body = functools.partial(fused_strings_contains,
+                             F._pbs_on(ksk, bsk, sks.mode), *accs,
                              pat_digits=pat_digits, message_modulus=msg,
-                             delta=sks.delta, mode=sks.mode)
+                             delta=sks.delta)
     return bind_to_mesh(mesh, batch_spec(4, "batch",
                                          mesh.mesh_dim_names), body)

@@ -22,11 +22,7 @@ attrs; ci/benchmark_parser.py schema).  The card's equivalents:
   PBS batch and its ciphertexts, classic or multi-bit),
   `pbs.multibit.batches` and `pbs.multibit.rows` (the multi-bit ones
   alone), `fused_multibit.multibit_combine.key_bytes` (the subset-key
-  spectra each multi-bit combine is handed),
-  `fused_pbs.external_product_crt.prime_ctas` and
-  `fused_multibit.multibit_external_product.prime_ctas` (K2's and K8's
-  external products' CTAs, one a prime of the key's set and ciphertext),
-  and
+  spectra each multi-bit combine is handed), and
   `schedule.graph_pool_bytes` (the growth of the allocator's reserved
   bytes over each CUDA graph capture).  A CUDA graph's replay adds the
   change its capture kept, so a replayed op counts as its eager chain;
